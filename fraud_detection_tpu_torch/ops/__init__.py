@@ -1,0 +1,1 @@
+"""See the package docstring: twin of fraud_detection_tpu.ops."""
