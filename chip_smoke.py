@@ -9,11 +9,17 @@ Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi) beside torch's device name;
 2. build every CUDA kernel from ``fraud_detection_tpu_torch/ops/csrc`` into
-   ``build/torch_kernels/`` and run the kernel self-test;
-3. each kernel against its plain torch version on the same CUDA tensors,
-   exactly: the featurize scan on synthetic-corpus rows at W=2048, the
-   adversarial strings and a seeded fuzz, in both hash modes, then the full
-   ``featurize_bytes`` packed output;
+   ``build/torch_kernels/`` (one nvcc per source, all started together) and
+   run the kernels' self-tests on hand-reckoned inputs;
+3. each kernel against its plain torch version on the same CUDA tensors:
+   the featurize scan exactly (synthetic-corpus rows at W=2048, the
+   adversarial strings and a seeded fuzz, both hash modes, then the full
+   ``featurize_bytes`` packed output); the tree histogram (int path equal,
+   f32 path within 1e-5 of the largest cell, two launches bit-equal, T=1
+   and T=8) and ``best_splits`` (indices equal, gains bit-equal, gini and
+   xgb, a ragged feature tile, an all-invalid node) at the training CLI's
+   shape (1,120 x 10,000, the real TF-IDF bins) and at the bench shape
+   (100,000 x 2,048, zero-inflated bins);
 4. the serving slice at full width (HashingTF(10000)+IDF, W=2048, L=256,
    B=256; LR fp32, LR int8 and a depth-5 20-tree forest made from --seed)
    on ``cuda`` with device featurization, against the same pipeline on the
@@ -21,14 +27,23 @@ Phases (any failure raises and the script exits non-zero):
 5. the streaming engine over 4,096 seeded messages (malformed ones
    included): output keys exactly the fed keys, malformed count exact,
    every label equal to ``pipeline.predict`` on its text;
-6. timings (CUDA events, median of >= 20 after warm-up) of the kernel, its
-   plain version and ``featurize_bytes``; pipeline rows/s and engine msgs/s
-   on the host clock;
-7. a ``{"kernels": [...]}`` line, then the last line
+6. the training slice at full width (the CLI's 1,600-dialogue synthetic
+   corpus, HashingTF(10000), depth 5, 32 bins), card against CPU: dt and a
+   16-tree rf equal tree for tree, 16-round xgb within 1e-4 in p;
+7. the training CLI on the card (dt, rf 100 trees, xgb 100 rounds): dt's
+   metrics equal the JAX package's recorded ones (reports/metrics.json),
+   and its saved checkpoint served by ``ServingPipeline.from_checkpoint``
+   gives the dense ``predict`` labels;
+8. timings (CUDA events, median of >= 20 after warm-up) of each kernel, its
+   plain version and its library call where one exists; pipeline rows/s,
+   engine msgs/s and the fits' walls (CLI shape and bench shape) on the
+   host clock; profiler breakdowns of ``featurize_bytes`` and of a DT fit;
+9. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counts are reset just before the main path (phases 4-5) and read
-just after it. It imports nothing of JAX or of ``fraud_detection_tpu``.
+Launch counts are reset just before each main path (serving: phases 4-5;
+training: phase 7, the CLI) and read just after it. It imports nothing of
+JAX or of ``fraud_detection_tpu``.
 """
 
 from __future__ import annotations
@@ -40,6 +55,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor 32-bit rate (NVIDIA data sheet)
@@ -65,6 +81,11 @@ ADVERSARIAL = [
 FUZZ_ALPHABET = list("abcXYZ  \t\n0!-'") + ["İ", "K", "ß", "é", "🚀"]
 
 WIDTH, TOKENS, BATCH, FEATURES = 2048, 256, 256, 10000
+KERNELS = ("featurize_scan", "histogram", "best_splits")
+ROOT = Path(__file__).resolve().parent
+# The training CLI's shipped configuration and the JAX bench's training shape.
+DEPTH, NBINS, CLI_N, CLI_SEED = 5, 32, 1600, 42
+BENCH_ROWS, BENCH_FEATURES = 100_000, 2048
 
 
 def card_line() -> str:
@@ -180,6 +201,297 @@ def make_models(feat, seed: int, dev):
     return lr, trees
 
 
+# ---------------------------------------------------------------------------
+# tree training
+# ---------------------------------------------------------------------------
+
+def cli_data(dev):
+    """The training CLI's data at full width: the synthetic corpus (n=1600,
+    seed 42), its 70/10/20 split and HashingTF(10000)+IDF fitted on the
+    training texts, as host matrices (train, test) plus the test texts."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.data import (generate_corpus,
+                                                train_val_test_split)
+    from fraud_detection_tpu_torch.featurize.tfidf import HashingTfIdfFeaturizer
+
+    corpus = [(d.text, d.label)
+              for d in generate_corpus(n=CLI_N, seed=CLI_SEED)]
+    train, _, test = train_val_test_split(corpus, seed=CLI_SEED)
+    feat = HashingTfIdfFeaturizer(num_features=FEATURES)
+    feat.fit_idf([t for t, _ in train])
+
+    def dense(split):
+        return feat.featurize_dense([t for t, _ in split],
+                                    device=dev).cpu().numpy()
+
+    return (dense(train), np.asarray([l for _, l in train], np.float32),
+            dense(test), [t for t, _ in test])
+
+
+def bench_bins(dev, seed: int):
+    """(100,000 x 2,048) int32 bins shaped like a quantile-binned TF-IDF
+    matrix, made on the card from ``seed``: each feature is nonzero in 2-12%
+    of rows, which spread over its upper bins, and its zeros collapse into
+    bin 0. Labels come from 16 features plus noise."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, f = BENCH_ROWS, BENCH_FEATURES
+    rate = 0.02 + 0.10 * torch.rand((1, f), generator=g, device=dev)
+    low = torch.floor(NBINS * (1.0 - rate)).clamp(max=NBINS - 1)
+    upper = low + torch.floor(
+        torch.rand((n, f), generator=g, device=dev) * (NBINS - low))
+    nonzero = torch.rand((n, f), generator=g, device=dev) < rate
+    bins = torch.where(nonzero, upper, torch.zeros_like(upper)).to(torch.int32)
+    score = (bins[:, :16].to(torch.float32).sum(dim=1)
+             + 4.0 * torch.randn((n,), generator=g, device=dev))
+    return bins.contiguous(), (score > score.median()).to(torch.float32)
+
+
+def level_inputs(n: int, trees: int, k: int, labels, dev, seed: int):
+    """One level's kernel inputs at depth 4 of a depth-5 tree (16 nodes):
+    node ids in [0, 15), node 15 left empty, ~1/16 of the rows inactive
+    (id 16); Poisson(1) bootstrap weights for a forest chunk (trees > 1),
+    else ones; stats the one-hot labels (k=2) or xgb (grad, hess, count)
+    from random margins (k=3)."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.train_trees import _poisson1
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    loc = torch.randint(0, 16, (trees, n), generator=g, device=dev)
+    loc = torch.where(loc == 15, 16, loc).to(torch.int32).contiguous()
+    w = (_poisson1(torch.rand((trees, n), generator=g, device=dev))
+         if trees > 1 else torch.ones((1, n), device=dev))
+    if k == 2:
+        stats = torch.stack([1.0 - labels, labels], dim=1)
+    else:
+        p = torch.sigmoid(torch.randn((n,), generator=g, device=dev))
+        stats = torch.stack([p - labels, p * (1.0 - p), torch.ones_like(p)],
+                            dim=1)
+    return loc, w.contiguous(), stats.contiguous()
+
+
+def check_histogram(label: str, bins, loc, w, stats, exact: bool):
+    """Kernel twice and plain version on the same CUDA tensors; raises
+    unless the two launches are bit-equal and the kernel equals the plain
+    version (exact path) or lies within 1e-5 of its largest |cell| (f32).
+    Returns (max |diff|, the kernel's histogram)."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops import histogram as H
+
+    kw = dict(n_nodes=16, n_bins=NBINS, exact_int8=exact)
+    a = H.node_feature_bin_histogram_multi(bins, loc, w, stats, **kw)
+    b = H.node_feature_bin_histogram_multi(bins, loc, w, stats, **kw)
+    ref = H.histogram_reference(bins, loc, w, stats, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"histogram {label}: two launches differ")
+    err = float((a - ref).abs().max())
+    scale = float(ref.abs().max())
+    if (exact and err != 0.0) or err > 1e-5 * scale:
+        raise AssertionError(f"histogram {label} (exact={exact}): kernel vs "
+                             f"plain max |diff| {err} at scale {scale}")
+    n, f = bins.shape
+    print(f"[check] histogram {label} {tuple(a.shape)} exact={exact}: "
+          f"max |diff| {err:.3g} (largest cell {scale:.6g}), two launches "
+          f"bit-equal, {H.histogram_chunks(n, f, loc.shape[0], 16)} row chunks")
+    return err, a
+
+
+def check_best_splits(label: str, hist, totals, criterion: str) -> None:
+    """Kernel and plain version on the same CUDA tensors, at the default
+    and a ragged feature tile: indices equal, gains bit-equal, and the
+    empty node 15 returns (0, 0, -inf)."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops import histogram as H
+
+    for tile in (1024, 300):
+        kf, kb, kg = H.best_splits(hist, totals, criterion=criterion,
+                                   feature_tile=tile)
+        pf, pb, pg = H.best_splits_reference(hist, totals, criterion=criterion)
+        torch.cuda.synchronize()
+        if not (torch.equal(kf, pf) and torch.equal(kb, pb)
+                and torch.equal(kg, pg)):
+            raise AssertionError(f"best_splits {label} {criterion} tile {tile}:"
+                                 " kernel != plain version")
+        if (int(kf[15]), int(kb[15]), float(kg[15])) != (0, 0, float("-inf")):
+            raise AssertionError(f"best_splits {label}: the empty node gave "
+                                 f"{(int(kf[15]), int(kb[15]), float(kg[15]))}")
+    valid = int(torch.isfinite(kg).sum())
+    print(f"[check] best_splits {label} {criterion} {tuple(hist.shape)}: "
+          f"indices equal, gains bit-equal (tiles 1024 and 300), {valid}/16 "
+          "nodes with a valid split, empty node -> (0, 0, -inf)")
+
+
+def histogram_library_call(bins, loc, w, stats, n_nodes: int):
+    """One ``index_add_`` over the flat segment id ((t*L + l)*F + f)*NB + b
+    computing the same histogram, with ids and values built beforehand.
+    Returns the call to time."""
+    import torch
+
+    n, f = bins.shape
+    k = stats.shape[1]
+    cols = torch.arange(f, device=bins.device, dtype=torch.int64)
+    flats, vals = [], []
+    for t in range(loc.shape[0]):
+        rows = torch.nonzero((loc[t] >= 0) & (loc[t] < n_nodes))[:, 0]
+        base = (t * n_nodes + loc[t, rows].to(torch.int64)) * f
+        flats.append(((base[:, None] + cols[None, :]) * NBINS
+                      + bins[rows].to(torch.int64)).reshape(-1))
+        v = stats[rows] * w[t, rows][:, None]
+        vals.append(v[:, None, :].expand(-1, f, -1).reshape(-1, k))
+    flat, val = torch.cat(flats), torch.cat(vals)
+    out = torch.zeros((loc.shape[0] * n_nodes * f * NBINS, k),
+                      dtype=torch.float32, device=bins.device)
+    return lambda: out.index_add_(0, flat, val)
+
+
+def histogram_bound(bins, loc, w, stats, n_nodes: int):
+    """(bound ms, "bytes" | "operations", MB moved): the bins of the rows
+    some tree uses, the per-row inputs and the output once, at the HBM
+    rate; one multiply and one add per (tree, active row, feature, stat) at
+    the 32-bit rate."""
+    n, f = bins.shape
+    t, k = loc.shape[0], stats.shape[1]
+    active = (loc >= 0) & (loc < n_nodes)
+    rows = int(active.any(dim=0).sum())
+    nbytes = (rows * f * 4 + loc.numel() * 4 + w.numel() * 4
+              + stats.numel() * 4 + t * n_nodes * f * NBINS * k * 4)
+    ops = int(active.sum()) * f * k * 2
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", nbytes / 1e6
+
+
+def best_splits_bound(hist):
+    """(bound ms, "bytes" | "operations"): the histogram, totals and
+    results moved once; per (node, feature, bin) candidate K prefix adds, K
+    subtractions and ~12 gain operations at the 32-bit rate."""
+    L, f, nb, k = hist.shape
+    nbytes = hist.numel() * 4 + L * k * 4 + L * 12
+    ops = L * f * (nb - 1) * (2 * k + 12)
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def train_card_vs_cpu(Xtr, ytr, Xte, dev) -> dict:
+    """dt, a 16-tree rf and a 16-round xgb at full width on the card and on
+    the CPU: dt and rf equal tree for tree (feature, threshold, children,
+    leaf stats), xgb test-set max |dp| <= 1e-4. Returns host walls."""
+    import dataclasses
+
+    import torch
+
+    from fraud_detection_tpu_torch.models import train_trees as tt
+    from fraud_detection_tpu_torch.models import trees as tm
+    from fraud_detection_tpu_torch.ops import histogram as H
+
+    cfg = tt.TreeTrainConfig(max_depth=DEPTH, n_bins=NBINS)
+    fits = {
+        "dt": lambda d: tt.fit_decision_tree(Xtr, ytr, config=cfg, device=d),
+        "rf16": lambda d: tt.fit_random_forest(Xtr, ytr, n_trees=16,
+                                               seed=CLI_SEED, config=cfg,
+                                               device=d),
+        "xgb16": lambda d: tt.fit_gradient_boosting(
+            Xtr, ytr, n_rounds=16,
+            config=dataclasses.replace(cfg, criterion="xgb"), device=d),
+    }
+    h0, b0 = H.node_feature_bin_histogram_multi.launches, H.best_splits.launches
+    walls = {}
+    for name, fit in fits.items():
+        t0 = time.perf_counter()
+        card = fit(dev)
+        walls[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = fit("cpu")
+        cpu_s = time.perf_counter() - t0
+        if name == "xgb16":
+            pg = tm.predict(card, torch.from_numpy(Xte).to(dev))[1].cpu()
+            pc = tm.predict(cpu, torch.from_numpy(Xte))[1]
+            dp = float((pg - pc).abs().max())
+            if dp > 1e-4:
+                raise AssertionError(f"xgb16: card vs cpu test max |dp| {dp}")
+            same = f"test max |dp| {dp:.3g}"
+        else:
+            for field in ("feature", "threshold", "left", "right", "leaf"):
+                if not torch.equal(getattr(card, field).cpu(),
+                                   getattr(cpu, field)):
+                    raise AssertionError(f"{name}: card and cpu trees differ "
+                                         f"in {field}")
+            same = "trees equal"
+        print(f"[train] {name}: card vs cpu {same}; {card.num_trees} trees, "
+              f"card {walls[name]:.3f} s, cpu {cpu_s:.3f} s (host clock)")
+    launched = (H.node_feature_bin_histogram_multi.launches - h0,
+                H.best_splits.launches - b0)
+    if min(launched) < 1:
+        raise AssertionError(f"training phase launches {launched}")
+    print(f"[train] card fits launched histogram {launched[0]}x, best_splits "
+          f"{launched[1]}x")
+    return walls
+
+
+def train_cli(dev, test_texts) -> dict:
+    """The training CLI on the card at its defaults (dt, rf 100 trees, xgb
+    100 rounds), saving dt. dt's metrics must equal the JAX package's
+    recorded run (reports/metrics.json, same corpus, split and exact gini);
+    the saved checkpoint, served with device featurization, must give the
+    dense ``predict`` labels on the test texts. Returns the report."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.app import train as cli
+    from fraud_detection_tpu_torch.models import trees as tm
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+
+    out = ROOT / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    ckpt, metrics = out / "dt", out / "metrics.json"
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main(["--device", str(dev), "--models", "dt,rf,xgb",
+                       "--n-trees", "100", "--n-rounds", "100",
+                       "--save", f"dt={ckpt}", "--metrics-out", str(metrics)])
+    if rc != 0:
+        raise AssertionError(f"train CLI exit {rc}:\n{log.getvalue()}")
+    report = json.loads(metrics.read_text())
+    ref = json.loads((ROOT / "reports" / "metrics.json").read_text())
+    for name in ("dt", "rf", "xgb"):
+        got, want = report["metrics"][name]["Test"], ref["metrics"][name]["Test"]
+        print(f"[cli] {name} test: accuracy {got['accuracy']:.4f} f1 "
+              f"{got['f1']:.4f} auc {got['auc']:.4f} (JAX package's recorded "
+              f"run: {want['accuracy']:.4f} / {want['f1']:.4f} / "
+              f"{want['auc']:.4f}); fit {report['meta']['train_seconds'][name]}"
+              " s host clock")
+    if report["metrics"]["dt"] != ref["metrics"]["dt"]:
+        raise AssertionError("dt metrics differ from the JAX package's "
+                             "recorded run")
+    width = -(-max(len(t.encode()) for t in test_texts) // 64) * 64
+    tokens = -(-max(sum(c.isspace() for c in t) + 1 for t in test_texts)
+               // 16) * 16
+    pipe = ServingPipeline.from_checkpoint(
+        str(ckpt), device=dev, featurize_device=True, featurize_width=width,
+        featurize_tokens=tokens)
+    served = pipe.predict(test_texts)
+    dense = pipe.featurizer.featurize_dense(test_texts, device=dev)
+    labels = tm.predict(pipe.model, dense)[0].cpu().numpy()
+    if not np.array_equal(served.labels, labels):
+        raise AssertionError("served dt labels != dense predict labels")
+    want_path = "cuda" if torch.device(dev).type == "cuda" else "torch"
+    if (pipe.device_stats.truncated_rows
+            or pipe.device_stats.featurize_path != want_path):
+        raise AssertionError(f"served dt: {pipe.device_stats.snapshot()}")
+    print(f"[cli] dt metrics equal the recorded JAX run; checkpoint served "
+          f"on {dev} (device featurize W={width}, L={tokens}): "
+          f"{len(test_texts)} labels equal dense predict")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -198,8 +510,10 @@ def main(argv=None) -> int:
     from fraud_detection_tpu_torch.featurize.device import DeviceFeaturizer
     from fraud_detection_tpu_torch.featurize.tfidf import HashingTfIdfFeaturizer
     from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.models import train_trees as tt
     from fraud_detection_tpu_torch.ops import _build
     from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+    from fraud_detection_tpu_torch.ops import histogram as H
     from fraud_detection_tpu_torch.stream import (InProcessBroker,
                                                   StreamingClassifier)
 
@@ -214,15 +528,18 @@ def main(argv=None) -> int:
     print(f"[card] nvidia-smi: {card} | torch: {kind} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # -- 2. build -----------------------------------------------------------
+    # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build("featurize_scan")
+    _build.build_all(KERNELS)
     build_s = time.perf_counter() - t0
     fk.kernel_self_test(dev)
-    print(f"[build] featurize_scan.cu built in {build_s:.3f} s; self-test ok")
-    for line in _build.build_log("featurize_scan").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    H.kernel_self_test(dev)
+    print(f"[build] {', '.join(k + '.cu' for k in KERNELS)} built in "
+          f"{build_s:.3f} s (one nvcc each, in parallel); self-tests ok")
+    for name in KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] ptxas {name}: {line.strip()}")
 
     # -- 3. kernel against plain version ------------------------------------
     corpus_texts = [d.text for d in generate_corpus(n=BATCH, seed=args.seed + 11)]
@@ -256,6 +573,32 @@ def main(argv=None) -> int:
                              "or empty rows on corpus text")
     print(f"[check] featurize_bytes packed {tuple(packed_k.shape)} equal "
           "(kernel vs plain version)")
+
+    # tree kernels at the CLI shape (the real TF-IDF bins) and the bench shape
+    Xtr, ytr, Xte, test_texts = cli_data(dev)
+    edges = tt.quantile_bin_edges(Xtr, NBINS)
+    bins_c = tt.apply_bins(torch.from_numpy(Xtr).to(dev),
+                           torch.from_numpy(edges).to(dev)).contiguous()
+    y_c = torch.from_numpy(ytr).to(dev)
+    bins_b, y_b = bench_bins(dev, args.seed + 21)
+    n_c, n_b = bins_c.shape[0], bins_b.shape[0]
+    shapes = {
+        "cli_rf": (bins_c, *level_inputs(n_c, 8, 2, y_c, dev, args.seed + 22), True),
+        "cli_xgb": (bins_c, *level_inputs(n_c, 1, 3, y_c, dev, args.seed + 23), False),
+        "bench_rf": (bins_b, *level_inputs(n_b, 8, 2, y_b, dev, args.seed + 24), True),
+        "bench_xgb": (bins_b, *level_inputs(n_b, 1, 3, y_b, dev, args.seed + 25), False),
+    }
+    hist_err, hists = {}, {}
+    for name, (bins, loc, w, st, exact) in shapes.items():
+        hist_err[name], hists[name] = check_histogram(name, bins, loc, w, st,
+                                                      exact)
+    gain_inputs = {}
+    for name, crit in (("cli_rf", "gini"), ("cli_xgb", "xgb"),
+                       ("bench_rf", "gini"), ("bench_xgb", "xgb")):
+        hist = hists[name][0].contiguous()
+        gain_inputs[name] = (hist, hist[:, 0].sum(dim=1).contiguous(), crit)
+        check_best_splits(name, *gain_inputs[name])
+    del hists
 
     # -- 4. the slice at full width (main path) -----------------------------
     lr_gpu, trees_gpu = make_models(feat, args.seed, dev)
@@ -327,7 +670,21 @@ def main(argv=None) -> int:
           f"{stats.malformed}, labels equal predict; scan launches on the "
           f"main path {launches}")
 
-    # -- 6. times -------------------------------------------------------------
+    # -- 6. training slice, card against CPU ---------------------------------
+    train_walls = train_card_vs_cpu(Xtr, ytr, Xte, dev)
+
+    # -- 7. training CLI on the card (the training main path) ----------------
+    H.node_feature_bin_histogram_multi.launches = 0
+    H.best_splits.launches = 0
+    report = train_cli(dev, test_texts)
+    hist_launches = H.node_feature_bin_histogram_multi.launches
+    gain_launches = H.best_splits.launches
+    if hist_launches < 1 or gain_launches < 1:
+        raise AssertionError("the training CLI never launched the tree kernels")
+    print(f"[cli] tree kernel launches on the main path: histogram "
+          f"{hist_launches}, best_splits {gain_launches}")
+
+    # -- 8. times -------------------------------------------------------------
     k_ms = cuda_ms(lambda: fk.tokenize_hash(cls_main), 50, 5)
     p_ms = cuda_ms(lambda: fk.tokenize_hash_reference(cls_main), 20, 2)
     fb_ms = cuda_ms(lambda: fk.featurize_bytes(staged_main, stop,
@@ -369,7 +726,78 @@ def main(argv=None) -> int:
     for name, us, n in breakdown[:8]:
         print(f"[trace]   {us:9.1f} us/call  x{n:.0f}  {name[:90]}")
 
-    # -- 7. result lines -----------------------------------------------------
+    # tree kernels: kernel, plain version, library call, bound, per shape
+    tree_times = {}
+    for name, (bins, loc, w, st, exact) in shapes.items():
+        kw = dict(n_nodes=16, n_bins=NBINS, exact_int8=exact)
+        big = name.startswith("bench")
+        hk = cuda_ms(lambda: H.node_feature_bin_histogram_multi(
+            bins, loc, w, st, **kw), 20, 3)
+        hp = cuda_ms(lambda: H.histogram_reference(bins, loc, w, st, **kw),
+                     5 if big else 20, 1)
+        lib = (None if name == "bench_rf"    # its flat ids alone take 13 GB
+               else cuda_ms(histogram_library_call(bins, loc, w, st, 16), 20, 2))
+        torch.cuda.empty_cache()
+        hb, hby, mb = histogram_bound(bins, loc, w, st, 16)
+        tree_times[name] = dict(ms=hk, plain_ms=hp, library_ms=lib,
+                                bound_ms=hb, bound_by=hby,
+                                shape=[*bins.shape, loc.shape[0], 16, NBINS,
+                                       st.shape[1]],
+                                max_abs_err=hist_err[name])
+        print(f"[time] {card}: histogram {name} (N, F, T, L, NB, K) = "
+              f"{tree_times[name]['shape']}: kernel {hk:.4f} ms; plain "
+              f"{hp:.2f} ms; index_add_ "
+              f"{'not timed' if lib is None else f'{lib:.4f} ms'}; bound "
+              f"{hb * 1e3:.2f} us ({hby}, {mb:.1f} MB)")
+    gain_times = {}
+    for name, (hist, totals, crit) in gain_inputs.items():
+        gk = cuda_ms(lambda: H.best_splits(hist, totals, criterion=crit), 50, 5)
+        gp = cuda_ms(lambda: H.best_splits_reference(hist, totals,
+                                                     criterion=crit), 20, 2)
+        gb, gby = best_splits_bound(hist)
+        gain_times[name] = dict(ms=gk, plain_ms=gp, bound_ms=gb, bound_by=gby,
+                                shape=list(hist.shape), criterion=crit)
+        print(f"[time] {card}: best_splits {name} {crit} (L, F, NB, K) = "
+              f"{list(hist.shape)}: kernel {gk:.4f} ms; plain {gp:.2f} ms; "
+              f"bound {gb * 1e3:.2f} us ({gby}); library call: none")
+    cli_walls = report["meta"]["train_seconds"]
+    print(f"[time] {card}: fit walls at the CLI shape (1120 x 10000, host "
+          f"clock): train CLI dt {cli_walls['dt']} s, rf100 {cli_walls['rf']} "
+          f"s, xgb100 {cli_walls['xgb']} s; phase 6 dt "
+          f"{train_walls['dt']:.3f} s, rf16 {train_walls['rf16']:.3f} s, "
+          f"xgb16 {train_walls['xgb16']:.3f} s")
+    y_bh = y_b.cpu().numpy()
+    edges_b = np.tile(np.linspace(0.0, 1.0, NBINS - 1, dtype=np.float32),
+                      (BENCH_FEATURES, 1))
+    bench_fits = {
+        "dt": lambda: tt.fit_decision_tree(bins_b, y_bh, edges=edges_b,
+                                           device=dev),
+        "rf100": lambda: tt.fit_random_forest(bins_b, y_bh, n_trees=100,
+                                              edges=edges_b, device=dev),
+        "xgb100": lambda: tt.fit_gradient_boosting(bins_b, y_bh, n_rounds=100,
+                                                   edges=edges_b, device=dev),
+    }
+    bench_walls = {}
+    for name, fit in bench_fits.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        bench_walls[name] = time.perf_counter() - t0
+    print(f"[time] {card}: fit walls at the bench shape ({BENCH_ROWS} x "
+          f"{BENCH_FEATURES}, pre-binned on the card, host clock): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in bench_walls.items()))
+    fit_ms = bench_walls["dt"] * 1e3
+    breakdown = device_breakdown(bench_fits["dt"], reps=1)
+    busy = sum(us for _, us, _ in breakdown)
+    print(f"[trace] {card}: dt fit at the bench shape: device busy "
+          f"{busy / 1e3:.2f} ms of a {fit_ms:.1f} ms wall; "
+          f"{sum(n for *_, n in breakdown):.0f} device ops")
+    for name, us, n in breakdown[:10]:
+        print(f"[trace]   {us:10.1f} us  x{n:.0f}  {name[:90]}")
+
+    # -- 9. result lines -----------------------------------------------------
+    main_h, main_g = tree_times["bench_xgb"], gain_times["bench_xgb"]
     print(json.dumps({"kernels": [{
         "name": "featurize_scan",
         "route": "cuda",
@@ -386,7 +814,41 @@ def main(argv=None) -> int:
         "shape": [rows, cols],
         "featurize_bytes_ms": fb_ms,
         "card": card,
-    }]}))
+    }, {
+        "name": "histogram",
+        "route": "cuda",
+        "source": "fraud_detection_tpu_torch/ops/csrc/histogram.cu",
+        "replaces": "fraud_detection_tpu/ops/histogram.py:185",
+        "launches": hist_launches,
+        "max_abs_err": main_h["max_abs_err"],
+        "matched": True,
+        "ms": main_h["ms"],
+        "plain_ms": main_h["plain_ms"],
+        "bound_ms": main_h["bound_ms"],
+        "bound_by": main_h["bound_by"],
+        "library_ms": main_h["library_ms"],
+        "shape": main_h["shape"],
+        "other_shapes": {k: v for k, v in tree_times.items()
+                         if k != "bench_xgb"},
+        "card": card,
+    }, {
+        "name": "best_splits",
+        "route": "cuda",
+        "source": "fraud_detection_tpu_torch/ops/csrc/best_splits.cu",
+        "replaces": "fraud_detection_tpu/ops/histogram.py:378",
+        "launches": gain_launches,
+        "max_abs_err": 0.0,
+        "matched": True,
+        "ms": main_g["ms"],
+        "plain_ms": main_g["plain_ms"],
+        "bound_ms": main_g["bound_ms"],
+        "bound_by": main_g["bound_by"],
+        "library_ms": None,
+        "shape": main_g["shape"],
+        "other_shapes": {k: v for k, v in gain_times.items()
+                         if k != "bench_xgb"},
+        "card": card,
+    }], "fit_walls_s": {"cli": cli_walls, "bench": bench_walls}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

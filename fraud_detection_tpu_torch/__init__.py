@@ -1,10 +1,14 @@
-"""PyTorch/CUDA port of ``fraud_detection_tpu``'s serving path.
+"""PyTorch/CUDA port of ``fraud_detection_tpu``'s serving path and tree
+trainers.
 
 Raw UTF-8 dialogue bytes go through a hand-written CUDA byte-scan kernel
 (tokenize + murmur3 hash + stop-word identity pack, ``ops/featurize_kernel``),
 a torch count/pack pass, and logistic-regression or tree-ensemble scoring
 (``models/``); ``stream/engine`` micro-batches broker messages through that
-pipeline and commits offsets after delivery.
+pipeline and commits offsets after delivery. ``app/train`` trains decision
+trees, random forests and gradient boosting level by level over the CUDA
+histogram and split-gain kernels (``ops/histogram``) and writes native
+checkpoints the serving pipeline loads.
 
 Module paths mirror the JAX package (``featurize/hashing.py`` here is the
 twin of ``fraud_detection_tpu/featurize/hashing.py``). This package imports

@@ -5,6 +5,7 @@ The host emits fixed-shape padded (bucket_ids, counts) batches; the scoring
 models (models/linear.py, models/trees.py) consume them without ever
 materializing dense features. The device featurize path
 (featurize/device.py) produces the same layout on the card from raw bytes.
+The trainers take the dense (B, F) TF-IDF matrix (``featurize_dense``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from fraud_detection_tpu_torch.featurize.hashing import HashingTF
 from fraud_detection_tpu_torch.featurize.text import StopWordFilter, clean_text, tokenize
+from fraud_detection_tpu_torch.utils.device import resolve_device
 
 
 class EncodedBatch(NamedTuple):
@@ -29,6 +31,18 @@ class EncodedBatch(NamedTuple):
 
     ids: np.ndarray
     counts: np.ndarray
+
+
+def tfidf_dense(ids: torch.Tensor, counts: torch.Tensor,
+                idf: torch.Tensor) -> torch.Tensor:
+    """Scatter padded sparse rows into a dense (B, F) TF-IDF matrix: counts
+    added at (row, id), then scaled by the IDF (HashingTF + IDFModel's
+    "features" column). A row's ids are distinct apart from count-0
+    padding, so the scatter's order cannot change a value."""
+    dense = torch.zeros((ids.shape[0], idf.shape[0]), dtype=idf.dtype,
+                        device=idf.device)
+    dense.scatter_add_(1, ids.to(torch.int64), counts.to(idf.dtype))
+    return dense * idf[None, :]
 
 
 def _pad_len(n: int, minimum: int = 16) -> int:
@@ -126,6 +140,17 @@ class HashingTfIdfFeaturizer:
         self.doc_freq = doc_freq
         self.num_docs = len(texts)
         return self
+
+    def featurize_dense(self, texts: Sequence[str],
+                        batch_size: Optional[int] = None,
+                        device="cuda") -> torch.Tensor:
+        """Texts -> dense (B, F) TF-IDF matrix on ``device`` (pads B to
+        batch_size)."""
+        dev = resolve_device(device)
+        enc = self.encode(texts, batch_size=batch_size)
+        ids = torch.from_numpy(enc.ids.astype(np.int64)).to(dev)
+        counts = torch.from_numpy(enc.counts.astype(np.float32)).to(dev)
+        return tfidf_dense(ids, counts, self.idf_array(dev))
 
     def idf_array(self, device) -> torch.Tensor:
         """IDF vector on ``device``, copied there ONCE and cached — model-side

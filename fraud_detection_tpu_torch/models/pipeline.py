@@ -227,6 +227,16 @@ class ServingPipeline:
             self.device_stats.featurize_path = self._dev_feat.path
         self._pinned = False
 
+    @classmethod
+    def from_checkpoint(cls, path: str, device="cuda",
+                        **kwargs) -> "ServingPipeline":
+        """A pipeline over a native checkpoint (``checkpoint/native.py``,
+        written by either package); ``kwargs`` go to the constructor."""
+        from fraud_detection_tpu_torch.checkpoint.native import load_checkpoint
+
+        featurizer, model = load_checkpoint(path, device=device)
+        return cls(featurizer, model, device=device, **kwargs)
+
     def _pad_rows(self, n: int) -> int:
         """Row-padding target for an n-row chunk: the smallest ladder rung
         that fits (ladder configured), else batch_size."""

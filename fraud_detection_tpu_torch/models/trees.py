@@ -1,5 +1,6 @@
 """Tree ensembles as flat tensors with vectorized traversal — twin of
-``fraud_detection_tpu/models/trees.py`` (the encoded serving path).
+``fraud_detection_tpu/models/trees.py`` (dense rows and the encoded
+serving path).
 
 Every ensemble is a struct of arrays
 
@@ -21,6 +22,7 @@ weighted leaf scores.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Tuple
 
 import torch
 
@@ -48,6 +50,28 @@ class TreeEnsemble:
                        left=self.left.to(device), right=self.right.to(device),
                        leaf=self.leaf.to(device),
                        tree_weights=self.tree_weights.to(device))
+
+
+def _leaf_indices(x: torch.Tensor, feature: torch.Tensor,
+                  threshold: torch.Tensor, left: torch.Tensor,
+                  right: torch.Tensor, max_depth: int) -> torch.Tensor:
+    """Dense rows (B, F) -> (B, T) leaf indices: ``max_depth`` steps of
+    "go left if x[feature] <= threshold", staying put at leaves."""
+    b = x.shape[0]
+    t, m = feature.shape
+    idx = torch.zeros((b, t), dtype=torch.int64, device=x.device)
+    flat = (torch.arange(t, device=x.device) * m)[None, :]          # (1, T)
+    feat_f, thr_f = feature.reshape(-1), threshold.reshape(-1)
+    left_f, right_f = left.reshape(-1), right.reshape(-1)
+    rows = torch.arange(b, device=x.device)[:, None]
+    for _ in range(max_depth):
+        node = flat + idx                                           # (B, T)
+        f = torch.clamp(feat_f[node], min=0).to(torch.int64)        # leaves: -1
+        l_child = left_f[node].to(torch.int64)
+        nxt = torch.where(x[rows, f] <= thr_f[node], l_child,
+                          right_f[node].to(torch.int64))
+        idx = torch.where(l_child < 0, idx, nxt)
+    return idx
 
 
 def _leaf_indices_encoded(ids, counts, idf, feature, threshold, left, right,
@@ -107,3 +131,34 @@ def predict_proba_encoded(ensemble: TreeEnsemble, ids, counts,
                                 ensemble.threshold, ensemble.left,
                                 ensemble.right, ensemble.max_depth)
     return _proba_from_leaf_indices(ensemble, idx)
+
+
+def predict_proba(ensemble: TreeEnsemble, x: torch.Tensor) -> torch.Tensor:
+    """(B, F) dense features -> (B, C) class probabilities (Spark semantics)."""
+    idx = _leaf_indices(x, ensemble.feature, ensemble.threshold,
+                        ensemble.left, ensemble.right, ensemble.max_depth)
+    return _proba_from_leaf_indices(ensemble, idx)
+
+
+def predict(ensemble: TreeEnsemble,
+            x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (predicted class int32 (B,), probability of class 1 (B,))."""
+    proba = predict_proba(ensemble, x)
+    return torch.argmax(proba, dim=-1).to(torch.int32), proba[..., 1]
+
+
+def predict_margin(ensemble: TreeEnsemble, x: torch.Tensor) -> torch.Tensor:
+    """(B, F) dense features -> (B,) raw boosting margin (bias + weighted
+    leaf sum) of a boosted ensemble; ``sigmoid(margin)`` (xgboost kind) is
+    ``predict_proba(...)[:, 1]``."""
+    if ensemble.kind not in ("gbt", "xgboost"):
+        raise ValueError(
+            f"predict_margin applies to boosted ensembles, not "
+            f"{ensemble.kind!r} (classification forests carry class "
+            "stats, not additive margins)")
+    idx = _leaf_indices(x, ensemble.feature, ensemble.threshold,
+                        ensemble.left, ensemble.right, ensemble.max_depth)
+    trees = torch.arange(ensemble.num_trees, device=idx.device)[None, :]
+    payload = ensemble.leaf[trees, idx][..., 0]                    # (B, T)
+    return ensemble.bias + torch.sum(
+        payload * ensemble.tree_weights[None, :], dim=1)

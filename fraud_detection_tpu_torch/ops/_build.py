@@ -48,21 +48,38 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its current build exists; returns
     the library path. nvcc's output (``-Xptxas -v`` register and spill
     report) is kept beside it as ``.log``."""
-    out = library_path(name)
-    if out.exists():
-        return out
+    return build_all([name])[0]
+
+
+def build_all(names) -> list:
+    """Compile every ``csrc/<name>.cu`` whose current build is missing, one
+    nvcc process per source, all started together; returns the library
+    paths in order. Raises with nvcc's stderr if any build fails."""
+    outs = [library_path(n) for n in names]
+    todo = [(n, out) for n, out in zip(names, outs) if not out.exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)       # atomic: a concurrent build never sees half a file
-    return out
+    nvcc = _nvcc()
+    procs = []
+    for name, out in todo:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs.append((name, out, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed building {name}.cu "
+                          f"(exit {proc.returncode}):\n{stderr}")
+            continue
+        out.with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build_log(name: str) -> str:

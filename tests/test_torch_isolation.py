@@ -42,6 +42,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "fraud_detection_tpu_torch.ops.featurize_kernel" in out["modules"]
     assert "fraud_detection_tpu_torch.stream.engine" in out["modules"]
+    for name in ("ops.histogram", "models.train_trees", "app.train",
+                 "checkpoint.native", "data.loader", "eval.metrics"):
+        assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
 
@@ -61,6 +64,25 @@ def test_no_cuda_means_no_silent_cpu_serving():
     with pytest.raises(RuntimeError, match="cuda"):
         ServingPipeline(feat, model, featurize_device=True)
     assert ServingPipeline(feat, model, device="cpu").predict(["hi"]).labels.shape == (1,)
+
+
+def test_no_cuda_means_no_silent_cpu_training(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from fraud_detection_tpu_torch.app import train
+    from fraud_detection_tpu_torch.checkpoint.native import load_checkpoint
+    from fraud_detection_tpu_torch.models import train_trees
+
+    X = np.random.default_rng(0).random((20, 4)).astype(np.float32)
+    y = (X[:, 0] > 0.5).astype(np.float32)
+    for fit in (train_trees.fit_decision_tree, train_trees.fit_random_forest,
+                train_trees.fit_gradient_boosting):
+        with pytest.raises(RuntimeError, match="cuda"):
+            fit(X, y)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--n", "20", "--models", "dt"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_checkpoint(str(tmp_path))
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
