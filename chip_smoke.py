@@ -38,18 +38,38 @@ Phases (any failure raises and the script exits non-zero):
    plain version and its library call where one exists; pipeline rows/s,
    engine msgs/s and the fits' walls (CLI shape and bench shape) on the
    host clock; profiler breakdowns of ``featurize_bytes`` and of a DT fit;
-9. a ``{"kernels": [...]}`` line, then the last line
+9. the flash-attention kernel against its plain version: bf16 at the
+   prefill shape (1, 2048, 8, 256) with one K/V head, f32 at ragged shapes
+   with GQA, native-width K/V bit-equal to expanded, two launches bit-equal;
+10. the explanation LLM's prefill at full width (the Gemma-2B architecture,
+   18 layers, bf16, weights N(0, 0.02) from --seed): ``forward`` at T=2048
+   through the flash kernel (18 launches) against the chunked path, prefill
+   tokens/s at T=2048 and 8192, and a profiler breakdown;
+11. card against CPU at Gemma widths, 2 layers, f32, T=600: last logits
+   within 5e-4, and greedy batched generation equal (and equal to B=1);
+12. greedy generation at full width (bench.py's 8 prompts, 64 new tokens):
+   tokens/s and explanations/s; rows equal to B=1 calls is reported (bf16
+   GEMMs of other shapes may round apart; phase 11 is the gate);
+13. the streaming engine with ``explain_batch_fn`` over the on-device
+   model (1,024 messages, ~5% scam, the CLI's dt as classifier, batch
+   512, 48 new tokens): keys exact, ``analysis`` on exactly the flagged
+   rows; msgs/s with and without the hook, flagged explanations/s;
+14. flash kernel times at T=2048 and 8192 beside its bound, its plain
+   version and ``scaled_dot_product_attention`` (the library yardstick);
+15. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main path (serving: phases 4-5;
-training: phase 7, the CLI) and read just after it. It imports nothing of
-JAX or of ``fraud_detection_tpu``.
+training: phase 7, the CLI; the LLM prefill: one T=2048 forward in phase
+10) and read just after it. It imports nothing of JAX or of
+``fraud_detection_tpu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import random
 import statistics
 import subprocess
@@ -59,6 +79,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM non-tensor 32-bit rate (NVIDIA data sheet)
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
 SCAN_OPS_PER_ELEMENT = 30   # compare/select/shift/or per (row, column) step
 
 # The adversarial strings of the JAX package's device-featurize tests.
@@ -81,11 +102,30 @@ ADVERSARIAL = [
 FUZZ_ALPHABET = list("abcXYZ  \t\n0!-'") + ["İ", "K", "ß", "é", "🚀"]
 
 WIDTH, TOKENS, BATCH, FEATURES = 2048, 256, 256, 10000
-KERNELS = ("featurize_scan", "histogram", "best_splits")
+KERNELS = ("featurize_scan", "histogram", "best_splits", "flash_attention")
 ROOT = Path(__file__).resolve().parent
 # The training CLI's shipped configuration and the JAX bench's training shape.
 DEPTH, NBINS, CLI_N, CLI_SEED = 5, 32, 1600, 42
 BENCH_ROWS, BENCH_FEATURES = 100_000, 2048
+# The explanation LLM: Gemma-2B's architecture (bench.py GEMMA2B_HF_CONFIG).
+GEMMA_2B = dict(vocab_size=256_000, d_model=2048, n_layers=18, n_heads=8,
+                n_kv_heads=1, head_dim_override=256, d_ff=16_384,
+                activation="gelu", embed_scale=math.sqrt(2048),
+                tie_embeddings=True, rms_eps=1e-6, rope_theta=10000.0,
+                max_seq=4096)
+FLASH_MAIN = (1, 2048, 8, 256)      # the prefill's q shape; one K/V head
+# f32: the JAX flash test's 2e-5, absolute plus relative. bf16: absolute, from
+# this shape's own reading (max |diff| 0.0039 at (1, 2048, 8, 256), where
+# most outputs are a few hundredths), so a kernel that drops or misweights
+# keys fails it.
+FLASH_F32_TOL, FLASH_BF16_ATOL = 2e-5, 1e-2
+CARD_CPU_TOL = 5e-4                 # the JAX flash forward test's bound
+# bench.py's generation prompts (mk_prompts(8)).
+GEN_PROMPTS = [f"Analyze this dialogue for scam risk (case {i}): the caller "
+               "claims to be the bank fraud department and demands immediate "
+               "gift card payment to reverse a suspicious charge. "
+               + "Customer hesitates repeatedly. " * (i % 3 + 1)
+               for i in range(8)]
 
 
 def card_line() -> str:
@@ -492,6 +532,318 @@ def train_cli(dev, test_texts) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# explanation LLM
+# ---------------------------------------------------------------------------
+
+def flash_inputs(shape, hkv: int, dtype, dev, seed: int):
+    """q (B, T, H, d) and k/v (B, T, hkv, d), standard normal, from seed."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, t, _, d = shape
+    return tuple(torch.randn(s, generator=g, device=dev).to(dtype)
+                 for s in (shape, (b, t, hkv, d), (b, t, hkv, d)))
+
+
+def check_flash(label: str, q, k, v, atol: float, rtol: float = 0.0):
+    """Kernel twice and plain version once on the same CUDA tensors; raises
+    unless the launches are bit-equal, native-width K/V give what expanded
+    K/V give bit for bit, and |kernel - plain| <= atol + rtol * |plain|
+    everywhere. Returns max |kernel - plain|."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops import attention as A
+
+    a = A.flash_attention(q, k, v)
+    b = A.flash_attention(q, k, v)
+    rep = q.shape[2] // k.shape[2]
+    e = A.flash_attention(q, k.repeat_interleave(rep, 2),
+                          v.repeat_interleave(rep, 2))
+    ref = A.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"flash {label}: two launches differ")
+    if not torch.equal(a, e):
+        raise AssertionError(f"flash {label}: native K/V != expanded K/V")
+    diff = (a.float() - ref.float()).abs()
+    err = float(diff.max())
+    rms = float(ref.float().square().mean().sqrt())
+    if not bool(torch.isfinite(a).all()) or not bool(
+            (diff <= atol + rtol * ref.float().abs()).all()):
+        raise AssertionError(f"flash {label}: kernel vs plain max |diff| "
+                             f"{err} beyond {atol} (+ {rtol} relative)")
+    print(f"[check] flash {label} q {tuple(q.shape)} kv heads {k.shape[2]} "
+          f"{q.dtype}: max |diff| {err:.3g} (limit {atol} + {rtol} relative), "
+          f"plain output RMS {rms:.3g}, two launches bit-equal, native K/V "
+          "== expanded K/V")
+    return err
+
+
+def flash_bound(shape, hkv: int, itemsize: int):
+    """(bound ms, "bytes" | "operations"): q, k, v read and out written once
+    at the HBM rate, against 4 d operations (q.k and p.v) per causal (query,
+    key) pair and head at the bf16 tensor-core rate."""
+    b, t, h, d = shape
+    nbytes = (2 * b * t * h * d + 2 * b * t * hkv * d) * itemsize
+    ops = 4 * b * h * d * (t * (t + 1) // 2)
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def sdpa_call(q, k, v):
+    """One ``scaled_dot_product_attention(is_causal=True)`` on the same
+    inputs in its (B, H, T, d) layout, K/V at native width."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+
+def gemma(dev, seed: int, **over):
+    """A language model of Gemma-2B's architecture with weights N(0, 0.02)
+    drawn on ``dev`` from ``seed`` (norm gains 1), as bench.py's synthetic
+    checkpoint; ``over`` replaces config fields."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import (LanguageModel,
+                                                      TransformerConfig)
+
+    cfg = TransformerConfig(**{**GEMMA_2B, "dtype": torch.bfloat16, **over})
+    return LanguageModel.init_random(cfg, seed=seed, device=dev, std=0.02)
+
+
+def prefill(lm, dev, seed: int, card: str) -> dict:
+    """The flash path's main run: one T=2048 forward with the launch count
+    reset before and read after (18 = one per layer), held against the
+    chunked path (``use_flash=False``) on the card; then prefill times at
+    T=2048 and 8192 and a profiler breakdown at T=2048."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import forward
+    from fraud_detection_tpu_torch.ops import attention as A
+
+    cfg = lm.cfg
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, 8192), generator=g, device=dev)
+    short = toks[:, :2048]
+    with torch.inference_mode():
+        A.flash_attention.launches = 0
+        flash = forward(lm.params, short, cfg, logits_last_only=True)[0][0, 0]
+        torch.cuda.synchronize()
+        launches = A.flash_attention.launches
+        plain = forward(lm.params, short, cfg, use_flash=False,
+                        logits_last_only=True)[0][0, 0]
+        torch.cuda.synchronize()
+    if launches != cfg.n_layers:
+        raise AssertionError(f"prefill launched the flash kernel {launches}x, "
+                             f"want {cfg.n_layers}")
+    dmax = float((flash - plain).abs().max())
+    scale = float(plain.abs().max())
+    same_top = int(flash.argmax()) == int(plain.argmax())
+    # bf16 activations through 18 layers: the kernel rounds p to bf16, the
+    # chunked path keeps it in f32, so the two drift by bf16 round-off.
+    if not (bool(torch.isfinite(flash).all()) and dmax <= 0.05 * scale):
+        raise AssertionError(f"prefill flash vs chunked: max |dlogit| {dmax} "
+                             f"> 5% of max |logit| {scale}")
+    print(f"[llm] prefill T=2048 ({cfg.n_layers} layers, bf16): flash kernel "
+          f"{launches} launches; last logits flash vs chunked max |d| "
+          f"{dmax:.4g} (max |logit| {scale:.4g}, gate 5%), argmax "
+          f"{'agrees' if same_top else 'differs'}")
+
+    def run(t):
+        return lambda: forward(lm.params, toks[:, :t], cfg,
+                               logits_last_only=True)
+
+    with torch.inference_mode():
+        ms = {2048: cuda_ms(run(2048), 5, 2), 8192: cuda_ms(run(8192), 3, 1)}
+        chunked_ms = cuda_ms(lambda: forward(lm.params, short, cfg,
+                                             use_flash=False,
+                                             logits_last_only=True), 3, 1)
+        breakdown = device_breakdown(run(2048), reps=2)
+    busy = sum(us for _, us, _ in breakdown)
+    flash_us = sum(us for name, us, _ in breakdown if "flash_fwd" in name)
+    print(f"[time] {card}: prefill tokens/s T=2048 {2048 / ms[2048] * 1e3:.0f} "
+          f"({ms[2048]:.2f} ms), T=8192 {8192 / ms[8192] * 1e3:.0f} "
+          f"({ms[8192]:.2f} ms); chunked path T=2048 {chunked_ms:.2f} ms")
+    print(f"[trace] {card}: prefill T=2048 device busy {busy / 1e3:.2f} ms "
+          f"of {ms[2048]:.2f} ms; flash kernel {flash_us / 1e3:.2f} ms "
+          f"({100 * flash_us / max(busy, 1e-9):.1f}% of busy)")
+    for name, us, n in breakdown[:8]:
+        print(f"[trace]   {us:10.1f} us  x{n:.0f}  {name[:90]}")
+    return dict(launches=launches, dlogit=dmax, logit_scale=scale,
+                argmax_agrees=same_top, ms_2048=ms[2048], ms_8192=ms[8192],
+                chunked_ms_2048=chunked_ms, busy_ms_2048=busy / 1e3,
+                flash_ms_2048=flash_us / 1e3)
+
+
+def llm_card_vs_cpu(dev, seed: int) -> dict:
+    """Gemma widths at 2 layers in f32, card against CPU on the same weights:
+    last logits at T=600 (flash kernel on the card, its plain version on the
+    CPU) within 5e-4; greedy batched generation of uneven prompts equal on
+    both, and equal to each prompt's B=1 generation on the card."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import (LanguageModel,
+                                                      Transformer, forward)
+    from fraud_detection_tpu_torch.ops import attention as A
+
+    card = gemma(dev, seed, n_layers=2, dtype=torch.float32)
+    params = Transformer(card.cfg, device="cpu")
+    for name in params.param_names():
+        params.param(name).data.copy_(card.params.param(name))
+    cpu = LanguageModel(card.cfg, params)
+    toks = torch.randint(0, card.cfg.vocab_size, (1, 600),
+                         generator=torch.Generator().manual_seed(seed))
+    before = A.flash_attention.launches
+    with torch.inference_mode():
+        lg = forward(card.params, toks.to(dev), card.cfg,
+                     logits_last_only=True)[0][0, 0].cpu()
+        if A.flash_attention.launches - before != card.cfg.n_layers:
+            raise AssertionError("the card forward at T=600 did not run the "
+                                 "kernel")
+        lc = forward(cpu.params, toks, cpu.cfg, logits_last_only=True)[0][0, 0]
+    err = float((lg - lc).abs().max())
+    if not bool((lg - lc).abs().le(CARD_CPU_TOL * (1 + lc.abs())).all()):
+        raise AssertionError(f"card vs cpu logits max |d| {err}")
+    prompts = [GEN_PROMPTS[0], "Agent: hello, is this Mr Smith?",
+               GEN_PROMPTS[5][:90]]
+    enc = [card.tokenizer.encode(p) for p in prompts]
+    tg = card.generate_tokens_batch(enc, max_new_tokens=8)
+    tc = cpu.generate_tokens_batch(enc, max_new_tokens=8)
+    if not np.array_equal(tg, tc):
+        raise AssertionError(f"greedy tokens card {tg.tolist()} != cpu "
+                             f"{tc.tolist()}")
+    for i, e in enumerate(enc):
+        if not np.array_equal(card.generate_tokens(e, max_new_tokens=8), tg[i]):
+            raise AssertionError(f"f32 card: batched row {i} != its B=1 call")
+    print(f"[llm] card vs cpu (Gemma widths, 2 layers, f32, T=600): last "
+          f"logits max |d| {err:.3g} (tol {CARD_CPU_TOL}); greedy tokens of "
+          f"{len(enc)} uneven prompts equal card/cpu and batched/single")
+    return dict(dlogit=err)
+
+
+def llm_generate(lm, card: str) -> dict:
+    """Greedy generation of bench.py's 8 prompts, 64 new tokens, batched
+    (host clock, after one warm call), and each prompt's B=1 call."""
+    import numpy as np
+
+    enc = [lm.tokenizer.encode(p) for p in GEN_PROMPTS]
+    lm.generate_tokens_batch(enc, max_new_tokens=4)
+    t0 = time.perf_counter()
+    out = lm.generate_tokens_batch(enc, max_new_tokens=64)
+    wall = time.perf_counter() - t0
+    singles = [lm.generate_tokens(e, max_new_tokens=64) for e in enc]
+    equal = [i for i in range(len(enc)) if np.array_equal(out[i], singles[i])]
+    eos = lm.cfg.EOS
+    emitted = int(sum(int(np.argmax(r == eos)) + 1 if (r == eos).any()
+                      else len(r) for r in out))
+    print(f"[llm] generate B=8 x 64 new tokens ({lm.cfg.dtype}, "
+          f"{lm.cfg.n_layers} layers): {emitted} tokens up to EOS; rows "
+          f"equal to their B=1 call: {len(equal)}/8 (reported, not gated: "
+          "bf16 GEMMs at B=1 and B=8 may round apart; the f32 check above "
+          "is the gate)")
+    print(f"[time] {card}: generation B=8 x 64 tokens {wall:.3f} s host "
+          f"clock, {8 * 64 / wall:.1f} tokens/s, {8 / wall:.3f} "
+          "explanations/s")
+    t0 = time.perf_counter()
+    lm.generate_tokens_batch(enc, max_new_tokens=16)
+    wall16 = time.perf_counter() - t0
+    breakdown = device_breakdown(
+        lambda: lm.generate_tokens_batch(enc, max_new_tokens=16), reps=1)
+    busy = sum(us for _, us, _ in breakdown) / 1e3
+    print(f"[trace] {card}: generate B=8 x 16 tokens: device busy {busy:.2f} "
+          f"ms of a {wall16 * 1e3:.1f} ms wall "
+          f"({100 * (1 - busy / (wall16 * 1e3)):.0f}% idle); "
+          f"{sum(n for *_, n in breakdown):.0f} device ops")
+    for name, us, n in breakdown[:8]:
+        print(f"[trace]   {us:10.1f} us  x{n:.0f}  {name[:90]}")
+    return dict(wall_s=wall, tokens_per_s=8 * 64 / wall,
+                explanations_per_s=8 / wall, rows_equal_single=len(equal),
+                busy_ms_16=busy, wall_ms_16=wall16 * 1e3)
+
+
+def explained_stream(lm, dev, ckpt: Path, card: str) -> dict:
+    """bench.py's explained-stream recipe on the port: 1,024 messages drawn
+    from generate_corpus(n=2000, seed=42) with ~5% scams (rng 7), the CLI's
+    dt checkpoint as the in-domain classifier (device featurize), batch
+    512, ``make_stream_explain_hook(OnPodBackend.from_model(lm),
+    max_tokens=48)``. One warm run, then a timed run with the hook and one
+    without. Gates: keys exact, frames carry exactly their fields, and
+    ``analysis`` on exactly the flagged rows, with labels equal to the
+    no-hook run's."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.data import generate_corpus
+    from fraud_detection_tpu_torch.explain.onpod import (
+        OnPodBackend, make_stream_explain_hook)
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.stream import (InProcessBroker,
+                                                  StreamingClassifier)
+
+    corpus = generate_corpus(n=2000, seed=42)
+    scams = [d.text for d in corpus if d.label == 1]
+    benign = [d.text for d in corpus if d.label == 0]
+    rng = np.random.default_rng(7)
+    texts = [(scams[int(rng.integers(len(scams)))] if rng.uniform() < 0.05
+              else benign[int(rng.integers(len(benign)))])
+             for _ in range(1024)]
+    width = -(-max(len(t.encode()) for t in texts) // 64) * 64
+    tokens = -(-max(sum(c.isspace() for c in t) + 1 for t in texts) // 16) * 16
+    pipe = ServingPipeline.from_checkpoint(
+        str(ckpt), device=dev, batch_size=512, featurize_device=True,
+        featurize_width=width, featurize_tokens=tokens)
+    hook = make_stream_explain_hook(OnPodBackend.from_model(lm), max_tokens=48)
+    items = [(json.dumps({"text": t, "id": i}).encode(), str(i).encode())
+             for i, t in enumerate(texts)]
+
+    def run(with_hook: bool):
+        broker = InProcessBroker(num_partitions=3)
+        broker.producer().produce_batch("in", items)
+        engine = StreamingClassifier(
+            pipe, broker.consumer(["in"], "x"), broker.producer(), "out",
+            batch_size=512, max_wait=0.01,
+            explain_batch_fn=hook if with_hook else None)
+        stats = engine.run(max_messages=len(items), idle_timeout=10.0)
+        out = broker.messages("out")
+        if sorted(m.key for m in out) != sorted(k for _, k in items):
+            raise AssertionError("explained stream: output keys != fed keys")
+        if stats.processed != len(items):
+            raise AssertionError(f"explained stream: {stats.processed} processed")
+        return stats, {m.key: json.loads(m.value) for m in out}
+
+    run(True)
+    stats_x, frames_x = run(True)
+    stats_0, frames_0 = run(False)
+    base = {"prediction", "label", "confidence", "original_text"}
+    flagged = 0
+    for key, f in frames_x.items():
+        want = base | ({"analysis"} if f["prediction"] != 0 else set())
+        if set(f) != want or f["prediction"] != frames_0[key]["prediction"]:
+            raise AssertionError(f"explained frame {key}: fields {sorted(f)}, "
+                                 f"prediction {f['prediction']} (no hook: "
+                                 f"{frames_0[key]['prediction']})")
+        if "analysis" in f:
+            if not isinstance(f["analysis"], str):
+                raise AssertionError(f"frame {key}: analysis {f['analysis']!r}")
+            flagged += 1
+    if flagged == 0:
+        raise AssertionError("explained stream: no row was flagged")
+    out = dict(messages=len(items), flagged=flagged,
+               flagged_explanations_per_s=flagged / stats_x.elapsed,
+               msgs_per_s_with_explain=stats_x.msgs_per_sec,
+               msgs_per_s_without=stats_0.msgs_per_sec)
+    print(f"[engine] explained stream: {len(items)} messages, {flagged} "
+          "flagged, each flagged frame (and only those) carries analysis; "
+          "keys exact")
+    print(f"[time] {card}: explained stream msgs/s with hook "
+          f"{stats_x.msgs_per_sec:.1f}, without {stats_0.msgs_per_sec:.1f}; "
+          f"flagged explanations/s {flagged / stats_x.elapsed:.2f}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -512,6 +864,7 @@ def main(argv=None) -> int:
     from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
     from fraud_detection_tpu_torch.models import train_trees as tt
     from fraud_detection_tpu_torch.ops import _build
+    from fraud_detection_tpu_torch.ops import attention as A
     from fraud_detection_tpu_torch.ops import featurize_kernel as fk
     from fraud_detection_tpu_torch.ops import histogram as H
     from fraud_detection_tpu_torch.stream import (InProcessBroker,
@@ -534,6 +887,7 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     fk.kernel_self_test(dev)
     H.kernel_self_test(dev)
+    A.kernel_self_test(dev)
     print(f"[build] {', '.join(k + '.cu' for k in KERNELS)} built in "
           f"{build_s:.3f} s (one nvcc each, in parallel); self-tests ok")
     for name in KERNELS:
@@ -796,7 +1150,57 @@ def main(argv=None) -> int:
     for name, us, n in breakdown[:10]:
         print(f"[trace]   {us:10.1f} us  x{n:.0f}  {name[:90]}")
 
-    # -- 9. result lines -----------------------------------------------------
+    # -- 9. flash kernel against its plain version ---------------------------
+    bf16, f32 = torch.bfloat16, torch.float32
+    flash_err = check_flash("main", *flash_inputs(FLASH_MAIN, 1, bf16, dev,
+                                                  args.seed + 31),
+                            FLASH_BF16_ATOL)
+    for i, (shape, hkv) in enumerate((((2, 1000, 4, 64), 2),
+                                      ((1, 131, 1, 32), 1))):
+        check_flash("ragged", *flash_inputs(shape, hkv, f32, dev,
+                                            args.seed + 32 + i),
+                    FLASH_F32_TOL, FLASH_F32_TOL)
+
+    # -- 10. full-width prefill (the flash kernel's main path) --------------
+    lm = gemma(dev, args.seed)
+    n_params = sum(p.numel() for p in lm.params.parameters())
+    print(f"[llm] Gemma-2B architecture, {n_params / 1e9:.3f} B parameters "
+          "in bf16 drawn on the card from --seed")
+    pre = prefill(lm, dev, args.seed + 40, card)
+    flash_launches = pre["launches"]
+
+    # -- 11. card against CPU, 2 layers, f32 ---------------------------------
+    cvc = llm_card_vs_cpu(dev, args.seed + 41)
+    torch.cuda.empty_cache()
+
+    # -- 12. full-width generation -------------------------------------------
+    gen = llm_generate(lm, card)
+
+    # -- 13. the engine with explanations ------------------------------------
+    expl = explained_stream(lm, dev, ROOT / "build" / "chip_smoke" / "dt", card)
+    del lm
+    torch.cuda.empty_cache()
+
+    # -- 14. flash kernel times ------------------------------------------------
+    flash_times = {}
+    for t in (2048, 8192):
+        shape = (1, t, 8, 256)
+        q, k, v = flash_inputs(shape, 1, bf16, dev, args.seed + 50)
+        err = check_flash(f"T={t}", q, k, v, FLASH_BF16_ATOL)
+        fb, fby = flash_bound(shape, 1, 2)
+        flash_times[t] = dict(
+            ms=cuda_ms(lambda: A.flash_attention(q, k, v), 20 if t == 2048 else 5, 2),
+            plain_ms=cuda_ms(lambda: A.flash_attention_reference(q, k, v), 5, 1),
+            library_ms=cuda_ms(sdpa_call(q, k, v), 20, 3),
+            bound_ms=fb, bound_by=fby, max_abs_err=err, shape=[*shape, 1])
+        ft = flash_times[t]
+        print(f"[time] {card}: flash kernel (B, T, H, d, Hkv) = {ft['shape']} "
+              f"bf16: {ft['ms']:.4f} ms; plain {ft['plain_ms']:.2f} ms; "
+              f"scaled_dot_product_attention {ft['library_ms']:.4f} ms; bound "
+              f"{fb * 1e3:.2f} us ({fby}); {ft['ms'] / fb:.0f}x bound")
+        del q, k, v
+
+    # -- 15. result lines ----------------------------------------------------
     main_h, main_g = tree_times["bench_xgb"], gain_times["bench_xgb"]
     print(json.dumps({"kernels": [{
         "name": "featurize_scan",
@@ -848,7 +1252,25 @@ def main(argv=None) -> int:
         "other_shapes": {k: v for k, v in gain_times.items()
                          if k != "bench_xgb"},
         "card": card,
-    }], "fit_walls_s": {"cli": cli_walls, "bench": bench_walls}}))
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "fraud_detection_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "fraud_detection_tpu/ops/attention.py:75",
+        "launches": flash_launches,
+        "max_abs_err": flash_err,
+        "matched": True,
+        "ms": flash_times[2048]["ms"],
+        "plain_ms": flash_times[2048]["plain_ms"],
+        "bound_ms": flash_times[2048]["bound_ms"],
+        "bound_by": flash_times[2048]["bound_by"],
+        "library_ms": flash_times[2048]["library_ms"],
+        "shape": flash_times[2048]["shape"],
+        "other_shapes": {"T8192": flash_times[8192]},
+        "card": card,
+    }], "fit_walls_s": {"cli": cli_walls, "bench": bench_walls},
+        "llm": {"prefill": pre, "card_vs_cpu": cvc, "generate": gen,
+                "explained_stream": expl}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of ``fraud_detection_tpu``'s serving path and tree
-trainers.
+"""PyTorch/CUDA port of ``fraud_detection_tpu``'s serving path, tree
+trainers and explanation LLM.
 
 Raw UTF-8 dialogue bytes go through a hand-written CUDA byte-scan kernel
 (tokenize + murmur3 hash + stop-word identity pack, ``ops/featurize_kernel``),
@@ -8,7 +8,10 @@ a torch count/pack pass, and logistic-regression or tree-ensemble scoring
 pipeline and commits offsets after delivery. ``app/train`` trains decision
 trees, random forests and gradient boosting level by level over the CUDA
 histogram and split-gain kernels (``ops/histogram``) and writes native
-checkpoints the serving pipeline loads.
+checkpoints the serving pipeline loads. ``models/llm`` is the explanation
+decoder, whose long prefills run the CUDA causal flash-attention kernel
+(``ops/attention``); ``explain/`` wraps it (and HTTP or canned backends)
+for the agent and for the engine's ``explain_batch_fn``.
 
 Module paths mirror the JAX package (``featurize/hashing.py`` here is the
 twin of ``fraud_detection_tpu/featurize/hashing.py``). This package imports

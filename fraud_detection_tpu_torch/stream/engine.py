@@ -12,6 +12,12 @@ Malformed messages (bad JSON / missing text field) are counted and either
 emitted inline as error frames or, with ``dlq_topic``, routed to the DLQ as
 structured records; rows re-delivered more than ``dlq_max_attempts`` times
 without a successful batch are diverted there too (poison screening).
+
+Explanations ride the finish leg synchronously: ``explain_batch_fn`` is
+called once per micro-batch over its valid rows (an on-device LLM then
+explains every flagged row in one batched decode, see
+``explain/onpod.make_stream_explain_hook``), ``explain_fn`` once per row;
+a non-None result becomes the frame's ``"analysis"`` field.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 from functools import lru_cache
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -142,12 +148,23 @@ class StreamStats:
 
 class StreamingClassifier:
     """Consumer -> micro-batch -> device scoring -> producer, with offset
-    commits. One thread at a time runs ``run``/``process_batch``."""
+    commits. One thread at a time runs ``run``/``process_batch``.
+
+    ``explain_fn(text, label, confidence)`` (per row) or
+    ``explain_batch_fn(texts, labels, confidences)`` (per micro-batch,
+    one result per row, taking precedence) attach their non-None results
+    as the frame's ``"analysis"``."""
 
     def __init__(self, pipeline: ServingPipeline, consumer, producer,
                  output_topic: str, *, batch_size: int = 1024,
                  max_wait: float = 0.05, text_field: str = "text",
-                 pipeline_depth: int = 2, dlq_topic: Optional[str] = None,
+                 pipeline_depth: int = 2,
+                 explain_fn: Optional[Callable[[str, int, float],
+                                               Optional[str]]] = None,
+                 explain_batch_fn: Optional[Callable[
+                     [List[str], List[int], List[float]],
+                     List[Optional[str]]]] = None,
+                 dlq_topic: Optional[str] = None,
                  dlq_max_attempts: int = 3,
                  dlq_attempts: Optional[dict] = None):
         if pipeline_depth < 1:
@@ -163,6 +180,8 @@ class StreamingClassifier:
         self.max_wait = max_wait
         self.text_field = text_field
         self.pipeline_depth = pipeline_depth
+        self.explain_fn = explain_fn
+        self.explain_batch_fn = explain_batch_fn
         # Dead-letter routing: malformed rows and rows re-delivered more
         # than ``dlq_max_attempts`` times go to the DLQ topic. Pass ONE
         # ``dlq_attempts`` dict to every incarnation so poison counting
@@ -275,8 +294,25 @@ class StreamingClassifier:
             for j, i in enumerate(inflight.valid_idx):
                 results[i] = (labels[j], confs[j])
 
+        # One hook call covers the whole micro-batch's valid rows.
+        analyses: Optional[List[Optional[str]]] = None
+        if self.explain_batch_fn is not None:
+            valid = [(i, results[i]) for i in range(len(msgs))
+                     if results[i] is not None]
+            batch_out = self.explain_batch_fn(
+                [texts[i] for i, _ in valid], [r[0] for _, r in valid],
+                [r[1] for _, r in valid]) if valid else []
+            if len(batch_out) != len(valid):  # zip would silently drop rows
+                raise ValueError(
+                    f"explain_batch_fn returned {len(batch_out)} analyses "
+                    f"for {len(valid)} rows")
+            analyses = [None] * len(msgs)
+            for (i, _), a in zip(valid, batch_out):
+                analyses[i] = a
+        explain = self.explain_fn is not None or analyses is not None
+
         wires: List[tuple] = []
-        for msg, text, res in zip(msgs, texts, results):
+        for idx, (msg, text, res) in enumerate(zip(msgs, texts, results)):
             if res is None:
                 self.stats.malformed += 1
                 if self.dlq_topic is not None:
@@ -285,10 +321,20 @@ class StreamingClassifier:
                                       "non-string text field")
                     continue
                 wire = _malformed_wire(msg)
-            else:
+            elif not explain:
                 label, confidence = res
                 wire = (_OUT_TEMPLATE % (label, _label_json_str(label),
                                          confidence, json.dumps(text))).encode()
+            else:
+                label, confidence = res
+                out = {"prediction": label, "label": label_name(label),
+                       "confidence": round(confidence, 6),
+                       "original_text": text}
+                analysis = (analyses[idx] if analyses is not None
+                            else self.explain_fn(text, label, confidence))
+                if analysis is not None:
+                    out["analysis"] = analysis
+                wire = json.dumps(out).encode()
             wires.append((wire, msg.key))
         return self._deliver(inflight, wires, t1)
 

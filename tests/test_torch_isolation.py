@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "fraud_detection_tpu_torch.ops.featurize_kernel" in out["modules"]
     assert "fraud_detection_tpu_torch.stream.engine" in out["modules"]
     for name in ("ops.histogram", "models.train_trees", "app.train",
-                 "checkpoint.native", "data.loader", "eval.metrics"):
+                 "checkpoint.native", "data.loader", "eval.metrics",
+                 "ops.attention", "models.llm", "explain.onpod",
+                 "explain.agent", "explain.history", "explain.circuit"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -83,6 +85,28 @@ def test_no_cuda_means_no_silent_cpu_training(tmp_path):
         train.main(["--n", "20", "--models", "dt"])
     with pytest.raises(RuntimeError, match="cuda"):
         load_checkpoint(str(tmp_path))
+
+
+def test_no_cuda_means_no_silent_cpu_llm():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from fraud_detection_tpu_torch import convert
+    from fraud_detection_tpu_torch.explain.history import HistoricalCaseStore
+    from fraud_detection_tpu_torch.featurize.tfidf import HashingTfIdfFeaturizer
+    from fraud_detection_tpu_torch.models.llm import (LanguageModel,
+                                                      TransformerConfig)
+
+    cfg = TransformerConfig(d_model=16, n_heads=2, n_layers=1, d_ff=32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        LanguageModel.init_random(cfg)
+    lm = LanguageModel.init_random(cfg, device="cpu")
+    arrays = {n: lm.params.param(n).numpy() for n in lm.params.param_names()}
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.llm_params_from_arrays(cfg, arrays)
+    assert convert.llm_params_from_arrays(cfg, arrays, device="cpu").device.type == "cpu"
+    assert lm.generate_tokens_batch([[cfg.BOS, 65]], max_new_tokens=2).shape == (1, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        HistoricalCaseStore(HashingTfIdfFeaturizer(num_features=16), ["a"], [0])
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
