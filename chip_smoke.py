@@ -9,8 +9,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi) beside torch's device name;
 2. build every CUDA kernel from ``fraud_detection_tpu_torch/ops/csrc`` into
-   ``build/torch_kernels/`` (one nvcc per source, all started together) and
-   run the kernels' self-tests on hand-reckoned inputs;
+   ``build/torch_kernels/`` (one nvcc per source, all started together),
+   print each one's ``-Xptxas -v`` report, and run the kernels' self-tests
+   on hand-reckoned inputs;
 3. each kernel against its plain torch version on the same CUDA tensors:
    the featurize scan exactly (synthetic-corpus rows at W=2048, the
    adversarial strings and a seeded fuzz, both hash modes, then the full
@@ -38,15 +39,21 @@ Phases (any failure raises and the script exits non-zero):
    plain version and its library call where one exists; pipeline rows/s,
    engine msgs/s and the fits' walls (CLI shape and bench shape) on the
    host clock; profiler breakdowns of ``featurize_bytes`` and of a DT fit;
-9. the flash-attention kernel against its plain version: bf16 at the
-   prefill shape (1, 2048, 8, 256) with one K/V head, f32 at ragged shapes
-   with GQA, native-width K/V bit-equal to expanded, two launches bit-equal;
+9. the flash-attention kernels against their plain version: the sm90
+   route (bf16, wgmma) at the prefill shape (1, 2048, 8, 256) with one K/V
+   head and at ragged bf16 shapes (B=2, T in {1, 64, 127, 1000, 2049}, d in
+   {64, 128, 256}, 1, 2 or 4 K/V heads over 4); the SIMT route at f32
+   ragged shapes with GQA and at phase 11's shape (1, 600, 8, 256) with one
+   K/V head; native-width K/V bit-equal to expanded, two launches
+   bit-equal, on every shape;
 10. the explanation LLM's prefill at full width (the Gemma-2B architecture,
    18 layers, bf16, weights N(0, 0.02) from --seed): ``forward`` at T=2048
-   through the flash kernel (18 launches) against the chunked path, prefill
-   tokens/s at T=2048 and 8192, and a profiler breakdown;
-11. card against CPU at Gemma widths, 2 layers, f32, T=600: last logits
-   within 5e-4, and greedy batched generation equal (and equal to B=1);
+   through the flash kernel (18 launches, all on the sm90 route) against
+   the chunked path, prefill tokens/s at T=2048 and 8192, and a profiler
+   breakdown;
+11. card against CPU at Gemma widths, 2 layers, f32, T=600 (the SIMT
+   route's path: 2 launches): last logits within 5e-4, and greedy batched
+   generation equal (and equal to B=1);
 12. greedy generation at full width (bench.py's 8 prompts, 64 new tokens):
    tokens/s and explanations/s; rows equal to B=1 calls is reported (bf16
    GEMMs of other shapes may round apart; phase 11 is the gate);
@@ -54,14 +61,18 @@ Phases (any failure raises and the script exits non-zero):
    model (1,024 messages, ~5% scam, the CLI's dt as classifier, batch
    512, 48 new tokens): keys exact, ``analysis`` on exactly the flagged
    rows; msgs/s with and without the hook, flagged explanations/s;
-14. flash kernel times at T=2048 and 8192 beside its bound, its plain
-   version and ``scaled_dot_product_attention`` (the library yardstick);
+14. flash times at T=2048 and 8192, in one run on one card: the sm90
+   kernel and the SIMT kernel on the same bf16 inputs (in turns: sm90,
+   SIMT, SIMT, sm90), ``scaled_dot_product_attention`` (the library
+   yardstick), the plain version, and the bound; the same four for the
+   SIMT kernel at phase 11's f32 shape;
 15. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main path (serving: phases 4-5;
 training: phase 7, the CLI; the LLM prefill: one T=2048 forward in phase
-10) and read just after it. It imports nothing of JAX or of
+10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
+flash kernel) and read just after it. It imports nothing of JAX or of
 ``fraud_detection_tpu``.
 """
 
@@ -102,7 +113,8 @@ ADVERSARIAL = [
 FUZZ_ALPHABET = list("abcXYZ  \t\n0!-'") + ["İ", "K", "ß", "é", "🚀"]
 
 WIDTH, TOKENS, BATCH, FEATURES = 2048, 256, 256, 10000
-KERNELS = ("featurize_scan", "histogram", "best_splits", "flash_attention")
+KERNELS = ("featurize_scan", "histogram", "best_splits", "flash_attention",
+           "flash_attention_sm90")
 ROOT = Path(__file__).resolve().parent
 # The training CLI's shipped configuration and the JAX bench's training shape.
 DEPTH, NBINS, CLI_N, CLI_SEED = 5, 32, 1600, 42
@@ -114,11 +126,17 @@ GEMMA_2B = dict(vocab_size=256_000, d_model=2048, n_layers=18, n_heads=8,
                 tie_embeddings=True, rms_eps=1e-6, rope_theta=10000.0,
                 max_seq=4096)
 FLASH_MAIN = (1, 2048, 8, 256)      # the prefill's q shape; one K/V head
+FLASH_SIMT_MAIN = (1, 600, 8, 256)  # phase 11's q shape (f32); one K/V head
 # f32: the JAX flash test's 2e-5, absolute plus relative. bf16: absolute, from
 # this shape's own reading (max |diff| 0.0039 at (1, 2048, 8, 256), where
 # most outputs are a few hundredths), so a kernel that drops or misweights
 # keys fails it.
 FLASH_F32_TOL, FLASH_BF16_ATOL = 2e-5, 1e-2
+# Ragged bf16 shapes: at small T an output averages a few v values and is
+# O(1), where one bf16 step is up to 2^-7 relative, so the ragged gate adds
+# 2^-7 relative to the absolute 1e-2.
+FLASH_BF16_RTOL = 2.0 ** -7
+FLASH_RAGGED_T, FLASH_RAGGED_D, FLASH_RAGGED_H = (1, 64, 127, 1000, 2049), (64, 128, 256), 4
 CARD_CPU_TOL = 5e-4                 # the JAX flash forward test's bound
 # bench.py's generation prompts (mk_prompts(8)).
 GEN_PROMPTS = [f"Analyze this dialogue for scam risk (case {i}): the caller "
@@ -172,6 +190,25 @@ def device_breakdown(fn, reps: int = 10):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     return sorted(rows, key=lambda r: -r[1])
+
+
+def burst_ms(fn, n: int) -> float:
+    """Milliseconds per call of ``fn`` over ``n`` back-to-back calls between
+    one pair of CUDA events, after a warm-up call: the host enqueues ahead
+    of the card, so unlike ``cuda_ms`` a launch's host cost is hidden
+    whenever it is shorter than the kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def staged_classes(texts, width, dev, batch=None):
@@ -546,20 +583,31 @@ def flash_inputs(shape, hkv: int, dtype, dev, seed: int):
                  for s in (shape, (b, t, hkv, d), (b, t, hkv, d)))
 
 
-def check_flash(label: str, q, k, v, atol: float, rtol: float = 0.0):
+def check_flash(label: str, q, k, v, atol: float, rtol: float = 0.0,
+                route: str = "", quiet: bool = False):
     """Kernel twice and plain version once on the same CUDA tensors; raises
     unless the launches are bit-equal, native-width K/V give what expanded
     K/V give bit for bit, and |kernel - plain| <= atol + rtol * |plain|
-    everywhere. Returns max |kernel - plain|."""
+    everywhere. ``route`` names the kernel ("sm90" or "simt"); by default
+    ``flash_attention`` picks it, and the check raises unless it picked the
+    route ``flash_route`` names. Returns max |kernel - plain|."""
     import torch
 
     from fraud_detection_tpu_torch.ops import attention as A
 
-    a = A.flash_attention(q, k, v)
-    b = A.flash_attention(q, k, v)
+    want = A.flash_route(q.dtype, q.shape[3])
+    fn = {"sm90": A.flash_attention_sm90, "simt": A.flash_attention_simt,
+          "": A.flash_attention}[route]
+    counts = (A.flash_attention_sm90.launches, A.flash_attention_simt.launches)
+    a = fn(q, k, v)
+    b = fn(q, k, v)
     rep = q.shape[2] // k.shape[2]
-    e = A.flash_attention(q, k.repeat_interleave(rep, 2),
-                          v.repeat_interleave(rep, 2))
+    e = fn(q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2))
+    ran = {"sm90": A.flash_attention_sm90.launches - counts[0],
+           "simt": A.flash_attention_simt.launches - counts[1]}
+    if ran[route or want] != 3:
+        raise AssertionError(f"flash {label}: launches by route {ran}, want 3 "
+                             f"on {route or want}")
     ref = A.flash_attention_reference(q, k, v)
     torch.cuda.synchronize()
     if not torch.equal(a, b):
@@ -573,21 +621,24 @@ def check_flash(label: str, q, k, v, atol: float, rtol: float = 0.0):
             (diff <= atol + rtol * ref.float().abs()).all()):
         raise AssertionError(f"flash {label}: kernel vs plain max |diff| "
                              f"{err} beyond {atol} (+ {rtol} relative)")
-    print(f"[check] flash {label} q {tuple(q.shape)} kv heads {k.shape[2]} "
-          f"{q.dtype}: max |diff| {err:.3g} (limit {atol} + {rtol} relative), "
-          f"plain output RMS {rms:.3g}, two launches bit-equal, native K/V "
-          "== expanded K/V")
+    if not quiet:
+        print(f"[check] flash {label} ({route or want}) q {tuple(q.shape)} kv "
+              f"heads {k.shape[2]} {q.dtype}: max |diff| {err:.3g} (limit "
+              f"{atol} + {rtol} relative), plain output RMS {rms:.3g}, two "
+              "launches bit-equal, native K/V == expanded K/V")
     return err
 
 
 def flash_bound(shape, hkv: int, itemsize: int):
     """(bound ms, "bytes" | "operations"): q, k, v read and out written once
     at the HBM rate, against 4 d operations (q.k and p.v) per causal (query,
-    key) pair and head at the bf16 tensor-core rate."""
+    key) pair and head at the bf16 tensor-core rate (itemsize 2) or the
+    non-tensor f32 rate (itemsize 4: TF32 would not give f32 results)."""
     b, t, h, d = shape
     nbytes = (2 * b * t * h * d + 2 * b * t * hkv * d) * itemsize
     ops = 4 * b * h * d * (t * (t + 1) // 2)
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    rate = BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
 
 
@@ -630,15 +681,18 @@ def prefill(lm, dev, seed: int, card: str) -> dict:
     short = toks[:, :2048]
     with torch.inference_mode():
         A.flash_attention.launches = 0
+        A.flash_attention_sm90.launches = A.flash_attention_simt.launches = 0
         flash = forward(lm.params, short, cfg, logits_last_only=True)[0][0, 0]
         torch.cuda.synchronize()
         launches = A.flash_attention.launches
+        on_sm90 = A.flash_attention_sm90.launches
         plain = forward(lm.params, short, cfg, use_flash=False,
                         logits_last_only=True)[0][0, 0]
         torch.cuda.synchronize()
-    if launches != cfg.n_layers:
-        raise AssertionError(f"prefill launched the flash kernel {launches}x, "
-                             f"want {cfg.n_layers}")
+    if launches != cfg.n_layers or on_sm90 != cfg.n_layers:
+        raise AssertionError(f"prefill launched the flash kernels {launches}x "
+                             f"({on_sm90} on the sm90 route), want "
+                             f"{cfg.n_layers} on sm90")
     dmax = float((flash - plain).abs().max())
     scale = float(plain.abs().max())
     same_top = int(flash.argmax()) == int(plain.argmax())
@@ -648,7 +702,7 @@ def prefill(lm, dev, seed: int, card: str) -> dict:
         raise AssertionError(f"prefill flash vs chunked: max |dlogit| {dmax} "
                              f"> 5% of max |logit| {scale}")
     print(f"[llm] prefill T=2048 ({cfg.n_layers} layers, bf16): flash kernel "
-          f"{launches} launches; last logits flash vs chunked max |d| "
+          f"{launches} launches, {on_sm90} on the sm90 route; last logits flash vs chunked max |d| "
           f"{dmax:.4g} (max |logit| {scale:.4g}, gate 5%), argmax "
           f"{'agrees' if same_top else 'differs'}")
 
@@ -695,15 +749,19 @@ def llm_card_vs_cpu(dev, seed: int) -> dict:
     for name in params.param_names():
         params.param(name).data.copy_(card.params.param(name))
     cpu = LanguageModel(card.cfg, params)
-    toks = torch.randint(0, card.cfg.vocab_size, (1, 600),
+    toks = torch.randint(0, card.cfg.vocab_size, (1, FLASH_SIMT_MAIN[1]),
                          generator=torch.Generator().manual_seed(seed))
-    before = A.flash_attention.launches
+    A.flash_attention.launches = 0
+    A.flash_attention_sm90.launches = A.flash_attention_simt.launches = 0
     with torch.inference_mode():
         lg = forward(card.params, toks.to(dev), card.cfg,
                      logits_last_only=True)[0][0, 0].cpu()
-        if A.flash_attention.launches - before != card.cfg.n_layers:
-            raise AssertionError("the card forward at T=600 did not run the "
-                                 "kernel")
+        simt = A.flash_attention_simt.launches
+        if simt != card.cfg.n_layers or A.flash_attention.launches != simt:
+            raise AssertionError(f"the f32 card forward at T=600 ran the SIMT "
+                                 f"flash kernel {simt}x of "
+                                 f"{A.flash_attention.launches}, want "
+                                 f"{card.cfg.n_layers}")
         lc = forward(cpu.params, toks, cpu.cfg, logits_last_only=True)[0][0, 0]
     err = float((lg - lc).abs().max())
     if not bool((lg - lc).abs().le(CARD_CPU_TOL * (1 + lc.abs())).all()):
@@ -720,9 +778,10 @@ def llm_card_vs_cpu(dev, seed: int) -> dict:
         if not np.array_equal(card.generate_tokens(e, max_new_tokens=8), tg[i]):
             raise AssertionError(f"f32 card: batched row {i} != its B=1 call")
     print(f"[llm] card vs cpu (Gemma widths, 2 layers, f32, T=600): last "
-          f"logits max |d| {err:.3g} (tol {CARD_CPU_TOL}); greedy tokens of "
-          f"{len(enc)} uneven prompts equal card/cpu and batched/single")
-    return dict(dlogit=err)
+          f"logits max |d| {err:.3g} (tol {CARD_CPU_TOL}), SIMT flash kernel "
+          f"{simt} launches; greedy tokens of {len(enc)} uneven prompts equal "
+          "card/cpu and batched/single")
+    return dict(dlogit=err, simt_launches=simt)
 
 
 def llm_generate(lm, card: str) -> dict:
@@ -892,7 +951,7 @@ def main(argv=None) -> int:
           f"{build_s:.3f} s (one nvcc each, in parallel); self-tests ok")
     for name in KERNELS:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning")):
                 print(f"[build] ptxas {name}: {line.strip()}")
 
     # -- 3. kernel against plain version ------------------------------------
@@ -1150,16 +1209,35 @@ def main(argv=None) -> int:
     for name, us, n in breakdown[:10]:
         print(f"[trace]   {us:10.1f} us  x{n:.0f}  {name[:90]}")
 
-    # -- 9. flash kernel against its plain version ---------------------------
+    # -- 9. flash kernels against their plain version ------------------------
     bf16, f32 = torch.bfloat16, torch.float32
     flash_err = check_flash("main", *flash_inputs(FLASH_MAIN, 1, bf16, dev,
                                                   args.seed + 31),
                             FLASH_BF16_ATOL)
+    ragged_err = {}
+    for d in FLASH_RAGGED_D:
+        for t in FLASH_RAGGED_T:
+            for hkv in (1, 2, FLASH_RAGGED_H):
+                shape = (2, t, FLASH_RAGGED_H, d)
+                ragged_err[(t, d, hkv)] = check_flash(
+                    f"ragged bf16 T={t} d={d} Hkv={hkv}",
+                    *flash_inputs(shape, hkv, bf16, dev, args.seed + t + d + hkv),
+                    FLASH_BF16_ATOL, FLASH_BF16_RTOL, quiet=True)
+        worst = max((e, t, hkv) for (t, dd, hkv), e in ragged_err.items()
+                    if dd == d)
+        print(f"[check] flash ragged bf16 (sm90) d={d}: B=2, H=4, T in "
+              f"{FLASH_RAGGED_T}, Hkv in (1, 2, 4): all within "
+              f"{FLASH_BF16_ATOL} + {FLASH_BF16_RTOL:.4g} relative, max |diff| "
+              f"{worst[0]:.3g} (T={worst[1]}, Hkv={worst[2]}); every shape two "
+              "launches bit-equal, native K/V == expanded K/V")
     for i, (shape, hkv) in enumerate((((2, 1000, 4, 64), 2),
                                       ((1, 131, 1, 32), 1))):
         check_flash("ragged", *flash_inputs(shape, hkv, f32, dev,
                                             args.seed + 32 + i),
                     FLASH_F32_TOL, FLASH_F32_TOL)
+    simt_qkv = flash_inputs(FLASH_SIMT_MAIN, 1, f32, dev, args.seed + 34)
+    simt_err = check_flash("phase-11 shape", *simt_qkv, FLASH_F32_TOL,
+                           FLASH_F32_TOL)
 
     # -- 10. full-width prefill (the flash kernel's main path) --------------
     lm = gemma(dev, args.seed)
@@ -1182,23 +1260,63 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- 14. flash kernel times ------------------------------------------------
-    flash_times = {}
+    flash_times, simt_times = {}, {}
     for t in (2048, 8192):
         shape = (1, t, 8, 256)
         q, k, v = flash_inputs(shape, 1, bf16, dev, args.seed + 50)
-        err = check_flash(f"T={t}", q, k, v, FLASH_BF16_ATOL)
+        err = check_flash(f"T={t}", q, k, v, FLASH_BF16_ATOL, route="sm90")
+        err_simt = check_flash(f"T={t}", q, k, v, FLASH_BF16_ATOL, route="simt")
         fb, fby = flash_bound(shape, 1, 2)
-        flash_times[t] = dict(
-            ms=cuda_ms(lambda: A.flash_attention(q, k, v), 20 if t == 2048 else 5, 2),
+        reps = 20 if t == 2048 else 5
+        sm90_a = cuda_ms(lambda: A.flash_attention_sm90(q, k, v), 3 * reps, 3)
+        simt_a = cuda_ms(lambda: A.flash_attention_simt(q, k, v), reps, 2)
+        simt_b = cuda_ms(lambda: A.flash_attention_simt(q, k, v), reps, 0)
+        sm90_b = cuda_ms(lambda: A.flash_attention_sm90(q, k, v), 3 * reps, 0)
+        sdpa = sdpa_call(q, k, v)
+        burst = 50 if t == 2048 else 10
+        common = dict(
             plain_ms=cuda_ms(lambda: A.flash_attention_reference(q, k, v), 5, 1),
-            library_ms=cuda_ms(sdpa_call(q, k, v), 20, 3),
-            bound_ms=fb, bound_by=fby, max_abs_err=err, shape=[*shape, 1])
-        ft = flash_times[t]
-        print(f"[time] {card}: flash kernel (B, T, H, d, Hkv) = {ft['shape']} "
-              f"bf16: {ft['ms']:.4f} ms; plain {ft['plain_ms']:.2f} ms; "
-              f"scaled_dot_product_attention {ft['library_ms']:.4f} ms; bound "
-              f"{fb * 1e3:.2f} us ({fby}); {ft['ms'] / fb:.0f}x bound")
+            library_ms=cuda_ms(sdpa, 20, 3), library_burst_ms=burst_ms(sdpa, burst),
+            bound_ms=fb, bound_by=fby, shape=[*shape, 1])
+        flash_times[t] = dict(
+            ms=(sm90_a + sm90_b) / 2, ms_turns=[sm90_a, sm90_b],
+            burst_ms=burst_ms(lambda: A.flash_attention_sm90(q, k, v), burst),
+            max_abs_err=err, **common)
+        simt_times[t] = dict(
+            ms=(simt_a + simt_b) / 2, ms_turns=[simt_a, simt_b],
+            burst_ms=burst_ms(lambda: A.flash_attention_simt(q, k, v), 5),
+            max_abs_err=err_simt, **common)
+        ft, st = flash_times[t], simt_times[t]
+        print(f"[time] {card}: flash (B, T, H, d, Hkv) = {ft['shape']} bf16, "
+              f"CUDA events around one call (around a burst of back-to-back "
+              f"calls, per call, beside it): sm90 kernel {ft['ms']:.4f} ms "
+              f"(turns {sm90_a:.4f} / {sm90_b:.4f}; burst {ft['burst_ms']:.4f}); "
+              f"SIMT kernel {st['ms']:.4f} ms (turns {simt_a:.4f} / "
+              f"{simt_b:.4f}; burst {st['burst_ms']:.4f}); "
+              f"scaled_dot_product_attention {ft['library_ms']:.4f} ms (burst "
+              f"{ft['library_burst_ms']:.4f}); plain {ft['plain_ms']:.2f} ms; "
+              f"bound {fb * 1e3:.2f} us ({fby}); sm90 {ft['ms'] / fb:.1f}x "
+              f"bound, {st['ms'] / ft['ms']:.1f}x faster than SIMT, "
+              f"{ft['ms'] / ft['library_ms']:.2f}x SDPA's time")
+        if not ft["ms"] < st["ms"]:
+            print(f"[time] NOTE: the sm90 kernel is not faster than the SIMT "
+                  f"kernel at T={t}")
         del q, k, v
+    q, k, v = simt_qkv
+    fb, fby = flash_bound(FLASH_SIMT_MAIN, 1, 4)
+    simt_main = dict(
+        ms=cuda_ms(lambda: A.flash_attention_simt(q, k, v), 20, 3),
+        plain_ms=cuda_ms(lambda: A.flash_attention_reference(q, k, v), 10, 2),
+        library_ms=cuda_ms(sdpa_call(q, k, v), 20, 3), bound_ms=fb,
+        bound_by=fby, shape=[*FLASH_SIMT_MAIN, 1], dtype="float32",
+        max_abs_err=simt_err)
+    print(f"[time] {card}: flash (B, T, H, d, Hkv) = {simt_main['shape']} f32 "
+          f"(phase 11's shape), CUDA events around one call: SIMT kernel "
+          f"{simt_main['ms']:.4f} ms; scaled_dot_product_attention "
+          f"{simt_main['library_ms']:.4f} ms; plain {simt_main['plain_ms']:.2f} "
+          f"ms; bound {fb * 1e3:.2f} us ({fby}, f32 at 67 TFLOP/s); SIMT "
+          f"{simt_main['ms'] / fb:.1f}x bound")
+    del q, k, v, simt_qkv
 
     # -- 15. result lines ----------------------------------------------------
     main_h, main_g = tree_times["bench_xgb"], gain_times["bench_xgb"]
@@ -1255,7 +1373,7 @@ def main(argv=None) -> int:
     }, {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "fraud_detection_tpu_torch/ops/csrc/flash_attention.cu",
+        "source": "fraud_detection_tpu_torch/ops/csrc/flash_attention_sm90.cu",
         "replaces": "fraud_detection_tpu/ops/attention.py:75",
         "launches": flash_launches,
         "max_abs_err": flash_err,
@@ -1267,6 +1385,26 @@ def main(argv=None) -> int:
         "library_ms": flash_times[2048]["library_ms"],
         "shape": flash_times[2048]["shape"],
         "other_shapes": {"T8192": flash_times[8192]},
+        "ragged_bf16_max_abs_err": max(ragged_err.values()),
+        "card": card,
+    }, {
+        "name": "flash_attention_simt",
+        "route": "cuda",
+        "source": "fraud_detection_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "fraud_detection_tpu/ops/attention.py:75",
+        "launches": cvc["simt_launches"],
+        "max_abs_err": simt_main["max_abs_err"],
+        "matched": True,
+        "ms": simt_main["ms"],
+        "plain_ms": simt_main["plain_ms"],
+        "bound_ms": simt_main["bound_ms"],
+        "bound_by": simt_main["bound_by"],
+        "library_ms": simt_main["library_ms"],
+        "shape": simt_main["shape"],
+        "dtype": "float32",
+        "other_shapes": {"bf16_T2048": simt_times[2048],
+                         "bf16_T8192": simt_times[8192]},
+        "main_path": "phase 11: the 2-layer f32 forward at T=600",
         "card": card,
     }], "fit_walls_s": {"cli": cli_walls, "bench": bench_walls},
         "llm": {"prefill": pre, "card_vs_cpu": cvc, "generate": gen,
