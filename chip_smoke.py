@@ -11,16 +11,22 @@ Phases (any failure raises and the script exits non-zero):
 2. build every CUDA kernel from ``fraud_detection_tpu_torch/ops/csrc`` into
    ``build/torch_kernels/`` (one nvcc per source, all started together),
    print each one's ``-Xptxas -v`` report, and run the kernels' self-tests
-   on hand-reckoned inputs;
+   on hand-reckoned inputs (the histogram's on uint8 and int32 bins, under
+   plans that split the pairs into node groups and tree groups and the rows
+   into chunks);
 3. each kernel against its plain torch version on the same CUDA tensors:
    the featurize scan exactly (synthetic-corpus rows at W=2048, the
    adversarial strings and a seeded fuzz, both hash modes, then the full
    ``featurize_bytes`` packed output); the tree histogram (int path equal,
    f32 path within 1e-5 of the largest cell, two launches bit-equal, T=1
-   and T=8) and ``best_splits`` (indices equal, gains bit-equal, gini and
+   and T=8, uint8 bins as the trainer passes them and int32 bins, the two
+   bit-equal) and ``best_splits`` (indices equal, gains bit-equal, gini and
    xgb, a ragged feature tile, an all-invalid node) at the training CLI's
    shape (1,120 x 10,000, the real TF-IDF bins) and at the bench shape
-   (100,000 x 2,048, zero-inflated bins);
+   (100,000 x 2,048, zero-inflated bins); both again at every level width
+   L in {1, 2, 4, 8, 16} at the CLI shape (the histogram for the xgb, dt
+   and 8-tree forest levels, each width its own plan, on both bin widths;
+   ``best_splits`` on the xgb and dt levels it reads);
 4. the serving slice at full width (HashingTF(10000)+IDF, W=2048, L=256,
    B=256; LR fp32, LR int8 and a depth-5 20-tree forest made from --seed)
    on ``cuda`` with device featurization, against the same pipeline on the
@@ -35,8 +41,12 @@ Phases (any failure raises and the script exits non-zero):
    metrics equal the JAX package's recorded ones (reports/metrics.json),
    and its saved checkpoint served by ``ServingPipeline.from_checkpoint``
    gives the dense ``predict`` labels;
-8. timings (CUDA events, median of >= 20 after warm-up) of each kernel, its
-   plain version and its library call where one exists; pipeline rows/s,
+8. timings (CUDA events, median of >= 10 after warm-up) of each kernel, its
+   plain version and its library call where one exists (the histogram at
+   four shapes on uint8 and int32 bins, each with its own byte bound, beside
+   ``index_add_`` and the first kernel's recorded time; both tree kernels
+   at every level width of the CLI's fits, with their device time from the
+   profiler and their sums per xgb100, rf100 and dt fit); pipeline rows/s,
    engine msgs/s and the fits' walls (CLI shape and bench shape) on the
    host clock; profiler breakdowns of ``featurize_bytes`` and of a DT fit;
 9. the flash-attention kernels against their plain version: the sm90
@@ -118,6 +128,14 @@ KERNELS = ("featurize_scan", "histogram", "best_splits", "flash_attention",
 ROOT = Path(__file__).resolve().parent
 # The training CLI's shipped configuration and the JAX bench's training shape.
 DEPTH, NBINS, CLI_N, CLI_SEED = 5, 32, 1600, 42
+LEVEL_WIDTHS = (1, 2, 4, 8, 16)   # the nodes of each split level at depth 5
+HIST_KERNELS, GAIN_KERNELS = ("hist_kernel", "reduce_chunks"), ("_slabs",)
+# The first kernels' events times as PERF.md records them (NVIDIA H100 80GB
+# HBM3 at 700 W), printed as recorded beside this run's; their device times
+# come from scripts/tree_kernel_times.py.
+FIRST_HIST_MS = {"cli_xgb": 0.1606, "cli_rf": 0.8936, "bench_xgb": 1.8768,
+                 "bench_rf": 12.3148}
+FIRST_GAIN_MS = {"bench_xgb": 0.2048, "cli_rf": 0.2466, "cli_xgb": 0.2732}
 BENCH_ROWS, BENCH_FEATURES = 100_000, 2048
 # The explanation LLM: Gemma-2B's architecture (bench.py GEMMA2B_HF_CONFIG).
 GEMMA_2B = dict(vocab_size=256_000, d_model=2048, n_layers=18, n_heads=8,
@@ -151,6 +169,24 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> str:
+    """One line from nvcc's ``-Xptxas -v`` report: the functions compiled,
+    their register range, the largest stack frame and spills, and any
+    warning."""
+    import re
+
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", log)
+    worst = max(((int(a), int(b), int(c)) for a, b, c in frames), default=(0, 0, 0))
+    spilling = sum(1 for _, b, c in frames if int(b) or int(c))
+    warnings = [l.strip() for l in log.splitlines() if "warning" in l]
+    return (f"{len(regs)} functions, {min(regs, default=0)}-{max(regs, default=0)} "
+            f"registers; largest stack frame {worst[0]} B, spill stores / loads "
+            f"{worst[1]} / {worst[2]} B ({spilling} functions spill)"
+            + (f"; warnings: {warnings}" if warnings else "; no warnings"))
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -190,6 +226,14 @@ def device_breakdown(fn, reps: int = 10):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     return sorted(rows, key=lambda r: -r[1])
+
+
+def kernel_device_ms(fn, names, reps: int = 10) -> float:
+    """Milliseconds of device time per call of ``fn`` spent in kernels whose
+    name contains one of ``names`` (a profiler trace, so the wrapper's host
+    work, which CUDA events around one call include, is left out)."""
+    return sum(us for key, us, _ in device_breakdown(fn, reps)
+               if any(n in key for n in names)) / 1e3
 
 
 def burst_ms(fn, n: int) -> float:
@@ -326,19 +370,23 @@ def bench_bins(dev, seed: int):
     return bins.contiguous(), (score > score.median()).to(torch.float32)
 
 
-def level_inputs(n: int, trees: int, k: int, labels, dev, seed: int):
-    """One level's kernel inputs at depth 4 of a depth-5 tree (16 nodes):
-    node ids in [0, 15), node 15 left empty, ~1/16 of the rows inactive
-    (id 16); Poisson(1) bootstrap weights for a forest chunk (trees > 1),
-    else ones; stats the one-hot labels (k=2) or xgb (grad, hess, count)
-    from random margins (k=3)."""
+def level_inputs(n: int, trees: int, k: int, labels, dev, seed: int,
+                 width: int = 16):
+    """One level's kernel inputs. At the default width, depth 4 of a
+    depth-5 tree (16 nodes): node ids in [0, 15), node 15 left empty, ~1/16
+    of the rows inactive (id 16); at another width, ids in [0, width).
+    Poisson(1) bootstrap weights for a forest chunk (trees > 1), else ones;
+    stats the one-hot labels (k=2) or xgb (grad, hess, count) from random
+    margins (k=3)."""
     import torch
 
     from fraud_detection_tpu_torch.models.train_trees import _poisson1
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    loc = torch.randint(0, 16, (trees, n), generator=g, device=dev)
-    loc = torch.where(loc == 15, 16, loc).to(torch.int32).contiguous()
+    loc = torch.randint(0, width, (trees, n), generator=g, device=dev)
+    if width == 16:
+        loc = torch.where(loc == 15, 16, loc)
+    loc = loc.to(torch.int32).contiguous()
     w = (_poisson1(torch.rand((trees, n), generator=g, device=dev))
          if trees > 1 else torch.ones((1, n), device=dev))
     if k == 2:
@@ -350,7 +398,8 @@ def level_inputs(n: int, trees: int, k: int, labels, dev, seed: int):
     return loc, w.contiguous(), stats.contiguous()
 
 
-def check_histogram(label: str, bins, loc, w, stats, exact: bool):
+def check_histogram(label: str, bins, loc, w, stats, exact: bool,
+                    n_nodes: int = 16):
     """Kernel twice and plain version on the same CUDA tensors; raises
     unless the two launches are bit-equal and the kernel equals the plain
     version (exact path) or lies within 1e-5 of its largest |cell| (f32).
@@ -359,7 +408,7 @@ def check_histogram(label: str, bins, loc, w, stats, exact: bool):
 
     from fraud_detection_tpu_torch.ops import histogram as H
 
-    kw = dict(n_nodes=16, n_bins=NBINS, exact_int8=exact)
+    kw = dict(n_nodes=n_nodes, n_bins=NBINS, exact_int8=exact)
     a = H.node_feature_bin_histogram_multi(bins, loc, w, stats, **kw)
     b = H.node_feature_bin_histogram_multi(bins, loc, w, stats, **kw)
     ref = H.histogram_reference(bins, loc, w, stats, **kw)
@@ -372,16 +421,19 @@ def check_histogram(label: str, bins, loc, w, stats, exact: bool):
         raise AssertionError(f"histogram {label} (exact={exact}): kernel vs "
                              f"plain max |diff| {err} at scale {scale}")
     n, f = bins.shape
-    print(f"[check] histogram {label} {tuple(a.shape)} exact={exact}: "
-          f"max |diff| {err:.3g} (largest cell {scale:.6g}), two launches "
-          f"bit-equal, {H.histogram_chunks(n, f, loc.shape[0], 16)} row chunks")
+    plan = H.histogram_plan(n, f, loc.shape[0], n_nodes, NBINS,
+                            stats.shape[1], exact)
+    print(f"[check] histogram {label} {tuple(a.shape)} {bins.dtype} bins "
+          f"exact={exact}: max |diff| {err:.3g} (largest cell {scale:.6g}), "
+          f"two launches bit-equal; {plan}")
     return err, a
 
 
-def check_best_splits(label: str, hist, totals, criterion: str) -> None:
+def check_best_splits(label: str, hist, totals, criterion: str,
+                      empty_node=15) -> None:
     """Kernel and plain version on the same CUDA tensors, at the default
     and a ragged feature tile: indices equal, gains bit-equal, and the
-    empty node 15 returns (0, 0, -inf)."""
+    empty node (if any) returns (0, 0, -inf)."""
     import torch
 
     from fraud_detection_tpu_torch.ops import histogram as H
@@ -395,48 +447,65 @@ def check_best_splits(label: str, hist, totals, criterion: str) -> None:
                 and torch.equal(kg, pg)):
             raise AssertionError(f"best_splits {label} {criterion} tile {tile}:"
                                  " kernel != plain version")
-        if (int(kf[15]), int(kb[15]), float(kg[15])) != (0, 0, float("-inf")):
+        e = empty_node
+        if e is not None and (int(kf[e]), int(kb[e]), float(kg[e])) != (
+                0, 0, float("-inf")):
             raise AssertionError(f"best_splits {label}: the empty node gave "
-                                 f"{(int(kf[15]), int(kb[15]), float(kg[15]))}")
+                                 f"{(int(kf[e]), int(kb[e]), float(kg[e]))}")
     valid = int(torch.isfinite(kg).sum())
     print(f"[check] best_splits {label} {criterion} {tuple(hist.shape)}: "
-          f"indices equal, gains bit-equal (tiles 1024 and 300), {valid}/16 "
-          "nodes with a valid split, empty node -> (0, 0, -inf)")
+          f"indices equal, gains bit-equal (tiles 1024 and 300), "
+          f"{valid}/{hist.shape[0]} nodes with a valid split"
+          + ("" if empty_node is None else ", empty node -> (0, 0, -inf)"))
 
 
 def histogram_library_call(bins, loc, w, stats, n_nodes: int):
     """One ``index_add_`` over the flat segment id ((t*L + l)*F + f)*NB + b
-    computing the same histogram, with ids and values built beforehand.
-    Returns the call to time."""
+    computing the same histogram, with ids and values built beforehand
+    into tensors allocated once (no concatenated copy). Returns (the call
+    to time, None), or (None, bytes it would need) when the card cannot
+    hold its ids and values."""
     import torch
 
     n, f = bins.shape
     k = stats.shape[1]
-    cols = torch.arange(f, device=bins.device, dtype=torch.int64)
-    flats, vals = [], []
-    for t in range(loc.shape[0]):
-        rows = torch.nonzero((loc[t] >= 0) & (loc[t] < n_nodes))[:, 0]
-        base = (t * n_nodes + loc[t, rows].to(torch.int64)) * f
-        flats.append(((base[:, None] + cols[None, :]) * NBINS
-                      + bins[rows].to(torch.int64)).reshape(-1))
-        v = stats[rows] * w[t, rows][:, None]
-        vals.append(v[:, None, :].expand(-1, f, -1).reshape(-1, k))
-    flat, val = torch.cat(flats), torch.cat(vals)
-    out = torch.zeros((loc.shape[0] * n_nodes * f * NBINS, k),
-                      dtype=torch.float32, device=bins.device)
-    return lambda: out.index_add_(0, flat, val)
+    t = loc.shape[0]
+    active = (loc >= 0) & (loc < n_nodes)
+    total = int(active.sum()) * f
+    need = total * (8 + 4 * k)
+    try:
+        flat = torch.empty((total,), dtype=torch.int64, device=bins.device)
+        val = torch.empty((total, k), dtype=torch.float32, device=bins.device)
+        cols = torch.arange(f, device=bins.device, dtype=torch.int64)
+        at = 0
+        for ti in range(t):
+            rows = torch.nonzero(active[ti])[:, 0]
+            m = rows.numel() * f
+            base = (ti * n_nodes + loc[ti, rows].to(torch.int64)) * f
+            flat[at:at + m].view(-1, f).copy_(
+                (base[:, None] + cols[None, :]) * NBINS + bins[rows].to(torch.int64))
+            v = stats[rows] * w[ti, rows][:, None]
+            val[at:at + m].view(-1, f, k).copy_(v[:, None, :].expand(-1, f, -1))
+            at += m
+            del rows, base, v
+        out = torch.zeros((t * n_nodes * f * NBINS, k), dtype=torch.float32,
+                          device=bins.device)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None, need
+    return (lambda: out.index_add_(0, flat, val)), None
 
 
 def histogram_bound(bins, loc, w, stats, n_nodes: int):
-    """(bound ms, "bytes" | "operations", MB moved): the bins of the rows
-    some tree uses, the per-row inputs and the output once, at the HBM
-    rate; one multiply and one add per (tree, active row, feature, stat) at
-    the 32-bit rate."""
+    """(bound ms, "bytes" | "operations", MB moved): the bins (at the width
+    passed, 1 byte for uint8) of the rows some tree uses, the per-row inputs
+    and the output once, at the HBM rate; one multiply and one add per
+    (tree, active row, feature, stat) at the 32-bit rate."""
     n, f = bins.shape
     t, k = loc.shape[0], stats.shape[1]
     active = (loc >= 0) & (loc < n_nodes)
     rows = int(active.any(dim=0).sum())
-    nbytes = (rows * f * 4 + loc.numel() * 4 + w.numel() * 4
+    nbytes = (rows * f * bins.element_size() + loc.numel() * 4 + w.numel() * 4
               + stats.numel() * 4 + t * n_nodes * f * NBINS * k * 4)
     ops = int(active.sum()) * f * k * 2
     b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
@@ -950,9 +1019,7 @@ def main(argv=None) -> int:
     print(f"[build] {', '.join(k + '.cu' for k in KERNELS)} built in "
           f"{build_s:.3f} s (one nvcc each, in parallel); self-tests ok")
     for name in KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if any(w in line for w in ("registers", "spill", "warning")):
-                print(f"[build] ptxas {name}: {line.strip()}")
+        print(f"[build] ptxas {name}: {ptxas_summary(_build.build_log(name))}")
 
     # -- 3. kernel against plain version ------------------------------------
     corpus_texts = [d.text for d in generate_corpus(n=BATCH, seed=args.seed + 11)]
@@ -987,7 +1054,9 @@ def main(argv=None) -> int:
     print(f"[check] featurize_bytes packed {tuple(packed_k.shape)} equal "
           "(kernel vs plain version)")
 
-    # tree kernels at the CLI shape (the real TF-IDF bins) and the bench shape
+    # tree kernels at the CLI shape (the real TF-IDF bins) and the bench
+    # shape, on uint8 bins (the trainer's) and int32 bins: the same plan, so
+    # the same sums in the same order
     Xtr, ytr, Xte, test_texts = cli_data(dev)
     edges = tt.quantile_bin_edges(Xtr, NBINS)
     bins_c = tt.apply_bins(torch.from_numpy(Xtr).to(dev),
@@ -995,16 +1064,25 @@ def main(argv=None) -> int:
     y_c = torch.from_numpy(ytr).to(dev)
     bins_b, y_b = bench_bins(dev, args.seed + 21)
     n_c, n_b = bins_c.shape[0], bins_b.shape[0]
+    wide = {"cli": {torch.uint8: bins_c.to(torch.uint8), torch.int32: bins_c},
+            "bench": {torch.uint8: bins_b.to(torch.uint8), torch.int32: bins_b}}
     shapes = {
-        "cli_rf": (bins_c, *level_inputs(n_c, 8, 2, y_c, dev, args.seed + 22), True),
-        "cli_xgb": (bins_c, *level_inputs(n_c, 1, 3, y_c, dev, args.seed + 23), False),
-        "bench_rf": (bins_b, *level_inputs(n_b, 8, 2, y_b, dev, args.seed + 24), True),
-        "bench_xgb": (bins_b, *level_inputs(n_b, 1, 3, y_b, dev, args.seed + 25), False),
+        "cli_rf": ("cli", *level_inputs(n_c, 8, 2, y_c, dev, args.seed + 22), True),
+        "cli_xgb": ("cli", *level_inputs(n_c, 1, 3, y_c, dev, args.seed + 23), False),
+        "bench_rf": ("bench", *level_inputs(n_b, 8, 2, y_b, dev, args.seed + 24), True),
+        "bench_xgb": ("bench", *level_inputs(n_b, 1, 3, y_b, dev, args.seed + 25), False),
     }
     hist_err, hists = {}, {}
-    for name, (bins, loc, w, st, exact) in shapes.items():
-        hist_err[name], hists[name] = check_histogram(name, bins, loc, w, st,
-                                                      exact)
+    for name, (src, loc, w, st, exact) in shapes.items():
+        for dt, bins in wide[src].items():
+            err, h = check_histogram(name, bins, loc, w, st, exact)
+            hist_err[(name, dt)] = err
+            if dt == torch.uint8:
+                hists[name] = h
+            elif not torch.equal(h, hists[name]):
+                raise AssertionError(f"histogram {name}: uint8 and int32 bins "
+                                     "give different sums")
+        print(f"[check] histogram {name}: uint8 and int32 bins bit-equal")
     gain_inputs = {}
     for name, crit in (("cli_rf", "gini"), ("cli_xgb", "xgb"),
                        ("bench_rf", "gini"), ("bench_xgb", "xgb")):
@@ -1012,6 +1090,32 @@ def main(argv=None) -> int:
         gain_inputs[name] = (hist, hist[:, 0].sum(dim=1).contiguous(), crit)
         check_best_splits(name, *gain_inputs[name])
     del hists
+    # the histogram and best_splits at every level width of a depth-5 tree
+    # at the CLI shape (the xgb rounds', the dt fit's and, 8 trees a chunk,
+    # the forest's widths): each width runs its own plan, so each is held
+    # against the plain version on uint8 and int32 bins, and best_splits
+    # reads the checked level histograms
+    width_inputs, level_hist = {}, {}
+    for fit, trees, k in (("xgb", 1, 3), ("gini", 1, 2), ("rf", 8, 2)):
+        for width in LEVEL_WIDTHS:
+            seed = args.seed + (70 if fit == "rf" else 60) + width
+            loc, w, st = level_inputs(n_c, trees, k, y_c, dev, seed, width)
+            exact = fit != "xgb"
+            hist = {dt: check_histogram(f"cli {fit} L={width}", bins, loc, w,
+                                        st, exact, width)[1]
+                    for dt, bins in wide["cli"].items()}
+            if not torch.equal(hist[torch.uint8], hist[torch.int32]):
+                raise AssertionError(f"histogram cli {fit} L={width}: uint8 "
+                                     "and int32 bins give different sums")
+            level_hist[(fit, width)] = (loc, w, st, dict(
+                n_nodes=width, n_bins=NBINS, exact_int8=exact))
+            if fit == "rf":
+                continue
+            h = hist[torch.uint8][0].contiguous()
+            totals = h[:, 0].sum(dim=1).contiguous()
+            check_best_splits(f"cli L={width}", h, totals, fit, None)
+            width_inputs[(fit, width)] = (h, totals)
+        del hist
 
     # -- 4. the slice at full width (main path) -----------------------------
     lr_gpu, trees_gpu = make_models(feat, args.seed, dev)
@@ -1139,40 +1243,114 @@ def main(argv=None) -> int:
     for name, us, n in breakdown[:8]:
         print(f"[trace]   {us:9.1f} us/call  x{n:.0f}  {name[:90]}")
 
-    # tree kernels: kernel, plain version, library call, bound, per shape
+    # tree kernels: kernel (uint8 bins, the main path's, and int32 bins),
+    # plain version, library call, bound, per shape, beside the first
+    # kernels' recorded times
     tree_times = {}
-    for name, (bins, loc, w, st, exact) in shapes.items():
+    for name, (src, loc, w, st, exact) in shapes.items():
         kw = dict(n_nodes=16, n_bins=NBINS, exact_int8=exact)
-        big = name.startswith("bench")
-        hk = cuda_ms(lambda: H.node_feature_bin_histogram_multi(
-            bins, loc, w, st, **kw), 20, 3)
+        big = src == "bench"
+        row = {}
+        for dt, bins in wide[src].items():
+            def call():
+                return H.node_feature_bin_histogram_multi(bins, loc, w, st, **kw)
+
+            ms = cuda_ms(call, 20, 3)
+            hb, hby, mb = histogram_bound(bins, loc, w, st, 16)
+            row[str(dt).split(".")[1]] = dict(
+                ms=ms, device_ms=kernel_device_ms(call, HIST_KERNELS),
+                bound_ms=hb, bound_by=hby, mb=mb,
+                max_abs_err=hist_err[(name, dt)])
+        bins = wide[src][torch.uint8]
         hp = cuda_ms(lambda: H.histogram_reference(bins, loc, w, st, **kw),
                      5 if big else 20, 1)
-        lib = (None if name == "bench_rf"    # its flat ids alone take 13 GB
-               else cuda_ms(histogram_library_call(bins, loc, w, st, 16), 20, 2))
+        call, need = histogram_library_call(bins, loc, w, st, 16)
+        lib = None if call is None else cuda_ms(call, 10 if big else 20, 2)
+        del call
         torch.cuda.empty_cache()
-        hb, hby, mb = histogram_bound(bins, loc, w, st, 16)
-        tree_times[name] = dict(ms=hk, plain_ms=hp, library_ms=lib,
-                                bound_ms=hb, bound_by=hby,
-                                shape=[*bins.shape, loc.shape[0], 16, NBINS,
-                                       st.shape[1]],
-                                max_abs_err=hist_err[name])
+        u8, i32 = row["uint8"], row["int32"]
+        tree_times[name] = dict(
+            ms=u8["ms"], device_ms=u8["device_ms"], plain_ms=hp,
+            library_ms=lib, bound_ms=u8["bound_ms"],
+            bound_by=u8["bound_by"], max_abs_err=u8["max_abs_err"],
+            int32=i32, shape=[*bins.shape, loc.shape[0], 16, NBINS, st.shape[1]])
         print(f"[time] {card}: histogram {name} (N, F, T, L, NB, K) = "
-              f"{tree_times[name]['shape']}: kernel {hk:.4f} ms; plain "
-              f"{hp:.2f} ms; index_add_ "
-              f"{'not timed' if lib is None else f'{lib:.4f} ms'}; bound "
-              f"{hb * 1e3:.2f} us ({hby}, {mb:.1f} MB)")
+              f"{tree_times[name]['shape']}: kernel uint8 bins {u8['ms']:.4f} ms "
+              f"(device {u8['device_ms']:.4f} ms; bound {u8['bound_ms'] * 1e3:.2f} "
+              f"us, {u8['bound_by']}, {u8['mb']:.1f} MB), int32 bins "
+              f"{i32['ms']:.4f} ms (device {i32['device_ms']:.4f} ms; bound "
+              f"{i32['bound_ms'] * 1e3:.2f} us, {i32['mb']:.1f} MB); first "
+              f"kernel (recorded) {FIRST_HIST_MS[name]}; plain {hp:.2f} ms; "
+              "index_add_ "
+              + (f"{lib:.4f} ms" if lib is not None else
+                 f"not built: needs {need / 1e9:.1f} GB of ids and values"))
+        if not u8["ms"] < FIRST_HIST_MS[name]:
+            print(f"[time] NOTE: histogram {name} is not faster than the "
+                  "first kernel's recorded time")
+        if lib is not None and not u8["ms"] < lib:
+            print(f"[time] NOTE: histogram {name} is not faster than index_add_")
     gain_times = {}
     for name, (hist, totals, crit) in gain_inputs.items():
-        gk = cuda_ms(lambda: H.best_splits(hist, totals, criterion=crit), 50, 5)
+        def call():
+            return H.best_splits(hist, totals, criterion=crit)
+
+        gk = cuda_ms(call, 50, 5)
+        gd = kernel_device_ms(call, GAIN_KERNELS)
         gp = cuda_ms(lambda: H.best_splits_reference(hist, totals,
                                                      criterion=crit), 20, 2)
         gb, gby = best_splits_bound(hist)
-        gain_times[name] = dict(ms=gk, plain_ms=gp, bound_ms=gb, bound_by=gby,
-                                shape=list(hist.shape), criterion=crit)
+        gain_times[name] = dict(ms=gk, device_ms=gd, plain_ms=gp, bound_ms=gb,
+                                bound_by=gby, shape=list(hist.shape),
+                                criterion=crit)
         print(f"[time] {card}: best_splits {name} {crit} (L, F, NB, K) = "
-              f"{list(hist.shape)}: kernel {gk:.4f} ms; plain {gp:.2f} ms; "
-              f"bound {gb * 1e3:.2f} us ({gby}); library call: none")
+              f"{list(hist.shape)}: kernel {gk:.4f} ms (device {gd:.4f} ms); first kernel "
+              f"(recorded) {FIRST_GAIN_MS.get(name, 'not recorded')}; plain "
+              f"{gp:.2f} ms; bound {gb * 1e3:.2f} us ({gby}); library call: none")
+    width_times, hist_width_times = {}, {}
+    for (crit, width), (hist, totals) in width_inputs.items():
+        def call():
+            return H.best_splits(hist, totals, criterion=crit)
+
+        gk = cuda_ms(call, 50, 5)
+        gd = kernel_device_ms(call, GAIN_KERNELS)
+        gb, gby = best_splits_bound(hist)
+        width_times[f"{crit}_L{width}"] = dict(ms=gk, device_ms=gd, bound_ms=gb,
+                                               bound_by=gby,
+                                               shape=list(hist.shape))
+        print(f"[time] {card}: best_splits cli {crit} L={width} "
+              f"{list(hist.shape)}: kernel {gk:.4f} ms (device {gd:.4f} ms); "
+              f"bound {gb * 1e3:.2f} us ({gby})")
+    per_fit = {f"{fit}_{key}": reps * sum(width_times[f"{crit}_L{w}"][key]
+                                          for w in LEVEL_WIDTHS)
+               for fit, crit, reps in (("xgb100", "xgb", 100), ("dt", "gini", 1))
+               for key in ("ms", "device_ms")}
+    print(f"[time] {card}: best_splits per fit at the CLI shape (sum over the "
+          f"level widths): xgb100 {per_fit['xgb100_ms']:.3f} ms (device "
+          f"{per_fit['xgb100_device_ms']:.3f}), dt {per_fit['dt_ms']:.4f} ms "
+          f"(device {per_fit['dt_device_ms']:.4f})")
+    bins_u8 = wide["cli"][torch.uint8]
+    for (fit, width), (loc, w, st, kw) in level_hist.items():
+        def call():
+            return H.node_feature_bin_histogram_multi(bins_u8, loc, w, st, **kw)
+
+        hist_width_times[f"{fit}_L{width}"] = dict(
+            ms=cuda_ms(call, 20, 3), device_ms=kernel_device_ms(call, HIST_KERNELS),
+            trees=loc.shape[0], k=st.shape[1])
+        t = hist_width_times[f"{fit}_L{width}"]
+        print(f"[time] {card}: histogram cli {fit} L={width} T={t['trees']} "
+              f"K={t['k']}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms)")
+    # launches per CLI fit: xgb 100 rounds, the forest 13 chunks of 8 trees,
+    # dt once, each at every level width
+    for key in ("ms", "device_ms"):
+        for fit, crit, n_fit in (("xgb100", "xgb", 100), ("rf100", "rf", 13),
+                                 ("dt", "gini", 1)):
+            per_fit[f"hist_{fit}_{key}"] = n_fit * sum(
+                hist_width_times[f"{crit}_L{w}"][key] for w in LEVEL_WIDTHS)
+    print(f"[time] {card}: histogram per fit at the CLI shape (sum over the "
+          "level widths): " + ", ".join(
+              f"{fit} {per_fit[f'hist_{fit}_ms']:.3f} ms (device "
+              f"{per_fit[f'hist_{fit}_device_ms']:.3f})"
+              for fit in ("xgb100", "rf100", "dt")))
     cli_walls = report["meta"]["train_seconds"]
     print(f"[time] {card}: fit walls at the CLI shape (1120 x 10000, host "
           f"clock): train CLI dt {cli_walls['dt']} s, rf100 {cli_walls['rf']} "
@@ -1319,7 +1497,9 @@ def main(argv=None) -> int:
     del q, k, v, simt_qkv
 
     # -- 15. result lines ----------------------------------------------------
-    main_h, main_g = tree_times["bench_xgb"], gain_times["bench_xgb"]
+    # the tree kernels' main shape: the CLI's xgb level (500 of each
+    # kernel's launches on the main path)
+    main_h, main_g = tree_times["cli_xgb"], gain_times["cli_xgb"]
     print(json.dumps({"kernels": [{
         "name": "featurize_scan",
         "route": "cuda",
@@ -1345,13 +1525,17 @@ def main(argv=None) -> int:
         "max_abs_err": main_h["max_abs_err"],
         "matched": True,
         "ms": main_h["ms"],
+        "device_ms": main_h["device_ms"],
         "plain_ms": main_h["plain_ms"],
         "bound_ms": main_h["bound_ms"],
         "bound_by": main_h["bound_by"],
         "library_ms": main_h["library_ms"],
         "shape": main_h["shape"],
+        "bins": "uint8",
+        "int32_bins": main_h["int32"],
         "other_shapes": {k: v for k, v in tree_times.items()
-                         if k != "bench_xgb"},
+                         if k != "cli_xgb"},
+        "cli_level_widths": hist_width_times,
         "card": card,
     }, {
         "name": "best_splits",
@@ -1362,13 +1546,15 @@ def main(argv=None) -> int:
         "max_abs_err": 0.0,
         "matched": True,
         "ms": main_g["ms"],
+        "device_ms": main_g["device_ms"],
         "plain_ms": main_g["plain_ms"],
         "bound_ms": main_g["bound_ms"],
         "bound_by": main_g["bound_by"],
         "library_ms": None,
         "shape": main_g["shape"],
         "other_shapes": {k: v for k, v in gain_times.items()
-                         if k != "bench_xgb"},
+                         if k != "cli_xgb"},
+        "cli_level_widths": width_times,
         "card": card,
     }, {
         "name": "flash_attention",
@@ -1407,6 +1593,7 @@ def main(argv=None) -> int:
         "main_path": "phase 11: the 2-layer f32 forward at T=600",
         "card": card,
     }], "fit_walls_s": {"cli": cli_walls, "bench": bench_walls},
+        "tree_kernels_ms_per_cli_fit": per_fit,
         "llm": {"prefill": pre, "card_vs_cpu": cvc, "generate": gen,
                 "explained_stream": expl}}))
     print(json.dumps({"ok": True, "device": {

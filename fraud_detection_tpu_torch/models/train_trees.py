@@ -312,9 +312,9 @@ def _build_tree(bins: torch.Tensor, stats: torch.Tensor,
     """Grow one tree with the histogram and split-gain kernels (DT and each
     boosting round).
 
-    bins (N, F) int32; stats (N, K) per-row statistics (class one-hots for
-    gini, grad/hess/count for xgb); row_weights (N,) activity weights,
-    multiplied into the stats. Gini statistics take the exact integer
+    bins (N, F) uint8 or int32; stats (N, K) per-row statistics (class
+    one-hots for gini, grad/hess/count for xgb); row_weights (N,) activity
+    weights, multiplied into the stats. Gini statistics take the exact integer
     histogram. Node totals are derived, never scanned: level 0's from
     feature 0's bins, deeper levels' and the leaves' from the parent's bins
     at its chosen split (``_child_totals``). The JAX kernel path derives
@@ -481,8 +481,10 @@ def _prepare_inputs(X, y, num_classes: int, cfg: TreeTrainConfig,
 
     ``X`` is float features (numpy, or a tensor) binned here on ``dev``, or
     integer bin ids from ``bin_rows_host`` (numpy or tensor), which require
-    the matching ``edges``. Returns (edges, bins (N, F) int32, y f32, class
-    one-hot stats (N, C) f32, weights (N,) ones, N)."""
+    the matching ``edges``. The bins are cast once to uint8 when
+    ``n_bins <= 256`` (the histogram kernel reads a quarter of the bytes),
+    else kept int32. Returns (edges, bins (N, F), y f32, class one-hot stats
+    (N, C) f32, weights (N,) ones, N)."""
     if not hasattr(X, "shape"):
         X = np.asarray(X, np.float32)
     is_tensor = isinstance(X, torch.Tensor)
@@ -507,10 +509,11 @@ def _prepare_inputs(X, y, num_classes: int, cfg: TreeTrainConfig,
             raise ValueError(
                 f"pre-binned X has ids in [{lo}, {hi}] but n_bins={cfg.n_bins}; "
                 "integer X must contain bin_rows_host output, not raw features")
-        bins = xd.to(torch.int32)
+        bins = xd
     else:
         bins = apply_bins(xd.to(torch.float32),
                           torch.from_numpy(edges).to(dev))
+    bins = bins.to(torch.uint8 if cfg.n_bins <= 256 else torch.int32)
     yd = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
     stats = (yd.to(torch.int64)[:, None] == torch.arange(
         num_classes, device=dev)[None, :]).to(torch.float32)

@@ -9,21 +9,32 @@
 // gain is gini impurity decrease or the xgb second-order gain, in exactly
 // `_gain_kernel`'s formulas and operation order; candidates with an empty
 // child, a child under `min_child_weight` (xgb) or on the last bin are -inf;
-// the winner is the first maximum in row-major (feature, bin) order within a
-// feature tile, and the lowest tile among equal tile maxima. A node whose
-// candidates are all invalid returns (0, 0, -inf).
+// the winner is the first maximum in row-major (feature, bin) order. A node
+// whose candidates are all invalid returns (0, 0, -inf).
 //
-// What bounds it on this card: bytes (the histogram is read once, ~1 add,
-// compare and a few multiplies per element). Design (simple first): a block
-// of 128 threads per (feature tile, node); each thread walks its features'
-// bins in order, carrying the K prefix sums in registers and its best
-// (gain, position); a warp-shuffle and shared-memory reduction with the
-// order "larger gain, then smaller position" (a total order, so the result
-// does not depend on the reduction's shape) picks the tile's best, and a
-// second kernel, one thread per node, takes the first tile holding the
-// largest gain. Every float operation is an explicitly rounded intrinsic
-// (__fadd_rn, __fmul_rn, __fdiv_rn, ...), so nvcc contracts nothing into an
-// FMA and the gains are bit-equal to the plain torch version's.
+// What bounds it on this card: bytes. The histogram is read once (61 MB at
+// L=16, F=10,000, NB=32, K=3), with ~20 operations per element.
+//
+// Design:
+// * A block is one warp and owns a slab of 32 consecutive features of one
+//   node: grid (ceil(F / 32), L), so a level has L * F / 32 blocks (313 at
+//   L=1, F=10,000; 5,008 at L=16), enough to cover every SM at every level.
+// * A slab's 32 * NB * K f32 values are contiguous in the histogram. The
+//   warp stages them into shared memory with 16-byte loads (four in flight
+//   per lane), neighbouring lanes on neighbouring addresses, and stores
+//   feature f's values at row f of a table whose row stride is NB * K
+//   rounded up to an odd number of words. Lane f then walks its own row:
+//   the 32 lanes' reads of one (bin, stat) fall in 32 different banks.
+// * Each (node, feature) is still one thread walking bins 0 .. NB-2 in
+//   order, carrying the K prefix sums in registers, so the gains are
+//   bit-equal to the plain torch version's sequential prefix. Every float
+//   operation is an explicitly rounded intrinsic (__fadd_rn, __fmul_rn,
+//   __fdiv_rn, ...): nvcc contracts nothing into an FMA.
+// * Each warp reduces its slab's best under "larger gain, then smaller flat
+//   position" (`beats`, a total order) and writes one (gain, position) per
+//   (node, slab). A second kernel, one warp per node, reduces the slabs
+//   under the same order. The result does not depend on the slab size or on
+//   the reduction's shape.
 
 #include <cstddef>
 #include <cstdint>
@@ -32,18 +43,26 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarp = 32;
 constexpr int kMaxStats = 8;
+constexpr int kNoPos = 0x7FFFFFFF;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-struct Best {
-  float gain;
-  int pos;
-};
+constexpr int kMaxShared = 232448;   // bytes a block may hold on sm_90
 
 // "a beats b": larger gain, then the earlier position.
 __device__ __forceinline__ bool beats(float ga, int pa, float gb, int pb) {
   return ga > gb || (ga == gb && pa < pb);
+}
+
+__device__ __forceinline__ void warp_best(float& g, int& p) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float og = __shfl_down_sync(kFull, g, off);
+    const int op = __shfl_down_sync(kFull, p, off);
+    if (beats(og, op, g, p)) {
+      g = og;
+      p = op;
+    }
+  }
 }
 
 // cnt - sq / max(cnt, 1e-12) over the K class counts, in _gain_kernel's
@@ -66,16 +85,79 @@ __device__ __forceinline__ float score(float g, float h, float lam) {
   return __fdiv_rn(__fmul_rn(g, g), __fadd_rn(h, lam));
 }
 
-// Grid: x = feature tile, y = node. Writes each (node, tile)'s best.
-__global__ void __launch_bounds__(kThreads)
-gain_tiles(const float* __restrict__ hist, const float* __restrict__ totals,
-           float* __restrict__ tile_gain, int* __restrict__ tile_pos, int n_f,
-           int nb, int k, int ft, int xgb, float lam, float mcw) {
-  const int tile = blockIdx.x;
+// Row stride (words) of the staged slab: NB * K rounded up to odd.
+__host__ __device__ __forceinline__ int slab_stride(int nbk) { return nbk | 1; }
+
+// Element e of the slab held as (feature q = e / nbk, cell r = e % nbk),
+// moved forward without a division in the common case.
+struct Cursor {
+  int q, r;
+  __device__ __forceinline__ void advance(int by, int nbk) {
+    r += by;
+    if (r >= nbk) {
+      const int d = r / nbk;
+      q += d;
+      r -= d * nbk;
+    }
+  }
+};
+
+// Grid: x = slab of 32 features, y = node. One warp. Dynamic shared memory:
+// 32 * slab_stride(NB * K) words. Writes each (node, slab)'s best.
+__global__ void __launch_bounds__(kWarp)
+gain_slabs(const float* __restrict__ hist, const float* __restrict__ totals,
+           float* __restrict__ slab_gain, int* __restrict__ slab_pos, int n_f,
+           int nb, int k, int xgb, float lam, float mcw) {
+  extern __shared__ __align__(16) float slab[];
+  const int lane = threadIdx.x;
+  const int s_idx = blockIdx.x;
   const int node = blockIdx.y;
-  const int n_tiles = gridDim.x;
-  const int f_lo = tile * ft;
-  const int f_hi = min(n_f, f_lo + ft);
+  const int n_slabs = gridDim.x;
+  const int f0 = s_idx * kWarp;
+  const int nf = min(kWarp, n_f - f0);
+  const int nbk = nb * k;
+  const int stride = slab_stride(nbk);
+
+  // -- stage the slab: 16-byte loads where aligned, scalar head and tail --
+  const float* src = hist + (static_cast<size_t>(node) * n_f + f0) * nbk;
+  const int count = nf * nbk;
+  int head = static_cast<int>((16u - (reinterpret_cast<uintptr_t>(src) & 15u)) & 15u) / 4;
+  head = min(head, count);
+  for (int e = lane; e < head; e += kWarp) {
+    slab[(e / nbk) * stride + e % nbk] = __ldg(src + e);
+  }
+  const int n4 = (count - head) / 4;
+  const float4* src4 = reinterpret_cast<const float4*>(src + head);
+  {
+    // lane's first element and its (feature, cell); each step moves 32
+    // float4 = 128 elements
+    const int e0 = head + 4 * lane;
+    Cursor c{e0 / nbk, e0 % nbk};
+    for (int i = lane; i < n4; i += 4 * kWarp) {
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (i + u * kWarp < n4) v[u] = __ldg(src4 + i + u * kWarp);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (i + u * kWarp < n4) {
+          Cursor d = c;
+          slab[d.q * stride + d.r] = v[u].x;
+          d.advance(1, nbk);
+          slab[d.q * stride + d.r] = v[u].y;
+          d.advance(1, nbk);
+          slab[d.q * stride + d.r] = v[u].z;
+          d.advance(1, nbk);
+          slab[d.q * stride + d.r] = v[u].w;
+        }
+        c.advance(4 * kWarp, nbk);
+      }
+    }
+  }
+  for (int e = head + 4 * n4 + lane; e < count; e += kWarp) {
+    slab[(e / nbk) * stride + e % nbk] = __ldg(src + e);
+  }
 
   float tot[kMaxStats];
 #pragma unroll
@@ -90,11 +172,14 @@ gain_tiles(const float* __restrict__ hist, const float* __restrict__ totals,
     g_p = gini_sum(tot, k, &cnt_p);
     den_p = fmaxf(cnt_p, 1e-12f);
   }
+  __syncwarp();
 
+  // -- lane f scans feature f0 + f, bins in order --
   float best_g = -CUDART_INF_F;
-  int best_p = 0x7FFFFFFF;
-  for (int f = f_lo + threadIdx.x; f < f_hi; f += kThreads) {
-    const float* h = hist + (static_cast<size_t>(node) * n_f + f) * nb * k;
+  int best_p = kNoPos;
+  if (lane < nf) {
+    const float* h = slab + lane * stride;
+    const int f = f0 + lane;
     float left[kMaxStats], right[kMaxStats];
 #pragma unroll
     for (int kk = 0; kk < kMaxStats; ++kk) left[kk] = 0.0f;
@@ -129,81 +214,77 @@ gain_tiles(const float* __restrict__ hist, const float* __restrict__ totals,
       }
     }
   }
-
-  // block reduction of (gain, pos) under `beats`
-  for (int off = 16; off > 0; off >>= 1) {
-    const float og = __shfl_down_sync(kFull, best_g, off);
-    const int op = __shfl_down_sync(kFull, best_p, off);
-    if (beats(og, op, best_g, best_p)) {
-      best_g = og;
-      best_p = op;
-    }
-  }
-  __shared__ Best warp_best[kThreads / 32];
-  const int warp = threadIdx.x / 32;
-  if ((threadIdx.x & 31) == 0) warp_best[warp] = {best_g, best_p};
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    Best b = warp_best[0];
-    for (int w = 1; w < kThreads / 32; ++w) {
-      if (beats(warp_best[w].gain, warp_best[w].pos, b.gain, b.pos)) b = warp_best[w];
-    }
-    // an all -inf tile keeps its first candidate, as the TPU kernel does
-    if (b.pos == 0x7FFFFFFF) b.pos = f_lo * (nb - 1);
-    tile_gain[static_cast<size_t>(node) * n_tiles + tile] = b.gain;
-    tile_pos[static_cast<size_t>(node) * n_tiles + tile] = b.pos;
+  warp_best(best_g, best_p);
+  if (lane == 0) {
+    slab_gain[static_cast<size_t>(node) * n_slabs + s_idx] = best_g;
+    slab_pos[static_cast<size_t>(node) * n_slabs + s_idx] = best_p;
   }
 }
 
-// One thread per node: the first tile whose best gain is the largest.
-__global__ void reduce_tiles(const float* __restrict__ tile_gain,
-                             const int* __restrict__ tile_pos, int* __restrict__ best_f,
+// One warp per node: the best of its slabs under the same total order.
+__global__ void reduce_slabs(const float* __restrict__ slab_gain,
+                             const int* __restrict__ slab_pos, int* __restrict__ best_f,
                              int* __restrict__ best_b, float* __restrict__ best_gain,
-                             int n_nodes, int n_tiles, int nb) {
-  const int node = blockIdx.x * blockDim.x + threadIdx.x;
+                             int n_nodes, int n_slabs, int nb) {
+  const int node = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
   if (node >= n_nodes) return;
-  const float* g = tile_gain + static_cast<size_t>(node) * n_tiles;
-  const int* p = tile_pos + static_cast<size_t>(node) * n_tiles;
-  float bg = g[0];
-  int bp = p[0];
-  for (int t = 1; t < n_tiles; ++t) {
-    if (g[t] > bg) {
-      bg = g[t];
-      bp = p[t];
+  const float* g = slab_gain + static_cast<size_t>(node) * n_slabs;
+  const int* p = slab_pos + static_cast<size_t>(node) * n_slabs;
+  float bg = -CUDART_INF_F;
+  int bp = kNoPos;
+  for (int s = lane; s < n_slabs; s += kWarp) {
+    if (beats(g[s], p[s], bg, bp)) {
+      bg = g[s];
+      bp = p[s];
     }
   }
-  best_f[node] = bp / (nb - 1);
-  best_b[node] = bp % (nb - 1);
-  best_gain[node] = bg;
+  warp_best(bg, bp);
+  if (lane == 0) {
+    if (bp == kNoPos) bp = 0;   // every gain NaN: the first candidate, as -inf
+    best_f[node] = bp / (nb - 1);
+    best_b[node] = bp % (nb - 1);
+    best_gain[node] = bg;
+  }
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Device pointers to contiguous
-// buffers: hist (n_nodes, n_f, nb, k) f32, totals (n_nodes, k) f32,
-// scratch tile_gain / tile_pos (n_nodes * n_tiles) f32 / int32, outputs
-// best_f, best_b (n_nodes,) int32 and best_gain (n_nodes,) f32, with
-// n_tiles = ceil(n_f / ft). criterion: 0 gini, 1 xgb (k == 3). Requires
-// nb >= 2, 1 <= k <= 8 and n_f * (nb - 1) < 2^31. Launches on `stream`
-// without synchronising; returns the first CUDA error as an int.
+// buffers: hist (n_nodes, n_f, nb, k) f32, totals (n_nodes, k) f32, scratch
+// slab_gain / slab_pos (n_nodes * ceil(n_f / 32)) f32 / int32, outputs
+// best_f, best_b (n_nodes,) int32 and best_gain (n_nodes,) f32. criterion:
+// 0 gini, 1 xgb (k == 3). Requires nb >= 2, 1 <= k <= 8, n_f >= 1,
+// n_f * (nb - 1) < 2^31 and 32 * (nb * k | 1) words <= 227 KB of shared
+// memory.
+// Launches on `stream` without synchronising; returns the first CUDA error
+// as an int.
 extern "C" int best_splits_launch(const float* hist, const float* totals,
-                                  float* tile_gain, int* tile_pos, int* best_f,
+                                  float* slab_gain, int* slab_pos, int* best_f,
                                   int* best_b, float* best_gain, int n_nodes,
-                                  int n_f, int nb, int k, int ft, int criterion,
+                                  int n_f, int nb, int k, int criterion,
                                   float reg_lambda, float min_child_weight,
                                   void* stream) {
-  if (nb < 2 || k < 1 || k > kMaxStats || ft < 1 || (criterion == 1 && k != 3)) {
+  const int smem = kWarp * slab_stride(nb * k) * static_cast<int>(sizeof(float));
+  if (nb < 2 || k < 1 || k > kMaxStats || n_f < 1 || (criterion == 1 && k != 3) ||
+      smem > kMaxShared) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (n_f + ft - 1) / ft;
-  const dim3 grid(n_tiles, n_nodes);
-  gain_tiles<<<grid, kThreads, 0, s>>>(hist, totals, tile_gain, tile_pos, n_f, nb,
-                                       k, ft, criterion, reg_lambda, min_child_weight);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gain_slabs, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int n_slabs = (n_f + kWarp - 1) / kWarp;
+  gain_slabs<<<dim3(n_slabs, n_nodes), kWarp, smem, s>>>(
+      hist, totals, slab_gain, slab_pos, n_f, nb, k, criterion, reg_lambda,
+      min_child_weight);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  reduce_tiles<<<(n_nodes + 127) / 128, 128, 0, s>>>(tile_gain, tile_pos, best_f,
-                                                      best_b, best_gain, n_nodes,
-                                                      n_tiles, nb);
+  constexpr int kNodesPerBlock = 4;
+  reduce_slabs<<<(n_nodes + kNodesPerBlock - 1) / kNodesPerBlock,
+                 kNodesPerBlock * kWarp, 0, s>>>(slab_gain, slab_pos, best_f, best_b,
+                                                 best_gain, n_nodes, n_slabs, nb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,8 @@
 (``TreeTrainConfig(use_pallas=True)``: both Pallas kernels in interpret
 mode) on the CPU.
 
-* Decision trees: structure, thresholds and leaf stats equal.
+* Decision trees: structure, thresholds and leaf stats equal (the port's
+  fit on its uint8 bins, the JAX fit on int32 bins).
 * Random forests: the JAX draws (its ``_poisson1`` weights and
   ``_feature_mask`` masks for the chunk, sliced to the unpadded rows and
   features) fed to the port's chunk builder give the same forest.
@@ -84,6 +85,7 @@ def test_forest_chunk_with_jax_draws_equals_jax(seed, depth):
         config=jt.TreeTrainConfig(max_depth=depth, use_pallas=True))
     cfg = pt.TreeTrainConfig(max_depth=depth)
     edges, bins, _, stats, _, n = pt._prepare_inputs(X, y, 2, cfg, None, CPU)
+    assert bins.dtype == torch.uint8          # the trainer's bins, as on the card
     weights, masks = _jax_chunk_draws(seed, 0, chunk, n, X.shape[1], depth)
     out = pt._build_forest_chunk(bins, stats, weights, masks, cfg)
     got = pt._assemble(*out, edges=edges, tree_weights=np.ones(chunk),
@@ -230,3 +232,23 @@ def test_poisson_draw_and_chunk_rule():
     assert pt.resolve_tree_chunk(pt.TreeTrainConfig()) == 8
     assert pt.resolve_tree_chunk(pt.TreeTrainConfig(max_depth=4)) == \
         jt.resolve_tree_chunk(jt.TreeTrainConfig(max_depth=4, use_pallas=True))
+
+
+@pytest.mark.parametrize("n_bins,dtype", [(32, torch.uint8), (256, torch.uint8),
+                                          (257, torch.int32)])
+def test_fit_bins_are_uint8_up_to_256_bins(n_bins, dtype):
+    """``_prepare_inputs`` casts the bins once to uint8 when every id fits
+    (float and pre-binned input alike), else keeps int32; a forest chunk
+    built on either width gives the same trees."""
+    X, y = _tfidf_like(seed=4, n=150, f=40)
+    cfg = pt.TreeTrainConfig(max_depth=3, n_bins=n_bins)
+    edges, bins, _, stats, _, n = pt._prepare_inputs(X, y, 2, cfg, None, CPU)
+    assert bins.dtype == dtype and bins.is_contiguous()
+    pre = pt._prepare_inputs(bins.numpy().astype(np.int64), y, 2, cfg, edges,
+                             CPU)[1]
+    assert pre.dtype == dtype and torch.equal(pre, bins)
+    weights, masks = pt.draw_forest_chunk(3, 0, 2, n, X.shape[1], cfg.max_depth)
+    a = pt._build_forest_chunk(bins, stats, weights, masks, cfg)
+    b = pt._build_forest_chunk(bins.to(torch.int32), stats, weights, masks, cfg)
+    for x, z in zip(a, b):
+        assert torch.equal(x, z)
