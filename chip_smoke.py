@@ -13,11 +13,17 @@ Phases (any failure raises and the script exits non-zero):
    print each one's ``-Xptxas -v`` report, and run the kernels' self-tests
    on hand-reckoned inputs (the histogram's on uint8 and int32 bins, under
    plans that split the pairs into node groups and tree groups and the rows
-   into chunks);
+   into chunks; the featurize kernel's two entries on hand-reckoned rows, an
+   overflow row among them);
 3. each kernel against its plain torch version on the same CUDA tensors:
-   the featurize scan exactly (synthetic-corpus rows at W=2048, the
-   adversarial strings and a seeded fuzz, both hash modes, then the full
-   ``featurize_bytes`` packed output); the tree histogram (int path equal,
+   ``featurize_packed`` (the serving path's one featurize kernel) bit for
+   bit, packed output and unique counts, two launches bit-equal, on
+   synthetic-corpus rows at W=2048, the adversarial strings and a seeded
+   fuzz (padding rows included), rows past 256 unique buckets, the fuzz at
+   W=8 and rows at W=16,384, in both hash modes, ``binary`` on and off,
+   with the English stop table and one holding "", and at 32 slots; the
+   stream entry ``featurize_scan`` exactly (corpus, adversarial, fuzz,
+   both hash modes); the tree histogram (int path equal,
    f32 path within 1e-5 of the largest cell, two launches bit-equal, T=1
    and T=8, uint8 bins as the trainer passes them and int32 bins, the two
    bit-equal) and ``best_splits`` (indices equal, gains bit-equal, gini and
@@ -33,22 +39,31 @@ Phases (any failure raises and the script exits non-zero):
    CPU: labels equal and |dp| <= 1e-6;
 5. the streaming engine over 4,096 seeded messages (malformed ones
    included): output keys exactly the fed keys, malformed count exact,
-   every label equal to ``pipeline.predict`` on its text;
+   every label equal to ``pipeline.predict`` on its text; phases 4-5 must
+   launch ``featurize_packed`` once per chunk the card pipelines dispatch
+   and never the stream entry, whose own path
+   (``tokenize_hash`` over phase 4's texts, a call a chunk) follows;
 6. the training slice at full width (the CLI's 1,600-dialogue synthetic
    corpus, HashingTF(10000), depth 5, 32 bins), card against CPU: dt and a
-   16-tree rf equal tree for tree, 16-round xgb within 1e-4 in p;
+   16-tree rf (JAX's threefry draws, made on each device) equal tree for
+   tree, 16-round xgb within 1e-4 in p;
 7. the training CLI on the card (dt, rf 100 trees, xgb 100 rounds): dt's
-   metrics equal the JAX package's recorded ones (reports/metrics.json),
+   and rf's metrics equal the JAX package's recorded ones
+   (reports/metrics.json),
    and its saved checkpoint served by ``ServingPipeline.from_checkpoint``
    gives the dense ``predict`` labels;
 8. timings (CUDA events, median of >= 10 after warm-up) of each kernel, its
-   plain version and its library call where one exists (the histogram at
+   plain version and its library call where one exists (both featurize
+   entries in turns with their profiler device time, beside the first scan
+   kernel's recorded 1.1390 ms; the histogram at
    four shapes on uint8 and int32 bins, each with its own byte bound, beside
    ``index_add_`` and the first kernel's recorded time; both tree kernels
    at every level width of the CLI's fits, with their device time from the
    profiler and their sums per xgb100, rf100 and dt fit); pipeline rows/s,
    engine msgs/s and the fits' walls (CLI shape and bench shape) on the
-   host clock; profiler breakdowns of ``featurize_bytes`` and of a DT fit;
+   host clock, each pipeline's device idle share; profiler breakdowns of
+   ``featurize_bytes`` (one launch a call, and the one kernel in its
+   trace) and of a DT fit;
 9. the flash-attention kernels against their plain version: the sm90
    route (bf16, wgmma) at the prefill shape (1, 2048, 8, 256) with one K/V
    head and at ragged bf16 shapes (B=2, T in {1, 64, 127, 1000, 2049}, d in
@@ -63,10 +78,13 @@ Phases (any failure raises and the script exits non-zero):
    breakdown;
 11. card against CPU at Gemma widths, 2 layers, f32, T=600 (the SIMT
    route's path: 2 launches): last logits within 5e-4, and greedy batched
-   generation equal (and equal to B=1);
+   generation equal (and equal to B=1); sampled generation at temperature
+   1.0, card against CPU, rows equal reported (the logits differ by up to
+   5e-4, so a near-tie may flip a token; not gated);
 12. greedy generation at full width (bench.py's 8 prompts, 64 new tokens):
    tokens/s and explanations/s; rows equal to B=1 calls is reported (bf16
-   GEMMs of other shapes may round apart; phase 11 is the gate);
+   GEMMs of other shapes may round apart; phase 11 is the gate); the token
+   choice at B=8 x 256,000, greedy against sampled;
 13. the streaming engine with ``explain_batch_fn`` over the on-device
    model (1,024 messages, ~5% scam, the CLI's dt as classifier, batch
    512, 48 new tokens): keys exact, ``analysis`` on exactly the flagged
@@ -76,10 +94,13 @@ Phases (any failure raises and the script exits non-zero):
    SIMT, SIMT, sm90), ``scaled_dot_product_attention`` (the library
    yardstick), the plain version, and the bound; the same four for the
    SIMT kernel at phase 11's f32 shape;
-15. a ``{"kernels": [...]}`` line, then the last line
+15. a ``{"kernels": [...]}`` line (six entries: featurize_packed, the
+   stream entry, histogram, best_splits, both flash routes), then the last
+   line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main path (serving: phases 4-5;
+the stream entry: the pass after phase 5;
 training: phase 7, the CLI; the LLM prefill: one T=2048 forward in phase
 10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
 flash kernel) and read just after it. It imports nothing of JAX or of
@@ -132,10 +153,11 @@ LEVEL_WIDTHS = (1, 2, 4, 8, 16)   # the nodes of each split level at depth 5
 HIST_KERNELS, GAIN_KERNELS = ("hist_kernel", "reduce_chunks"), ("_slabs",)
 # The first kernels' events times as PERF.md records them (NVIDIA H100 80GB
 # HBM3 at 700 W), printed as recorded beside this run's; their device times
-# come from scripts/tree_kernel_times.py.
+# come from scripts/kernel_times.py --slice tree.
 FIRST_HIST_MS = {"cli_xgb": 0.1606, "cli_rf": 0.8936, "bench_xgb": 1.8768,
                  "bench_rf": 12.3148}
 FIRST_GAIN_MS = {"bench_xgb": 0.2048, "cli_rf": 0.2466, "cli_xgb": 0.2732}
+FIRST_SCAN_MS = 1.1390   # the first scan kernel at (256, 2049), as PERF.md records
 BENCH_ROWS, BENCH_FEATURES = 100_000, 2048
 # The explanation LLM: Gemma-2B's architecture (bench.py GEMMA2B_HF_CONFIG).
 GEMMA_2B = dict(vocab_size=256_000, d_model=2048, n_layers=18, n_heads=8,
@@ -208,32 +230,41 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_breakdown(fn, reps: int = 10):
+def device_breakdown(fn, reps: int = 10, tries: int = 3):
     """The device kernels ``fn`` launches, from a torch.profiler (CUPTI)
     trace of ``reps`` calls: [(name, us per call, launches per call)],
-    largest first."""
+    largest first. Now and then a trace records no device activity at all
+    (the profiler drops it, not the card); such a trace is taken again, up
+    to ``tries`` times, and an empty list means every try came back empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.device_time_total / reps, e.count / reps)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.device_time_total / reps, e.count / reps)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if rows:
+            break
     return sorted(rows, key=lambda r: -r[1])
 
 
 def kernel_device_ms(fn, names, reps: int = 10) -> float:
-    """Milliseconds of device time per call of ``fn`` spent in kernels whose
-    name contains one of ``names`` (a profiler trace, so the wrapper's host
-    work, which CUDA events around one call include, is left out)."""
-    return sum(us for key, us, _ in device_breakdown(fn, reps)
-               if any(n in key for n in names)) / 1e3
+    """Milliseconds of device time per call of ``fn`` in the kernels whose
+    name contains one of ``names``, each of which ``fn`` launches once: the
+    sum over those kernels of a profiler trace's time per recorded launch
+    (the trace may miss a few launches, which a per-call average would
+    count as zero; the wrapper's host work, which CUDA events around one
+    call include, is left out)."""
+    return sum(us / n for key, us, n in device_breakdown(fn, reps)
+               if n and any(k in key for k in names)) / 1e3
 
 
 def burst_ms(fn, n: int) -> float:
@@ -289,6 +320,90 @@ def scan_max_err(classes, legacy: bool) -> int:
                                  f"(legacy={legacy}): {bad} elements differ")
         err = max(err, diff)
     return err
+
+
+def packed_spec(base, **over):
+    """``base`` (a FeaturizeSpec) with fields replaced; the "" token's bucket
+    follows the hash mode and feature count."""
+    from fraud_detection_tpu_torch.featurize.hashing import spark_hash_bucket
+
+    spec = base._replace(**over)
+    return spec._replace(empty_bucket=spark_hash_bucket(
+        "", spec.num_features, spec.legacy))
+
+
+def packed_max_err(label: str, staged, stop, spec, scans: dict) -> int:
+    """Run ``featurize_packed`` twice and its plain version once on the same
+    CUDA tensors; raise unless the two launches are bit-equal and equal the
+    plain version (packed output and unique counts). The plain version's
+    scan is kept per (input, hash mode) in ``scans``: assemble_packed is
+    the only step a spec changes. Returns the max |diff| (0)."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+
+    got = fk.featurize_bytes(staged, stop, spec=spec)
+    again = fk.featurize_bytes(staged, stop, spec=spec)
+    key = (label.split()[0], spec.legacy)
+    if key not in scans:
+        scans[key] = fk.tokenize_hash_reference(
+            fk.byte_classes(*fk.split_staged(staged)), legacy=spec.legacy)
+    want = fk.assemble_packed(*scans[key], stop, spec=spec)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"featurize_packed {label}: two launches differ")
+    for name, g, w in zip(("packed", "n_unique"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"featurize_packed {label} {name}: "
+                                 f"{tuple(g.shape)}/{g.dtype} vs "
+                                 f"{tuple(w.shape)}/{w.dtype}")
+        if not torch.equal(g, w):
+            rows = (g != w).reshape(g.shape[0], -1).any(dim=1).nonzero()
+            raise AssertionError(f"featurize_packed {label} != plain version "
+                                 f"on {name}: rows {rows.flatten().tolist()[:8]}")
+    n = got[1]
+    print(f"[check] featurize_packed == plain version, launches bit-equal: "
+          f"{label} {tuple(staged.shape)} (legacy={spec.legacy}, binary="
+          f"{spec.binary}, empty_is_stop={spec.empty_is_stop}, slots "
+          f"{spec.n_slots}; unique per row {int(n.min())}-{int(n.max())}, "
+          f"{int((n > spec.n_slots).sum())} rows past the slots)")
+    return 0
+
+
+def packed_inputs(corpus_texts, fuzz, dev, seed: int):
+    """The staged inputs phase 3 holds featurize_packed to: W=2048 corpus
+    rows, the adversarial strings (padding rows included), the seeded fuzz,
+    rows of random words with more unique buckets than 256 slots, the fuzz
+    at W=8, and W=16,384 rows (long dialogues, one truncated, "", a
+    16,000-letter token, padding)."""
+    import torch
+
+    from fraud_detection_tpu_torch.featurize.device import pack_staged
+
+    rng = random.Random(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    words = ["".join(rng.choice(letters) for _ in range(rng.randrange(2, 5)))
+             for _ in range(900)]
+    overflow = [" ".join(rng.choice(words[: rng.choice((450, 900))])
+                         for _ in range(600))[:WIDTH] for _ in range(6)]
+    long_rows, i = [], 0
+    for target in (16_384, 16_000, 20_000, 9_000):
+        row = ""
+        while len(row) < target:
+            row += corpus_texts[i % len(corpus_texts)] + " "
+            i += 1
+        long_rows.append(row[:target])
+    long_rows += ["", "Q" * 16_000 + " end"]
+
+    def stage(texts, width, batch=None):
+        return torch.from_numpy(pack_staged(texts, width, batch)[0]).to(dev)
+
+    return [("corpus", stage(corpus_texts, WIDTH)),
+            ("adversarial", stage(ADVERSARIAL, 128, 16)),
+            ("fuzz", stage(fuzz, 256, 130)),
+            ("overflow", stage(overflow, WIDTH, 8)),
+            ("w8", stage(fuzz, 8, 130)),
+            ("w16384", stage(long_rows, 16_384, 8))]
 
 
 def make_models(feat, seed: int, dev):
@@ -581,8 +696,9 @@ def train_card_vs_cpu(Xtr, ytr, Xte, dev) -> dict:
 
 def train_cli(dev, test_texts) -> dict:
     """The training CLI on the card at its defaults (dt, rf 100 trees, xgb
-    100 rounds), saving dt. dt's metrics must equal the JAX package's
-    recorded run (reports/metrics.json, same corpus, split and exact gini);
+    100 rounds), saving dt. dt's and rf's metrics must equal the JAX
+    package's recorded run (reports/metrics.json, same corpus, split, exact
+    gini and, for rf, the same threefry draws);
     the saved checkpoint, served with device featurization, must give the
     dense ``predict`` labels on the test texts. Returns the report."""
     import contextlib
@@ -614,9 +730,10 @@ def train_cli(dev, test_texts) -> dict:
               f"run: {want['accuracy']:.4f} / {want['f1']:.4f} / "
               f"{want['auc']:.4f}); fit {report['meta']['train_seconds'][name]}"
               " s host clock")
-    if report["metrics"]["dt"] != ref["metrics"]["dt"]:
-        raise AssertionError("dt metrics differ from the JAX package's "
-                             "recorded run")
+    for name in ("dt", "rf"):
+        if report["metrics"][name] != ref["metrics"][name]:
+            raise AssertionError(f"{name} metrics differ from the JAX "
+                                 "package's recorded run")
     width = -(-max(len(t.encode()) for t in test_texts) // 64) * 64
     tokens = -(-max(sum(c.isspace() for c in t) + 1 for t in test_texts)
                // 16) * 16
@@ -632,8 +749,8 @@ def train_cli(dev, test_texts) -> dict:
     if (pipe.device_stats.truncated_rows
             or pipe.device_stats.featurize_path != want_path):
         raise AssertionError(f"served dt: {pipe.device_stats.snapshot()}")
-    print(f"[cli] dt metrics equal the recorded JAX run; checkpoint served "
-          f"on {dev} (device featurize W={width}, L={tokens}): "
+    print(f"[cli] dt and rf metrics equal the recorded JAX run; checkpoint "
+          f"served on {dev} (device featurize W={width}, L={tokens}): "
           f"{len(test_texts)} labels equal dense predict")
     return report
 
@@ -846,11 +963,21 @@ def llm_card_vs_cpu(dev, seed: int) -> dict:
     for i, e in enumerate(enc):
         if not np.array_equal(card.generate_tokens(e, max_new_tokens=8), tg[i]):
             raise AssertionError(f"f32 card: batched row {i} != its B=1 call")
+    # sampled at temperature 1.0: both draw the same threefry noise, but the
+    # logits differ by up to 5e-4, so a near-tie may flip a row (reported)
+    sg = card.generate_tokens_batch(enc, max_new_tokens=8, temperature=1.0,
+                                    seed=seed)
+    sc = cpu.generate_tokens_batch(enc, max_new_tokens=8, temperature=1.0,
+                                   seed=seed)
+    sampled_equal = int(sum(np.array_equal(a, b) for a, b in zip(sg, sc)))
+    print(f"[llm] sampled generation at temperature 1.0, card vs cpu: "
+          f"{sampled_equal}/{len(enc)} rows equal (reported, not gated)")
     print(f"[llm] card vs cpu (Gemma widths, 2 layers, f32, T=600): last "
           f"logits max |d| {err:.3g} (tol {CARD_CPU_TOL}), SIMT flash kernel "
           f"{simt} launches; greedy tokens of {len(enc)} uneven prompts equal "
           "card/cpu and batched/single")
-    return dict(dlogit=err, simt_launches=simt)
+    return dict(dlogit=err, simt_launches=simt,
+                sampled_rows_equal=sampled_equal, sampled_rows=len(enc))
 
 
 def llm_generate(lm, card: str) -> dict:
@@ -888,9 +1015,23 @@ def llm_generate(lm, card: str) -> dict:
           f"{sum(n for *_, n in breakdown):.0f} device ops")
     for name, us, n in breakdown[:8]:
         print(f"[trace]   {us:10.1f} us  x{n:.0f}  {name[:90]}")
+    # one decode step's token choice at B=8 over the full vocabulary:
+    # greedy against sampled (the threefry Gumbel noise in int64 torch ops)
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import _sample_token
+
+    logits = torch.randn((8, lm.cfg.vocab_size), device=lm.device,
+                         generator=torch.Generator(lm.device).manual_seed(3))
+    greedy_ms = cuda_ms(lambda: _sample_token(0.0, logits, 0, 5), 20, 3)
+    sampled_ms = cuda_ms(lambda: _sample_token(1.0, logits, 0, 5), 20, 3)
+    print(f"[time] {card}: token choice at B=8 x {lm.cfg.vocab_size}: greedy "
+          f"{greedy_ms:.4f} ms, sampled {sampled_ms:.4f} ms; a decode step "
+          f"takes {wall16 * 1e3 / 16:.2f} ms (16-token wall / 16)")
     return dict(wall_s=wall, tokens_per_s=8 * 64 / wall,
                 explanations_per_s=8 / wall, rows_equal_single=len(equal),
-                busy_ms_16=busy, wall_ms_16=wall16 * 1e3)
+                busy_ms_16=busy, wall_ms_16=wall16 * 1e3,
+                choice_greedy_ms=greedy_ms, choice_sampled_ms=sampled_ms)
 
 
 def explained_stream(lm, dev, ckpt: Path, card: str) -> dict:
@@ -1041,18 +1182,28 @@ def main(argv=None) -> int:
     feat.fit_idf([d.text for d in generate_corpus(n=800, seed=7)])
     dfeat = DeviceFeaturizer(feat, width=WIDTH, tokens=TOKENS, device=dev)
     stop = dfeat.stop_table()
-    packed_k, n_k = fk.featurize_bytes(staged_main, stop, spec=dfeat.spec)
-    h, w0, w1, tl, emp = fk.tokenize_hash_reference(cls_main,
-                                                    legacy=dfeat.spec.legacy)
-    packed_p, n_p = fk.assemble_packed(h, w0, w1, tl, emp, stop,
-                                       spec=dfeat.spec)
-    if not (torch.equal(packed_k, packed_p) and torch.equal(n_k, n_p)):
-        raise AssertionError("featurize_bytes via the kernel != via the plain version")
+    stop_empty = torch.from_numpy(fk.build_stop_table(
+        list(feat.stop_filter.words) + [""])[0]).to(dev)
+    spec = dfeat.spec
+    scans = {}
+    packed_err = 0
+    for name, staged in packed_inputs(corpus_texts, fuzz, dev, args.seed + 9):
+        variants = [(stop, spec), (stop, packed_spec(spec, legacy=True)),
+                    (stop, packed_spec(spec, binary=True))]
+        if name in ("corpus", "fuzz", "w16384"):
+            variants += [(stop_empty, packed_spec(spec, empty_is_stop=True)),
+                         (stop, packed_spec(spec, n_slots=32))]
+        if name == "fuzz":
+            variants.append((stop, packed_spec(spec, legacy=True,
+                                               binary=True)))
+        for table, sp in variants:
+            packed_err = max(packed_err, packed_max_err(name, staged, table,
+                                                        sp, scans))
+    del scans
+    packed_k, n_k = fk.featurize_bytes(staged_main, stop, spec=spec)
     if packed_k.shape != (BATCH, 2, TOKENS) or not bool((n_k > 0).all()):
         raise AssertionError(f"featurize_bytes output {tuple(packed_k.shape)} "
                              "or empty rows on corpus text")
-    print(f"[check] featurize_bytes packed {tuple(packed_k.shape)} equal "
-          "(kernel vs plain version)")
 
     # tree kernels at the CLI shape (the real TF-IDF bins) and the bench
     # shape, on uint8 bins (the trainer's) and int32 bins: the same plan, so
@@ -1121,7 +1272,7 @@ def main(argv=None) -> int:
     lr_gpu, trees_gpu = make_models(feat, args.seed, dev)
     lr_cpu, trees_cpu = make_models(feat, args.seed, "cpu")
     texts = [d.text for d in generate_corpus(n=2048, seed=args.seed + 3)]
-    fk.tokenize_hash.launches = 0
+    fk.featurize_bytes.launches = fk.tokenize_hash.launches = 0
     pipes = {}
     for name, gm, cm, int8 in (("lr_fp32", lr_gpu, lr_cpu, False),
                                ("lr_int8", lr_gpu, lr_cpu, True),
@@ -1169,7 +1320,14 @@ def main(argv=None) -> int:
                                  broker.producer(), "out", batch_size=BATCH,
                                  max_wait=0.05, pipeline_depth=2)
     stats = engine.run(max_messages=len(items), idle_timeout=5.0)
-    launches = fk.tokenize_hash.launches
+    launches = fk.featurize_bytes.launches
+    chunks = sum(p.device_stats.chunks for p in pipes.values())
+    if launches != chunks:
+        raise AssertionError(f"featurize_packed launched {launches}x over "
+                             f"{chunks} chunks, want one launch a chunk")
+    if fk.tokenize_hash.launches:
+        raise AssertionError(f"the serving path ran the stream entry "
+                             f"{fk.tokenize_hash.launches}x")
     out = broker.messages("out")
     if sorted(m.key for m in out) != sorted(k for _, k in items):
         raise AssertionError("engine output keys != fed keys")
@@ -1182,10 +1340,17 @@ def main(argv=None) -> int:
     if bad:
         raise AssertionError(f"{len(bad)} engine labels != pipeline.predict")
     if launches < 1:
-        raise AssertionError("the main path never launched the scan kernel")
+        raise AssertionError("the main path never launched featurize_packed")
     print(f"[engine] {len(items)} messages, keys exact, malformed "
-          f"{stats.malformed}, labels equal predict; scan launches on the "
-          f"main path {launches}")
+          f"{stats.malformed}, labels equal predict; featurize_packed "
+          f"launches on the main path {launches} over {chunks} chunks, "
+          "stream entry 0")
+    # the stream entry's own path: the reference tokenize_hash contract
+    # (per-column token streams) over phase 4's texts, chunk by chunk
+    fk.tokenize_hash.launches = 0
+    for i in range(0, len(texts), BATCH):
+        fk.tokenize_hash(staged_classes(texts[i:i + BATCH], WIDTH, dev)[1])
+    scan_launches = fk.tokenize_hash.launches
 
     # -- 6. training slice, card against CPU ---------------------------------
     train_walls = train_card_vs_cpu(Xtr, ytr, Xte, dev)
@@ -1202,16 +1367,40 @@ def main(argv=None) -> int:
           f"{hist_launches}, best_splits {gain_launches}")
 
     # -- 8. times -------------------------------------------------------------
-    k_ms = cuda_ms(lambda: fk.tokenize_hash(cls_main), 50, 5)
-    p_ms = cuda_ms(lambda: fk.tokenize_hash_reference(cls_main), 20, 2)
-    fb_ms = cuda_ms(lambda: fk.featurize_bytes(staged_main, stop,
-                                               spec=dfeat.spec), 50, 5)
+    def packed_call():
+        before = fk.featurize_bytes.launches
+        out = fk.featurize_bytes(staged_main, stop, spec=spec)
+        if fk.featurize_bytes.launches != before + 1:
+            raise AssertionError("featurize_bytes did not launch its kernel "
+                                 "exactly once")
+        return out
+
+    def stream_call():
+        return fk.tokenize_hash(cls_main)
+
+    # the two entries in turns (packed, stream, stream, packed), beside the
+    # first kernel's recorded time
+    fb_ms = cuda_ms(packed_call, 50, 5)
+    k_ms = cuda_ms(stream_call, 50, 5)
+    k_ms = statistics.median([k_ms, cuda_ms(stream_call, 50, 5)])
+    fb_ms = statistics.median([fb_ms, cuda_ms(packed_call, 50, 5)])
+    fb_dev = kernel_device_ms(packed_call, ("packed_kernel",), 20)
+    k_dev = kernel_device_ms(stream_call, ("stream_kernel",), 20)
+    p_ms = cuda_ms(lambda: fk.tokenize_hash_reference(cls_main), 5, 1)
+    fb_plain_ms = cuda_ms(lambda: fk.featurize_bytes_reference(
+        staged_main, stop, spec=spec), 5, 1)
     rows, cols = cls_main.shape
     nbytes = rows * cols * 4 + 4 * rows * cols * 4 + rows * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = rows * cols * SCAN_OPS_PER_ELEMENT / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    rates = {}
+    # the rows read, the packed planes and unique counts written; the stop
+    # table is probed once a token, not read whole, so it is not counted
+    fb_bytes = staged_main.numel() + rows * 2 * spec.n_slots * 2 + rows * 4
+    fb_bytes_ms = fb_bytes / HBM_BYTES_PER_S * 1e3
+    fb_ops_ms = rows * cols * SCAN_OPS_PER_ELEMENT / FP32_OPS_PER_S * 1e3
+    fb_bound_ms = max(fb_bytes_ms, fb_ops_ms)
+    rates, idle = {}, {}
     for name, p in pipes.items():
         p.predict(texts[:BATCH])
         reps = []
@@ -1220,6 +1409,9 @@ def main(argv=None) -> int:
             p.predict(texts)
             reps.append(time.perf_counter() - t0)
         rates[name] = len(texts) / statistics.median(reps)
+        busy_ms = sum(us for _, us, _ in device_breakdown(
+            lambda: p.predict(texts), reps=1)) / 1e3
+        idle[name] = 1 - busy_ms / (statistics.median(reps) * 1e3)
     broker2, items2, _, _ = load_broker(4096, args.seed + 6)
     engine2 = StreamingClassifier(pipe, broker2.consumer(["in"], "g"),
                                   broker2.producer(), "out", batch_size=BATCH,
@@ -1227,21 +1419,31 @@ def main(argv=None) -> int:
     stats2 = engine2.run(max_messages=len(items2), idle_timeout=5.0)
     msgs_s = stats2.msgs_per_sec
     print(f"[engine] {card}: stats {json.dumps(stats2.as_dict())}")
-    print(f"[time] {card}: scan kernel ({rows}, {cols}) {k_ms:.4f} ms; plain "
-          f"version {p_ms:.2f} ms; bound {bound_ms * 1e3:.2f} us "
-          f"({nbytes / 1e6:.2f} MB moved); featurize_bytes {fb_ms:.4f} ms")
+    print(f"[time] {card}: featurize_packed ({rows}, {WIDTH + 4}) -> "
+          f"({rows}, 2, {spec.n_slots}): events {fb_ms:.4f} ms, device "
+          f"{fb_dev:.4f} ms; plain version {fb_plain_ms:.2f} ms; bound "
+          f"{fb_bound_ms * 1e3:.3f} us ({fb_bytes / 1e6:.3f} MB moved, "
+          f"{'bytes' if fb_bytes_ms >= fb_ops_ms else 'operations'})")
+    print(f"[time] {card}: stream entry ({rows}, {cols}): events {k_ms:.4f} "
+          f"ms, device {k_dev:.4f} ms; plain version {p_ms:.2f} ms; bound "
+          f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB moved); first "
+          f"kernel (one thread per row) {FIRST_SCAN_MS} ms as recorded")
     print(f"[time] {card}: pipeline rows/s at batch {BATCH}: "
-          + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
+          + ", ".join(f"{k} {v:.0f} (device idle {100 * idle[k]:.0f}%)"
+                      for k, v in rates.items())
           + f"; engine msgs/s {msgs_s:.0f}")
-    print("[time] library_ms: none — no single PyTorch call computes the scan")
-    breakdown = device_breakdown(lambda: fk.featurize_bytes(
-        staged_main, stop, spec=dfeat.spec))
-    busy = sum(us for _, us, _ in breakdown)
-    print(f"[trace] {card}: featurize_bytes device busy {busy:.1f} us/call of "
-          f"{fb_ms * 1e3:.1f} us; {sum(n for *_, n in breakdown):.0f} device "
-          f"ops/call")
+    print("[time] library_ms: none — no single PyTorch call computes the "
+          "featurize program or the scan")
+    breakdown = device_breakdown(packed_call)
+    fb_kernels = sorted({name for name, _, _ in breakdown})
+    print(f"[trace] {card}: featurize_bytes device ops: {fb_kernels} "
+          f"(device {fb_dev * 1e3:.1f} us a launch of {fb_ms * 1e3:.1f} us "
+          "events around the call)")
     for name, us, n in breakdown[:8]:
-        print(f"[trace]   {us:9.1f} us/call  x{n:.0f}  {name[:90]}")
+        print(f"[trace]   {us:9.1f} us/call  x{n:.1f}  {name[:90]}")
+    if len(fb_kernels) != 1 or "packed_kernel" not in fb_kernels[0]:
+        raise AssertionError(f"featurize_bytes ran {fb_kernels}, want the "
+                             "one featurize_packed kernel")
 
     # tree kernels: kernel (uint8 bins, the main path's, and int32 bins),
     # plain version, library call, bound, per shape, beside the first
@@ -1501,20 +1703,38 @@ def main(argv=None) -> int:
     # kernel's launches on the main path)
     main_h, main_g = tree_times["cli_xgb"], gain_times["cli_xgb"]
     print(json.dumps({"kernels": [{
+        "name": "featurize_packed",
+        "route": "cuda",
+        "source": "fraud_detection_tpu_torch/ops/csrc/featurize_scan.cu",
+        "replaces": "fraud_detection_tpu/ops/featurize_kernel.py:266 and :488",
+        "launches": launches,
+        "max_abs_err": packed_err,
+        "matched": True,
+        "ms": fb_ms,
+        "device_ms": fb_dev,
+        "plain_ms": fb_plain_ms,
+        "bound_ms": fb_bound_ms,
+        "bound_by": "bytes" if fb_bytes_ms >= fb_ops_ms else "operations",
+        "library_ms": None,
+        "shape": [rows, WIDTH + 4],
+        "trace_kernels": fb_kernels,
+        "card": card,
+    }, {
         "name": "featurize_scan",
         "route": "cuda",
         "source": "fraud_detection_tpu_torch/ops/csrc/featurize_scan.cu",
         "replaces": "fraud_detection_tpu/ops/featurize_kernel.py:266",
-        "launches": launches,
+        "launches": scan_launches,
         "max_abs_err": max_err,
         "matched": True,
         "ms": k_ms,
+        "device_ms": k_dev,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
         "shape": [rows, cols],
-        "featurize_bytes_ms": fb_ms,
+        "main_path": "tokenize_hash over phase 4's texts, one call a chunk",
         "card": card,
     }, {
         "name": "histogram",
@@ -1592,7 +1812,9 @@ def main(argv=None) -> int:
                          "bf16_T8192": simt_times[8192]},
         "main_path": "phase 11: the 2-layer f32 forward at T=600",
         "card": card,
-    }], "fit_walls_s": {"cli": cli_walls, "bench": bench_walls},
+    }], "serving": {"pipeline_rows_per_s": rates, "device_idle": idle,
+                    "engine_msgs_per_s": msgs_s},
+        "fit_walls_s": {"cli": cli_walls, "bench": bench_walls},
         "tree_kernels_ms_per_cli_fit": per_fit,
         "llm": {"prefill": pre, "card_vs_cpu": cvc, "generate": gen,
                 "explained_stream": expl}}))

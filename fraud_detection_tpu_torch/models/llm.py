@@ -34,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fraud_detection_tpu_torch.ops.attention import flash_attention
+from fraud_detection_tpu_torch.utils import threefry
 from fraud_detection_tpu_torch.utils.device import resolve_device
 
 
@@ -406,52 +407,25 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 # generation
 # ---------------------------------------------------------------------------
 
-_MASK32 = 0xFFFFFFFF
-
-
-def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
-    """(a * b) mod 2^32 for int64 tensors a in [0, 2^32), without int64
-    overflow: the product is split at a's 16-bit halves."""
-    lo = (a & 0xFFFF) * b
-    hi = (((a >> 16) * b) & 0xFFFF) << 16
-    return (lo + hi) & _MASK32
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """The lowbias32 integer finalizer on an int64 tensor of 32-bit
-    values."""
-    x = x & _MASK32
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def _gumbel_noise(seed: int, step: int, rows: int, vocab: int,
-                  device) -> torch.Tensor:
-    """(rows, vocab) f32 Gumbel noise from a counter-based hash of (seed,
-    step, row, token id): row r's draws depend on nothing else, so they do
-    not change with the batch around it."""
-    base = _mix32(torch.tensor(seed & _MASK32, device=device)) ^ step
-    row_h = _mix32(torch.arange(rows, dtype=torch.int64, device=device)
-                   ^ _mix32(base))
-    h = _mix32(torch.arange(vocab, dtype=torch.int64, device=device)[None, :]
-               ^ row_h[:, None])
-    u = (h.double() + 0.5) / 2.0 ** 32                       # (0, 1)
-    return (-torch.log(-torch.log(u))).float()
-
-
 def _sample_token(temperature: float, logits: torch.Tensor, seed: int,
                   step: int) -> torch.Tensor:
     """Greedy at or below the temperature epsilon (argmax returns the first
-    maximum, as ``jnp.argmax``), else Gumbel-max sampling of
-    logits / temperature with ``_gumbel_noise``. (B, V) -> (B,) int64."""
+    maximum, as ``jnp.argmax``), else the reference's draw: row ``r`` at
+    ``step`` is ``categorical(fold_in(fold_in(PRNGKey(seed), step), r),
+    logits_r / T)``, the Gumbel-max of JAX's threefry noise in the logits'
+    dtype, so a row's token depends only on (seed, step, row).
+    (B, V) -> (B,) int64."""
     if temperature <= 1e-6:
         return logits.argmax(dim=-1)
-    noise = _gumbel_noise(seed, step, logits.shape[0], logits.shape[1],
-                          logits.device)
-    return (logits / temperature + noise).argmax(dim=-1)
+    dev = logits.device
+    step_key = threefry.fold_in(threefry.prng_key(seed, dev), step)
+    row_keys = threefry.fold_in(step_key, torch.arange(logits.shape[0],
+                                                       device=dev))
+    # a 0-dim tensor on the logits' device, so the division rounds as JAX's
+    # does (a Python scalar divisor may become a multiply by its reciprocal)
+    t = torch.tensor(max(temperature, 1e-6), dtype=logits.dtype, device=dev)
+    noise = threefry.gumbel(row_keys, (logits.shape[1],), logits.dtype)
+    return (noise + logits / t).argmax(dim=-1)
 
 
 @torch.inference_mode()

@@ -31,12 +31,14 @@ both devices (the f32 histogram's plain version adds in the kernel's order,
 node totals add bin by bin, the boosting sigmoid rounds once from f64), so
 a card fit equals a CPU fit, boosting included.
 
-**Random draws.** JAX's threefry streams cannot be reproduced in torch, so
-drawing is split from building: ``_build_forest_chunk`` takes bootstrap
-weights (T, N) and per-level feature masks as tensors, and
-``fit_random_forest`` draws them from one ``torch.Generator`` on the CPU,
-seeded from (seed, chunk start), then moves them to the device. A forest is
-therefore the same on the CPU and on the card.
+**Random draws.** A forest draws what the JAX package draws, from JAX's
+threefry streams (``utils/threefry.py``): chunk ``start``'s key is
+``fold_in(PRNGKey(seed), start)``, split into a weight key and a mask key;
+the Poisson(1) weights run over the rows padded to the reference's
+256-row tile and are cut to N, and each level's Bernoulli feature masks
+come from its own key of ``split(mask_key, T * (depth + 1))``. The draws
+run on the fit's device with tensor ops, bit-equal on the CPU and on the
+card, so a seed gives the JAX package's forest on either.
 
 The contractions the JAX package runs at ``Precision.HIGHEST`` outside the
 kernels (node and child totals, the bin prefix of ``_select_splits``) and
@@ -48,7 +50,6 @@ no lane tiling).
 
 from __future__ import annotations
 
-import hashlib
 import math
 from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple
@@ -60,6 +61,7 @@ from fraud_detection_tpu_torch import convert
 from fraud_detection_tpu_torch.models.trees import TreeEnsemble
 from fraud_detection_tpu_torch.ops.histogram import (
     best_splits, node_feature_bin_histogram, node_feature_bin_histogram_multi)
+from fraud_detection_tpu_torch.utils import threefry
 from fraud_detection_tpu_torch.utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
@@ -166,14 +168,14 @@ def _xgb_gain(left: torch.Tensor, total: torch.Tensor, lam: float,
     return torch.where(valid, gain, torch.full_like(gain, float("-inf")))
 
 
-def _feature_mask(gen: torch.Generator, t: int, width: int, f: int
-                  ) -> torch.Tensor:
+def _feature_mask(keys: torch.Tensor, width: int, f: int) -> torch.Tensor:
     """Per-node Bernoulli feature subsets (expected size sqrt(F)) for a
-    chunk of T trees: (T, width, f) bool, drawn on the CPU from ``gen``. A
-    node that drew an empty subset (probability ~(1-p)^F) considers all
+    chunk of T trees, each tree from its own key ``keys`` (T, 2): (T, width,
+    f) bool, the reference's ``_feature_mask`` over the true feature count.
+    A node that drew an empty subset (probability ~(1-p)^F) considers all
     features."""
-    p_keep = torch.sqrt(torch.tensor(float(f), dtype=torch.float32)) / f
-    mask = torch.rand((t, width, f), generator=gen) < p_keep
+    p_keep = np.sqrt(np.float32(f)) / np.float32(f)     # rounded in float32
+    mask = threefry.bernoulli(keys, p_keep, (width, f))
     empty = ~mask.any(dim=2)
     return mask | empty[:, :, None]
 
@@ -434,24 +436,30 @@ def _poisson1(u: torch.Tensor) -> torch.Tensor:
     return (u[..., None] > cdf).sum(dim=-1).to(torch.float32)
 
 
-def _chunk_generator(seed: int, start: int) -> torch.Generator:
-    """The CPU generator of the forest chunk that starts at tree ``start``:
-    a pure function of (seed, start), so chunk draws do not depend on the
-    device or on the chunks before."""
-    digest = hashlib.sha256(f"forest:{seed}:{start}".encode()).digest()
-    return torch.Generator(device="cpu").manual_seed(
-        int.from_bytes(digest[:8], "little") & ((1 << 63) - 1))
+#: The reference pads a fit's rows to its histogram's row tile before the
+#: bootstrap draw (``fraud_detection_tpu/ops/histogram.py`` ``ROW_TILE``), so
+#: the weight stream runs over that many rows.
+_BOOTSTRAP_ROW_TILE = 256
 
 
 def draw_forest_chunk(seed: int, start: int, tree_chunk: int, n: int, f: int,
-                      max_depth: int, feature_subset: bool = True):
+                      max_depth: int, feature_subset: bool = True,
+                      device="cpu"):
     """Bootstrap weights (T, N) f32 and per-level feature masks
-    [(T, 2**level, F) bool for level < max_depth] (or None) of one chunk,
-    drawn on the CPU."""
-    gen = _chunk_generator(seed, start)
-    weights = _poisson1(torch.rand((tree_chunk, n), generator=gen))
-    masks = ([_feature_mask(gen, tree_chunk, 2 ** level, f)
-              for level in range(max_depth)] if feature_subset else None)
+    [(T, 2**level, F) bool for level < max_depth] (or None) of the chunk
+    that starts at tree ``start``: the JAX package's draws for it, made on
+    ``device``."""
+    key = threefry.fold_in(threefry.prng_key(seed, device), start)
+    wkey, mkey = threefry.split(key)
+    n_padded = -(-n // _BOOTSTRAP_ROW_TILE) * _BOOTSTRAP_ROW_TILE
+    weights = _poisson1(threefry.uniform(wkey, (tree_chunk, n_padded)))
+    weights = weights[:, :n].contiguous()      # the histogram kernel's layout
+    if not feature_subset:
+        return weights, None
+    keys = threefry.split(mkey, tree_chunk * (max_depth + 1)).reshape(
+        tree_chunk, max_depth + 1, 2)
+    masks = [_feature_mask(keys[:, level], 2 ** level, f)
+             for level in range(max_depth)]
     return weights, masks
 
 
@@ -548,10 +556,10 @@ def fit_random_forest(X, y, *, n_trees: int = 100, num_classes: int = 2,
     subset — the JAX package's documented deviation, kept).
 
     Trees are built ``tree_chunk`` at a time (default
-    ``resolve_tree_chunk``); each chunk's draws come from the CPU generator
-    of (seed, chunk start). A ragged last chunk is drawn and built in full
-    and its extra trees dropped, so a forest's first trees do not depend on
-    ``n_trees``."""
+    ``resolve_tree_chunk``); each chunk draws the JAX package's bootstrap
+    weights and masks for (seed, chunk start). A ragged last chunk is drawn
+    and built in full and its extra trees dropped, so a forest's first
+    trees do not depend on ``n_trees``."""
     dev = resolve_device(device)
     cfg = config or TreeTrainConfig()
     if tree_chunk is None:
@@ -563,9 +571,7 @@ def fit_random_forest(X, y, *, n_trees: int = 100, num_classes: int = 2,
     for start in range(0, n_trees, tree_chunk):
         need = min(tree_chunk, n_trees - start)
         weights, masks = draw_forest_chunk(seed, start, tree_chunk, n, f,
-                                           cfg.max_depth, feature_subset)
-        weights = weights.to(dev)
-        masks = None if masks is None else [m.to(dev) for m in masks]
+                                           cfg.max_depth, feature_subset, dev)
         out = _build_forest_chunk(bins, stats, weights, masks, cfg)
         parts.append(tuple(a[:need] for a in out))
     cat = [torch.cat(p, dim=0) for p in zip(*parts)]

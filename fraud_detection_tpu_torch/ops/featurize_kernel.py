@@ -3,18 +3,22 @@ staging layout out — twin of ``fraud_detection_tpu/ops/featurize_kernel.py``.
 
 The host ships a fixed-width ``(B, W+4)`` uint8 staging tensor (each
 dialogue's UTF-8 bytes plus its length) and the device reproduces the exact
-Spark-parity pipeline:
+Spark-parity pipeline. ``featurize_bytes`` on a CUDA tensor launches ONE
+hand-written kernel, ``featurize_packed`` in ``ops/csrc/featurize_scan.cu``,
+which does all of it (``featurize_bytes.launches`` counts the launches); on
+a CPU tensor it runs the plain torch version ``featurize_bytes_reference``,
+the composition of the steps below. There is no fallback from one to the
+other: a kernel that fails to build or launch raises.
 
-  * **clean_text** as byte classing (``byte_classes``, torch ops): ASCII
-    A-Z lowercases, a-z and space keep, everything else strips — except the
+  * **clean_text** as byte classing (``byte_classes``): ASCII A-Z
+    lowercases, a-z and space keep, everything else strips — except the
     two codepoints whose ``str.lower()`` lands in ``[a-z ]`` (SPECIAL_LOWER).
-  * **tokenize + murmur3 + identity pack** (``tokenize_hash``): one
-    sequential pass over each row's classes. On a CUDA tensor this launches
-    the hand-written kernel ``ops/csrc/featurize_scan.cu``; on a CPU tensor
-    it runs ``tokenize_hash_reference``, the plain torch version (a loop over
-    columns, vectorized over rows). There is no fallback from one to the
-    other: a kernel that fails to build or launch raises.
-  * **stop words, count, pack** (``assemble_packed``, torch ops): an exact
+  * **tokenize + murmur3 + identity pack** (``tokenize_hash``): the token
+    streams of each row's classes, the reference ``tokenize_hash``'s
+    contract. A CUDA tensor launches the kernel's second entry,
+    ``featurize_scan`` (``tokenize_hash.launches``); a CPU tensor runs
+    ``tokenize_hash_reference`` (a loop over columns, vectorized over rows).
+  * **stop words, count, pack** (``assemble_packed``): an exact
     direct-mapped stop-table probe, bucket = nonNegativeMod(hash, F),
     per-row unique-bucket counts via sort + segment-sum, the host truncation
     rule past ``n_slots`` (top counts, ties to the lower bucket id), and the
@@ -31,7 +35,8 @@ import numpy as np
 import torch
 
 from fraud_detection_tpu_torch.featurize.hashing import (
-    SPARK_HASHING_TF_SEED, murmur3_x86_32, murmur3_x86_32_legacy_tail)
+    SPARK_HASHING_TF_SEED, murmur3_x86_32, murmur3_x86_32_legacy_tail,
+    spark_hash_bucket)
 
 # Character classes produced by byte_classes: 1..26 = 'a'..'z', the rest
 # as named below. Everything stripped by clean_text is NOP.
@@ -150,9 +155,9 @@ def tokenize_hash(classes: torch.Tensor, *, legacy: bool = False
 
     Returns per-position streams ``(h_raw, w0, w1, tok_len)`` — each (B, C)
     int32, ``tok_len`` is -1 where no token ends — plus the per-row count of
-    confirmed empty tokens (B, 1). A CUDA tensor launches the CUDA kernel
-    (``tokenize_hash.launches`` counts the launches); a CPU tensor runs the
-    plain torch version."""
+    confirmed empty tokens (B, 1). A CUDA tensor launches the kernel's
+    ``featurize_scan`` entry (``tokenize_hash.launches`` counts the
+    launches); a CPU tensor runs the plain torch version."""
     if classes.device.type == "cpu":
         return tokenize_hash_reference(classes, legacy=legacy)
     if classes.device.type != "cuda":
@@ -162,16 +167,27 @@ def tokenize_hash(classes: torch.Tensor, *, legacy: bool = False
 
 tokenize_hash.launches = 0
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# the C signatures of featurize_scan.cu's two entry points, in order
+_PACKED_ARGTYPES = [_PTR, _PTR, _INT, _PTR, _PTR] + [_INT] * 8 + [_PTR]
+_SCAN_ARGTYPES = [_PTR] * 6 + [_INT] * 3 + [_PTR]
+
 
 @lru_cache(maxsize=None)
 def _scan_lib() -> ctypes.CDLL:
     from fraud_detection_tpu_torch.ops import _build
 
     lib = _build.load("featurize_scan")
-    fn = lib.featurize_scan
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn, argtypes in ((lib.featurize_packed, _PACKED_ARGTYPES),
+                         (lib.featurize_scan, _SCAN_ARGTYPES)):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _check_rc(rc: int, entry: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
 
 
 def _tokenize_hash_cuda(classes: torch.Tensor, legacy: bool):
@@ -190,10 +206,9 @@ def _tokenize_hash_cuda(classes: torch.Tensor, legacy: bool):
         return h, w0, w1, tl, emp
     fn = _scan_lib().featurize_scan
     stream = torch.cuda.current_stream(classes.device).cuda_stream
-    rc = fn(classes.data_ptr(), h.data_ptr(), w0.data_ptr(), w1.data_ptr(),
-            tl.data_ptr(), emp.data_ptr(), rows, cols, int(legacy), stream)
-    if rc != 0:
-        raise RuntimeError(f"featurize_scan launch failed: cudaError {rc}")
+    _check_rc(fn(classes.data_ptr(), h.data_ptr(), w0.data_ptr(),
+                 w1.data_ptr(), tl.data_ptr(), emp.data_ptr(), rows, cols,
+                 int(legacy), stream), "featurize_scan")
     tokenize_hash.launches += 1
     return h, w0, w1, tl, emp
 
@@ -353,9 +368,10 @@ def build_stop_table(words) -> Optional[Tuple[np.ndarray, bool]]:
 def assemble_packed(h_raw, w0, w1, tok_len, empty_cnt, stop_table,
                     *, spec: FeaturizeSpec
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token streams -> (packed (B, 2, n_slots) int16, per-row unique-bucket
-    count before truncation). Ids ascend with zero padding; counts ride as
-    uint16 bits in the int16 plane — exactly ``_pack_encoded``'s layout."""
+    """Token streams -> (packed (B, 2, n_slots) int16, per-row (B,) int32
+    unique-bucket count before truncation). Ids ascend with zero padding;
+    counts ride as uint16 bits in the int16 plane — exactly
+    ``_pack_encoded``'s layout."""
     b, n = h_raw.shape
     f = spec.num_features
     dev = h_raw.device
@@ -393,7 +409,7 @@ def assemble_packed(h_raw, w0, w1, tok_len, empty_cnt, stop_table,
                                         include_self=True)
     valid = (ids < f) & (counts > 0)
     counts = torch.where(valid, counts, 0)
-    n_unique = valid.sum(dim=1)
+    n_unique = valid.sum(dim=1, dtype=torch.int32)
 
     # Host truncation rule: keep the top-count buckets, ties toward the
     # LOWER bucket id — ids ascend here, so a stable sort on -count is it.
@@ -434,11 +450,67 @@ def split_staged(staged: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def featurize_bytes(staged: torch.Tensor, stop_table: torch.Tensor, *,
                     spec: FeaturizeSpec) -> Tuple[torch.Tensor, torch.Tensor]:
     """The full device featurize program: (B, W+4) uint8 staging tensor ->
-    (packed (B, 2, n_slots) int16, per-row unique count)."""
+    (packed (B, 2, n_slots) int16, (B,) int32 unique count). A CUDA tensor
+    launches the ``featurize_packed`` kernel once (counted in
+    ``featurize_bytes.launches``); a CPU tensor runs the plain version."""
+    if staged.device.type == "cpu":
+        return featurize_bytes_reference(staged, stop_table, spec=spec)
+    if staged.device.type != "cuda":
+        raise ValueError(
+            f"featurize_bytes: unsupported device {staged.device}")
+    return _featurize_packed_cuda(staged, stop_table, spec)
+
+
+featurize_bytes.launches = 0
+
+
+def featurize_bytes_reference(staged: torch.Tensor, stop_table: torch.Tensor,
+                              *, spec: FeaturizeSpec
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of ``featurize_packed``: split, byte classes, the
+    scan's plain version, count and pack."""
     byts, lengths = split_staged(staged)
     classes = byte_classes(byts, lengths)
-    h, w0, w1, tl, emp = tokenize_hash(classes, legacy=spec.legacy)
+    h, w0, w1, tl, emp = tokenize_hash_reference(classes, legacy=spec.legacy)
     return assemble_packed(h, w0, w1, tl, emp, stop_table, spec=spec)
+
+
+def _featurize_packed_cuda(staged: torch.Tensor, stop_table: torch.Tensor,
+                           spec: FeaturizeSpec):
+    if staged.dtype != torch.uint8 or staged.dim() != 2 or staged.shape[1] < 5:
+        raise ValueError(f"featurize_packed takes a (B, W+4) uint8 staging "
+                         f"tensor, got {tuple(staged.shape)} {staged.dtype}")
+    size = stop_table.shape[0] if stop_table.dim() == 2 else 0
+    if (stop_table.dtype != torch.int32 or stop_table.dim() != 2
+            or stop_table.shape[1] != 3 or size < 1 or size & (size - 1)):
+        raise ValueError(f"featurize_packed takes a (2**k, 3) int32 stop "
+                         f"table, got {tuple(stop_table.shape)} "
+                         f"{stop_table.dtype}")
+    if stop_table.device != staged.device:
+        raise ValueError("the stop table is not on the staging tensor's "
+                         "device")
+    if not (staged.is_contiguous() and stop_table.is_contiguous()):
+        raise ValueError("featurize_packed takes contiguous tensors")
+    if not 1 <= spec.num_features <= np.iinfo(np.int16).max:
+        raise ValueError(f"num_features={spec.num_features}: the packed ids "
+                         "are int16")
+    if spec.n_slots < 1 or not 0 <= spec.empty_bucket < spec.num_features:
+        raise ValueError(f"bad spec {spec}")
+    rows, width = staged.shape[0], staged.shape[1] - 4
+    packed = torch.empty((rows, 2, spec.n_slots), dtype=torch.int16,
+                         device=staged.device)
+    n_unique = torch.empty((rows,), dtype=torch.int32, device=staged.device)
+    if rows == 0:
+        return packed, n_unique
+    fn = _scan_lib().featurize_packed
+    stream = torch.cuda.current_stream(staged.device).cuda_stream
+    _check_rc(fn(staged.data_ptr(), stop_table.data_ptr(), size,
+                 packed.data_ptr(), n_unique.data_ptr(), rows, width,
+                 spec.num_features, spec.n_slots, int(spec.binary),
+                 int(spec.legacy), spec.empty_bucket, int(spec.empty_is_stop),
+                 stream), "featurize_packed")
+    featurize_bytes.launches += 1
+    return packed, n_unique
 
 
 # ---------------------------------------------------------------------------
@@ -446,10 +518,14 @@ def featurize_bytes(staged: torch.Tensor, stop_table: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 # Cleaned [a-z ]* rows for the self-test: words straddling the murmur word
-# size and the pack width, interior/leading/trailing empty fields, and the
-# all-empty row ("" -> [""]).
+# size and the pack width, interior/leading/trailing empty fields, the
+# empty row ("" -> [""]), a row of spaces (no tokens), a stop word, and a
+# row with more unique buckets than the packed self-test's slots, its
+# counts tied at the cut.
 _SELF_TEST_TEXTS = ("ab cde fghi", " lead  interior x", "trail   ",
-                    "abcdefghijklm n", "")
+                    "abcdefghijklm n", "", "   ", "stop ab stop  cd",
+                    "q r s t u v q r s w q x")
+_SELF_TEST_STOP = ("stop",)
 
 
 def expected_scan(text: str, legacy: bool, cols: int):
@@ -462,10 +538,8 @@ def expected_scan(text: str, legacy: bool, cols: int):
     w1 = [0] * cols
     tl = [-1] * cols
     hash_fn = murmur3_x86_32_legacy_tail if legacy else murmur3_x86_32
-    fields = text.split(" ")
-    while fields and fields[-1] == "":
-        fields.pop()                  # Java split drops trailing empties
-    emp = 1 if text == "" else sum(1 for f in fields if f == "")
+    fields = _java_split(text)
+    emp = sum(1 for f in fields if f == "")
     pos = 0
     for field in fields:
         end = pos + len(field)        # the space (or CLS_END) closing it
@@ -477,22 +551,56 @@ def expected_scan(text: str, legacy: bool, cols: int):
     return h, w0, w1, tl, emp
 
 
+def _java_split(text: str):
+    """Spark's tokens of a cleaned row: Java's split, "" -> [""]."""
+    if text == "":
+        return [""]
+    fields = text.split(" ")
+    while fields and fields[-1] == "":
+        fields.pop()                  # Java split drops trailing empties
+    return fields
+
+
+def expected_packed(text: str, spec: FeaturizeSpec, stop_words):
+    """Host-computed packed (2, n_slots) row and unique count for one
+    cleaned row: the Java-split tokens less the stop words, Spark's bucket
+    of each, counts per bucket, the top ``n_slots`` counts (ties to the
+    lower id) in id order, counts clamped for ``binary``."""
+    counts = {}
+    for tok in _java_split(text):
+        if tok in stop_words:
+            continue
+        b = spark_hash_bucket(tok, spec.num_features, spec.legacy)
+        counts[b] = counts.get(b, 0) + 1
+    keep = sorted(sorted(counts), key=lambda b: -counts[b])[: spec.n_slots]
+    out = np.zeros((2, spec.n_slots), np.int64)
+    for i, b in enumerate(sorted(keep)):
+        out[0, i] = b
+        out[1, i] = min(counts[b], 1) if spec.binary else counts[b]
+    return out, len(counts)
+
+
+def _self_test_rows(dev):
+    """The self-test texts and a padding row, staged at a width 3 past the
+    longest."""
+    from fraud_detection_tpu_torch.featurize.device import pack_staged
+
+    width = max(len(t) for t in _SELF_TEST_TEXTS) + 3
+    staged, _ = pack_staged(list(_SELF_TEST_TEXTS), width,
+                            len(_SELF_TEST_TEXTS) + 1)
+    return torch.from_numpy(staged).to(dev)
+
+
 @lru_cache(maxsize=None)
 def kernel_self_test(device) -> bool:
-    """Build the scan kernel and launch it on ``device`` (a CUDA device) over
-    a tiny input whose answer is reckoned on the host (``expected_scan``),
-    in both hash modes; raises on any mismatch. Cached per device."""
+    """Build the featurize kernel and launch both of its entries on
+    ``device`` over tiny inputs whose answers are reckoned on the host
+    (``expected_scan``, ``expected_packed``), in both hash modes and with
+    ``binary`` off and on; raises on any mismatch. Cached per device."""
     dev = torch.device(device)
+    staged = _self_test_rows(dev)
     texts = list(_SELF_TEST_TEXTS) + [None]          # None: a padding row
-    width = max(len(t) for t in _SELF_TEST_TEXTS) + 3
-    byts = np.zeros((len(texts), width), np.uint8)
-    lengths = np.full(len(texts), -1, np.int32)
-    for i, t in enumerate(texts):
-        if t is not None:
-            byts[i, : len(t)] = np.frombuffer(t.encode(), np.uint8)
-            lengths[i] = len(t)
-    classes = byte_classes(torch.from_numpy(byts).to(dev),
-                           torch.from_numpy(lengths).to(dev))
+    classes = byte_classes(*split_staged(staged))
     cols = classes.shape[1]
     for legacy in (False, True):
         got = [x.cpu().numpy() for x in tokenize_hash(classes, legacy=legacy)]
@@ -509,4 +617,29 @@ def kernel_self_test(device) -> bool:
                 raise RuntimeError(
                     f"featurize_scan self-test: empty count of row {t!r} "
                     f"(legacy={legacy}) is {int(got[4][r, 0])}, want {want[4]}")
+        for binary in (False, True):
+            spec = _self_test_spec(legacy, binary)
+            table, _ = build_stop_table(_SELF_TEST_STOP)
+            packed, n_unique = featurize_bytes(
+                staged, torch.from_numpy(table).to(dev), spec=spec)
+            packed, n_unique = packed.cpu().numpy(), n_unique.cpu().numpy()
+            for r, t in enumerate(texts):
+                want, want_n = ((np.zeros((2, spec.n_slots), np.int64), 0)
+                                if t is None else
+                                expected_packed(t, spec, _SELF_TEST_STOP))
+                if (packed[r].astype(np.int64).tolist() != want.tolist()
+                        or int(n_unique[r]) != want_n):
+                    raise RuntimeError(
+                        f"featurize_packed self-test: row {t!r} (legacy="
+                        f"{legacy}, binary={binary}) is {packed[r].tolist()} "
+                        f"/ {int(n_unique[r])}, want {want.tolist()} / "
+                        f"{want_n}")
     return True
+
+
+def _self_test_spec(legacy: bool, binary: bool) -> FeaturizeSpec:
+    """97 buckets and 5 slots, so the self-test's overflow row overflows."""
+    return FeaturizeSpec(num_features=97, n_slots=5, binary=binary,
+                         legacy=legacy,
+                         empty_bucket=spark_hash_bucket("", 97, legacy),
+                         empty_is_stop=False)

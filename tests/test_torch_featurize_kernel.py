@@ -101,6 +101,55 @@ def test_self_test_reckoning_matches_plain_version(legacy):
     assert tfk.kernel_self_test(torch.device("cpu")) is True
 
 
+def test_featurize_bytes_on_cpu_runs_the_plain_version():
+    _, tfeat = _feat_pair()
+    tdev = DeviceFeaturizer(tfeat, width=48, tokens=8, device="cpu")
+    staged = torch.from_numpy(tdev.pack(ADVERSARIAL[:6], 8)[0])
+    before = tfk.featurize_bytes.launches
+    got = tfk.featurize_bytes(staged, tdev.stop_table(), spec=tdev.spec)
+    want = tfk.featurize_bytes_reference(staged, tdev.stop_table(),
+                                         spec=tdev.spec)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[1].dtype == torch.int32 and got[1].shape == (8,)
+    assert tfk.featurize_bytes.launches == before   # no kernel on the CPU
+
+
+def test_featurize_packed_refuses_what_the_kernel_does_not_take():
+    """The CUDA wrapper's checks run before any launch (here on CPU tensors,
+    so nothing is built)."""
+    _, tfeat = _feat_pair()
+    tdev = DeviceFeaturizer(tfeat, width=32, tokens=8, device="cpu")
+    staged = torch.from_numpy(tdev.pack(["ab"], 2)[0])
+    table = tdev.stop_table()
+    bad = [(staged.to(torch.int32), table, tdev.spec),
+           (staged[:, :4], table, tdev.spec),
+           (staged, table[:-1], tdev.spec),
+           (staged, table.to(torch.int64), tdev.spec),
+           (staged.t(), table, tdev.spec),
+           (staged, table, tdev.spec._replace(num_features=40000)),
+           (staged, table, tdev.spec._replace(n_slots=0))]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tfk._featurize_packed_cuda(*args)
+
+
+def test_ctypes_argtypes_match_the_c_signatures():
+    """A pointer passed where the C entry takes an int (or the reverse) is
+    cut to 32 bits without a word: the argtypes must follow the source."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(tfk.__file__).parent / "csrc" / "featurize_scan.cu").read_text()
+    for name, argtypes in (("featurize_packed", tfk._PACKED_ARGTYPES),
+                           ("featurize_scan", tfk._SCAN_ARGTYPES)):
+        sig = re.search(r'extern "C" int ' + name + r"\((.*?)\)", src,
+                        re.S).group(1)
+        params = [p.strip() for p in sig.split(",")]
+        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+        assert kinds == argtypes, name
+
+
 def test_uint32_arithmetic_matches_numpy():
     rng = np.random.default_rng(0)
     a = rng.integers(0, 1 << 32, size=4096, dtype=np.uint64)

@@ -4,9 +4,9 @@ The same weights (a JAX ``init_params`` draw, carried across with
 ``convert.llm_params_from_arrays``) go through both forwards: f32 logits
 agree within 1e-4 on the materialized path (5e-4, the JAX flash test's
 bound, once the flash or chunked path runs at T=576), and greedy batched
-generation gives EQUAL tokens. Sampled decoding cannot reproduce JAX's
-threefry draws, so its contract (a row's stream depends only on seed, step
-and row) is tested on the port alone.
+generation gives EQUAL tokens, and so does sampled generation: the port
+draws its Gumbel noise from JAX's threefry streams (``utils/threefry.py``)
+at the reference's keys, ``fold_in(fold_in(PRNGKey(seed), step), row)``.
 """
 
 import jax
@@ -163,6 +163,22 @@ def test_greedy_batch_generation_equals_jax(models, name):
     np.testing.assert_array_equal(got, want)
     assert (plm.generate_text_batch(PROMPTS[:3], max_new_tokens=12)
             == jlm.generate_text_batch(PROMPTS[:3], max_new_tokens=12))
+
+
+@pytest.mark.parametrize("temperature", [0.7, 1.0])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sampled_batch_generation_equals_jax(models, temperature, seed):
+    """Sampled tokens equal the JAX decoder's: the same keys and threefry
+    noise, argmax over logits that agree within 1e-4 (a flip would need two
+    perturbed logits that close)."""
+    jlm, plm = models["base"]
+    enc = [jlm.tokenizer.encode(p) for p in PROMPTS[:3]]
+    kw = dict(max_new_tokens=16, temperature=temperature, seed=seed)
+    want = jlm.generate_tokens_batch(enc, **kw)
+    got = plm.generate_tokens_batch(enc, **kw)
+    np.testing.assert_array_equal(got, want)
+    assert (plm.generate_text_batch(PROMPTS[:3], **kw)
+            == jlm.generate_text_batch(PROMPTS[:3], **kw))
 
 
 def test_batched_generation_matches_single(models):

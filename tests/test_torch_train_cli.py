@@ -3,8 +3,9 @@ package on the CPU.
 
 * ``app.train.main(["--device", "cpu", ...])`` writes the JAX CLI's metrics
   schema (``meta.device`` and ``meta.tree_kernels`` in place of the JAX
-  report's ``backend`` and ``use_pallas``), and its dt metrics equal those
-  of the JAX decision tree (kernel path) on the same split, exactly.
+  report's ``backend`` and ``use_pallas``), and its dt and rf metrics equal
+  those of the JAX decision tree and forest (kernel path) on the same
+  split, exactly.
 * A JAX ``save_checkpoint`` loads in the port and the reverse.
 * Dense ``predict`` equals the JAX package's for DT, RF and GBT models.
 """
@@ -63,18 +64,34 @@ def cli_run(tmp_path_factory):
     return json.loads(metrics.read_text()), out / "dt"
 
 
+def _assert_metrics_equal(got_by_split, jmodel, sets):
+    for split, (X, y) in sets.items():
+        pred, p1 = jtrees.predict(jmodel, jnp.asarray(X))
+        want = jevaluate(y, np.asarray(pred), np.asarray(p1))
+        got = got_by_split[split]
+        assert got["confusion"] == want.confusion.tolist()
+        for key, value in want.as_dict().items():
+            assert got[key] == value, (split, key)
+
+
 def test_cli_dt_metrics_equal_jax_kernel_path(cli_run, jax_split):
     report, _ = cli_run
     _, (Xtr, ytr), sets, _ = jax_split
     jdt = jt.fit_decision_tree(Xtr, ytr,
                                config=jt.TreeTrainConfig(use_pallas=True))
-    for split, (X, y) in sets.items():
-        pred, p1 = jtrees.predict(jdt, jnp.asarray(X))
-        want = jevaluate(y, np.asarray(pred), np.asarray(p1))
-        got = report["metrics"]["dt"][split]
-        assert got["confusion"] == want.confusion.tolist()
-        for key, value in want.as_dict().items():
-            assert got[key] == value, (split, key)
+    _assert_metrics_equal(report["metrics"]["dt"], jdt, sets)
+
+
+def test_cli_rf_metrics_equal_jax_kernel_path(cli_run, jax_split):
+    """The CLI's forest (8 trees, the default chunk, seed 42) draws the JAX
+    forest's bootstrap weights and masks, so its metrics are the JAX
+    kernel path's forest's."""
+    report, _ = cli_run
+    _, (Xtr, ytr), sets, _ = jax_split
+    jrf = jt.fit_random_forest(Xtr, ytr, n_trees=8, seed=SEED,
+                               config=jt.TreeTrainConfig(use_pallas=True),
+                               tree_chunk=8)
+    _assert_metrics_equal(report["metrics"]["rf"], jrf, sets)
 
 
 def test_cli_report_has_the_jax_schema(cli_run, tmp_path):

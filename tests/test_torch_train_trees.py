@@ -4,9 +4,11 @@ mode) on the CPU.
 
 * Decision trees: structure, thresholds and leaf stats equal (the port's
   fit on its uint8 bins, the JAX fit on int32 bins).
-* Random forests: the JAX draws (its ``_poisson1`` weights and
-  ``_feature_mask`` masks for the chunk, sliced to the unpadded rows and
-  features) fed to the port's chunk builder give the same forest.
+* Random forests: the port draws the JAX forest's bootstrap weights and
+  feature masks (its threefry streams over its padded shapes, sliced to
+  the real rows and features), and a forest fit end to end equals the JAX
+  one tree for tree. The JAX draws fed to the port's chunk builder give
+  the same forest too, which holds the builder apart from the draws.
 * Gradient boosting on ``test_ops.py``'s separable data: p within rtol 1e-4,
   atol 1e-5 (f32 sums run in another order, so near-tie splits may differ).
 """
@@ -90,6 +92,38 @@ def test_forest_chunk_with_jax_draws_equals_jax(seed, depth):
     out = pt._build_forest_chunk(bins, stats, weights, masks, cfg)
     got = pt._assemble(*out, edges=edges, tree_weights=np.ones(chunk),
                        kind="random_forest", cfg=cfg, device="cpu")
+    _assert_same_trees(want, got)
+
+
+@pytest.mark.parametrize("seed,depth", [(7, 4), (9, 5)])
+def test_forest_draws_equal_jax_draws(seed, depth):
+    n, f, chunk = 300, 200, 6
+    for start in (0, chunk):
+        want_w, want_m = _jax_chunk_draws(seed, start, chunk, n, f, depth)
+        got_w, got_m = pt.draw_forest_chunk(seed, start, chunk, n, f, depth)
+        assert torch.equal(got_w, want_w)
+        # the histogram kernel takes contiguous weights and masks only
+        assert got_w.is_contiguous() and all(m.is_contiguous() for m in got_m)
+        assert len(got_m) == depth
+        for level, (g, w) in enumerate(zip(got_m, want_m)):
+            assert torch.equal(g, w), f"level {level}"
+    # without feature subsets the weights stay the same stream
+    weights, masks = pt.draw_forest_chunk(seed, chunk, chunk, n, f, depth,
+                                          feature_subset=False)
+    assert masks is None and torch.equal(weights, want_w)
+
+
+@pytest.mark.parametrize("seed,depth", [(7, 4), (9, 5)])
+def test_forest_equals_jax_kernel_path(seed, depth):
+    """No draws fed: the port's forest (two chunks, the second ragged) is
+    the JAX kernel path's, tree for tree."""
+    X, y = _tfidf_like(seed=seed)
+    kw = dict(n_trees=7, seed=seed, tree_chunk=4)
+    want = jt.fit_random_forest(
+        X, y, config=jt.TreeTrainConfig(max_depth=depth, use_pallas=True),
+        **kw)
+    got = pt.fit_random_forest(X, y, config=pt.TreeTrainConfig(max_depth=depth),
+                               device="cpu", **kw)
     _assert_same_trees(want, got)
 
 
