@@ -10,7 +10,8 @@ Phases (any failure raises and the script exits non-zero):
 1. the card's name and power limit (nvidia-smi) beside torch's device name;
 2. build every CUDA kernel from ``fraud_detection_tpu_torch/ops/csrc`` into
    ``build/torch_kernels/`` (one nvcc per source, all started together),
-   print each one's ``-Xptxas -v`` report, and run the kernels' self-tests
+   print each one's ``-Xptxas -v`` report, build the native host featurizer
+   with g++ into ``build/native/``, and run the kernels' self-tests
    on hand-reckoned inputs (the histogram's on uint8 and int32 bins, under
    plans that split the pairs into node groups and tree groups and the rows
    into chunks; the featurize kernel's two entries on hand-reckoned rows, an
@@ -43,6 +44,22 @@ Phases (any failure raises and the script exits non-zero):
    launch ``featurize_packed`` once per chunk the card pipelines dispatch
    and never the stream entry, whose own path
    (``tokenize_hash`` over phase 4's texts, a call a chunk) follows;
+5b. the serve CLI's default path (phase 2 built the native host
+   featurizer, ``featurize/native.py``, printing the g++ command; a library
+   that does not build or load fails the run with the compiler's message):
+   the host-featurize pipelines (LR fp32, LR int8, the forest) on the card
+   against the CPU (labels equal, |dp| <= 1e-6) and against phase 4's
+   device-featurize pipelines (labels equal), their raw-JSON path equal to
+   ``predict``; the engine over phase 5's messages on the raw-JSON path
+   with native frames (``_json_fast`` and ``_frames_ok`` True), sync and
+   with the dispatch lane: keys exact, wires byte-identical, labels equal
+   ``predict``; the scheduler's overload case (out + DLQ keys == fed,
+   shed > 0); no ``featurize_packed`` launch in any of it. Then the serve
+   CLI (``app/serve.py main``, ``--demo 4096 --batch-size 1024``) on a
+   checkpoint of the seeded LR that ``save_checkpoint`` writes: host
+   featurize (no ``featurize_packed`` launch, the raw-JSON path and native
+   frames), ``--featurize-device`` (one launch per chunk dispatched) and
+   ``--async-dispatch --int8``: each exits 0 and classifies every message;
 6. the training slice at full width (the CLI's 1,600-dialogue synthetic
    corpus, HashingTF(10000), depth 5, 32 bins), card against CPU: dt and a
    16-tree rf (JAX's threefry draws, made on each device) equal tree for
@@ -52,6 +69,8 @@ Phases (any failure raises and the script exits non-zero):
    (reports/metrics.json),
    and its saved checkpoint served by ``ServingPipeline.from_checkpoint``
    gives the dense ``predict`` labels;
+7b. the serve CLI on that dt checkpoint, host featurize and
+   ``--featurize-device``, with phase 5b's gates;
 8. timings (CUDA events, median of >= 10 after warm-up) of each kernel, its
    plain version and its library call where one exists (both featurize
    entries in turns with their profiler device time, beside the first scan
@@ -59,9 +78,13 @@ Phases (any failure raises and the script exits non-zero):
    four shapes on uint8 and int32 bins, each with its own byte bound, beside
    ``index_add_`` and the first kernel's recorded time; both tree kernels
    at every level width of the CLI's fits, with their device time from the
-   profiler and their sums per xgb100, rf100 and dt fit); pipeline rows/s,
-   engine msgs/s and the fits' walls (CLI shape and bench shape) on the
-   host clock, each pipeline's device idle share; profiler breakdowns of
+   profiler and their sums per xgb100, rf100 and dt fit); pipeline rows/s
+   (device featurize and native host featurize in turns) and the host
+   encode alone, engine msgs/s (raw JSON with native frames, the slow
+   path, device featurize, the dispatch lane; in turns), the serve CLI's
+   msgs/s and the fits' walls (CLI shape and bench shape) on the host
+   clock, each pipeline's and engine run's device idle share (device time
+   over the wall of the same profiled call); profiler breakdowns of
    ``featurize_bytes`` (one launch a call, and the one kernel in its
    trace) and of a DT fit;
 9. the flash-attention kernels against their plain version: the sm90
@@ -100,7 +123,8 @@ Phases (any failure raises and the script exits non-zero):
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main path (serving: phases 4-5;
-the stream entry: the pass after phase 5;
+the stream entry: the pass after phase 5; ``featurize_packed`` again
+before phase 5b's host pipelines and before each serve CLI run;
 training: phase 7, the CLI; the LLM prefill: one T=2048 forward in phase
 10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
 flash kernel) and read just after it. It imports nothing of JAX or of
@@ -144,6 +168,7 @@ ADVERSARIAL = [
 FUZZ_ALPHABET = list("abcXYZ  \t\n0!-'") + ["İ", "K", "ß", "é", "🚀"]
 
 WIDTH, TOKENS, BATCH, FEATURES = 2048, 256, 256, 10000
+SERVE_DEMO = 4096   # messages a serve CLI run classifies (--demo)
 KERNELS = ("featurize_scan", "histogram", "best_splits", "flash_attention",
            "flash_attention_sm90")
 ROOT = Path(__file__).resolve().parent
@@ -1113,6 +1138,262 @@ def explained_stream(lm, dev, ckpt: Path, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serve CLI's default path: native host featurize, raw JSON, C++ frames
+# ---------------------------------------------------------------------------
+
+def build_native() -> dict:
+    """Build and load the port's native host featurizer; fail with the
+    compiler's message when it does not load (the card run must not serve
+    the pure-Python encode by default)."""
+    from fraud_detection_tpu_torch.featurize import native
+
+    t0 = time.perf_counter()
+    if native.load_library() is None:
+        raise AssertionError("the native featurizer did not build or load: "
+                             f"{' '.join(native.build_command or [])}\n"
+                             f"{native.build_error}")
+    secs = time.perf_counter() - t0
+    print(f"[native] {' '.join(native.build_command)} ({secs:.2f} s, "
+          f"library {native.library_path()})")
+    return dict(command=native.build_command, seconds=secs)
+
+
+def make_engine(pipe, items, batch: int, json_fast=None, **kw):
+    """An engine (batch ``batch``, depth 2) over a fresh broker holding
+    ``items``; returns (engine, broker)."""
+    from fraud_detection_tpu_torch.stream import (InProcessBroker,
+                                                  StreamingClassifier)
+
+    broker = InProcessBroker()
+    broker.producer().produce_batch("in", items)
+    engine = StreamingClassifier(pipe, broker.consumer(["in"], "g"),
+                                 broker.producer(), "out", batch_size=batch,
+                                 max_wait=0.05, pipeline_depth=2, **kw)
+    if json_fast is not None:
+        engine._json_fast = json_fast
+    return engine, broker
+
+
+def run_engine(pipe, items, batch: int, json_fast=None, **kw):
+    """One engine run over a fresh broker holding ``items``; returns
+    (engine, stats, output messages, DLQ messages)."""
+    engine, broker = make_engine(pipe, items, batch, json_fast, **kw)
+    stats = engine.run(max_messages=len(items), idle_timeout=5.0)
+    return engine, stats, broker.messages("out"), broker.messages("dlq")
+
+
+def host_serving(feat, texts, models, dev_pipes, items, want, n_malformed,
+                 dev) -> dict:
+    """Phase 5b: the host-featurize pipelines (LR fp32, LR int8, forest) on
+    the card against the CPU and against the device-featurize pipelines;
+    the engine over raw JSON with native frames, sync and with the dispatch
+    lane; the scheduler's overload case. ``featurize_packed`` must not
+    launch. Returns the card's host pipelines."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+    from fraud_detection_tpu_torch.sched import (AdaptiveScheduler,
+                                                 SchedulerConfig)
+
+    dev_labels = {name: dev_pipes[name].predict(texts).labels
+                  for name in models}
+    fk.featurize_bytes.launches = 0
+    pipes = {}
+    for name, (gm, cm, int8) in models.items():
+        gpu = ServingPipeline(feat, gm, batch_size=BATCH, int8=int8, device=dev)
+        cpu = ServingPipeline(feat, cm, batch_size=BATCH, int8=int8,
+                              device="cpu")
+        pg, pc = gpu.predict(texts), cpu.predict(texts)
+        dp = float(np.abs(pg.probabilities - pc.probabilities).max())
+        if not np.array_equal(pg.labels, pc.labels) or dp > 1e-6:
+            raise AssertionError(f"host {name}: cuda vs cpu labels differ or "
+                                 f"|dp| {dp} > 1e-6")
+        if not np.array_equal(pg.labels, dev_labels[name]):
+            raise AssertionError(f"host {name}: labels != the device-featurize "
+                                 "pipeline's")
+        values = [json.dumps({"text": t}).encode() for t in texts]
+        fast = gpu.predict_json_async(values)
+        if fast is None or not fast[1].all() or not np.array_equal(
+                fast[0].resolve().labels, pg.labels):
+            raise AssertionError(f"host {name}: raw-JSON path != predict")
+        if gpu.device_stats.featurize_path != "host":
+            raise AssertionError(f"host {name}: {gpu.device_stats.snapshot()}")
+        pipes[name] = gpu
+        print(f"[host] {name}: {len(texts)} texts, native host featurize, "
+              f"labels equal cuda/cpu and equal device featurize, max |dp| "
+              f"{dp:.3g}; raw-JSON path equals predict")
+
+    pipe = pipes["lr_fp32"]
+    wires = {}
+    for lane in (False, True):
+        eng, stats, out, _ = run_engine(pipe, items, 1024, async_dispatch=lane)
+        if sorted(m.key for m in out) != sorted(k for _, k in items):
+            raise AssertionError(f"host engine (lane={lane}): keys != fed")
+        if stats.malformed != n_malformed:
+            raise AssertionError(f"host engine: malformed {stats.malformed} "
+                                 f"!= fed {n_malformed}")
+        if not (eng._json_fast is True and eng._frames_ok is True):
+            raise AssertionError(f"host engine (lane={lane}): _json_fast "
+                                 f"{eng._json_fast}, _frames_ok {eng._frames_ok}")
+        if lane and eng.health()["device"]["lane_batches"] != stats.batches:
+            raise AssertionError(f"lane: {eng.health()['device']}")
+        wires[lane] = sorted((m.key, m.value) for m in out)
+    if wires[False] != wires[True]:
+        raise AssertionError("async_dispatch wires != sync wires")
+    keys = sorted(want)
+    expect = dict(zip(keys, pipe.predict([want[k] for k in keys]).labels.tolist()))
+    frames = {k: json.loads(v) for k, v in wires[False]}
+    if any(frames[k]["prediction"] != expect[k] for k in keys):
+        raise AssertionError("host engine labels != pipeline.predict")
+    print(f"[host] engine: {len(items)} messages over raw JSON with native "
+          "frames (_json_fast, _frames_ok), sync and async_dispatch: keys "
+          "exact, wires byte-identical, labels equal predict")
+
+    sched = AdaptiveScheduler(SchedulerConfig(
+        shed_policy="reject", max_queue=len(items) // 8,
+        batch_deadline_ms=5), 1024)
+    sched.prewarm(pipe)
+    eng, stats, out, dlq = run_engine(pipe, items, 1024, dlq_topic="dlq",
+                                      scheduler=sched)
+    got = sorted([m.key for m in out] + [m.key for m in dlq])
+    if got != sorted(k for _, k in items) or stats.shed < 1:
+        raise AssertionError(f"overload: out+dlq {len(got)} keys, shed "
+                             f"{stats.shed}")
+    json.dumps(eng.health()["sched"])
+    print(f"[host] overload (reject, max_queue {len(items) // 8}): out {len(out)} + dlq "
+          f"{len(dlq)} == fed {len(items)}, shed {stats.shed}; ladder "
+          f"{list(sched.buckets)}")
+    pipe.pad_ladder = None
+    if fk.featurize_bytes.launches:
+        raise AssertionError(f"host featurize launched featurize_packed "
+                             f"{fk.featurize_bytes.launches}x")
+    return pipes
+
+
+def serve_cli(argv, card: str) -> dict:
+    """The port's serve CLI in-process (``main(argv)``): exit 0, the stats
+    line, the classified count, the engine the CLI ran and its
+    ``featurize_packed`` launches."""
+    import contextlib
+    import io
+
+    from fraud_detection_tpu_torch.app import serve
+    from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+    from fraud_detection_tpu_torch.stream import engine as engine_mod
+
+    engines = []
+    run = engine_mod.StreamingClassifier.run
+
+    def recording_run(self, *a, **kw):
+        engines.append(self)
+        return run(self, *a, **kw)
+
+    fk.featurize_bytes.launches = 0
+    log = io.StringIO()
+    engine_mod.StreamingClassifier.run = recording_run
+    try:
+        with contextlib.redirect_stdout(log):
+            rc = serve.main(argv)
+    finally:
+        engine_mod.StreamingClassifier.run = run
+    lines = log.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"serve {argv}: exit {rc}\n{log.getvalue()}")
+    stats = json.loads(lines[-2])
+    n = int(lines[-1].rsplit(":", 1)[1])
+    print(f"[serve] {' '.join(argv)}: exit 0, classified {n}, msgs/s "
+          f"{stats['msgs_per_sec']} ({card})")
+    return dict(stats=stats, classified=n, engine=engines[-1],
+                launches=fk.featurize_bytes.launches)
+
+
+def check_serve_runs(ckpt, n: int, dev, card: str, variants) -> dict:
+    """Serve ``ckpt`` with each flag variant over ``--demo n``: every run
+    classifies n (or n minus its shed rows); host featurize launches no
+    ``featurize_packed`` and takes the raw-JSON path with native frames;
+    ``--featurize-device`` launches it once per chunk dispatched."""
+    results = {}
+    for name, extra in variants.items():
+        r = serve_cli(["--device", str(dev), "--model", str(ckpt), "--demo",
+                       str(n), "--batch-size", "1024", *extra], card)
+        stats, eng = r["stats"], r["engine"]
+        device = stats["health"]["device"]
+        if r["classified"] + stats["shed"] != n or stats["processed"] != n:
+            raise AssertionError(f"serve {name}: classified {r['classified']}")
+        if "--featurize-device" in extra:
+            if device["featurize_path"] != "cuda" or r["launches"] < 1 \
+                    or r["launches"] != device["uploads"] \
+                    or device["uploads_per_batch"] != 1.0:
+                raise AssertionError(f"serve {name}: featurize_packed "
+                                     f"launched {r['launches']}x, {device}")
+        elif r["launches"] or not (eng._json_fast is True
+                                   and eng._frames_ok is True):
+            raise AssertionError(f"serve {name}: featurize_packed launched "
+                                 f"{r['launches']}x, _json_fast "
+                                 f"{eng._json_fast}, _frames_ok {eng._frames_ok}")
+        if "--async-dispatch" in extra and device["lane_batches"] != stats["batches"]:
+            raise AssertionError(f"serve {name}: {device}")
+        results[name] = dict(msgs_per_sec=stats["msgs_per_sec"],
+                             classified=r["classified"],
+                             featurize_packed_launches=r["launches"],
+                             chunks=device["uploads"])
+    return results
+
+
+def profiled_idle(setup, tries: int = 3) -> float:
+    """Device idle share of one call under torch.profiler: 1 - (device time
+    of its kernels) / (host-clock wall of that same call, synchronized).
+    ``setup()`` runs outside the trace and returns the call. A trace that
+    records no device activity (the profiler drops one now and then) is
+    taken again, up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        fn = setup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy_us = sum(e.device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy_us:
+            return 1 - busy_us / wall_us
+    raise AssertionError(f"{tries} profiler traces recorded no device time")
+
+
+def pipeline_rate(p, texts):
+    """Rows/s of ``p.predict`` over ``texts`` (median of 5, host clock,
+    each predict resolved) and the device idle share of a sixth, profiled
+    predict."""
+    p.predict(texts[:BATCH])
+    reps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        p.predict(texts)
+        reps.append(time.perf_counter() - t0)
+    idle = profiled_idle(lambda: lambda: p.predict(texts))
+    return len(texts) / statistics.median(reps), idle
+
+
+def engine_rate(pipe, items, **kw):
+    """Engine msgs/s over ``items`` (batch 256, depth 2) and the device
+    idle share of a second, profiled ``engine.run`` (the broker is built
+    and loaded outside the trace)."""
+    _, stats, _, _ = run_engine(pipe, items, BATCH, **kw)
+
+    def setup():
+        engine, _ = make_engine(pipe, items, BATCH, **kw)
+        return lambda: engine.run(max_messages=len(items), idle_timeout=5.0)
+
+    return stats.msgs_per_sec, profiled_idle(setup)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1127,6 +1408,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from fraud_detection_tpu_torch.checkpoint.native import save_checkpoint
     from fraud_detection_tpu_torch.data import generate_corpus
     from fraud_detection_tpu_torch.featurize.device import DeviceFeaturizer
     from fraud_detection_tpu_torch.featurize.tfidf import HashingTfIdfFeaturizer
@@ -1159,6 +1441,7 @@ def main(argv=None) -> int:
     A.kernel_self_test(dev)
     print(f"[build] {', '.join(k + '.cu' for k in KERNELS)} built in "
           f"{build_s:.3f} s (one nvcc each, in parallel); self-tests ok")
+    native_build = build_native()
     for name in KERNELS:
         print(f"[build] ptxas {name}: {ptxas_summary(_build.build_log(name))}")
 
@@ -1352,6 +1635,18 @@ def main(argv=None) -> int:
         fk.tokenize_hash(staged_classes(texts[i:i + BATCH], WIDTH, dev)[1])
     scan_launches = fk.tokenize_hash.launches
 
+    # -- 5b. the serve CLI's default path: native host featurize -------------
+    host_pipes = host_serving(
+        feat, texts, {"lr_fp32": (lr_gpu, lr_cpu, False),
+                      "lr_int8": (lr_gpu, lr_cpu, True),
+                      "forest": (trees_gpu, trees_cpu, False)},
+        pipes, items, want, n_malformed, dev)
+    ckpt_dir = ROOT / "build" / "chip_smoke"
+    save_checkpoint(str(ckpt_dir / "lr"), feat, lr_gpu)
+    serve_runs = check_serve_runs(ckpt_dir / "lr", SERVE_DEMO, dev, card, {
+        "lr_host": [], "lr_featurize_device": ["--featurize-device"],
+        "lr_async_int8": ["--async-dispatch", "--int8"]})
+
     # -- 6. training slice, card against CPU ---------------------------------
     train_walls = train_card_vs_cpu(Xtr, ytr, Xte, dev)
 
@@ -1365,6 +1660,9 @@ def main(argv=None) -> int:
         raise AssertionError("the training CLI never launched the tree kernels")
     print(f"[cli] tree kernel launches on the main path: histogram "
           f"{hist_launches}, best_splits {gain_launches}")
+    # -- 7b. the serve CLI on the training CLI's dt checkpoint ---------------
+    serve_runs.update(check_serve_runs(ckpt_dir / "dt", SERVE_DEMO, dev, card, {
+        "dt_host": [], "dt_featurize_device": ["--featurize-device"]}))
 
     # -- 8. times -------------------------------------------------------------
     def packed_call():
@@ -1400,25 +1698,49 @@ def main(argv=None) -> int:
     fb_bytes_ms = fb_bytes / HBM_BYTES_PER_S * 1e3
     fb_ops_ms = rows * cols * SCAN_OPS_PER_ELEMENT / FP32_OPS_PER_S * 1e3
     fb_bound_ms = max(fb_bytes_ms, fb_ops_ms)
-    rates, idle = {}, {}
+    # pipelines: device featurize and native host featurize in turns
+    # (device, host, host, device), each with its device idle share
+    rates, idle, host_rates, host_idle = {}, {}, {}, {}
     for name, p in pipes.items():
-        p.predict(texts[:BATCH])
-        reps = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            p.predict(texts)
-            reps.append(time.perf_counter() - t0)
-        rates[name] = len(texts) / statistics.median(reps)
-        busy_ms = sum(us for _, us, _ in device_breakdown(
-            lambda: p.predict(texts), reps=1)) / 1e3
-        idle[name] = 1 - busy_ms / (statistics.median(reps) * 1e3)
-    broker2, items2, _, _ = load_broker(4096, args.seed + 6)
-    engine2 = StreamingClassifier(pipe, broker2.consumer(["in"], "g"),
-                                  broker2.producer(), "out", batch_size=BATCH,
-                                  max_wait=0.05, pipeline_depth=2)
-    stats2 = engine2.run(max_messages=len(items2), idle_timeout=5.0)
-    msgs_s = stats2.msgs_per_sec
-    print(f"[engine] {card}: stats {json.dumps(stats2.as_dict())}")
+        turns = [pipeline_rate(q, texts)
+                 for q in (p, host_pipes[name], host_pipes[name], p)]
+        rates[name] = statistics.median([turns[0][0], turns[3][0]])
+        idle[name] = statistics.median([turns[0][1], turns[3][1]])
+        host_rates[name] = statistics.median([turns[1][0], turns[2][0]])
+        host_idle[name] = statistics.median([turns[1][1], turns[2][1]])
+    # the host encode alone over the same 256-row chunks (host clock,
+    # median of 5)
+    reps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for i in range(0, len(texts), BATCH):
+            feat.encode(texts[i:i + BATCH], batch_size=BATCH)
+        reps.append((time.perf_counter() - t0) * 1e3)
+    host_encode_ms = statistics.median(reps)
+    # the engine over 4,096 messages (batch 256, depth 2): raw JSON with
+    # native frames (host featurize), the slow path (json.loads + Python
+    # frames, host featurize), device featurize, and the raw-JSON path
+    # with the dispatch lane; in turns, each with its device idle share
+    _, items2, _, _ = load_broker(4096, args.seed + 6)
+    modes = {"raw_json_native_frames": (host_pipes["lr_fp32"], {}),
+             "slow_path": (host_pipes["lr_fp32"], {"json_fast": False}),
+             "device_featurize": (pipe, {}),
+             "raw_json_async_dispatch": (host_pipes["lr_fp32"],
+                                         {"async_dispatch": True})}
+    engine_turns = {m: [] for m in modes}
+    for m in [*modes, *reversed(modes)]:
+        engine_turns[m].append(engine_rate(modes[m][0], items2, **modes[m][1]))
+    engine_modes = {m: dict(msgs_per_s=statistics.median(r[0] for r in t),
+                            device_idle=statistics.median(r[1] for r in t),
+                            turns=[r[0] for r in t])
+                    for m, t in engine_turns.items()}
+    msgs_s = engine_modes["device_featurize"]["msgs_per_s"]
+    print(f"[engine] {card}: msgs/s over {len(items2)} messages (batch "
+          f"{BATCH}, in turns): " + "; ".join(
+              f"{m} {v['msgs_per_s']:.0f} (turns "
+              f"{', '.join(f'{x:.0f}' for x in v['turns'])}; device idle "
+              f"{100 * v['device_idle']:.1f}%)"
+              for m, v in engine_modes.items()))
     print(f"[time] {card}: featurize_packed ({rows}, {WIDTH + 4}) -> "
           f"({rows}, 2, {spec.n_slots}): events {fb_ms:.4f} ms, device "
           f"{fb_dev:.4f} ms; plain version {fb_plain_ms:.2f} ms; bound "
@@ -1428,10 +1750,19 @@ def main(argv=None) -> int:
           f"ms, device {k_dev:.4f} ms; plain version {p_ms:.2f} ms; bound "
           f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB moved); first "
           f"kernel (one thread per row) {FIRST_SCAN_MS} ms as recorded")
-    print(f"[time] {card}: pipeline rows/s at batch {BATCH}: "
-          + ", ".join(f"{k} {v:.0f} (device idle {100 * idle[k]:.0f}%)"
+    print(f"[time] {card}: pipeline rows/s at batch {BATCH}, device "
+          "featurize: "
+          + ", ".join(f"{k} {v:.0f} (device idle {100 * idle[k]:.1f}%)"
                       for k, v in rates.items())
-          + f"; engine msgs/s {msgs_s:.0f}")
+          + "; native host featurize: "
+          + ", ".join(f"{k} {v:.0f} (device idle {100 * host_idle[k]:.1f}%)"
+                      for k, v in host_rates.items())
+          + f"; engine msgs/s (device featurize) {msgs_s:.0f}")
+    print(f"[time] {card}: host encode of the {len(texts)} texts in "
+          f"{BATCH}-row chunks: {host_encode_ms:.2f} ms")
+    print(f"[time] {card}: serve CLI --demo {SERVE_DEMO} --batch-size 1024 "
+          "msgs_per_sec: " + ", ".join(f"{k} {v['msgs_per_sec']}"
+                                        for k, v in serve_runs.items()))
     print("[time] library_ms: none — no single PyTorch call computes the "
           "featurize program or the scan")
     breakdown = device_breakdown(packed_call)
@@ -1813,7 +2144,11 @@ def main(argv=None) -> int:
         "main_path": "phase 11: the 2-layer f32 forward at T=600",
         "card": card,
     }], "serving": {"pipeline_rows_per_s": rates, "device_idle": idle,
-                    "engine_msgs_per_s": msgs_s},
+                    "host_featurize_rows_per_s": host_rates,
+                    "host_featurize_device_idle": host_idle,
+                    "host_encode_ms": host_encode_ms,
+                    "engine_msgs_per_s": msgs_s, "engine": engine_modes,
+                    "serve_cli": serve_runs, "native_build": native_build},
         "fit_walls_s": {"cli": cli_walls, "bench": bench_walls},
         "tree_kernels_ms_per_cli_fit": per_fit,
         "llm": {"prefill": pre, "card_vs_cpu": cvc, "generate": gen,

@@ -1,7 +1,12 @@
 """TF-IDF featurization: host encoding to padded sparse batches — twin of
-``fraud_detection_tpu/featurize/tfidf.py`` (pure-Python encode path).
+``fraud_detection_tpu/featurize/tfidf.py``.
 
-The host emits fixed-shape padded (bucket_ids, counts) batches; the scoring
+The host emits fixed-shape padded (bucket_ids, counts) batches — through the
+native C++ featurizer (``featurize/native.py``, sharded over a thread pool
+for large batches by ``featurize/parallel.py``) when it builds, else through
+the pure-Python rows, which are the reference semantics the native path
+equals bit for bit. ``encode_json`` goes from raw JSON message bytes to the
+same batch in one native pass. The scoring
 models (models/linear.py, models/trees.py) consume them without ever
 materializing dense features. The device featurize path
 (featurize/device.py) produces the same layout on the card from raw bytes.
@@ -68,7 +73,14 @@ class HashingTfIdfFeaturizer:
     """Tokenizer -> StopWordsRemover -> HashingTF -> IDF featurizer.
 
     ``legacy`` selects the old ``mllib`` murmur tail (featurize/hashing.py);
-    the JAX package sets the same thing by swapping its hasher."""
+    the JAX package sets the same thing by swapping its hasher. The native
+    library hashes with the standard tail only, so a legacy featurizer
+    encodes through the Python rows.
+
+    ``parallel_workers`` shards ``encode`` / ``encode_json`` over the
+    process-wide pool (None = ``FRAUD_TPU_FEAT_WORKERS``, else the CPU
+    count, capped; 1 = serial); batches under ``parallel_min_rows`` stay
+    serial, where fan-out costs more than it saves."""
 
     num_features: int = 10000
     idf: Optional[np.ndarray] = None  # None => raw TF (identity IDF)
@@ -76,16 +88,34 @@ class HashingTfIdfFeaturizer:
     stop_filter: StopWordFilter = field(default_factory=StopWordFilter)
     remove_stopwords: bool = True
     legacy: bool = False
+    parallel_workers: Optional[int] = None
+    parallel_min_rows: int = 256
 
     def __post_init__(self):
         self._hashing = HashingTF(self.num_features, binary=self.binary_tf,
                                   legacy=self.legacy)
         self._idf_dev: dict = {}   # torch.device -> cached IDF tensor
+        self._native = None        # lazy NativeFeaturizer
+        self._native_tried = False
+        self._json_splice_ctx = None
         if self.idf is not None:
             self.idf = np.asarray(self.idf, np.float32)
             if self.idf.shape != (self.num_features,):
                 raise ValueError(
                     f"idf shape {self.idf.shape} != ({self.num_features},)")
+
+    def _native_featurizer(self):
+        """The C++ clean/tokenize/hash path, or None (no library, or the
+        legacy hash the library does not implement)."""
+        if not self._native_tried:
+            self._native_tried = True
+            from fraud_detection_tpu_torch.featurize import native
+
+            if not self.legacy and native.available():
+                self._native = native.NativeFeaturizer(
+                    self.stop_filter.words if self.remove_stopwords else [],
+                    self.num_features, self.binary_tf, self.remove_stopwords)
+        return self._native
 
     @property
     def hashing_tf(self) -> HashingTF:
@@ -114,7 +144,26 @@ class HashingTfIdfFeaturizer:
         b = batch_size if batch_size is not None else len(texts)
         if len(texts) > b:
             raise ValueError(f"{len(texts)} texts > batch_size {b}")
-        rows = [self.sparse_row(t) for t in texts]
+        workers = self._encode_workers(len(texts))
+        native = self._native_featurizer()
+        if native is not None:
+            want16 = self._ids_dtype() is np.int16
+            if workers > 1:
+                from fraud_detection_tpu_torch.featurize import parallel
+
+                ids, counts = parallel.encode_sharded_native(
+                    native, texts, b, max_tokens, _pad_len, want16=want16,
+                    workers=workers)
+            else:
+                ids, counts = native.encode(texts, b, max_tokens, _pad_len,
+                                            want16=want16)
+            return EncodedBatch(*self._narrow(ids, counts))
+        if workers > 1:
+            from fraud_detection_tpu_torch.featurize import parallel
+
+            rows = parallel.sparse_rows_chunked(self.sparse_row, texts, workers)
+        else:
+            rows = [self.sparse_row(t) for t in texts]
         width = max((len(i) for i, _ in rows), default=1)
         length = max_tokens if max_tokens is not None else _pad_len(width)
         ids = np.zeros((b, length), self._ids_dtype())
@@ -122,8 +171,81 @@ class HashingTfIdfFeaturizer:
         _fill_python_rows(rows, ids, counts, length)
         return EncodedBatch(ids=ids, counts=counts)
 
+    def _encode_workers(self, n: int) -> int:
+        if n < self.parallel_min_rows:
+            return 1
+        from fraud_detection_tpu_torch.featurize import parallel
+
+        return parallel.resolve_workers(self.parallel_workers)
+
+    def encode_json(self, values: Sequence[bytes], text_field: str = "text",
+                    batch_size: Optional[int] = None,
+                    max_tokens: Optional[int] = None,
+                    keep_splice_ctx: bool = False) -> Optional[Tuple[
+                        EncodedBatch, np.ndarray, np.ndarray, np.ndarray]]:
+        """Raw-JSON path: encode message bytes WITHOUT ``json.loads`` — one
+        native pass extracts ``text_field``, cleans, tokenizes and hashes.
+
+        Returns ``(batch, status, span_start, span_len)``: row i is
+        values[i] (status 0 rows are all-padding; the caller discards their
+        scores), and the spans locate each message's raw string literal
+        (quotes included) for splicing into output frames. With
+        ``keep_splice_ctx`` the marshalled message array waits in
+        ``pop_json_splice_ctx()`` for native frame assembly (same thread,
+        right after this call). None when the native path is unavailable:
+        callers fall back to ``json.loads`` + ``encode``."""
+        out = self._encode_json(values, text_field, batch_size, max_tokens)
+        if out is None:
+            return None
+        self._json_splice_ctx = out[4] if keep_splice_ctx else None
+        return out[:4]
+
+    def _encode_json(self, values: Sequence[bytes], text_field: str,
+                     batch_size: Optional[int], max_tokens: Optional[int]
+                     ) -> Optional[Tuple[EncodedBatch, np.ndarray, np.ndarray,
+                                         np.ndarray, object]]:
+        """``encode_json``'s result plus its splice context (the marshalled
+        ``char*[]`` that ``native.build_frames`` reads), handed back to the
+        caller rather than kept on this shared featurizer."""
+        native = self._native_featurizer()
+        if native is None:
+            return None
+        b = batch_size if batch_size is not None else len(values)
+        if len(values) > b:
+            raise ValueError(f"{len(values)} values > batch_size {b}")
+        workers = self._encode_workers(len(values))
+        key = text_field.encode("utf-8")
+        want16 = self._ids_dtype() is np.int16
+        if workers > 1:
+            from fraud_detection_tpu_torch.featurize import parallel
+
+            ids, counts, status, span_start, span_len, ctx = (
+                parallel.encode_json_sharded_native(
+                    native, values, key, b, max_tokens, _pad_len,
+                    want16=want16, workers=workers))
+        else:
+            ids, counts, status, span_start, span_len, ctx = native.encode_json(
+                values, key, b, max_tokens, _pad_len, want16=want16)
+        return (EncodedBatch(*self._narrow(ids, counts)), status, span_start,
+                span_len, ctx)
+
+    def pop_json_splice_ctx(self):
+        """Take the last ``encode_json`` call's marshalled message array
+        (``native.build_frames``' splice context); cleared on read."""
+        ctx, self._json_splice_ctx = self._json_splice_ctx, None
+        return ctx
+
     def _ids_dtype(self):
         return np.int16 if self.num_features <= np.iinfo(np.int16).max else np.int32
+
+    def _narrow(self, ids: np.ndarray, counts: np.ndarray):
+        """The wire dtypes (EncodedBatch): the native fill emits int16 ids
+        and uint16 counts directly when the feature space fits, else int32
+        ids and float32 counts, narrowed here (counts clipped at 65535)."""
+        if ids.dtype == np.int16:
+            return ids, counts
+        return (ids.astype(self._ids_dtype(), copy=False),
+                np.minimum(counts, 65535.0).astype(np.uint16))
 
     def fit_idf(self, texts: Sequence[str], min_doc_freq: int = 0) -> "HashingTfIdfFeaturizer":
         """Fit the IDF vector from a corpus (Spark ``IDF.fit`` semantics):

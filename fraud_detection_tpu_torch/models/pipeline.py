@@ -3,8 +3,11 @@
 
 Two featurize legs feed the same scoring entries:
 
-* host (``featurize_device=False``): the pure-Python encoder hashes a
-  micro-batch into packed (B, 2, L) int16 ids/counts, one host->device copy;
+* host (``featurize_device=False``, the default): the native C++ encoder
+  (thread-pool sharded for large chunks; the pure-Python rows without the
+  library) hashes a micro-batch into packed (B, 2, L) int16 ids/counts, one
+  host->device copy. ``predict_json_async`` starts from raw JSON message
+  bytes instead of texts (no ``json.loads``);
 * device (``featurize_device=True``): the host packs raw UTF-8 bytes (a
   memcpy) into ONE (B, W+4) uint8 staging tensor per chunk and the device
   runs tokenize/hash (the CUDA scan kernel) + count/pack + scoring.
@@ -248,13 +251,48 @@ class ServingPipeline:
         return self.batch_size
 
     def predict_json_async(self, values: Sequence[bytes],
-                           text_field: str = "text") -> None:
-        """Raw-JSON fast path. None: the engine decodes JSON and calls
-        ``predict_async``. With device featurization that is the design (the
-        host tokenize/hash pass this path fronts is the work the kernel
-        took over); the host-featurize raw-JSON path needs the native
-        featurizer, which this port does not have yet."""
-        return None
+                           text_field: str = "text"
+                           ) -> Optional[Tuple["PendingPrediction", np.ndarray,
+                                               np.ndarray, np.ndarray,
+                                               Optional[list]]]:
+        """Raw-JSON path: score message bytes without ``json.loads`` — one
+        native pass per chunk from bytes to hashed rows
+        (``HashingTfIdfFeaturizer.encode_json``), then the chunk's ONE
+        packed upload and LR or tree scoring.
+
+        Returns ``(pending, status, span_start, span_len, splice_ctxs)``:
+        the pending prediction covers ALL rows positionally (status 0 rows
+        are padding whose scores the caller discards), the spans locate each
+        message's string literal, and ``splice_ctxs`` lists per-chunk
+        ``(marshalled char*[] array, chunk_len)`` for native frame assembly
+        (``featurize/native.build_frames``). None when unavailable: under
+        device featurization (the engine then decodes JSON and
+        ``predict_async`` ships raw bytes to the featurize kernel — the host
+        tokenize/hash pass this path fronts is the work the kernel took
+        over), and without the native library."""
+        if self._dev_feat is not None:
+            return None
+        feat = self.featurizer
+        tree_binary = self._tree_is_binary()
+        parts: List[Tuple[_HostCopy, int]] = []
+        stats: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        ctxs: List[Tuple[object, int]] = []
+        for start in range(0, len(values), self.batch_size):
+            chunk = values[start : start + self.batch_size]
+            out = feat._encode_json(chunk, text_field,
+                                    self._pad_rows(len(chunk)), None)
+            if out is None:
+                return None
+            enc, status, span_start, span_len, ctx = out
+            ctxs.append((ctx, len(chunk)))
+            parts.append((self._dispatch_encoded(enc, tree_binary), len(chunk)))
+            stats.append((status, span_start, span_len))
+        pending = self._pending(parts)
+        if not stats:
+            empty = np.empty(0, np.int32)
+            return pending, empty, empty, empty, ctxs
+        return (pending, *(np.concatenate([s[k] for s in stats])
+                           for k in range(3)), ctxs)
 
     def _tree_is_binary(self) -> bool:
         """Binary trees: p(class=1) > 0.5 equals argmax over the normalized

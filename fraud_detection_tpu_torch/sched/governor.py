@@ -1,0 +1,76 @@
+"""Backpressure governor: pace consumer polls from observed latency EWMAs —
+twin of ``fraud_detection_tpu/sched/governor.py``.
+
+* **Batch wall blowup.** A slow device makes each full batch take long, and
+  every row polled into it inherits that wall as queue time. The governor
+  caps the poll budget so the predicted batch wall (EWMA seconds per row x
+  budget) stays under a bound.
+* **Rate-limit pacing.** Under ``shed_policy=none`` the token bucket cannot
+  shed; its pacing debt becomes a pause before the next poll.
+
+The EWMAs observe delivered batches; the cap is recomputed per poll, so it
+relaxes back to full batches when pressure clears.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from fraud_detection_tpu_torch.sched.sketch import Ewma
+
+
+class BackpressureGovernor:
+    """Advises (poll budget, pause seconds) before each poll.
+
+    ``max_batch_sec`` bounds the predicted batch wall (None: no cap);
+    ``min_budget`` floors the cap (the smallest ladder rung). Single-driver,
+    like the batcher."""
+
+    def __init__(self, max_batch_sec: Optional[float] = None, *,
+                 min_budget: int = 16, alpha: float = 0.2,
+                 max_pause_sec: float = 1.0):
+        if max_batch_sec is not None and max_batch_sec <= 0:
+            raise ValueError(
+                f"max_batch_sec must be > 0, got {max_batch_sec}")
+        if min_budget < 1:
+            raise ValueError(f"min_budget must be >= 1, got {min_budget}")
+        self.max_batch_sec = max_batch_sec
+        self.min_budget = min_budget
+        self.max_pause_sec = max_pause_sec
+        self.ewma_batch_sec = Ewma(alpha)
+        self.ewma_row_sec = Ewma(alpha)
+        self.budget_caps = 0   # polls whose budget the governor reduced
+        self.paused_sec = 0.0  # cumulative pacing applied
+
+    def observe(self, n_rows: int, batch_sec: float) -> None:
+        """Feed one delivered batch's (row count, processing wall)."""
+        if n_rows <= 0:
+            return
+        self.ewma_batch_sec.observe(batch_sec)
+        self.ewma_row_sec.observe(batch_sec / n_rows)
+
+    def advise(self, budget: int, pacing_debt: float = 0.0
+               ) -> Tuple[int, float]:
+        """(possibly reduced budget, pause seconds) for the next poll."""
+        row_sec = self.ewma_row_sec.value
+        if (self.max_batch_sec is not None and row_sec is not None
+                and row_sec > 0):
+            cap = max(self.min_budget, int(self.max_batch_sec / row_sec))
+            if cap < budget:
+                budget = cap
+                self.budget_caps += 1
+        pause = min(max(0.0, pacing_debt), self.max_pause_sec)
+        if pause > 0:
+            self.paused_sec += pause
+        return budget, pause
+
+    def snapshot(self) -> dict:
+        row = self.ewma_row_sec.value
+        batch = self.ewma_batch_sec.value
+        return {
+            "max_batch_sec": self.max_batch_sec,
+            "ewma_batch_ms": None if batch is None else round(batch * 1e3, 3),
+            "ewma_row_us": None if row is None else round(row * 1e6, 2),
+            "budget_caps": self.budget_caps,
+            "paused_sec": round(self.paused_sec, 3),
+        }

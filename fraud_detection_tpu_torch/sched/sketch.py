@@ -1,16 +1,19 @@
-"""Streaming latency quantile sketch — twin of ``LatencySketch`` in
-``fraud_detection_tpu/sched/sketch.py``.
+"""Streaming latency accounting — twins of ``LatencySketch``, ``Ewma`` and
+``SloTracker`` in ``fraud_detection_tpu/sched/sketch.py``.
 
-An HDR-histogram-style log-bucketed counter array with bounded memory,
-vectorized batch inserts and exact counts. Quantiles are exact up to the
-bucket's relative width (~7%).
+``LatencySketch`` is an HDR-histogram-style log-bucketed counter array with
+bounded memory, vectorized batch inserts, exact counts and lossless merges.
+Quantiles are exact up to the bucket's relative width (~7%).
+``SloTracker`` keeps a rotating window of per-row latencies for the
+scheduler's governor and shedding; ``Ewma`` smooths batch walls.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Optional
+import time
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -65,3 +68,115 @@ class LatencySketch:
             cum = np.cumsum(self._counts)
             i = int(np.searchsorted(cum, target, side="left"))
         return float(_EDGES[min(i, _N_BUCKETS - 1)])
+
+    def merge(self, other: "LatencySketch") -> None:
+        """Lossless merge (bucket counts add); ``other`` is read under its
+        own lock first, then added under this one's."""
+        with other._lock:
+            counts = other._counts.copy()
+            count, total, mx = other.count, other.sum, other.max
+        with self._lock:
+            self._counts += counts
+            self.count += count
+            self.sum += total
+            self.max = max(self.max, mx)
+
+    def snapshot(self) -> dict:
+        """p50/p95/p99/max/mean in milliseconds + count, one consistent read."""
+        with self._lock:
+            if self.count == 0:
+                return {"count": 0, "p50_ms": None, "p95_ms": None,
+                        "p99_ms": None, "mean_ms": None, "max_ms": None}
+            cum = np.cumsum(self._counts)
+            count, total, mx = self.count, self.sum, self.max
+
+        def q(frac: float) -> float:
+            i = int(np.searchsorted(cum, frac * count, side="left"))
+            return float(_EDGES[min(i, _N_BUCKETS - 1)])
+
+        return {"count": count,
+                "p50_ms": round(q(0.50) * 1e3, 3),
+                "p95_ms": round(q(0.95) * 1e3, 3),
+                "p99_ms": round(q(0.99) * 1e3, 3),
+                "mean_ms": round(total / count * 1e3, 3),
+                "max_ms": round(mx * 1e3, 3)}
+
+
+class Ewma:
+    """Exponentially weighted moving average; None until the first observe."""
+
+    __slots__ = ("alpha", "value")
+
+    def __init__(self, alpha: float = 0.2):
+        if not 0.0 < alpha <= 1.0:
+            raise ValueError(f"alpha must be in (0, 1], got {alpha}")
+        self.alpha = alpha
+        self.value: Optional[float] = None
+
+    def observe(self, x: float) -> float:
+        self.value = (x if self.value is None
+                      else self.alpha * x + (1.0 - self.alpha) * self.value)
+        return self.value
+
+
+class SloTracker:
+    """Windowed per-row latency quantiles feeding the governor and shedding.
+
+    Two-sketch rotation: samples land in the CURRENT sketch; every
+    ``window_sec`` it becomes PREVIOUS and a fresh current starts. Queries
+    merge both, so estimates cover the last 1-2 windows."""
+
+    def __init__(self, target_p99_ms: Optional[float] = None,
+                 window_sec: float = 10.0, clock=None):
+        if window_sec <= 0:
+            raise ValueError(f"window_sec must be > 0, got {window_sec}")
+        if target_p99_ms is not None and target_p99_ms <= 0:
+            raise ValueError(
+                f"target_p99_ms must be > 0, got {target_p99_ms}")
+        self.target_p99_ms = target_p99_ms
+        self.window_sec = window_sec
+        self._clock = clock if clock is not None else time.monotonic
+        self._lock = threading.Lock()
+        self._current = LatencySketch()
+        self._previous = LatencySketch()
+        self._rotated_at = self._clock()
+
+    def _maybe_rotate_locked(self, now: float) -> None:
+        if now - self._rotated_at >= self.window_sec:
+            self._previous = self._current
+            self._current = LatencySketch()
+            self._rotated_at = now
+
+    def record(self, secs: Sequence[float]) -> None:
+        now = self._clock()
+        with self._lock:
+            self._maybe_rotate_locked(now)
+            current = self._current
+        current.add_many(secs)
+
+    def _merged(self) -> LatencySketch:
+        with self._lock:
+            self._maybe_rotate_locked(self._clock())
+            current, previous = self._current, self._previous
+        merged = LatencySketch()
+        merged.merge(previous)
+        merged.merge(current)
+        return merged
+
+    def p99_ms(self) -> Optional[float]:
+        q = self._merged().quantile(0.99)
+        return None if q is None else q * 1e3
+
+    def over_target(self) -> Optional[bool]:
+        """True/False against the target; None without a target or samples
+        (callers treat None as no pressure signal)."""
+        if self.target_p99_ms is None:
+            return None
+        p99 = self.p99_ms()
+        return None if p99 is None else p99 > self.target_p99_ms
+
+    def snapshot(self) -> dict:
+        snap = self._merged().snapshot()
+        snap["target_p99_ms"] = self.target_p99_ms
+        snap["window_sec"] = self.window_sec
+        return snap

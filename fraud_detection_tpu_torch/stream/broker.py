@@ -98,6 +98,11 @@ class InProcessBroker:
                 part.append(Message(topic, value, key, idx, len(part), now,
                                     next(self._seq)))
 
+    def topic_size(self, topic: str) -> int:
+        parts = self._partitions(topic)
+        with self._lock:
+            return sum(len(p) for p in parts)
+
     def messages(self, topic: str) -> List[Message]:
         """Every message of ``topic`` in produce order."""
         parts = self._partitions(topic)
@@ -330,6 +335,23 @@ class InProcessConsumer:
                     key = (self.group_id, t, p)
                     if off > self.broker._group_offsets.get(key, 0):
                         self.broker._group_offsets[key] = off
+
+    def committed_offsets(self) -> Dict[tuple, int]:
+        return dict(self._committed)
+
+    def backlog(self) -> int:
+        """Rows appended to this member's owned partitions but not yet
+        polled — the queue depth the scheduler's admission watermark reads
+        (sched/admission.py). Engine-thread only, like poll and commit."""
+        with self._region, self.broker._lock:
+            self._refresh_locked()
+            total = 0
+            for topic, p in self._owned:
+                parts = self.broker._topics.get(topic)
+                if parts is not None:
+                    total += max(0, len(parts[p])
+                                 - self._position.get((topic, p), 0))
+            return total
 
     def close(self) -> None:
         if not self._closed:

@@ -2,11 +2,28 @@
 ``fraud_detection_tpu/stream/engine.py``'s ``StreamingClassifier``.
 
 Drain the consumer into a micro-batch (up to ``batch_size`` messages,
-waiting at most ``max_wait`` for the first), JSON-decode on the host, score
-the whole batch through the serving pipeline (with device featurization the
-host only packs raw bytes), produce the classified frames, THEN flush and
-commit the batch's offsets: at-least-once with committed progress. Up to
-``pipeline_depth`` batches are in flight while the next one is polled.
+waiting at most ``max_wait`` for the first), featurize and score the whole
+batch through the serving pipeline, produce the classified frames, THEN
+flush and commit the batch's offsets: at-least-once with committed progress.
+Up to ``pipeline_depth`` batches are in flight while the next one is polled.
+
+The fast path is the raw-JSON one: with a host-featurizing pipeline and the
+native library, message bytes go to hashed rows in one native pass (no
+``json.loads``) and the output frames are assembled in C++, splicing each
+message's own text literal (``_json_fast`` and ``_frames_ok`` turn True).
+Otherwise the host decodes JSON and hands texts to ``predict_async`` (with
+device featurization it packs their raw bytes for the featurize kernel).
+A batch whose malformed rows the native scanner rejects but ``json.loads``
+accepts (an escaped key) takes the slow path, so every row is judged as
+``json.loads`` would judge it.
+
+``scheduler=`` (``sched.AdaptiveScheduler``) owns the consume->score
+handoff: deadline-driven batching over a warmed padding-bucket ladder,
+admission control that sheds rows to the DLQ as explicit records, and
+governor-paced polls. ``async_dispatch=True`` runs each batch's featurize +
+upload + launch on a dispatch-lane thread (``sched.DispatchLane``) while
+this thread delivers the previous batch; offsets still commit strictly in
+order.
 
 Malformed messages (bad JSON / missing text field) are counted and either
 emitted inline as error frames or, with ``dlq_topic``, routed to the DLQ as
@@ -33,6 +50,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from fraud_detection_tpu_torch.explain.prompts import label_name
+from fraud_detection_tpu_torch.featurize import native as native_mod
 from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
 from fraud_detection_tpu_torch.sched.sketch import LatencySketch
 from fraud_detection_tpu_torch.stream.broker import (CommitFailedError,
@@ -42,13 +60,25 @@ from fraud_detection_tpu_torch.utils.racecheck import ExclusiveRegion
 
 log = get_logger("stream.engine")
 
-# Output wire format: fixed frame, %.6f confidence.
+# Output wire format: fixed frame, %.6f confidence. Raw-JSON mode fills the
+# bytes twin with the input's own string literal (already valid JSON).
 _OUT_TEMPLATE = '{"prediction": %d, "label": %s, "confidence": %.6f, "original_text": %s}'
+_OUT_TEMPLATE_B = _OUT_TEMPLATE.encode()
 
 
 @lru_cache(maxsize=None)
+def _label_json(label: int) -> bytes:
+    return json.dumps(label_name(label)).encode()
+
+
 def _label_json_str(label: int) -> str:
-    return json.dumps(label_name(label))
+    return _label_json(label).decode()
+
+
+def _label_json_table(max_label: int) -> List[bytes]:
+    """Label -> JSON bytes for labels 0..max(max_label, 1): the native frame
+    assembler's table (rows whose label falls outside it get empty frames)."""
+    return [_label_json(i) for i in range(max(max_label, 1) + 1)]
 
 
 def _confidence_array(preds) -> np.ndarray:
@@ -85,9 +115,12 @@ class StreamStats:
     processed: int = 0
     malformed: int = 0
     dead_lettered: int = 0    # rows routed to the DLQ topic (subset of processed)
+    shed: int = 0             # rows shed by admission control (subset of
+                              # dead_lettered: every shed row leaves a record)
     batches: int = 0
     commits_skipped: int = 0  # producer didn't drain; offsets left uncommitted
     rebalanced_commits: int = 0  # commit fenced by a group rebalance (routine)
+    restarts: int = 0         # supervised rebuilds (supervision not ported: 0)
     elapsed: float = 0.0
     batch_latency_sum: float = 0.0
     batch_latency_max: float = 0.0
@@ -132,9 +165,11 @@ class StreamStats:
             "processed": self.processed,
             "malformed": self.malformed,
             "dead_lettered": self.dead_lettered,
+            "shed": self.shed,
             "batches": self.batches,
             "commits_skipped": self.commits_skipped,
             "rebalanced_commits": self.rebalanced_commits,
+            "restarts": self.restarts,
             "elapsed_sec": round(self.elapsed, 4),
             "msgs_per_sec": round(self.msgs_per_sec, 1),
             "mean_batch_latency_sec": round(self.mean_batch_latency, 5),
@@ -153,7 +188,8 @@ class StreamingClassifier:
     ``explain_fn(text, label, confidence)`` (per row) or
     ``explain_batch_fn(texts, labels, confidences)`` (per micro-batch,
     one result per row, taking precedence) attach their non-None results
-    as the frame's ``"analysis"``."""
+    as the frame's ``"analysis"``; they need decoded text, so they keep the
+    engine on the slow path."""
 
     def __init__(self, pipeline: ServingPipeline, consumer, producer,
                  output_topic: str, *, batch_size: int = 1024,
@@ -166,12 +202,21 @@ class StreamingClassifier:
                      List[Optional[str]]]] = None,
                  dlq_topic: Optional[str] = None,
                  dlq_max_attempts: int = 3,
-                 dlq_attempts: Optional[dict] = None):
+                 dlq_attempts: Optional[dict] = None,
+                 scheduler: Optional[object] = None,
+                 async_dispatch: bool = False):
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         if dlq_max_attempts < 1:
             raise ValueError(
                 f"dlq_max_attempts must be >= 1, got {dlq_max_attempts}")
+        # Shed rows are structured DLQ records, never silent drops: a
+        # shedding scheduler needs a DLQ topic.
+        if (scheduler is not None and getattr(scheduler, "sheds", False)
+                and dlq_topic is None):
+            raise ValueError(
+                "scheduler sheds (shed_policy != 'none') but no dlq_topic is "
+                "set — shed rows must land as explicit DLQ records")
         self.pipeline = pipeline
         self.consumer = consumer
         self.producer = producer
@@ -191,6 +236,16 @@ class StreamingClassifier:
         self._dlq_attempts = ((dlq_attempts if dlq_attempts is not None else {})
                               if dlq_topic is not None else None)
         self._dlq_counts: dict = {}   # reason -> records delivered to the DLQ
+        self._sched = scheduler
+        self.async_dispatch = bool(async_dispatch)
+        self._lane = None                        # live lane while run()s
+        self._lane_stats: Optional[dict] = None  # last run's lane counters
+        # Raw-JSON fast path: None = untried, False = unavailable (device
+        # featurize, no native library, or an explain hook), True = in use.
+        self._json_fast: Optional[bool] = (
+            None if explain_fn is None and explain_batch_fn is None else False)
+        # Native output-frame assembly: None = untried (probed on first use).
+        self._frames_ok: Optional[bool] = None
         self._created_at = time.monotonic()
         self._last_batch_at: Optional[float] = None
         self._inflight_depth = 0
@@ -217,13 +272,13 @@ class StreamingClassifier:
         return text if isinstance(text, str) else None
 
     def _dispatch(self, msgs: List[Message]) -> "_InFlight":
-        """Decode + featurize + launch device scoring; does NOT wait for
-        the device."""
+        """Admission + featurize + launch device scoring; does NOT wait for
+        the device. The async lane runs the two halves on two threads."""
         return self._launch(self._prepare(msgs))
 
     def _prepare(self, msgs: List[Message]) -> "_Prep":
-        """Admission for a freshly polled batch: offset cover and poison
-        screening."""
+        """Driver-side admission for a freshly polled batch: offset cover,
+        scheduler shedding, poison screening."""
         t0 = time.perf_counter()
         # Offsets cover the ORIGINAL batch — rows screened out below are
         # handled (their DLQ record ships with this batch) and must commit.
@@ -233,31 +288,95 @@ class StreamingClassifier:
             offsets[key] = max(offsets.get(key, 0), m.offset + 1)
         dead: Optional[List[tuple]] = None
         dead_reasons: Optional[dict] = None
+        shed_n = 0
+        if self._sched is not None and msgs:
+            # Admission sees freshly polled rows only (rows in flight are
+            # never shed); a shed row's record rides THIS batch's delivery
+            # and commit, so key-set accounting stays exact.
+            keep, shed_rows = self._sched.admit(
+                msgs, self._sched.backlog_of(self.consumer))
+            if shed_rows:
+                dead, dead_reasons = [], {}
+                for m, reason in shed_rows:
+                    dead.append((_dlq_record(
+                        m, reason,
+                        "shed by admission control; replay from the DLQ "
+                        "record's source coordinates"), m.key))
+                    dead_reasons[reason] = dead_reasons.get(reason, 0) + 1
+                shed_n = len(shed_rows)
+                msgs = keep
         if self._dlq_attempts is not None:
-            dead, dead_reasons = [], {}
+            if dead is None:
+                dead, dead_reasons = [], {}
             msgs = self._screen_poison(msgs, dead, dead_reasons)
-        return _Prep(msgs, offsets, dead, dead_reasons,
+        return _Prep(msgs, offsets, dead, dead_reasons, shed_n,
                      time.perf_counter() - t0)
 
     def _launch(self, prep: "_Prep") -> "_InFlight":
-        """Decode + device dispatch for a prepared batch (the slow path: JSON
-        decoded in Python, texts handed to ``pipeline.predict_async``)."""
+        """Featurize + device dispatch for a prepared batch; does NOT wait
+        for the device. Runs on the driver, or on the dispatch lane's thread
+        (``async_dispatch``): it touches no driver-owned state beyond the
+        monotonic fast-path latches."""
         t0 = time.perf_counter()
-        msgs = prep.msgs
-        texts: List[Optional[str]] = [self._decode(m) for m in msgs]
-        valid_idx = [i for i, t in enumerate(texts) if t is not None]
-        pending = (self.pipeline.predict_async([texts[i] for i in valid_idx])
-                   if valid_idx else None)
-        inflight = _InFlight(msgs, texts, valid_idx, pending, prep.offsets,
-                             time.perf_counter() - t0 + prep.prep_time)
+        msgs, offsets = prep.msgs, prep.offsets
+        inflight = None
+        if msgs and self._json_fast is not False:
+            inflight = self._dispatch_raw_json(msgs, offsets, t0)
+        if inflight is None:
+            texts: List[Optional[str]] = [self._decode(m) for m in msgs]
+            valid_idx = [i for i, t in enumerate(texts) if t is not None]
+            pending = (self.pipeline.predict_async([texts[i] for i in valid_idx])
+                       if valid_idx else None)
+            inflight = _InFlight(msgs, texts, valid_idx, pending, offsets,
+                                 time.perf_counter() - t0)
+        inflight.dispatch_time += prep.prep_time
         if prep.dead:
             inflight.dead = prep.dead
             inflight.dead_reasons = prep.dead_reasons
-            # Screened rows are OUTSIDE inflight.msgs — accounting adds
-            # them back.
+            # Screened and shed rows are OUTSIDE inflight.msgs: accounting
+            # adds them back.
             inflight.dead_screened = len(prep.dead)
+            inflight.shed_n = prep.shed_n
         inflight.recv_wall = time.time()
         return inflight
+
+    def _dispatch_raw_json(self, msgs: List[Message], offsets: dict,
+                           t0: float) -> Optional["_InFlight"]:
+        """Try the raw-JSON path: one native pass from message bytes to
+        hashed rows, no ``json.loads``. None means the slow path — for good
+        (the pipeline cannot do it) or for this batch only (the native
+        scanner rejected a message that ``json.loads`` accepts, e.g. an
+        escaped key: each row must be judged as the slow path judges it)."""
+        fast = self.pipeline.predict_json_async(
+            [m.value for m in msgs], self.text_field)
+        if fast is None:
+            self._json_fast = False
+            return None
+        self._json_fast = True
+        pending, status, span_start, span_len, ctxs = fast
+        valid_idx = np.flatnonzero(status).tolist()
+        if len(valid_idx) != len(msgs):
+            for i in np.flatnonzero(status == 0).tolist():
+                if self._decode(msgs[i]) is not None:
+                    return None  # stricter than json.loads: slow path
+        if self._native_frames():
+            # Native frame assembly splices straight from the message
+            # buffers: no per-message literal slices needed.
+            return _InFlight(msgs, [None] * len(msgs), valid_idx, pending,
+                             offsets, time.perf_counter() - t0, raw=True,
+                             splice=(ctxs, span_start, span_len))
+        literals: List[Optional[bytes]] = [None] * len(msgs)
+        starts, lens = span_start.tolist(), span_len.tolist()
+        for i in valid_idx:
+            literals[i] = msgs[i].value[starts[i]: starts[i] + lens[i]]
+        return _InFlight(msgs, literals, valid_idx, pending, offsets,
+                         time.perf_counter() - t0, raw=True)
+
+    def _native_frames(self) -> bool:
+        """Native output-frame assembly available? (cached after first ask)"""
+        if self._frames_ok is None:
+            self._frames_ok = native_mod.available()
+        return self._frames_ok
 
     def _screen_poison(self, msgs: List[Message], dead: List[tuple],
                        dead_reasons: dict) -> List[Message]:
@@ -281,18 +400,40 @@ class StreamingClassifier:
                 keep.append(m)
         return keep if len(keep) != len(msgs) else msgs
 
+    def _malformed(self, inflight: "_InFlight", msg: Message,
+                   wires: List[tuple]) -> None:
+        """A malformed row: counted, then a DLQ record or an inline error
+        frame."""
+        self.stats.malformed += 1
+        if self.dlq_topic is not None:
+            self._dead_letter(inflight, msg, "malformed",
+                              "undecodable JSON or missing/non-string text "
+                              "field")
+        else:
+            wires.append((_malformed_wire(msg), msg.key))
+
     def _finish(self, inflight: "_InFlight") -> int:
         """Wait for an in-flight batch's device results, produce outputs,
         flush, commit that batch's offsets. Returns messages handled."""
         t1 = time.perf_counter()
         msgs, texts = inflight.msgs, inflight.texts
+        preds = (inflight.pending.resolve()
+                 if inflight.pending is not None else None)
+        if inflight.splice is not None and preds is not None:
+            return self._deliver(
+                inflight, self._assemble_frames_native(inflight, preds), t1)
+
         results: List[Optional[tuple]] = [None] * len(msgs)
-        if inflight.pending is not None:
-            preds = inflight.pending.resolve()
+        if preds is not None:
             labels = preds.labels.tolist()
             confs = _confidence_array(preds).tolist()
-            for j, i in enumerate(inflight.valid_idx):
-                results[i] = (labels[j], confs[j])
+            if inflight.raw:
+                # raw mode: predictions cover all rows positionally
+                for i in inflight.valid_idx:
+                    results[i] = (labels[i], confs[i])
+            else:
+                for j, i in enumerate(inflight.valid_idx):
+                    results[i] = (labels[j], confs[j])
 
         # One hook call covers the whole micro-batch's valid rows.
         analyses: Optional[List[Optional[str]]] = None
@@ -314,19 +455,17 @@ class StreamingClassifier:
         wires: List[tuple] = []
         for idx, (msg, text, res) in enumerate(zip(msgs, texts, results)):
             if res is None:
-                self.stats.malformed += 1
-                if self.dlq_topic is not None:
-                    self._dead_letter(inflight, msg, "malformed",
-                                      "undecodable JSON or missing/"
-                                      "non-string text field")
-                    continue
-                wire = _malformed_wire(msg)
+                self._malformed(inflight, msg, wires)
+                continue
+            label, confidence = res
+            if inflight.raw:
+                # splice the input's own (already valid) string literal
+                wire = _OUT_TEMPLATE_B % (label, _label_json(label),
+                                          confidence, text)
             elif not explain:
-                label, confidence = res
                 wire = (_OUT_TEMPLATE % (label, _label_json_str(label),
                                          confidence, json.dumps(text))).encode()
             else:
-                label, confidence = res
                 out = {"prediction": label, "label": label_name(label),
                        "confidence": round(confidence, 6),
                        "original_text": text}
@@ -337,6 +476,40 @@ class StreamingClassifier:
                 wire = json.dumps(out).encode()
             wires.append((wire, msg.key))
         return self._deliver(inflight, wires, t1)
+
+    def _assemble_frames_native(self, inflight: "_InFlight",
+                                preds) -> List[tuple]:
+        """Every output frame of a raw-mode batch in ONE C++ pass per chunk
+        (ints and floats formatted, text literals spliced from the message
+        buffers at the encode's spans), byte-identical to the template
+        path; Python slices the blob per message."""
+        msgs = inflight.msgs
+        ctxs, span_start, span_len = inflight.splice
+        labels = np.asarray(preds.labels, np.int32)
+        confs = _confidence_array(preds).astype(np.float64)
+        table = _label_json_table(int(labels.max()) if labels.size else 0)
+        if len(inflight.valid_idx) != len(msgs):
+            labels = labels.copy()
+            mask = np.ones(len(msgs), bool)
+            mask[inflight.valid_idx] = False
+            labels[mask] = -1  # malformed: empty frame -> Python path
+        wires: List[tuple] = []
+        off = 0
+        for arr, n_chunk in ctxs:
+            hi = off + n_chunk
+            blob, ends = native_mod.build_frames(
+                arr, span_start[off:hi], span_len[off:hi], labels[off:hi],
+                confs[off:hi], table)
+            start = 0
+            for j, end in enumerate(ends.tolist()):
+                msg = msgs[off + j]
+                if end == start:  # malformed (valid frames are never empty)
+                    self._malformed(inflight, msg, wires)
+                else:
+                    wires.append((blob[start:end], msg.key))
+                    start = end
+            off = hi
+        return wires
 
     def _dead_letter(self, inflight: "_InFlight", msg: Message, reason: str,
                      error: str) -> None:
@@ -349,7 +522,8 @@ class StreamingClassifier:
 
     def health(self) -> dict:
         """Point-in-time engine health snapshot (lock-free racy reads, a
-        monitoring sample). ``dlq`` is None when the DLQ is off."""
+        monitoring sample). ``dlq`` is None when the DLQ is off, ``sched``
+        without a scheduler."""
         now = time.monotonic()
         return {
             "running": self._running,
@@ -362,11 +536,14 @@ class StreamingClassifier:
             "processed": self.stats.processed,
             "malformed": self.stats.malformed,
             "dead_lettered": self.stats.dead_lettered,
+            "shed": self.stats.shed,
             "rebalanced_commits": self.stats.rebalanced_commits,
             "commits_skipped": self.stats.commits_skipped,
             "row_latency_ms": {"p50": self.stats.row_latency_ms(0.50),
                                "p99": self.stats.row_latency_ms(0.99)},
             "device": self._device_block(),
+            "sched": (self._sched.snapshot()
+                      if self._sched is not None else None),
             "dlq": (None if self.dlq_topic is None else {
                 "topic": self.dlq_topic,
                 "routed": dict(self._dlq_counts),
@@ -375,14 +552,20 @@ class StreamingClassifier:
         }
 
     def _device_block(self) -> dict:
-        """The ``device`` block of ``health()``: dispatch depth, host->device
+        """The ``device`` block of ``health()``: dispatch depth and the
+        lane's counters (the live lane's, or the last run's), host->device
         copies per micro-batch, what is resident on the device, and which
         featurize path ran."""
+        lane = self._lane
+        ls = lane.stats() if lane is not None else (self._lane_stats or {})
         snap = self.pipeline.device_stats.snapshot()
         return {
             "device": str(self.pipeline.device),
+            "async_dispatch": self.async_dispatch,
             "dispatch_depth": self.pipeline_depth,
-            "max_inflight": self._max_inflight,
+            "max_inflight": ls.get("max_inflight", self._max_inflight),
+            "lane_batches": ls.get("launched"),
+            "driver_waits": ls.get("driver_waits"),
             "uploads": snap["uploads"],
             "upload_bytes": snap["upload_bytes"],
             "uploads_per_batch": snap["uploads_per_chunk"],
@@ -434,6 +617,7 @@ class StreamingClassifier:
 
         dt = inflight.dispatch_time + time.perf_counter() - t1
         self.stats.processed += len(msgs) + inflight.dead_screened
+        self.stats.shed += inflight.shed_n
         self.stats.batches += 1
         self.stats.record_latency(dt)
         if msgs:
@@ -442,8 +626,11 @@ class StreamingClassifier:
             now_wall = time.time()
             ts = np.fromiter((m.timestamp for m in msgs), np.float64,
                              len(msgs))
-            self.stats.row_sketch.add_many(
-                np.where(ts > 0.0, now_wall - ts, now_wall - inflight.recv_wall))
+            lats = np.where(ts > 0.0, now_wall - ts,
+                            now_wall - inflight.recv_wall)
+            self.stats.row_sketch.add_many(lats)
+            if self._sched is not None:
+                self._sched.observe_batch(len(msgs), dt, lats)
         self._last_batch_at = time.monotonic()
         return len(msgs) + inflight.dead_screened
 
@@ -477,77 +664,145 @@ class StreamingClassifier:
                 return self.stats
             self._flush_failed = False
             self.pipeline.pin_device()
-            started = time.perf_counter()
-            in_flight: "deque[_InFlight]" = deque()
+            return self._run_loop(time.perf_counter(), max_messages,
+                                  idle_timeout)
+
+    def _poll(self, budget: int) -> List[Message]:
+        if self._sched is not None:
+            # governor-paced, deadline-driven accumulation
+            return self._sched.collect(self.consumer, budget, self.max_wait)
+        return self.consumer.poll_batch(budget, self.max_wait)
+
+    def _run_loop(self, started, max_messages, idle_timeout) -> StreamStats:
+        """The drive loop: this thread polls, admits, submits and delivers;
+        the dispatcher runs each batch's featurize + launch, inline at
+        submit or on the dispatch lane's thread (``async_dispatch``).
+        ``next()`` returns batches strictly FIFO, and a launch failure
+        re-raises here at the failed batch's position (newer batches are
+        then discarded uncommitted)."""
+        if self.async_dispatch:
+            from fraud_detection_tpu_torch.sched.batcher import DispatchLane
+
+            lane = DispatchLane(self._launch, depth=self.pipeline_depth)
+        else:
+            lane = _InlineDispatch(self._launch)
+        self._lane = lane
+        pending: "deque[_Prep]" = deque()   # submitted, not yet delivered
+        idle_since: Optional[float] = None
+
+        def deliver_oldest() -> None:
+            self._finish(lane.next())
+            pending.popleft()
+            self._inflight_depth = len(pending)
+
+        try:
+            while self._running:
+                budget = self.batch_size
+                if max_messages is not None:
+                    consumed = self.stats.processed + sum(
+                        p.n_rows for p in pending)
+                    budget = min(budget, max_messages - consumed)
+                if budget <= 0:
+                    if pending:
+                        deliver_oldest()
+                        continue
+                    break
+                msgs = self._poll(budget)
+                if not msgs:
+                    if pending:
+                        # Drain the tail rather than idling behind it.
+                        deliver_oldest()
+                        continue
+                    now = time.perf_counter()
+                    idle_since = idle_since or now
+                    if idle_timeout is not None and now - idle_since >= idle_timeout:
+                        break
+                    continue
+                idle_since = None
+                prep = self._prepare(msgs)
+                lane.submit(prep)
+                pending.append(prep)
+                if len(pending) > self.pipeline_depth:
+                    deliver_oldest()
+                self._inflight_depth = len(pending)
+        except BaseException:
+            # Never finish newer batches past an interrupted one: leave
+            # them uncommitted for a restart to replay (at-least-once).
+            pending.clear()
+            raise
+        finally:
             try:
-                self._run_loop(in_flight, max_messages, idle_timeout)
-            except BaseException:
-                # Never finish newer batches past an interrupted one: leave
-                # them uncommitted for a restart to replay (at-least-once).
-                in_flight.clear()
-                raise
+                while pending and not self._flush_failed:
+                    deliver_oldest()
             finally:
-                while in_flight and not self._flush_failed:
-                    self._finish(in_flight.popleft())
+                lane.stop()
+                self._lane_stats = lane.stats()
+                self._max_inflight = max(self._max_inflight,
+                                         lane.max_inflight)
+                self._lane = None
                 self._inflight_depth = 0
                 self._running = False
                 self.stats.elapsed = time.perf_counter() - started
-            return self.stats
+        return self.stats
 
-    def _run_loop(self, in_flight, max_messages, idle_timeout) -> None:
-        idle_since: Optional[float] = None
-        while self._running:
-            budget = self.batch_size
-            if max_messages is not None:
-                consumed = self.stats.processed + sum(
-                    len(f.msgs) + f.dead_screened for f in in_flight)
-                budget = min(budget, max_messages - consumed)
-            if budget <= 0:
-                if in_flight:
-                    self._finish(in_flight.popleft())
-                    self._inflight_depth = len(in_flight)
-                    continue
-                break
-            msgs = self.consumer.poll_batch(budget, self.max_wait)
-            if not msgs:
-                if in_flight:
-                    # Drain the tail rather than idling behind it.
-                    self._finish(in_flight.popleft())
-                    self._inflight_depth = len(in_flight)
-                    continue
-                now = time.perf_counter()
-                idle_since = idle_since or now
-                if idle_timeout is not None and now - idle_since >= idle_timeout:
-                    break
-                continue
-            idle_since = None
-            in_flight.append(self._dispatch(msgs))
-            self._max_inflight = max(self._max_inflight, len(in_flight))
-            if len(in_flight) > self.pipeline_depth:
-                self._finish(in_flight.popleft())
-            self._inflight_depth = len(in_flight)
+
+class _InlineDispatch:
+    """The synchronous dispatcher behind ``DispatchLane``'s interface: each
+    batch is launched on the driver at ``submit``; ``next()`` returns them
+    FIFO."""
+
+    def __init__(self, launch_fn: Callable):
+        self._launch_fn = launch_fn
+        self._out: "deque[_InFlight]" = deque()
+        self.max_inflight = 0
+
+    def submit(self, prep: "_Prep") -> None:
+        self._out.append(self._launch_fn(prep))
+        self.max_inflight = max(self.max_inflight, len(self._out))
+
+    def next(self) -> "_InFlight":
+        return self._out.popleft()
+
+    def stop(self) -> None:
+        self._out.clear()
+
+    def stats(self) -> dict:
+        return {"max_inflight": self.max_inflight}
 
 
 @dataclass
 class _Prep:
-    """A polled micro-batch after admission (poison screen)."""
+    """A polled micro-batch after admission (shed + poison screen), ready
+    for the featurize + launch leg — the unit the dispatch lane carries
+    between threads."""
     msgs: List[Message]
     offsets: dict
     dead: Optional[List[tuple]]
     dead_reasons: Optional[dict]
+    shed_n: int
     prep_time: float            # seconds spent preparing
+
+    @property
+    def n_rows(self) -> int:
+        """Rows this batch accounts for (kept + screened/shed)."""
+        return len(self.msgs) + (len(self.dead) if self.dead else 0)
 
 
 @dataclass
 class _InFlight:
     """A micro-batch whose device scoring has been dispatched but not resolved."""
     msgs: List[Message]
-    texts: List[Optional[str]]  # decoded texts (None = malformed)
+    texts: List[Optional[object]]  # decoded strs; raw mode: literal bytes
     valid_idx: List[int]
     pending: Optional[object]   # models.pipeline.PendingPrediction
     offsets: dict               # (topic, partition) -> next offset to commit
     dispatch_time: float        # host seconds spent dispatching
+    raw: bool = False           # raw-JSON mode: pending covers ALL rows
+    # Native frame assembly (raw mode): per-chunk marshalled message arrays
+    # and the batch's span arrays.
+    splice: Optional[tuple] = None  # (ctxs, span_start, span_len)
     dead: Optional[List[tuple]] = None
     dead_reasons: Optional[dict] = None
-    dead_screened: int = 0      # dead rows NOT in msgs (poison screen)
+    dead_screened: int = 0      # dead rows NOT in msgs (poison screen + shed)
+    shed_n: int = 0             # of dead_screened, rows shed by admission
     recv_wall: float = 0.0      # wall-clock poll receipt (latency fallback)

@@ -1,8 +1,8 @@
 """Race detection for the port's documented single-threaded contracts.
 
-Twin of ``ExclusiveRegion`` in ``fraud_detection_tpu/utils/racecheck.py``:
-a region may be held by one thread at a time; same-thread re-entry is
-allowed. It never blocks — a second thread entering means the caller broke
+Twins of ``ExclusiveRegion`` and ``PairedCallChecker`` in
+``fraud_detection_tpu/utils/racecheck.py``. A region may be held by one
+thread at a time; same-thread re-entry is allowed. It never blocks — a second thread entering means the caller broke
 the contract, so it raises ``RaceError`` and records the violation in a
 process-wide log (``violations()``), so code that swallows exceptions still
 leaves evidence.
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import threading
 import traceback
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 _log_lock = threading.Lock()
@@ -83,3 +83,31 @@ class ExclusiveRegion:
                 self._depth -= 1
                 if self._depth == 0:
                     self._owner = None
+
+
+@dataclass
+class PairedCallChecker:
+    """Detects broken begin/finish pairing across threads — the native
+    featurizer's ``encode_begin`` / ``encode_fill`` pair shares handle state
+    and must be issued by one caller at a time (``featurize/native.py``
+    holds a lock; this catches a path that forgets it)."""
+
+    name: str
+    _lock: threading.Lock = field(default_factory=threading.Lock)
+    _pending_by: Optional[str] = None
+
+    def begin(self) -> None:
+        me = threading.current_thread().name
+        with self._lock:
+            if self._pending_by is not None and self._pending_by != me:
+                v = RaceViolation(
+                    region=f"{self.name}.begin", holder=self._pending_by,
+                    intruder=me,
+                    intruder_stack="".join(traceback.format_stack(limit=8)))
+                _record(v)
+                raise RaceError(v)
+            self._pending_by = me
+
+    def finish(self) -> None:
+        with self._lock:
+            self._pending_by = None

@@ -45,7 +45,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("ops.histogram", "models.train_trees", "app.train",
                  "checkpoint.native", "data.loader", "eval.metrics",
                  "ops.attention", "models.llm", "explain.onpod",
-                 "explain.agent", "explain.history", "explain.circuit"):
+                 "explain.agent", "explain.history", "explain.circuit",
+                 "app.serve", "featurize.native", "featurize.parallel",
+                 "sched.scheduler", "sched.batcher", "utils.config"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
