@@ -64,13 +64,35 @@ Phases (any failure raises and the script exits non-zero):
    corpus, HashingTF(10000), depth 5, 32 bins), card against CPU: dt and a
    16-tree rf (JAX's threefry draws, made on each device) equal tree for
    tree, 16-round xgb within 1e-4 in p;
-7. the training CLI on the card (dt, rf 100 trees, xgb 100 rounds): dt's
-   and rf's metrics equal the JAX package's recorded ones
-   (reports/metrics.json),
-   and its saved checkpoint served by ``ServingPipeline.from_checkpoint``
-   gives the dense ``predict`` labels;
+6b. the L-BFGS logistic-regression fit (``models/train_linear.py``) at the
+   CLI's width, card against CPU: validation and test labels equal, the
+   iteration counts side by side, the card fit's wall, loss evaluations,
+   host reads and byte bound (evaluations x 2 reads of X at 3.35 TB/s);
+   then at the JAX bench's shape (100,000 x 2,048 f32 made on the card):
+   the loss below ln 2, finite weights, wall, evaluations, bound and a
+   profiler breakdown;
+7. the training CLI on the card at its defaults (dt, rf 100 trees, xgb 100
+   rounds, lr): dt's and rf's metrics equal the JAX package's recorded ones
+   (reports/metrics.json); lr's accuracy and confusion equal them on both
+   splits, its AUC printed beside the recorded one and within 0.01; the
+   saved dt served by ``ServingPipeline.from_checkpoint`` gives the dense
+   ``predict`` labels; ``--publish lr=<root>`` then
+   ``ModelRegistry(root).verify(1)`` and ``.load(1, device="cuda")``
+   serves the dense ``predict`` labels, its manifest carrying the report's
+   metrics;
 7b. the serve CLI on that dt checkpoint, host featurize and
    ``--featurize-device``, with phase 5b's gates;
+7c. resume: the CLI's rf and xgb interrupted at 30 trees / rounds
+   (``--checkpoint-dir``) and resumed to 100 save checkpoints equal to
+   phase 7's array for array (the forest's snapshot is off its chunk grid
+   and is rebuilt from tree 24); both tree kernels must launch;
+7d. ``--featurizer count --models lr --save lr=...``: the vocabulary
+   checkpoint served on host featurize gives the dense ``predict`` labels
+   and the CLI's test confusion, launches no featurize kernel, and
+   ``featurize_device=True`` refuses it;
+7e. ``serve --model synthetic --demo 4096 --batch-size 1024`` (an LR
+   trained at startup), host featurize and ``--featurize-device``, with
+   phase 5b's gates;
 8. timings (CUDA events, median of >= 10 after warm-up) of each kernel, its
    plain version and its library call where one exists (both featurize
    entries in turns with their profiler device time, beside the first scan
@@ -125,7 +147,7 @@ Phases (any failure raises and the script exits non-zero):
 Launch counts are reset just before each main path (serving: phases 4-5;
 the stream entry: the pass after phase 5; ``featurize_packed`` again
 before phase 5b's host pipelines and before each serve CLI run;
-training: phase 7, the CLI; the LLM prefill: one T=2048 forward in phase
+training: phase 7, the CLI, and phase 7c, the resume; the LLM prefill: one T=2048 forward in phase
 10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
 flash kernel) and read just after it. It imports nothing of JAX or of
 ``fraud_detection_tpu``.
@@ -137,6 +159,7 @@ import argparse
 import json
 import math
 import random
+import shutil
 import statistics
 import subprocess
 import sys
@@ -174,6 +197,7 @@ KERNELS = ("featurize_scan", "histogram", "best_splits", "flash_attention",
 ROOT = Path(__file__).resolve().parent
 # The training CLI's shipped configuration and the JAX bench's training shape.
 DEPTH, NBINS, CLI_N, CLI_SEED = 5, 32, 1600, 42
+CLI_AUC_TOL = 0.01   # lr AUC against the recorded run (near-separable fit)
 LEVEL_WIDTHS = (1, 2, 4, 8, 16)   # the nodes of each split level at depth 5
 HIST_KERNELS, GAIN_KERNELS = ("hist_kernel", "reduce_chunks"), ("_slabs",)
 # The first kernels' events times as PERF.md records them (NVIDIA H100 80GB
@@ -469,7 +493,8 @@ def make_models(feat, seed: int, dev):
 def cli_data(dev):
     """The training CLI's data at full width: the synthetic corpus (n=1600,
     seed 42), its 70/10/20 split and HashingTF(10000)+IDF fitted on the
-    training texts, as host matrices (train, test) plus the test texts."""
+    training texts, as host matrices (train, test), the test texts, and the
+    evaluation sets {"Validation": (X, y), "Test": (X, y)}."""
     import numpy as np
 
     from fraud_detection_tpu_torch.data import (generate_corpus,
@@ -478,7 +503,7 @@ def cli_data(dev):
 
     corpus = [(d.text, d.label)
               for d in generate_corpus(n=CLI_N, seed=CLI_SEED)]
-    train, _, test = train_val_test_split(corpus, seed=CLI_SEED)
+    train, val, test = train_val_test_split(corpus, seed=CLI_SEED)
     feat = HashingTfIdfFeaturizer(num_features=FEATURES)
     feat.fit_idf([t for t, _ in train])
 
@@ -486,8 +511,13 @@ def cli_data(dev):
         return feat.featurize_dense([t for t, _ in split],
                                     device=dev).cpu().numpy()
 
-    return (dense(train), np.asarray([l for _, l in train], np.float32),
-            dense(test), [t for t, _ in test])
+    def labels(split):
+        return np.asarray([l for _, l in split], np.float32)
+
+    sets = {"Validation": (dense(val), labels(val)),
+            "Test": (dense(test), labels(test))}
+    return (dense(train), labels(train), sets["Test"][0],
+            [t for t, _ in test], sets)
 
 
 def bench_bins(dev, seed: int):
@@ -719,36 +749,160 @@ def train_card_vs_cpu(Xtr, ytr, Xte, dev) -> dict:
     return walls
 
 
-def train_cli(dev, test_texts) -> dict:
-    """The training CLI on the card at its defaults (dt, rf 100 trees, xgb
-    100 rounds), saving dt. dt's and rf's metrics must equal the JAX
-    package's recorded run (reports/metrics.json, same corpus, split, exact
-    gini and, for rf, the same threefry draws);
-    the saved checkpoint, served with device featurization, must give the
-    dense ``predict`` labels on the test texts. Returns the report."""
-    import contextlib
-    import io
-
+def lr_card_vs_cpu(Xtr, ytr, sets, dev, card: str) -> dict:
+    """The L-BFGS fit at the CLI's full width (1,120 x 10,000) on the card
+    and on the CPU: validation and test labels equal. The card fit runs
+    twice (the second timed, X already on the card); its wall, loss
+    evaluations and host reads print beside the CPU fit's iterations and
+    the byte bound (each evaluation reads X twice)."""
     import numpy as np
     import torch
 
-    from fraud_detection_tpu_torch.app import train as cli
-    from fraud_detection_tpu_torch.models import trees as tm
-    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.models.linear import predict_dense
+    from fraud_detection_tpu_torch.models.train_linear import (
+        fit_logistic_regression)
 
-    out = ROOT / "build" / "chip_smoke"
-    out.mkdir(parents=True, exist_ok=True)
-    ckpt, metrics = out / "dt", out / "metrics.json"
+    fits = {}
+    for name, X in (("card", torch.from_numpy(Xtr).to(dev)),
+                    ("card", torch.from_numpy(Xtr).to(dev)), ("cpu", Xtr)):
+        d = dev if name == "card" else "cpu"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, info = fit_logistic_regression(X, ytr, return_info=True,
+                                              device=d)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fits[name] = dict(info=info, wall=wall, labels={
+            s: predict_dense(model, Xs)[0].cpu().numpy()
+            for s, (Xs, _) in sets.items()})
+    card_fit, cpu_fit = fits["card"], fits["cpu"]
+    Xd = torch.from_numpy(Xtr).to(dev)
+    breakdown = device_breakdown(
+        lambda: fit_logistic_regression(Xd, ytr, device=dev), reps=1)
+    busy_ms = sum(us for _, us, _ in breakdown) / 1e3
+    for split in sets:
+        if not np.array_equal(card_fit["labels"][split],
+                              cpu_fit["labels"][split]):
+            raise AssertionError(f"lr card vs cpu: {split} labels differ")
+    ci, pi = card_fit["info"], cpu_fit["info"]
+    if not math.isfinite(ci.final_loss):
+        raise AssertionError(f"lr card fit: {ci}")
+    bound_ms = ci.evaluations * 2 * Xtr.nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[lr] CLI shape {Xtr.shape[0]} x {Xtr.shape[1]}: card vs cpu "
+          f"validation and test labels equal; iterations card {ci.iterations} "
+          f"/ cpu {pi.iterations}, evaluations {ci.evaluations} / "
+          f"{pi.evaluations}, final loss {ci.final_loss:.7g} / "
+          f"{pi.final_loss:.7g}; card fit {card_fit['wall'] * 1e3:.2f} ms "
+          f"wall, {ci.host_syncs} host reads, byte bound {bound_ms:.4f} ms "
+          f"({ci.evaluations} evaluations x 2 reads of {Xtr.nbytes / 1e6:.1f}"
+          f" MB); cpu fit {cpu_fit['wall'] * 1e3:.2f} ms ({card})")
+    print(f"[trace] {card}: lr fit at the CLI shape: device busy "
+          f"{busy_ms:.2f} ms of a {card_fit['wall'] * 1e3:.1f} ms wall; "
+          f"{sum(c for *_, c in breakdown):.0f} device ops")
+    for name, us, c in breakdown[:6]:
+        print(f"[trace]   {us:10.1f} us  x{c:.0f}  {name[:90]}")
+    return dict(card_ms=card_fit["wall"] * 1e3, cpu_ms=cpu_fit["wall"] * 1e3,
+                device_busy_ms=busy_ms,
+                device_ops=sum(c for *_, c in breakdown),
+                iterations=ci.iterations, cpu_iterations=pi.iterations,
+                evaluations=ci.evaluations, cpu_evaluations=pi.evaluations,
+                host_syncs=ci.host_syncs,
+                final_loss=ci.final_loss, bound_ms=bound_ms)
+
+
+def lr_bench_fit(dev, seed: int, card: str) -> dict:
+    """The L-BFGS fit at the JAX bench's training shape (100,000 x 2,048
+    f32, 819 MB, made on the card from ``seed``; labels from a logistic
+    model): wall, iterations, evaluations, host reads, the byte bound, and
+    a profiler breakdown of a second fit. The loss must fall below ln 2."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.train_linear import (
+        fit_logistic_regression)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, f = BENCH_ROWS, BENCH_FEATURES
+    X = torch.randn((n, f), generator=g, device=dev)
+    w = torch.randn((f,), generator=g, device=dev) / math.sqrt(f) * 3.0
+    y = (torch.rand((n,), generator=g, device=dev)
+         < torch.sigmoid(X @ w)).to(torch.float32)
+
+    def fit():
+        return fit_logistic_regression(X, y, return_info=True, device=dev)
+
+    fit()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, info = fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not (info.final_loss < math.log(2.0)
+            and bool(torch.isfinite(model.weights).all())):
+        raise AssertionError(f"lr bench fit: {info}")
+    nbytes = X.numel() * X.element_size()
+    bound_ms = info.evaluations * 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    breakdown = device_breakdown(fit, reps=1)
+    busy_ms = sum(us for _, us, _ in breakdown) / 1e3
+    print(f"[lr] bench shape {n} x {f} ({nbytes / 1e6:.0f} MB): fit "
+          f"{wall * 1e3:.2f} ms wall, {info.iterations} iterations, "
+          f"{info.evaluations} evaluations, {info.host_syncs} host reads, "
+          f"final loss {info.final_loss:.6g}; byte bound {bound_ms:.3f} ms "
+          f"({bound_ms / info.evaluations:.4f} ms an evaluation); device busy "
+          f"{busy_ms:.2f} ms of the fit, "
+          f"{sum(c for *_, c in breakdown):.0f} device ops ({card})")
+    for name, us, c in breakdown[:6]:
+        print(f"[trace]   {us:10.1f} us  x{c:.0f}  {name[:90]}")
+    return dict(ms=wall * 1e3, iterations=info.iterations,
+                evaluations=info.evaluations, host_syncs=info.host_syncs,
+                final_loss=info.final_loss, bound_ms=bound_ms,
+                device_busy_ms=busy_ms)
+
+
+def run_train_cli(argv) -> dict:
+    """``app/train.py main(argv)`` in-process: exit 0 or raise with its
+    output; returns the captured output."""
+    import contextlib
+    import io
+
+    from fraud_detection_tpu_torch.app import train as cli
+
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
-        rc = cli.main(["--device", str(dev), "--models", "dt,rf,xgb",
-                       "--n-trees", "100", "--n-rounds", "100",
-                       "--save", f"dt={ckpt}", "--metrics-out", str(metrics)])
+        rc = cli.main(argv)
     if rc != 0:
-        raise AssertionError(f"train CLI exit {rc}:\n{log.getvalue()}")
+        raise AssertionError(f"train CLI {argv}: exit {rc}\n{log.getvalue()}")
+    return log.getvalue()
+
+
+def train_cli(dev, test_texts, out: Path) -> dict:
+    """The training CLI on the card at its defaults (dt, rf 100 trees, xgb
+    100 rounds, lr), saving dt, rf and xgb and publishing lr to a registry.
+    dt's and rf's metrics must equal the JAX package's recorded run
+    (reports/metrics.json, same corpus, split, exact gini and, for rf, the
+    same threefry draws); lr's accuracy and confusion must equal it on both
+    splits and its AUC lie within CLI_AUC_TOL (near separability makes the
+    L-BFGS stopping point depend on rounding). The saved dt, served with
+    device featurization, and the published lr, verified and loaded from
+    the registry, must give the dense ``predict`` labels on the test
+    texts. Returns the report."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models import trees as tm
+    from fraud_detection_tpu_torch.models.linear import predict_dense
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.registry import ModelRegistry
+
+    metrics, registry = out / "metrics.json", out / "registry"
+    shutil.rmtree(registry, ignore_errors=True)
+    run_train_cli(["--device", str(dev), "--save", f"dt={out / 'dt'}",
+                   "--save", f"rf={out / 'rf'}", "--save", f"xgb={out / 'xgb'}",
+                   "--publish", f"lr={registry}", "--metrics-out", str(metrics)])
     report = json.loads(metrics.read_text())
     ref = json.loads((ROOT / "reports" / "metrics.json").read_text())
-    for name in ("dt", "rf", "xgb"):
+    if set(report["metrics"]) != {"dt", "rf", "xgb", "lr"}:
+        raise AssertionError(f"default models {sorted(report['metrics'])}")
+    for name in ("dt", "rf", "xgb", "lr"):
         got, want = report["metrics"][name]["Test"], ref["metrics"][name]["Test"]
         print(f"[cli] {name} test: accuracy {got['accuracy']:.4f} f1 "
               f"{got['f1']:.4f} auc {got['auc']:.4f} (JAX package's recorded "
@@ -759,12 +913,24 @@ def train_cli(dev, test_texts) -> dict:
         if report["metrics"][name] != ref["metrics"][name]:
             raise AssertionError(f"{name} metrics differ from the JAX "
                                  "package's recorded run")
+    for split in ("Validation", "Test"):
+        got, want = report["metrics"]["lr"][split], ref["metrics"]["lr"][split]
+        if (got["confusion"] != want["confusion"]
+                or got["accuracy"] != want["accuracy"]):
+            raise AssertionError(f"lr {split}: {got} != recorded {want}")
+        if abs(got["auc"] - want["auc"]) > CLI_AUC_TOL:
+            raise AssertionError(f"lr {split} auc {got['auc']} vs recorded "
+                                 f"{want['auc']}")
+        print(f"[cli] lr {split}: confusion {got['confusion']} and accuracy "
+              f"{got['accuracy']:.6f} equal the recorded run's; auc "
+              f"{got['auc']:.6f} beside the recorded {want['auc']:.6f} "
+              f"(|diff| {abs(got['auc'] - want['auc']):.6f} <= {CLI_AUC_TOL})")
     width = -(-max(len(t.encode()) for t in test_texts) // 64) * 64
     tokens = -(-max(sum(c.isspace() for c in t) + 1 for t in test_texts)
                // 16) * 16
     pipe = ServingPipeline.from_checkpoint(
-        str(ckpt), device=dev, featurize_device=True, featurize_width=width,
-        featurize_tokens=tokens)
+        str(out / "dt"), device=dev, featurize_device=True,
+        featurize_width=width, featurize_tokens=tokens)
     served = pipe.predict(test_texts)
     dense = pipe.featurizer.featurize_dense(test_texts, device=dev)
     labels = tm.predict(pipe.model, dense)[0].cpu().numpy()
@@ -777,7 +943,114 @@ def train_cli(dev, test_texts) -> dict:
     print(f"[cli] dt and rf metrics equal the recorded JAX run; checkpoint "
           f"served on {dev} (device featurize W={width}, L={tokens}): "
           f"{len(test_texts)} labels equal dense predict")
+    reg = ModelRegistry(str(registry))
+    mv = reg.verify(1)
+    _, lr_pipe = reg.load(1, device=dev)
+    served = lr_pipe.predict(test_texts)
+    dense = lr_pipe.featurizer.featurize_dense(test_texts, device=dev)
+    if not np.array_equal(served.labels,
+                          predict_dense(lr_pipe.model, dense)[0].cpu().numpy()):
+        raise AssertionError("registry lr: served labels != dense predict")
+    if mv.manifest["metrics"] != {k: {m: v for m, v in d.items()
+                                      if m != "confusion"}
+                                  for k, d in report["metrics"]["lr"].items()}:
+        raise AssertionError("registry lr: manifest metrics != the report's")
+    print(f"[cli] --publish lr: {mv.name} verified ({len(mv.manifest['files'])}"
+          f" files hashed) and loaded on {dev}; {len(test_texts)} served "
+          "labels equal dense predict")
     return report
+
+
+def resume_cli(dev, out: Path, card: str) -> dict:
+    """The training CLI's resume: rf and xgb interrupted at k = 30 trees /
+    rounds (``--checkpoint-dir``, default cadence 10), then resumed to 100;
+    the resumed checkpoints must equal the uninterrupted run's (phase 7's)
+    array for array. The forest's snapshot at 30 is off its 8-tree chunk
+    grid, so the resume rebuilds from tree 24."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.checkpoint import train_state as ts
+
+    snaps = out / "snapshots"
+    shutil.rmtree(snaps, ignore_errors=True)
+    t0 = time.perf_counter()
+    run_train_cli(["--device", str(dev), "--models", "rf,xgb", "--n-trees",
+                   "30", "--n-rounds", "30", "--checkpoint-dir", str(snaps)])
+    cut_s = time.perf_counter() - t0
+    for name, kind in (("rf", "random_forest"), ("xgb", "gradient_boosting")):
+        snap = ts.load_train_state(str(snaps / name))
+        if snap is None or snap[:2] != (kind, 30):
+            raise AssertionError(f"{name} snapshot {snap and snap[:2]}")
+    t0 = time.perf_counter()
+    run_train_cli(["--device", str(dev), "--models", "rf,xgb",
+                   "--checkpoint-dir", str(snaps),
+                   "--save", f"rf={out / 'rf_resumed'}",
+                   "--save", f"xgb={out / 'xgb_resumed'}"])
+    resumed_s = time.perf_counter() - t0
+    for name in ("rf", "xgb"):
+        a = np.load(out / name / "arrays.npz")
+        b = np.load(out / f"{name}_resumed" / "arrays.npz")
+        if sorted(a.files) != sorted(b.files) or any(
+                not np.array_equal(a[k], b[k]) for k in a.files):
+            raise AssertionError(f"resumed {name} != uninterrupted {name}")
+        if ts.load_train_state(str(snaps / name))[1] != 100:
+            raise AssertionError(f"{name}: final snapshot not at 100")
+    print(f"[resume] rf100 and xgb100 interrupted at 30 and resumed: every "
+          f"checkpoint array equals the uninterrupted run's; CLI walls "
+          f"{cut_s:.2f} s to 30, {resumed_s:.2f} s from 30 to 100 ({card})")
+    return dict(to_30_s=cut_s, resumed_s=resumed_s)
+
+
+def count_cli(dev, test_texts, y_test, out: Path) -> dict:
+    """``--featurizer count --models lr --save lr=...``; the checkpoint
+    served on host featurize gives the dense ``predict`` labels on the test
+    texts, whose confusion is the CLI's reported one; device featurize
+    refuses the vocabulary featurizer."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.eval import evaluate_classification
+    from fraud_detection_tpu_torch.featurize.device import (
+        DeviceFeaturizeUnavailable)
+    from fraud_detection_tpu_torch.featurize.tfidf import VocabTfIdfFeaturizer
+    from fraud_detection_tpu_torch.models.linear import predict_dense
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+
+    ckpt, metrics = out / "lr_count", out / "count_metrics.json"
+    run_train_cli(["--device", str(dev), "--featurizer", "count", "--models",
+                   "lr", "--save", f"lr={ckpt}", "--metrics-out", str(metrics)])
+    report = json.loads(metrics.read_text())
+    fk.featurize_bytes.launches = 0
+    pipe = ServingPipeline.from_checkpoint(str(ckpt), device=dev)
+    if not isinstance(pipe.featurizer, VocabTfIdfFeaturizer):
+        raise AssertionError(f"count checkpoint loaded a "
+                             f"{type(pipe.featurizer).__name__}")
+    served = pipe.predict(test_texts)
+    dense = pipe.featurizer.featurize_dense(test_texts, device=dev)
+    want = predict_dense(pipe.model, dense)[0].cpu().numpy()
+    if not np.array_equal(served.labels, want):
+        raise AssertionError("count lr: served labels != dense predict")
+    confusion = evaluate_classification(y_test, served.labels,
+                                        served.probabilities).confusion.tolist()
+    if confusion != report["metrics"]["lr"]["Test"]["confusion"]:
+        raise AssertionError(f"count lr: served confusion {confusion} != the "
+                             "CLI's")
+    if fk.featurize_bytes.launches or pipe.device_stats.featurize_path != "host":
+        raise AssertionError("count lr: not served on host featurize")
+    try:
+        ServingPipeline.from_checkpoint(str(ckpt), device=dev,
+                                        featurize_device=True)
+    except DeviceFeaturizeUnavailable as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("device featurize took a vocabulary featurizer")
+    print(f"[count] --featurizer count: vocabulary {pipe.featurizer.num_features}"
+          f" terms; served on host featurize, {len(test_texts)} labels equal "
+          f"dense predict, test confusion {confusion} equals the CLI's "
+          f"(accuracy {report['metrics']['lr']['Test']['accuracy']:.4f}); "
+          f"--featurize-device refuses: {refusal}")
+    return dict(vocab=pipe.featurizer.num_features,
+                test=report["metrics"]["lr"]["Test"])
 
 
 # ---------------------------------------------------------------------------
@@ -1491,7 +1764,7 @@ def main(argv=None) -> int:
     # tree kernels at the CLI shape (the real TF-IDF bins) and the bench
     # shape, on uint8 bins (the trainer's) and int32 bins: the same plan, so
     # the same sums in the same order
-    Xtr, ytr, Xte, test_texts = cli_data(dev)
+    Xtr, ytr, Xte, test_texts, cli_sets = cli_data(dev)
     edges = tt.quantile_bin_edges(Xtr, NBINS)
     bins_c = tt.apply_bins(torch.from_numpy(Xtr).to(dev),
                            torch.from_numpy(edges).to(dev)).contiguous()
@@ -1649,11 +1922,14 @@ def main(argv=None) -> int:
 
     # -- 6. training slice, card against CPU ---------------------------------
     train_walls = train_card_vs_cpu(Xtr, ytr, Xte, dev)
+    # -- 6b. the L-BFGS fit: card against CPU, and at the bench shape ---------
+    lr_fits = {"cli": lr_card_vs_cpu(Xtr, ytr, cli_sets, dev, card),
+               "bench": lr_bench_fit(dev, args.seed + 41, card)}
 
     # -- 7. training CLI on the card (the training main path) ----------------
     H.node_feature_bin_histogram_multi.launches = 0
     H.best_splits.launches = 0
-    report = train_cli(dev, test_texts)
+    report = train_cli(dev, test_texts, ckpt_dir)
     hist_launches = H.node_feature_bin_histogram_multi.launches
     gain_launches = H.best_splits.launches
     if hist_launches < 1 or gain_launches < 1:
@@ -1663,6 +1939,22 @@ def main(argv=None) -> int:
     # -- 7b. the serve CLI on the training CLI's dt checkpoint ---------------
     serve_runs.update(check_serve_runs(ckpt_dir / "dt", SERVE_DEMO, dev, card, {
         "dt_host": [], "dt_featurize_device": ["--featurize-device"]}))
+    # -- 7c. resume: rf and xgb interrupted at 30 and resumed (a main path) ---
+    H.node_feature_bin_histogram_multi.launches = 0
+    H.best_splits.launches = 0
+    resume = resume_cli(dev, ckpt_dir, card)
+    resume["launches"] = {"histogram": H.node_feature_bin_histogram_multi.launches,
+                          "best_splits": H.best_splits.launches}
+    if min(resume["launches"].values()) < 1:
+        raise AssertionError(f"resume launches {resume['launches']}")
+    print(f"[resume] tree kernel launches on the resume path: "
+          f"{resume['launches']}")
+    # -- 7d. the count featurizer: train, save, serve on host featurize -------
+    count = count_cli(dev, test_texts, cli_sets["Test"][1], ckpt_dir)
+    # -- 7e. serve --model synthetic: an LR trained at startup ----------------
+    serve_runs.update(check_serve_runs("synthetic", SERVE_DEMO, dev, card, {
+        "synthetic_host": [],
+        "synthetic_featurize_device": ["--featurize-device"]}))
 
     # -- 8. times -------------------------------------------------------------
     def packed_call():
@@ -2150,6 +2442,8 @@ def main(argv=None) -> int:
                     "engine_msgs_per_s": msgs_s, "engine": engine_modes,
                     "serve_cli": serve_runs, "native_build": native_build},
         "fit_walls_s": {"cli": cli_walls, "bench": bench_walls},
+        "lr_fits": lr_fits, "cli_lr_metrics": report["metrics"]["lr"],
+        "resume": resume, "count_featurizer": count,
         "tree_kernels_ms_per_cli_fit": per_fit,
         "llm": {"prefill": pre, "card_vs_cpu": cvc, "generate": gen,
                 "explained_stream": expl}}))

@@ -7,9 +7,10 @@ worker: run the micro-batching classifier against a broker on ``--device``
         --demo 5000 --batch-size 1024
 
 ``--model`` is a native checkpoint directory (``checkpoint/native.py``,
-written by either package). By default the host featurizes with the native
-C++ featurizer and the engine takes the raw-JSON path with C++ frame
-assembly; ``--featurize-device`` ships raw bytes to the CUDA featurize
+written by either package), or ``synthetic``: a logistic regression
+trained at startup on the synthetic corpus. By default the host featurizes
+with the native C++ featurizer and the engine takes the raw-JSON path with
+C++ frame assembly; ``--featurize-device`` ships raw bytes to the CUDA featurize
 kernel instead. The flags of the reference CLI that the port does not offer
 yet exit with the ROADMAP queue item that holds them.
 """
@@ -20,6 +21,8 @@ import argparse
 import json
 import os
 import sys
+
+from fraud_detection_tpu_torch.app import unported
 
 # Reference flags the port does not offer yet: (flag, takes a value,
 # ROADMAP.md Queue 1 item that holds its module).
@@ -53,23 +56,24 @@ _UNPORTED = (
 )
 
 
-def _refuse(what: str, item: int) -> SystemExit:
-    return SystemExit(f"{what} is not ported to fraud_detection_tpu_torch "
-                      f"yet (ROADMAP.md Queue 1 item {item})")
-
-
 def build_pipeline(spec: str, batch_size: int, int8: bool = False,
                    featurize_device: bool = False, featurize_width=None,
                    device="cuda"):
-    """A serving pipeline over the checkpoint directory ``spec``."""
-    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    """A serving pipeline over the checkpoint directory ``spec``, or over a
+    logistic regression trained at startup on the synthetic corpus
+    (``synthetic``)."""
+    from fraud_detection_tpu_torch.models.pipeline import (
+        ServingPipeline, synthetic_demo_pipeline)
 
     if spec.startswith("spark:"):
-        raise _refuse("--model spark:<dir> (reading a Spark artifact needs "
-                      "pyarrow, absent on the GPU machine)", 6)
+        raise unported("--model spark:<dir> (reading a Spark artifact needs "
+                       "pyarrow, absent on the GPU machine)", 6)
     if spec == "synthetic":
-        raise _refuse("--model synthetic trains a logistic regression at "
-                      "startup; the LR trainer (models/train_linear.py)", 4)
+        demo = synthetic_demo_pipeline(batch_size, device=device)
+        return ServingPipeline(demo.featurizer, demo.model,
+                               batch_size=batch_size, int8=int8,
+                               featurize_device=featurize_device,
+                               featurize_width=featurize_width, device=device)
     return ServingPipeline.from_checkpoint(
         spec, device=device, batch_size=batch_size, int8=int8,
         featurize_device=featurize_device, featurize_width=featurize_width)
@@ -106,9 +110,9 @@ def _explain_hook(args):
                               max_seq=2048), seed=0, device=args.device)
         backend = OnPodBackend.from_model(lm)
     elif args.explain.startswith(("onpod:", "onpod-int8:", "deepseek")):
-        raise _refuse(f"--explain {args.explain.partition(':')[0]} (HF "
-                      "checkpoints, int8 weights and the HTTP backend's "
-                      "spec)", 7)
+        raise unported(f"--explain {args.explain.partition(':')[0]} (HF "
+                       "checkpoints, int8 weights and the HTTP backend's "
+                       "spec)", 7)
     else:
         raise SystemExit(f"unknown --explain spec {args.explain!r}")
     return make_stream_explain_hook(backend, temperature=temp,
@@ -118,7 +122,8 @@ def _explain_hook(args):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default=None,
-                    help="native checkpoint dir (checkpoint/native.py)")
+                    help="native checkpoint dir (checkpoint/native.py), or "
+                         "'synthetic' (train a demo LR at startup)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; 'cpu' "
                          "runs the kernels' plain torch versions)")
@@ -192,7 +197,7 @@ def main(argv=None) -> int:
         raise SystemExit("--kafka and --demo are mutually exclusive")
     for flag, _, item in _UNPORTED:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise _refuse(flag, item)
+            raise unported(flag, item)
     if args.model is None:
         raise SystemExit("choose exactly one of --model or --registry")
     if args.featurize_width is not None and not args.featurize_device:

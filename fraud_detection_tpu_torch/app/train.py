@@ -1,15 +1,21 @@
-"""Tree-training CLI — twin of ``fraud_detection_tpu/app/train.py`` for
-the decision tree, random forest and gradient-boosting models.
+"""Training CLI — twin of ``fraud_detection_tpu/app/train.py``.
 
 Mirrors the reference's ``main()`` (fraud_detection_spark.py:326-405): load +
-clean the dialogue corpus, 70/10/20 seeded split, HashingTF + IDF dense
-features, train the chosen tree models on ``--device`` (the card unless
-``--device cpu``), evaluate each on validation and test (accuracy /
-weighted P / R / F1 / AUC / confusion), print the report, and save a model
-as a native checkpoint that ``ServingPipeline.from_checkpoint`` serves:
+clean the dialogue corpus, 70/10/20 seeded split, HashingTF (or
+CountVectorizer) + IDF dense features, train the chosen models (decision
+tree, random forest, gradient boosting, logistic regression) on
+``--device`` (the card unless ``--device cpu``), evaluate each on
+validation and test (accuracy / weighted P / R / F1 / AUC / confusion),
+print the report, and save a model as a native checkpoint that
+``ServingPipeline.from_checkpoint`` serves, or publish it to a model
+registry:
 
     python -m fraud_detection_tpu_torch.app.train --data synthetic --n 1600 \\
-        --models dt,rf,xgb --save dt=fraud_model_dt --num-features 10000
+        --models dt,rf,xgb,lr --save dt=fraud_model_dt --num-features 10000
+
+The reference flags the port does not offer yet (``--mesh``, ``--plots``,
+``--save model=spark:dir``) exit naming the ROADMAP queue item that holds
+them.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-MODELS = ("dt", "rf", "xgb")
+from fraud_detection_tpu_torch.app import unported
+
+MODELS = ("dt", "rf", "xgb", "lr")
 
 
 def load_corpus(args) -> List[Tuple[str, int]]:
@@ -66,44 +74,72 @@ def load_corpus(args) -> List[Tuple[str, int]]:
     return [(r.dialogue, r.label) for r in rows]
 
 
+def _ckpt_subdir(args, model_name: str):
+    """Per-model snapshot directory under --checkpoint-dir (None when off)."""
+    if args.checkpoint_dir is None:
+        return None
+    return os.path.join(args.checkpoint_dir, model_name)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--data", default="synthetic",
                     help="'synthetic' or a CSV path with dialogue/labels columns")
     ap.add_argument("--n", type=int, default=1600, help="synthetic corpus size")
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--models", default="dt,rf,xgb",
-                    help="comma list from {dt,rf,xgb}")
+    ap.add_argument("--models", default="dt,rf,xgb,lr",
+                    help="comma list from {dt,rf,xgb,lr}")
     ap.add_argument("--num-features", type=int, default=10000)
+    ap.add_argument("--featurizer", choices=("hashing", "count"),
+                    default="hashing",
+                    help="'hashing' = HashingTF(num-features) like the shipped "
+                         "artifact; 'count' = CountVectorizer(vocab-size) like "
+                         "the reference training script (fraud_detection_spark.py:51)")
+    ap.add_argument("--vocab-size", type=int, default=20000,
+                    help="vocabulary cap for --featurizer count")
     ap.add_argument("--max-depth", type=int, default=5)
     ap.add_argument("--n-trees", type=int, default=100)
     ap.add_argument("--n-rounds", type=int, default=100)
     ap.add_argument("--tree-chunk", type=int, default=None,
                     help="forest trees built per histogram launch (default: "
-                         "8 at depth 5; part of a forest's draws)")
+                         "8 at depth 5; part of a forest's draws, so pass the "
+                         "original value when resuming)")
     ap.add_argument("--save", action="append", default=[],
                     help="model=dir pairs, e.g. dt=./fraud_model_dt (repeatable)")
+    ap.add_argument("--publish", action="append", default=[],
+                    help="model=registry-root pairs (repeatable): publish "
+                         "the trained model as the next version of a model "
+                         "registry (atomic, content-hashed, with this run's "
+                         "metrics in the manifest)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="not ported yet (ROADMAP Queue 1 item 4)")
     ap.add_argument("--json", action="store_true", help="emit metrics as JSON")
     ap.add_argument("--metrics-out", metavar="FILE", default=None,
                     help="write the full metric report (all models x splits "
                          "+ run metadata) as JSON to FILE")
+    ap.add_argument("--plots", metavar="DIR", default=None,
+                    help="not ported yet (ROADMAP Queue 1 item 4)")
+    ap.add_argument("--associations", type=int, metavar="N", default=0,
+                    help="word-association analysis over the top N features "
+                         "per model (side-vocabulary inversion of hashed "
+                         "features)")
+    ap.add_argument("--checkpoint-dir", metavar="DIR", default=None,
+                    help="mid-training snapshot directory for the iterative "
+                         "trainers (rf/xgb): snapshots land in DIR/<model>, "
+                         "and an interrupted run resumes bit-identically")
+    ap.add_argument("--checkpoint-every", type=int, metavar="K", default=10,
+                    help="snapshot cadence: boosting rounds / forest trees "
+                         "(default 10)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train and score on (default cuda)")
     args = ap.parse_args(argv)
 
-    import torch
-
-    from fraud_detection_tpu_torch.checkpoint.native import save_checkpoint
-    from fraud_detection_tpu_torch.data import train_val_test_split
-    from fraud_detection_tpu_torch.eval import evaluate_classification
-    from fraud_detection_tpu_torch.featurize.tfidf import HashingTfIdfFeaturizer
-    from fraud_detection_tpu_torch.models import trees as trees_mod
-    from fraud_detection_tpu_torch.models.train_trees import (
-        TreeTrainConfig, fit_decision_tree, fit_gradient_boosting,
-        fit_random_forest)
-    from fraud_detection_tpu_torch.utils.device import resolve_device
-
-    dev = resolve_device(args.device)
+    if args.mesh:
+        raise unported("--mesh (data-parallel training over "
+                       "torch.distributed)", 4)
+    if args.plots:
+        raise unported("--plots (eval/report.py draws with matplotlib, "
+                       "which the GPU machine lacks)", 4)
     chosen = [m.strip() for m in args.models.split(",") if m.strip()]
     for name in chosen:
         if name not in MODELS:
@@ -112,18 +148,51 @@ def main(argv=None) -> int:
     save_pairs = []
     for pair in args.save:  # validate before any training time is spent
         name, _, out_dir = pair.partition("=")
+        if out_dir.startswith("spark:"):
+            raise unported("--save model=spark:<dir> (the Spark "
+                           "PipelineModel writer)", 6)
         if not out_dir or name not in chosen:
             raise SystemExit(
                 f"--save expects model=dir with the model in --models "
                 f"(got {pair!r}, models: {chosen})")
         save_pairs.append((name, out_dir))
+    publish_pairs = []
+    for pair in args.publish:
+        name, _, root = pair.partition("=")
+        if not root or name not in chosen:
+            raise SystemExit(
+                f"--publish expects model=registry-root with the model in "
+                f"--models (got {pair!r}, models: {chosen})")
+        publish_pairs.append((name, root))
 
+    import torch
+
+    from fraud_detection_tpu_torch.checkpoint.native import save_checkpoint
+    from fraud_detection_tpu_torch.data import train_val_test_split
+    from fraud_detection_tpu_torch.eval import evaluate_classification
+    from fraud_detection_tpu_torch.featurize.tfidf import (
+        HashingTfIdfFeaturizer, VocabTfIdfFeaturizer)
+    from fraud_detection_tpu_torch.models import trees as trees_mod
+    from fraud_detection_tpu_torch.models.linear import predict_dense
+    from fraud_detection_tpu_torch.models.train_linear import (
+        fit_logistic_regression)
+    from fraud_detection_tpu_torch.models.train_trees import (
+        TreeTrainConfig, fit_decision_tree, fit_gradient_boosting,
+        fit_random_forest)
+    from fraud_detection_tpu_torch.utils.atomicio import atomic_write_json
+    from fraud_detection_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(args.device)
     corpus = load_corpus(args)
     train, val, test = train_val_test_split(corpus, seed=args.seed)
     print(f"Training samples: {len(train)}\nValidation samples: {len(val)}"
           f"\nTest samples: {len(test)}")
 
-    feat = HashingTfIdfFeaturizer(num_features=args.num_features)
+    if args.featurizer == "count":
+        feat = VocabTfIdfFeaturizer.fit_vocabulary(
+            [t for t, _ in train], vocab_size=args.vocab_size)
+    else:
+        feat = HashingTfIdfFeaturizer(num_features=args.num_features)
     feat.fit_idf([t for t, _ in train])
 
     def to_xy(split):
@@ -143,15 +212,28 @@ def main(argv=None) -> int:
         elif name == "rf":
             model = fit_random_forest(
                 Xtr, ytr, n_trees=args.n_trees, seed=args.seed, config=cfg,
-                tree_chunk=args.tree_chunk, device=dev)
-        else:
+                tree_chunk=args.tree_chunk, device=dev,
+                checkpoint_dir=_ckpt_subdir(args, name),
+                checkpoint_every=args.checkpoint_every)
+        elif name == "xgb":
             model = fit_gradient_boosting(
                 Xtr, ytr, n_rounds=args.n_rounds,
                 config=TreeTrainConfig(max_depth=args.max_depth,
-                                       criterion="xgb"), device=dev)
+                                       criterion="xgb"), device=dev,
+                checkpoint_dir=_ckpt_subdir(args, name),
+                checkpoint_every=args.checkpoint_every)
+        else:
+            model = fit_logistic_regression(Xtr, ytr.astype(np.float32),
+                                            device=dev)
         trained[name] = model
         timings[name] = round(time.perf_counter() - t0, 3)
         print(f"trained {name} in {timings[name]:.2f}s")
+
+    def scores(model, X):
+        x = torch.from_numpy(X).to(dev)
+        if isinstance(model, trees_mod.TreeEnsemble):
+            return trees_mod.predict(model, x)
+        return predict_dense(model, x)
 
     all_metrics: Dict[str, Dict[str, Dict[str, float]]] = {}
     all_reports: Dict[str, Dict[str, object]] = {}
@@ -159,7 +241,7 @@ def main(argv=None) -> int:
         all_metrics[name] = {}
         all_reports[name] = {}
         for split_name, (X, y) in sets.items():
-            pred, p1 = trees_mod.predict(model, torch.from_numpy(X).to(dev))
+            pred, p1 = scores(model, X)
             rep = evaluate_classification(y, pred.cpu().numpy(),
                                           p1.cpu().numpy())
             all_metrics[name][split_name] = rep.as_dict()
@@ -179,7 +261,7 @@ def main(argv=None) -> int:
 
         meta = {
             "data": args.data, "n": len(corpus), "seed": args.seed,
-            "featurizer": "hashing",
+            "featurizer": args.featurizer,
             "max_depth": args.max_depth, "n_trees": args.n_trees,
             "n_rounds": args.n_rounds,
             "splits": {"train": len(train), "val": len(val),
@@ -187,11 +269,16 @@ def main(argv=None) -> int:
             "device": str(dev),
             "mesh": None,
             "train_seconds": timings,
-            # which tree kernels ran: the CUDA kernels, or their plain torch
-            # versions on the CPU (the JAX report's "use_pallas")
-            "tree_kernels": "cuda" if dev.type == "cuda" else "plain",
-            "num_features": args.num_features,
         }
+        if any(m in chosen for m in ("dt", "rf", "xgb")):
+            # which tree kernels ran: the CUDA kernels, or their plain torch
+            # versions on the CPU (the JAX report's "use_pallas"); omitted
+            # for LR-only runs
+            meta["tree_kernels"] = "cuda" if dev.type == "cuda" else "plain"
+        if args.featurizer == "count":
+            meta["vocab_size"] = args.vocab_size
+        else:
+            meta["num_features"] = args.num_features
         report = {
             "meta": meta,
             "metrics": {
@@ -204,13 +291,43 @@ def main(argv=None) -> int:
             },
         }
         os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
-        with open(args.metrics_out, "w") as fh:
-            json.dump(report, fh, indent=2, allow_nan=False)
+        if not atomic_write_json(args.metrics_out, report):
+            raise SystemExit(f"could not write {args.metrics_out}")
         print(f"metrics report -> {args.metrics_out}")
+
+    if args.associations:
+        from fraud_detection_tpu_torch.eval.word_associations import (
+            SideVocabulary, analyze_word_associations,
+            model_feature_importances)
+
+        train_texts = [t for t, _ in train]
+        train_labels = [l for _, l in train]
+        vocab = SideVocabulary(feat).add_corpus(train_texts)
+        for name, model in trained.items():
+            imps = model_feature_importances(model, Xtr, ytr)
+            assocs = analyze_word_associations(
+                model, feat, train_texts, train_labels,
+                top_n=args.associations, vocab=vocab, importances=imps)
+            print(f"\n=== word associations: {name} ===")
+            for a in assocs:
+                print(f"  {a.word:<20} importance={a.importance:.4f} "
+                      f"scam_ratio={a.scam_ratio:.3f} "
+                      f"({a.scam_docs} scam / {a.non_scam_docs} non-scam)")
 
     for name, out_dir in save_pairs:
         save_checkpoint(out_dir, feat, trained[name])
         print(f"saved {name} -> {out_dir}")
+
+    for name, root in publish_pairs:
+        from fraud_detection_tpu_torch.registry import ModelRegistry
+
+        mv = ModelRegistry(root).publish(
+            feat, trained[name], metrics=all_metrics.get(name),
+            extra={"trained_with": {"model": name, "data": args.data,
+                                    "seed": args.seed,
+                                    "featurizer": args.featurizer}})
+        print(f"published {name} -> {root} as {mv.name} "
+              f"(parent: {mv.manifest['parent']})")
     return 0
 
 

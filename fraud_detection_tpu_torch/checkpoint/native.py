@@ -6,9 +6,9 @@ other:
                               "model_kind": ..., "featurizer": {...}}
     <dir>/arrays.npz         all numpy arrays, flat key namespace
 
-Round-trips the serving stack: the hashing featurizer (config, idf /
-doc_freq, stop list) and a LogisticRegression or TreeEnsemble. The
-vocabulary featurizer is not ported yet, so its checkpoints are refused.
+Round-trips the serving stack: the hashing or vocabulary featurizer
+(config, vocabulary, idf / doc_freq, stop list) and a LogisticRegression or
+TreeEnsemble.
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ from typing import Tuple, Union
 import numpy as np
 
 from fraud_detection_tpu_torch import convert
-from fraud_detection_tpu_torch.featurize.tfidf import HashingTfIdfFeaturizer
+from fraud_detection_tpu_torch.featurize.text import StopWordFilter
+from fraud_detection_tpu_torch.featurize.tfidf import (HashingTfIdfFeaturizer,
+                                                       VocabTfIdfFeaturizer)
 from fraud_detection_tpu_torch.models.linear import LogisticRegression
 from fraud_detection_tpu_torch.models.trees import TreeEnsemble
 from fraud_detection_tpu_torch.utils.device import resolve_device
@@ -55,9 +57,16 @@ def save_checkpoint(path: str, featurizer: HashingTfIdfFeaturizer,
             "num_docs": getattr(featurizer, "num_docs", None),
             "stopwords": featurizer.stop_filter.words,
             "case_sensitive": featurizer.stop_filter.case_sensitive,
-            "kind": "hashing",
         },
     }
+    if isinstance(featurizer, VocabTfIdfFeaturizer):
+        meta["featurizer"]["kind"] = "vocab"
+        meta["featurizer"]["min_tf"] = featurizer.min_tf
+        # Fixed-width unicode array: npz-safe without pickle.
+        arrays["featurizer.vocabulary"] = np.asarray(featurizer.vocabulary,
+                                                     np.str_)
+    else:
+        meta["featurizer"]["kind"] = "hashing"
     if featurizer.idf is not None:
         arrays["featurizer.idf"] = np.asarray(featurizer.idf, np.float32)
     if getattr(featurizer, "doc_freq", None) is not None:
@@ -93,15 +102,21 @@ def load_checkpoint(path: str, device="cuda"
     arrays = np.load(os.path.join(path, "arrays.npz"))
 
     fz = meta["featurizer"]
-    if fz.get("kind", "hashing") != "hashing":
-        raise ValueError(f"{path}: featurizer kind {fz.get('kind')!r} is not "
-                         "ported (hashing only)")
-    featurizer = convert.featurizer_from_arrays(
-        int(fz["num_features"]),
-        arrays["featurizer.idf"] if "featurizer.idf" in arrays else None,
-        binary_tf=bool(fz["binary_tf"]), stopwords=fz["stopwords"],
-        case_sensitive=bool(fz["case_sensitive"]),
-        remove_stopwords=bool(fz["remove_stopwords"]))
+    idf = arrays["featurizer.idf"] if "featurizer.idf" in arrays else None
+    if fz.get("kind") == "vocab":
+        featurizer: HashingTfIdfFeaturizer = VocabTfIdfFeaturizer(
+            vocabulary=[str(t) for t in arrays["featurizer.vocabulary"]],
+            min_tf=float(fz.get("min_tf", 1.0)), idf=idf,
+            binary_tf=bool(fz["binary_tf"]),
+            stop_filter=StopWordFilter(fz["stopwords"],
+                                       bool(fz["case_sensitive"])),
+            remove_stopwords=bool(fz["remove_stopwords"]))
+    else:
+        featurizer = convert.featurizer_from_arrays(
+            int(fz["num_features"]), idf,
+            binary_tf=bool(fz["binary_tf"]), stopwords=fz["stopwords"],
+            case_sensitive=bool(fz["case_sensitive"]),
+            remove_stopwords=bool(fz["remove_stopwords"]))
     if "featurizer.doc_freq" in arrays:
         featurizer.doc_freq = arrays["featurizer.doc_freq"]
     if fz.get("num_docs") is not None:

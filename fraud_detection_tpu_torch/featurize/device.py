@@ -98,7 +98,9 @@ class DeviceFeaturizer:
         if type(featurizer) is not HashingTfIdfFeaturizer:
             raise DeviceFeaturizeUnavailable(
                 f"{type(featurizer).__name__} is not the hashing featurizer "
-                "the device kernel implements")
+                "the device kernel implements: the kernel hashes each term "
+                "into a bucket, and a vocabulary featurizer looks terms up "
+                "in a vocabulary the kernel does not hold")
         if featurizer.num_features > np.iinfo(np.int16).max:
             raise DeviceFeaturizeUnavailable(
                 f"num_features={featurizer.num_features} exceeds the int16 "

@@ -11,6 +11,8 @@ models (models/linear.py, models/trees.py) consume them without ever
 materializing dense features. The device featurize path
 (featurize/device.py) produces the same layout on the card from raw bytes.
 The trainers take the dense (B, F) TF-IDF matrix (``featurize_dense``).
+``VocabTfIdfFeaturizer`` swaps the hasher for an explicit vocabulary
+(CountVectorizer semantics) and encodes on the Python rows.
 """
 
 from __future__ import annotations
@@ -284,3 +286,87 @@ class HashingTfIdfFeaturizer:
                    if self.idf is None else torch.from_numpy(self.idf).to(dev))
             self._idf_dev[dev] = out
         return out
+
+
+@dataclass
+class VocabTfIdfFeaturizer(HashingTfIdfFeaturizer):
+    """CountVectorizer-semantics featurizer: explicit vocabulary -> index.
+
+    Replicates the reference TRAINING pipeline's feature path
+    (fraud_detection_spark.py:47-54: Tokenizer -> StopWordsRemover ->
+    CountVectorizer(vocabSize=20000) -> IDF). Out-of-vocabulary terms drop
+    (Spark's behavior); ``vocabulary[i]`` names feature i.
+
+    ``min_tf`` follows Spark's CountVectorizerModel: values >= 1 are an
+    absolute per-document count floor; values < 1 are a fraction of the
+    document's token count. It encodes on the Python rows only: the native
+    library and the device kernel hash, and a vocabulary lookup is not a
+    hash (the device featurizer refuses this class)."""
+
+    vocabulary: Sequence[str] = ()
+    min_tf: float = 1.0
+
+    def __post_init__(self):
+        self.vocabulary = list(self.vocabulary)
+        if self.vocabulary:
+            self.num_features = len(self.vocabulary)
+        self._index = {t: i for i, t in enumerate(self.vocabulary)}
+        super().__post_init__()
+        self._native_tried = True
+        self._native = None
+
+    @property
+    def hashing_tf(self) -> HashingTF:
+        raise TypeError(
+            "VocabTfIdfFeaturizer maps terms through an explicit vocabulary; "
+            "there is no hasher (use .bucket(term) / .vocabulary instead)")
+
+    def bucket(self, term: str) -> int:
+        """Feature index of a term, -1 when it is out of the vocabulary."""
+        idx = self._index.get(term)
+        return -1 if idx is None else idx
+
+    @classmethod
+    def fit_vocabulary(cls, texts: Sequence[str], vocab_size: int = 20000, *,
+                       min_df: float = 1.0, min_tf: float = 1.0,
+                       binary_tf: bool = False,
+                       stop_filter: Optional[StopWordFilter] = None,
+                       remove_stopwords: bool = True) -> "VocabTfIdfFeaturizer":
+        """Spark ``CountVectorizer.fit`` semantics: vocabulary = the top
+        ``vocab_size`` terms by total corpus count, restricted to terms whose
+        document frequency is >= ``min_df`` (absolute if >= 1, else a
+        fraction of the corpus). Ties break lexicographically."""
+        probe = cls(vocabulary=["\x00probe"], min_tf=min_tf, binary_tf=binary_tf,
+                    stop_filter=stop_filter or StopWordFilter(),
+                    remove_stopwords=remove_stopwords)
+        term_count: dict = {}
+        doc_freq: dict = {}
+        for text in texts:
+            toks = probe.tokens(text)
+            for t in toks:
+                term_count[t] = term_count.get(t, 0) + 1
+            for t in set(toks):
+                doc_freq[t] = doc_freq.get(t, 0) + 1
+        df_floor = min_df if min_df >= 1.0 else min_df * max(len(texts), 1)
+        eligible = [t for t, df in doc_freq.items() if df >= df_floor]
+        eligible.sort(key=lambda t: (-term_count[t], t))
+        return cls(vocabulary=eligible[:vocab_size], min_tf=min_tf,
+                   binary_tf=binary_tf, stop_filter=probe.stop_filter,
+                   remove_stopwords=remove_stopwords)
+
+    def sparse_row(self, text: str) -> Tuple[np.ndarray, np.ndarray]:
+        toks = self.tokens(text)
+        counts: dict = {}
+        for t in toks:
+            i = self._index.get(t)
+            if i is not None:
+                counts[i] = counts.get(i, 0) + 1
+        floor = self.min_tf if self.min_tf >= 1.0 else self.min_tf * max(len(toks), 1)
+        items = sorted((i, c) for i, c in counts.items() if c >= floor)
+        if not items:
+            return np.empty(0, np.int32), np.empty(0, np.float32)
+        ids = np.fromiter((i for i, _ in items), np.int32, len(items))
+        vals = np.fromiter((c for _, c in items), np.float32, len(items))
+        if self.binary_tf:
+            vals = np.ones_like(vals)
+        return ids, vals

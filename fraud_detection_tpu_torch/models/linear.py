@@ -1,5 +1,5 @@
 """Logistic-regression scorer — twin of ``fraud_detection_tpu/models/linear.py``
-(the packed sparse serving entries).
+(the packed sparse serving entries and the dense scoring of the trainers).
 
 For hashed-TF rows the margin is a gather + row sum over the padded term
 slots; features are never materialized. ``idf * w`` is folded into one
@@ -47,6 +47,20 @@ class LogisticRegression:
     def fold_idf(self, idf: torch.Tensor) -> "LogisticRegression":
         """Fold an IDF vector into the weights (for raw term-count inputs)."""
         return replace(self, weights=self.weights * idf.to(self.weights))
+
+
+def margin_dense(model: LogisticRegression, x: torch.Tensor) -> torch.Tensor:
+    """(B, F) dense features -> (B,) raw margin."""
+    return x @ model.weights + model.intercept
+
+
+def predict_dense(model: LogisticRegression, x) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """Dense path: (predictions int32 (B,), p(class=1) (B,)) on the model's
+    device (``x`` numpy or a tensor)."""
+    x = torch.as_tensor(x).to(model.weights.device, torch.float32)
+    p = torch.sigmoid(margin_dense(model, x))
+    return (p > model.threshold).to(torch.int32), p
 
 
 def unpack_rows(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -420,3 +420,37 @@ class ServingPipeline:
             enc = EncodedBatch(ids=chunk_ids, counts=chunk_counts)
             parts.append((self._dispatch_encoded(enc, tree_binary), n))
         return self._pending(parts).resolve()
+
+
+def synthetic_demo_pipeline(batch_size: int = 256, *, n: int = 800, seed: int = 7,
+                            num_features: int = 10000, model: str = "lr",
+                            corpus_kwargs: Optional[dict] = None,
+                            int8: bool = False, featurize_device: bool = False,
+                            device="cuda") -> ServingPipeline:
+    """Train a quick model on the synthetic corpus on ``device`` — the serve
+    CLI's ``--model synthetic``. ``model``: "lr" (default, 50 L-BFGS
+    iterations) | "dt" | "rf" | "xgb". ``corpus_kwargs`` is forwarded to
+    ``generate_corpus``."""
+    from fraud_detection_tpu_torch.data import generate_corpus
+    from fraud_detection_tpu_torch.models.train_linear import fit_logistic_regression
+    from fraud_detection_tpu_torch.models.train_trees import (
+        fit_decision_tree, fit_gradient_boosting, fit_random_forest)
+
+    dev = resolve_device(device)
+    corpus = generate_corpus(n=n, seed=seed, **(corpus_kwargs or {}))
+    feat = HashingTfIdfFeaturizer(num_features=num_features)
+    feat.fit_idf([d.text for d in corpus])
+    X = feat.featurize_dense([d.text for d in corpus], device=dev)
+    y = np.asarray([d.label for d in corpus], np.float32)
+    if model == "lr":
+        clf = fit_logistic_regression(X, y, max_iter=50, device=dev)
+    elif model == "dt":
+        clf = fit_decision_tree(X, y, device=dev)
+    elif model == "rf":
+        clf = fit_random_forest(X, y, n_trees=20, device=dev)
+    elif model == "xgb":
+        clf = fit_gradient_boosting(X, y, n_rounds=20, device=dev)
+    else:
+        raise ValueError(f"unknown demo model {model!r}")
+    return ServingPipeline(feat, clf, batch_size=batch_size, int8=int8,
+                           featurize_device=featurize_device, device=dev)

@@ -442,6 +442,11 @@ def _poisson1(u: torch.Tensor) -> torch.Tensor:
 _BOOTSTRAP_ROW_TILE = 256
 
 
+def _bootstrap_rows(n: int) -> int:
+    """Rows the bootstrap weight stream runs over: N padded to the tile."""
+    return -(-n // _BOOTSTRAP_ROW_TILE) * _BOOTSTRAP_ROW_TILE
+
+
 def draw_forest_chunk(seed: int, start: int, tree_chunk: int, n: int, f: int,
                       max_depth: int, feature_subset: bool = True,
                       device="cpu"):
@@ -451,8 +456,8 @@ def draw_forest_chunk(seed: int, start: int, tree_chunk: int, n: int, f: int,
     ``device``."""
     key = threefry.fold_in(threefry.prng_key(seed, device), start)
     wkey, mkey = threefry.split(key)
-    n_padded = -(-n // _BOOTSTRAP_ROW_TILE) * _BOOTSTRAP_ROW_TILE
-    weights = _poisson1(threefry.uniform(wkey, (tree_chunk, n_padded)))
+    weights = _poisson1(threefry.uniform(wkey, (tree_chunk,
+                                                _bootstrap_rows(n))))
     weights = weights[:, :n].contiguous()      # the histogram kernel's layout
     if not feature_subset:
         return weights, None
@@ -475,6 +480,11 @@ def _edges_to_thresholds(edges: np.ndarray, feature: np.ndarray,
 # ---------------------------------------------------------------------------
 # Public trainers
 # ---------------------------------------------------------------------------
+
+#: Snapshot array names (the JAX package's, so snapshots read in both).
+_FOREST_ARRAYS = ("feature", "split_bin", "left", "right", "node_stats")
+_BOOST_ARRAYS = ("feature", "split_bin", "left", "right", "leaf_values")
+
 
 def resolve_tree_chunk(cfg: TreeTrainConfig, num_classes: int = 2) -> int:
     """Default trees per forest chunk: the JAX kernel path's rule (chunk x
@@ -550,6 +560,8 @@ def fit_random_forest(X, y, *, n_trees: int = 100, num_classes: int = 2,
                       tree_chunk: Optional[int] = None,
                       feature_subset: bool = True,
                       edges: Optional[np.ndarray] = None,
+                      checkpoint_dir: Optional[str] = None,
+                      checkpoint_every: int = 10,
                       device="cuda") -> TreeEnsemble:
     """Random forest: Poisson(1) bootstrap + per-node Bernoulli feature
     subsets (expected size sqrt(F); Spark's "auto" -> sqrt draws an exact
@@ -559,7 +571,14 @@ def fit_random_forest(X, y, *, n_trees: int = 100, num_classes: int = 2,
     ``resolve_tree_chunk``); each chunk draws the JAX package's bootstrap
     weights and masks for (seed, chunk start). A ragged last chunk is drawn
     and built in full and its extra trees dropped, so a forest's first
-    trees do not depend on ``n_trees``."""
+    trees do not depend on ``n_trees``.
+
+    ``checkpoint_dir`` snapshots every ``checkpoint_every`` trees and at the
+    end (``checkpoint/train_state.py``) and resumes from the last snapshot,
+    snapped down to the chunk grid: a chunk's draws are a function of (seed,
+    chunk start) alone, so a resumed forest equals an uninterrupted one.
+    The chunk size and the bootstrap padding shape the draws, so both are
+    part of the snapshot's fingerprint."""
     dev = resolve_device(device)
     cfg = config or TreeTrainConfig()
     if tree_chunk is None:
@@ -568,12 +587,47 @@ def fit_random_forest(X, y, *, n_trees: int = 100, num_classes: int = 2,
         X, y, num_classes, cfg, edges, dev)
     f = bins.shape[1]
     parts: List[Tuple[torch.Tensor, ...]] = []
-    for start in range(0, n_trees, tree_chunk):
+    trees_done = 0
+    if checkpoint_dir is not None:
+        from fraud_detection_tpu_torch.checkpoint import train_state as ts
+
+        if checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1, got {checkpoint_every}")
+        fingerprint = ts.data_fingerprint(
+            cfg.__dict__, edges, n, y=np.asarray(y),
+            extra={"seed": seed, "tree_chunk": tree_chunk,
+                   "feature_subset": feature_subset,
+                   "num_classes": num_classes,
+                   "bootstrap_rows": _bootstrap_rows(n),
+                   "bootstrap_sampler": "threefry-poisson1-icdf"})
+        snap = ts.load_for(checkpoint_dir, "random_forest", fingerprint)
+        if snap is not None:
+            progress, arrays = snap
+            trees_done = min(progress, n_trees)
+            if trees_done < n_trees:
+                # chunk keys fold in the chunk's start, a multiple of
+                # tree_chunk: an off-grid tail is dropped and rebuilt
+                trees_done = (trees_done // tree_chunk) * tree_chunk
+            parts.append(tuple(torch.from_numpy(arrays[k][:trees_done]).to(dev)
+                               for k in _FOREST_ARRAYS))
+    last_saved = trees_done
+    for start in range(trees_done, n_trees, tree_chunk):
         need = min(tree_chunk, n_trees - start)
         weights, masks = draw_forest_chunk(seed, start, tree_chunk, n, f,
                                            cfg.max_depth, feature_subset, dev)
         out = _build_forest_chunk(bins, stats, weights, masks, cfg)
         parts.append(tuple(a[:need] for a in out))
+        done = start + need
+        # each save rewrites the whole forest, so only on the cadence and at
+        # the end (the seed for extending the forest later)
+        if checkpoint_dir is not None and (
+                done - last_saved >= checkpoint_every or done == n_trees):
+            ts.save_train_state(
+                checkpoint_dir, "random_forest", done, fingerprint,
+                {k: torch.cat(p).cpu().numpy()
+                 for k, p in zip(_FOREST_ARRAYS, zip(*parts))})
+            last_saved = done
     cat = [torch.cat(p, dim=0) for p in zip(*parts)]
     return _assemble(*cat, edges=edges, tree_weights=np.ones(n_trees),
                      kind="random_forest", cfg=cfg, device=dev)
@@ -583,10 +637,18 @@ def fit_gradient_boosting(X, y, *, n_rounds: int = 100,
                           config: Optional[TreeTrainConfig] = None,
                           edges: Optional[np.ndarray] = None,
                           base_score: Optional[float] = None,
+                          checkpoint_dir: Optional[str] = None,
+                          checkpoint_every: int = 10,
                           device="cuda") -> TreeEnsemble:
     """XGBoost-style second-order boosting (binary logloss): each round fits
     a regression tree on (grad, hess, count) histograms; learning rate and
-    lambda live on the config (0.3 and 1.0, XGBoost's defaults)."""
+    lambda live on the config (0.3 and 1.0, XGBoost's defaults).
+
+    ``checkpoint_dir`` snapshots every ``checkpoint_every`` rounds and at the
+    end (``checkpoint/train_state.py``); a resume replays the margin from
+    the saved trees in round order (the same f32 additions), so the
+    ensemble equals an uninterrupted run's. A snapshot taken under another
+    setup refuses to load; a longer run's snapshot is cut to ``n_rounds``."""
     dev = resolve_device(device)
     cfg = config or TreeTrainConfig(criterion="xgb")
     if cfg.criterion != "xgb":
@@ -599,13 +661,39 @@ def fit_gradient_boosting(X, y, *, n_rounds: int = 100,
     edges, bins, yf, _, weights, n = _prepare_inputs(X, y, 2, cfg, edges, dev)
     margin = torch.full((n,), base_score, dtype=torch.float32, device=dev)
     rounds = []
-    for _ in range(n_rounds):
+    if checkpoint_dir is not None:
+        from fraud_detection_tpu_torch.checkpoint import train_state as ts
+
+        if checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1, got {checkpoint_every}")
+        fingerprint = ts.data_fingerprint(
+            cfg.__dict__, edges, n, y=np.asarray(y),
+            extra={"base_score": base_score})
+        snap = ts.load_for(checkpoint_dir, "gradient_boosting", fingerprint)
+        if snap is not None:
+            progress, arrays = snap
+            for r in range(min(progress, n_rounds)):
+                f_, b_, l_, r_, v_ = (torch.from_numpy(arrays[k][r]).to(dev)
+                                      for k in _BOOST_ARRAYS)
+                row_leaf = _row_leaves(bins, f_, b_, l_, r_, cfg.max_depth)
+                margin = _update_margin(margin, row_leaf, v_)
+                rounds.append((f_, b_, l_, r_, v_))
+    for r in range(len(rounds), n_rounds):
         f_, b_, l_, r_, values, row_leaf = _boost_round(margin, bins, yf,
                                                         weights, cfg)
         margin = _update_margin(margin, row_leaf, values)
-        rounds.append((f_, b_, l_, r_, values[:, None]))
-    cat = [torch.stack(p) for p in zip(*rounds)]
-    return _assemble(*cat, edges=edges, tree_weights=np.ones(n_rounds),
+        rounds.append((f_, b_, l_, r_, values))
+        if checkpoint_dir is not None and (
+                (r + 1) % checkpoint_every == 0 or r + 1 == n_rounds):
+            ts.save_train_state(
+                checkpoint_dir, "gradient_boosting", r + 1, fingerprint,
+                {k: torch.stack(p).cpu().numpy()
+                 for k, p in zip(_BOOST_ARRAYS, zip(*rounds))})
+    feature, split_bin, left, right, values = (torch.stack(p)
+                                               for p in zip(*rounds))
+    return _assemble(feature, split_bin, left, right, values[..., None],
+                     edges=edges, tree_weights=np.ones(n_rounds),
                      kind="xgboost", cfg=cfg, bias=base_score, device=dev)
 
 

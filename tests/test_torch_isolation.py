@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing every module of
-``fraud_detection_tpu_torch`` (and ``chip_smoke``) loads neither jax nor any
-module of the JAX package, and without a CUDA device its entry points
+``fraud_detection_tpu_torch`` (and ``chip_smoke``) loads neither jax, nor
+optax, nor any module of the JAX package, and without a CUDA device its entry points
 refuse to run unless the caller asks for the CPU."""
 
 import json
@@ -25,6 +25,7 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "optax" or m.startswith("optax.")
              or m == "fraud_detection_tpu" or m.startswith("fraud_detection_tpu."))
 print(json.dumps({"modules": names, "bad": bad}))
 """
@@ -47,7 +48,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "ops.attention", "models.llm", "explain.onpod",
                  "explain.agent", "explain.history", "explain.circuit",
                  "app.serve", "featurize.native", "featurize.parallel",
-                 "sched.scheduler", "sched.batcher", "utils.config"):
+                 "sched.scheduler", "sched.batcher", "utils.config",
+                 "models.train_linear", "checkpoint.train_state",
+                 "eval.word_associations", "registry.registry",
+                 "utils.atomicio"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -75,16 +79,29 @@ def test_no_cuda_means_no_silent_cpu_training(tmp_path):
         pytest.skip("a CUDA device is present: the default device is valid")
     from fraud_detection_tpu_torch.app import train
     from fraud_detection_tpu_torch.checkpoint.native import load_checkpoint
+    from fraud_detection_tpu_torch.featurize.tfidf import HashingTfIdfFeaturizer
     from fraud_detection_tpu_torch.models import train_trees
+
+    from fraud_detection_tpu_torch.models.pipeline import synthetic_demo_pipeline
+    from fraud_detection_tpu_torch.models.train_linear import (
+        fit_logistic_regression)
+    from fraud_detection_tpu_torch.registry import ModelRegistry
 
     X = np.random.default_rng(0).random((20, 4)).astype(np.float32)
     y = (X[:, 0] > 0.5).astype(np.float32)
     for fit in (train_trees.fit_decision_tree, train_trees.fit_random_forest,
-                train_trees.fit_gradient_boosting):
+                train_trees.fit_gradient_boosting, fit_logistic_regression):
         with pytest.raises(RuntimeError, match="cuda"):
             fit(X, y)
     with pytest.raises(RuntimeError, match="cuda"):
         train.main(["--n", "20", "--models", "dt"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        synthetic_demo_pipeline(n=20, num_features=16)
+    registry = ModelRegistry(str(tmp_path / "registry"))
+    registry.publish(HashingTfIdfFeaturizer(num_features=4),
+                     fit_logistic_regression(X, y, device="cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        registry.load(1)
     with pytest.raises(RuntimeError, match="cuda"):
         load_checkpoint(str(tmp_path))
 

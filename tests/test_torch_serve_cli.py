@@ -6,7 +6,9 @@ A checkpoint written by the JAX trainer (``synthetic_demo_pipeline``'s LR,
 CLI also runs with ``--featurize-device`` and with ``--async-dispatch
 --int8`` under the adaptive scheduler, refuses bad flag combinations with
 the reference's messages, and refuses every reference flag it does not
-offer yet by naming its ROADMAP item.
+offer yet by naming its ROADMAP item. ``--model synthetic`` trains the
+demo LR at startup (scoring like the JAX package's demo pipeline) and
+serves it under each flag variant.
 """
 
 import json
@@ -15,6 +17,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -106,9 +109,13 @@ def test_validation_errors_equal_jax(ckpt, argv):
     assert str(te.value) == str(je.value)
 
 
-def test_synthetic_model_names_the_missing_trainer():
-    with pytest.raises(SystemExit, match=r"train_linear.*Queue 1 item 4"):
-        tserve.main(["--device", "cpu", "--model", "synthetic", "--demo", "5"])
+def test_synthetic_model_names_the_missing_trainer(capsys):
+    # The LR trainer is ported: --model synthetic trains one at startup and
+    # serves; what is still missing refuses naming its queue item.
+    assert tserve.main(["--device", "cpu", "--model", "synthetic",
+                        "--demo", "5"]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1] == \
+        "classified messages on dialogues-classified: 5"
     with pytest.raises(SystemExit, match=r"pyarrow.*Queue 1 item 6"):
         tserve.main(["--device", "cpu", "--model", "spark:x", "--demo", "5"])
     with pytest.raises(SystemExit, match=r"Queue 1 item 7"):
@@ -172,3 +179,37 @@ def test_module_entry_point_serves_on_cpu(ckpt):
     assert lines[-1] == "classified messages on dialogues-classified: 150"
     health = json.loads(lines[-2])["health"]
     assert health["device"]["featurize_path"] == "host"
+
+
+SYNTHETIC_P_TOL = 1e-3   # demo LR probabilities, port vs JAX, at n=200
+
+
+def test_synthetic_demo_pipeline_equals_jax():
+    """The demo pipeline (the same corpus, featurizer and 50-iteration
+    L-BFGS fit) scores like the JAX package's: labels equal, probabilities
+    within SYNTHETIC_P_TOL."""
+    from fraud_detection_tpu.data import generate_corpus
+    from fraud_detection_tpu_torch.models.pipeline import (
+        synthetic_demo_pipeline as port_demo)
+
+    texts = [d.text for d in generate_corpus(n=400, seed=123)]
+    want = synthetic_demo_pipeline(batch_size=64, n=200).predict(texts)
+    port = port_demo(batch_size=64, n=200, device="cpu")
+    got = port.predict(texts)
+    assert port.model.weights.shape == (10000,)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    np.testing.assert_allclose(got.probabilities, want.probabilities, rtol=0,
+                               atol=SYNTHETIC_P_TOL)
+
+
+@pytest.mark.parametrize("extra", [["--int8"], ["--featurize-device"],
+                                   ["--async-dispatch"]])
+def test_synthetic_model_serves_with_each_variant(capsys, extra):
+    rc, stats, n = _serve(tserve.main, ["--device", "cpu", "--model",
+                                        "synthetic", "--demo", "64",
+                                        "--batch-size", "32", *extra], capsys)
+    assert rc == 0 and n == 64 and stats["processed"] == 64
+    device = stats["health"]["device"]
+    assert device["featurize_path"] == ("torch" if "--featurize-device" in extra
+                                        else "host")
+    assert device["int8"] is ("--int8" in extra)

@@ -8,6 +8,9 @@ package on the CPU.
   split, exactly.
 * A JAX ``save_checkpoint`` loads in the port and the reverse.
 * Dense ``predict`` equals the JAX package's for DT, RF and GBT models.
+* The parser knows every flag of the reference's (``--models`` defaults to
+  ``dt,rf,xgb,lr``); ``--mesh``, ``--plots`` and ``--save model=spark:dir``
+  refuse, naming their ROADMAP item.
 """
 
 import io
@@ -220,10 +223,56 @@ def test_loader_and_metrics_match_jax():
 
 
 def test_cli_offers_only_this_slice(tmp_path):
-    with pytest.raises(SystemExit):
-        ptrain.main(["--device", "cpu", "--models", "lr"])
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit, match=r"--mesh .*Queue 1 item 4"):
         ptrain.main(["--device", "cpu", "--mesh"])
+    with pytest.raises(SystemExit, match=r"--plots .*matplotlib.*Queue 1 item 4"):
+        ptrain.main(["--device", "cpu", "--models", "dt",
+                     "--plots", str(tmp_path)])
+    with pytest.raises(SystemExit, match=r"spark:<dir> .*Queue 1 item 6"):
+        ptrain.main(["--device", "cpu", "--models", "rf",
+                     "--save", f"rf=spark:{tmp_path}"])
     with pytest.raises(SystemExit):
         ptrain.main(["--device", "cpu", "--models", "dt",
                      "--save", f"rf={tmp_path}"])
+
+
+def test_every_reference_train_flag_is_offered_or_refused(monkeypatch):
+    """No silent ignore: the port's training parser knows every flag of the
+    reference's and adds only --device."""
+    import argparse
+
+    from fraud_detection_tpu.app import train as jtrain
+
+    def flags(main):
+        seen = set()
+
+        def grab(self, *a, **kw):
+            seen.update(s for act in self._actions for s in act.option_strings)
+            raise SystemExit(0)
+
+        with monkeypatch.context() as m:
+            m.setattr(argparse.ArgumentParser, "parse_args", grab)
+            with pytest.raises(SystemExit):
+                main([])
+        return seen
+
+    tflags, jflags = flags(ptrain.main), flags(jtrain.main)
+    assert tflags - jflags == {"--device"}
+    assert jflags <= tflags
+
+
+def test_default_models_are_the_reference_s(monkeypatch):
+    import argparse
+
+    seen = {}
+    parse = argparse.ArgumentParser.parse_args
+
+    def grab(self, *a, **kw):
+        seen.update(vars(parse(self, *a, **kw)))
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    with pytest.raises(SystemExit):
+        ptrain.main(["--device", "cpu"])
+    assert seen["models"] == "dt,rf,xgb,lr"
+    assert ptrain.MODELS == ("dt", "rf", "xgb", "lr")
