@@ -93,6 +93,29 @@ Phases (any failure raises and the script exits non-zero):
 7e. ``serve --model synthetic --demo 4096 --batch-size 1024`` (an LR
    trained at startup), host featurize and ``--featurize-device``, with
    phase 5b's gates;
+7f. the model lifecycle: phase 7's xgb100 checkpoint published as v1 of a
+   fresh registry and served (``HotSwapPipeline``, raw JSON, batch 512) by
+   the engine with a ``ShadowScorer``, a ``LearnLoop`` (``LearnConfig``
+   defaults, its own thread and CUDA stream) and a ``LifecycleController``
+   on its watcher thread, over 4,096 messages of the serve demo's corpus
+   with 256 ``drift_scam_pool`` rows among them, their labels on a
+   feedback topic: every key out once in partition order; the lane
+   publishes v2 (trigger drift), its refresh launching ``histogram.cu``
+   and ``best_splits.cu`` once per split level of every round; the
+   controller stages, shadow-scores and promotes it (audit order, no load
+   failure, no lane fault); the live model then flags > 90% of a fresh
+   drift pool. The lane's window refreshed on the card and on the CPU:
+   new trees equal, p within 1e-4, and equal to the published v2's; the
+   same for a two-class window (all 4,096 scored rows with their ground
+   truth, at the 4,096 rung), whose refresh flags <= 10% of its legit rows
+   (its wall and device idle printed). The
+   primary's msgs/s and p99 with the lanes off, during back-to-back
+   refreshes and with the lanes on, the refresh's wall and device idle
+   share, the prewarm wall, the pointer swap and shadow rows/s are printed.
+   Then ``serve --registry --watch --shadow --promote-policy --learn
+   --demo 4096 --batch-size 1024``, a thread publishing v2 once the first
+   batch is delivered: exit 0, every message classified, the stage in the
+   stats JSON's lifecycle block;
 8. timings (CUDA events, median of >= 10 after warm-up) of each kernel, its
    plain version and its library call where one exists (both featurize
    entries in turns with their profiler device time, beside the first scan
@@ -147,7 +170,8 @@ Phases (any failure raises and the script exits non-zero):
 Launch counts are reset just before each main path (serving: phases 4-5;
 the stream entry: the pass after phase 5; ``featurize_packed`` again
 before phase 5b's host pipelines and before each serve CLI run;
-training: phase 7, the CLI, and phase 7c, the resume; the LLM prefill: one T=2048 forward in phase
+training: phase 7, the CLI, and phase 7c, the resume; the learn lane's
+refresh: phase 7f's lifecycle run; the LLM prefill: one T=2048 forward in phase
 10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
 flash kernel) and read just after it. It imports nothing of JAX or of
 ``fraud_detection_tpu``.
@@ -227,6 +251,19 @@ FLASH_F32_TOL, FLASH_BF16_ATOL = 2e-5, 1e-2
 FLASH_BF16_RTOL = 2.0 ** -7
 FLASH_RAGGED_T, FLASH_RAGGED_D, FLASH_RAGGED_H = (1, 64, 127, 1000, 2049), (64, 128, 256), 4
 CARD_CPU_TOL = 5e-4                 # the JAX flash forward test's bound
+# The lifecycle phase: LC_MSGS messages, every LC_DRIFT_EVERY-th one of
+# LC_DRIFT drift rows (drift_scam_pool); the engine's batch; the promotion
+# spec of the JAX package's inline learn-loop test (its window is all drift
+# rows, which the candidate and the drifted primary score apart on every
+# row); the reference test's bar for a fresh drift pool after promotion;
+# the card-vs-CPU bound in p (phase 6's xgb bound); the most of a two-class
+# window's legit rows that a refresh trained on their labels may flag (the
+# drift-only refresh, a window of positives, flags ~98% of them).
+LC_MSGS, LC_DRIFT, LC_DRIFT_EVERY, LC_BATCH = 4096, 256, 16, 512
+LC_POLICY = ("min_batches=1,min_rows=16,max_disagreement=1.0,max_psi=50.0,"
+             "max_flag_rate_delta=1.0")
+LC_FLAG_MIN, LC_P_TOL, LC_LEGIT_MAX = 0.9, 1e-4, 0.1
+LC_RATE_MSGS, LC_SHADOW_ROWS = 32768, 8192
 # bench.py's generation prompts (mk_prompts(8)).
 GEN_PROMPTS = [f"Analyze this dialogue for scam risk (case {i}): the caller "
                "claims to be the bank fraud department and demands immediate "
@@ -1667,6 +1704,492 @@ def engine_rate(pipe, items, **kw):
     return stats.msgs_per_sec, profiled_idle(setup)
 
 
+# ---------------------------------------------------------------------------
+# the model lifecycle: registry, hot swap, shadow, promotion, learn lane
+# ---------------------------------------------------------------------------
+
+def lifecycle_texts(seed: int):
+    """The lifecycle stream: LC_MSGS texts from the serve demo's corpus
+    (``generate_corpus(n=2000, seed=123)``, cycled) with every
+    LC_DRIFT_EVERY-th replaced by the next of ``drift_scam_pool(seed,
+    LC_DRIFT)``; returns (texts, drift flags, ground truth: the corpus
+    label, 1 for a drift row)."""
+    from fraud_detection_tpu_torch.data import generate_corpus
+    from fraud_detection_tpu_torch.scenarios import drift_scam_pool
+
+    corpus = generate_corpus(n=2000, seed=123)
+    drift = drift_scam_pool(seed, LC_DRIFT)
+    texts, flags, truth = [], [], []
+    for i in range(LC_MSGS):
+        is_drift = i % LC_DRIFT_EVERY == LC_DRIFT_EVERY - 1
+        doc = corpus[i % len(corpus)]
+        texts.append(drift[i // LC_DRIFT_EVERY] if is_drift else doc.text)
+        flags.append(is_drift)
+        truth.append(1 if is_drift else int(doc.label))
+    return texts, flags, truth
+
+
+def wait_for(predicate, what: str, timeout: float = 120.0, faults=()):
+    """Poll ``predicate`` until it holds; fail on a lane's device fault or
+    at ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        for lane in faults:
+            if lane.fault is not None:
+                raise AssertionError(f"{what}: {type(lane).__name__} stopped "
+                                     f"on a device fault: {lane.fault!r}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.01)
+
+
+def new_trees(model, base_trees: int) -> dict:
+    return {k: getattr(model, k)[base_trees:].cpu().numpy()
+            for k in ("feature", "threshold", "left", "right", "leaf")}
+
+
+def lifecycle_run(dev, xgb_ckpt: Path, out: Path, seed: int, card: str) -> dict:
+    """Phase 7f's main path: the CLI's xgb100 checkpoint as v1 of a fresh
+    registry, served through a HotSwapPipeline by the engine (raw JSON) with
+    a ShadowScorer, a LearnLoop (LearnConfig defaults, its own thread,
+    reading a feedback topic) and a LifecycleController on its watcher
+    thread. The stream carries LC_DRIFT drift rows among LC_MSGS messages;
+    their ground-truth labels wait on the feedback topic. Gates: every key
+    out once in partition order; the lane publishes v2 (trigger drift),
+    its refresh launching both tree kernels on the card; the controller
+    stages, shadow-scores and promotes v2 (audit order, no load failure, no
+    lane fault); the live model then flags > LC_FLAG_MIN of a fresh drift
+    pool. Returns the phase's numbers and what later checks need."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.data import generate_corpus
+    from fraud_detection_tpu_torch.learn import LearnLoop
+    from fraud_detection_tpu_torch.ops import histogram as H
+    from fraud_detection_tpu_torch.registry import (HotSwapPipeline,
+                                                    LifecycleController,
+                                                    ModelRegistry,
+                                                    PromotionPolicy,
+                                                    ShadowScorer)
+    from fraud_detection_tpu_torch.scenarios import drift_scam_pool
+    from fraud_detection_tpu_torch.stream import (InProcessBroker,
+                                                  StreamingClassifier)
+    from fraud_detection_tpu_torch.stream.feedback import label_record
+
+    root = out / "lifecycle_registry"
+    shutil.rmtree(root, ignore_errors=True)
+    reg = ModelRegistry(str(root))
+    reg.publish_dir(str(xgb_ckpt), metrics={"source": "train CLI xgb100"})
+    _, v1 = reg.load(1, batch_size=LC_BATCH, device=dev)
+    hot = HotSwapPipeline(v1, version=1)
+    texts, flags, truth = lifecycle_texts(seed)
+    broker = InProcessBroker(num_partitions=3)
+    broker.producer().produce_batch("lc-in", [
+        (json.dumps({"text": t, "id": i}).encode(), str(i).encode())
+        for i, t in enumerate(texts)])
+    drift_keys = {str(i).encode() for i, f in enumerate(flags) if f}
+    broker.producer().produce_batch("lc-feedback", [
+        (label_record(m.topic, m.partition, m.offset, 1), m.key)
+        for m in broker.messages("lc-in") if m.key in drift_keys])
+    shadow = ShadowScorer(max_queue=64, window_batches=16)
+    loop = LearnLoop(feedback_consumer=broker.consumer(["lc-feedback"], "learn"),
+                     registry=reg, hotswap=hot, shadow=shadow)
+    engine = StreamingClassifier(hot, broker.consumer(["lc-in"], "lc"),
+                                 broker.producer(), "lc-out",
+                                 batch_size=LC_BATCH, max_wait=0.05,
+                                 shadow=shadow, learn=loop)
+    controller = LifecycleController(
+        reg, hot, shadow=shadow, policy=PromotionPolicy.parse(LC_POLICY),
+        batch_size=LC_BATCH, health_fn=engine.health,
+        on_transition=loop.on_transition)
+    loop.bind_controller(controller)
+    lanes = (loop, controller, shadow)
+    H.node_feature_bin_histogram_multi.launches = 0
+    H.best_splits.launches = 0
+    watch_thread, watch_stop = controller.run_in_thread(0.02)
+    try:
+        stats = engine.run(max_messages=LC_MSGS, idle_timeout=5.0)
+        pins = {"v1": engine.health()["device"]["model_pins"]}
+        wait_for(lambda: loop.snapshot()["published"] >= 1,
+                 "the learn lane's v2", faults=lanes)
+        launches = {"histogram": H.node_feature_bin_histogram_multi.launches,
+                    "best_splits": H.best_splits.launches}
+        wait_for(lambda: hot.active_version == 2, "promotion of v2",
+                 faults=lanes)
+    finally:
+        watch_stop.set()
+        watch_thread.join(timeout=10.0)
+        loop.close(timeout=30.0)
+    health = engine.health()
+    pins["v2"] = health["device"]["model_pins"]
+    for lane in lanes:
+        if lane.fault is not None:
+            raise AssertionError(f"{type(lane).__name__} device fault: "
+                                 f"{lane.fault!r}")
+    outs = broker.messages("lc-out")
+    if stats.processed != LC_MSGS or sorted(m.key for m in outs) != sorted(
+            str(i).encode() for i in range(LC_MSGS)):
+        raise AssertionError(f"lifecycle stream: {stats.processed} processed, "
+                             f"{len(outs)} out")
+    for part in range(3):
+        want = [m.key for m in broker.messages("lc-in") if m.partition == part]
+        if [m.key for m in outs if m.partition == part] != want:
+            raise AssertionError(f"lifecycle stream: partition {part} reordered")
+    learn = loop.snapshot()
+    mv2 = reg.get(2)
+    info = mv2.manifest["learn"]
+    if learn["published_versions"] != [2] or info["trigger"] != "drift" \
+            or learn["last_trigger"] != "drift":
+        raise AssertionError(f"learn lane: {learn}, manifest {info}")
+    # one histogram and one best_splits per split level of every round (a
+    # CPU run launches nothing: the plain versions run there)
+    per_retrain = (info["rounds"] * info["max_depth"]
+                   if dev.type == "cuda" else 0)
+    if launches != {"histogram": per_retrain, "best_splits": per_retrain}:
+        raise AssertionError(f"the refresh launched {launches}, want "
+                             f"{per_retrain} of each tree kernel")
+    events = [e["event"] for e in reg.read_audit()]
+    if events != ["publish", "publish", "stage", "promote"] or [
+            e["event"] for e in controller.events] != ["stage", "promote"]:
+        raise AssertionError(f"audit events {events}")
+    promo = controller.events[-1]
+    if promo["version"] != 2 or promo["mode"] != "shadow" \
+            or promo["shadow"]["rows"] < 1:
+        raise AssertionError(f"promotion {promo}")
+    fresh = drift_scam_pool(seed + 1, LC_DRIFT)
+    flagged = float(np.mean(hot.predict(fresh).labels))
+    if not flagged > LC_FLAG_MIN:
+        raise AssertionError(f"after the promotion the live model flags "
+                             f"{flagged:.4f} of a fresh drift pool")
+    legit = [d.text for d in generate_corpus(n=2000, seed=123) if d.label == 0]
+    legit_flagged = float(np.mean(hot.predict(legit).labels))
+    shadow.close(timeout=10.0)
+    window = loop.store.labeled_rows()
+    # The two-class window: the corpus truth of the lane's other scored rows
+    # joined into its (closed) store beside the drift labels.
+    for m in broker.messages("lc-in"):
+        if m.key not in drift_keys:
+            loop.store.join((m.topic, m.partition, m.offset),
+                            truth[int(m.key)])
+    two_class = loop.store.labeled_rows()
+    if len(two_class) != LC_MSGS:
+        raise AssertionError(f"two-class window: {len(two_class)} rows")
+    print(f"[lifecycle] {LC_MSGS} messages ({LC_DRIFT} drift rows) through "
+          f"v1 with shadow + learn lanes: keys exact, partition order kept, "
+          f"{stats.msgs_per_sec:.0f} msgs/s; v2 published (trigger drift, "
+          f"{info['window_rows']} rows padded to {info['padded_rows']}, "
+          f"{info['rounds']} rounds, retrain wall {learn['last_retrain_wall_s']}"
+          f" s) launching histogram {launches['histogram']}x and best_splits "
+          f"{launches['best_splits']}x; audit {events}; promoted after "
+          f"{promo['shadow']['rows']} shadow rows; fresh drift pool flagged "
+          f"{flagged:.4f} (> {LC_FLAG_MIN}); corpus legit rows flagged "
+          f"{legit_flagged:.4f} (not gated); model_pins {pins} ({card})")
+    return dict(msgs_per_sec=stats.msgs_per_sec,
+                p99_row_latency_ms=stats.row_latency_ms(0.99),
+                launches=launches, learn=learn, manifest_learn=info,
+                events=events, promote_shadow_rows=promo["shadow"]["rows"],
+                fresh_drift_flagged=flagged, legit_flagged=legit_flagged,
+                model_pins=pins, model_block=health["model"],
+                registry=reg, v1=v1, hot=hot, window=window,
+                two_class_window=two_class, seed=seed)
+
+
+def refresh_card_vs_cpu(lc: dict, dev) -> dict:
+    """Two windows through ``refresh_gradient_boosting`` on the card and on
+    the CPU, from v1: the lane's own (the drift rows, at the smallest
+    rung), whose card refresh must equal the published v2's trees, and the
+    two-class window (all LC_MSGS scored rows with their ground truth, at
+    LearnConfig's max_train_rows rung), whose refreshed model may flag at
+    most LC_LEGIT_MAX of the window's legit rows. On each, the new trees'
+    feature / split (threshold) / children are equal and p on the window is
+    within LC_P_TOL. Also the two-class card refresh's wall (median of 3)
+    and device idle share."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.learn import LearnConfig, LearnLoop
+    from fraud_detection_tpu_torch.models import trees as tm
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.models.train_trees import (
+        refresh_gradient_boosting)
+    from fraud_detection_tpu_torch.scenarios import drift_scam_pool
+
+    v1 = lc["v1"]
+    base = v1.model.num_trees
+    rounds = lc["manifest_learn"]["rounds"]
+    cap = LearnConfig().max_train_rows
+
+    def card_vs_cpu(name, rows):
+        X, y = LearnLoop._densify(rows[-cap:], v1.featurizer)
+        got = {}
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            t0 = time.perf_counter()
+            model, info = refresh_gradient_boosting(
+                v1.model.to(d), X, y, n_rounds=rounds, device=d)
+            wall = time.perf_counter() - t0
+            p = tm.predict_proba(model, torch.from_numpy(X).to(d))[:, 1]
+            got[side] = (model, info, p.cpu().numpy(), wall)
+        card, cpu = (new_trees(got[k][0], base) for k in ("card", "cpu"))
+        for k in ("feature", "threshold", "left", "right"):
+            if not np.array_equal(card[k], cpu[k]):
+                raise AssertionError(f"refresh card vs CPU ({name} window): "
+                                     f"new trees' {k} differ")
+        dp = float(np.max(np.abs(got["card"][2] - got["cpu"][2])))
+        if got["card"][1] != got["cpu"][1] or not dp <= LC_P_TOL:
+            raise AssertionError(f"refresh card vs CPU ({name} window): max "
+                                 f"|dp| {dp}, info {got['card'][1]} / "
+                                 f"{got['cpu'][1]}")
+        out = dict(max_abs_dp=dp, rows=X.shape[0],
+                   rung=got["card"][1]["padded_rows"],
+                   card_wall_s=got["card"][3], cpu_wall_s=got["cpu"][3])
+        print(f"[lifecycle] refresh of the {name} window ({X.shape[0]} x "
+              f"{X.shape[1]} at rung {out['rung']}, {rounds} rounds): card and "
+              f"CPU trees equal, max |dp| {dp:.3g} <= {LC_P_TOL}; walls card "
+              f"{out['card_wall_s']:.3f} s, CPU {out['cpu_wall_s']:.3f} s "
+              "(host clock)")
+        return out, X, y, got["card"], card
+
+    drift, X, y, _, card = card_vs_cpu("drift", lc["window"])
+    _, v2 = lc["registry"].load(2, batch_size=LC_BATCH, device=dev)
+    lane = new_trees(v2.model, base)
+    for k in ("feature", "threshold", "left", "right"):
+        if not np.array_equal(lane[k], card[k]):
+            raise AssertionError(f"the published v2's new trees' {k} differ "
+                                 "from a card refresh of its window")
+    drift["v2_leaf_max_abs_diff"] = float(
+        np.max(np.abs(lane["leaf"] - card["leaf"])))
+    print(f"[lifecycle] v2's trees equal the card refresh of the lane's window "
+          f"(leaf max |diff| {drift['v2_leaf_max_abs_diff']:.3g})")
+
+    two, X2, y2, (model2, _, p2, _), _ = card_vs_cpu("two-class",
+                                                     lc["two_class_window"])
+    if two["rung"] != cap:
+        raise AssertionError(f"two-class window at rung {two['rung']}, "
+                             f"want {cap}")
+    legit = y2 == 0
+    p_v1 = tm.predict_proba(v1.model, torch.from_numpy(X2).to(dev))[:, 1]
+    two.update(
+        scam_rows=int(np.sum(y2 == 1)), legit_rows=int(np.sum(legit)),
+        legit_flagged=float(np.mean(p2[legit] > 0.5)),
+        v1_legit_flagged=float(np.mean(p_v1.cpu().numpy()[legit] > 0.5)),
+        scam_flagged=float(np.mean(p2[~legit] > 0.5)))
+    fresh = drift_scam_pool(lc["seed"] + 1, LC_DRIFT)
+    two["fresh_drift_flagged"] = float(np.mean(ServingPipeline(
+        v1.featurizer, model2, batch_size=LC_BATCH,
+        device=dev).predict(fresh).labels))
+    if not two["legit_flagged"] <= LC_LEGIT_MAX:
+        raise AssertionError(f"the two-class refresh flags "
+                             f"{two['legit_flagged']:.4f} of the window's "
+                             f"legit rows (limit {LC_LEGIT_MAX})")
+
+    def refresh():
+        refresh_gradient_boosting(v1.model, X2, y2, n_rounds=rounds,
+                                  device=dev)
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        refresh()
+        walls.append(time.perf_counter() - t0)
+    two["wall_s"] = statistics.median(walls)
+    two["device_idle"] = profiled_idle(lambda: refresh)
+    print(f"[lifecycle] two-class window ({two['scam_rows']} scam, "
+          f"{two['legit_rows']} legit rows): the refresh flags "
+          f"{two['legit_flagged']:.4f} of the legit rows (<= {LC_LEGIT_MAX}; "
+          f"v1 {two['v1_legit_flagged']:.4f}) and {two['scam_flagged']:.4f} "
+          f"of the scam rows and {two['fresh_drift_flagged']:.4f} of a fresh "
+          f"drift pool (not gated); card refresh wall "
+          f"{two['wall_s']:.4f} s (median of 3), device idle "
+          f"{two['device_idle']:.4f}")
+    return dict(drift=drift, two_class=two, X=X, y=y)
+
+
+def lane_figures(lc: dict, fit: dict, dev, card: str) -> dict:
+    """Printed, not gated: the primary's msgs/s and p99 row latency over
+    LC_RATE_MSGS messages with the lanes off, with a refresh of the lane's
+    window running back to back on a lane stream, and after (shadow and an
+    idle learn lane attached); one refresh's wall and device idle share;
+    the prewarm wall and the pointer swap; shadow rows/s."""
+    import threading
+
+    import numpy as np
+
+    from fraud_detection_tpu_torch.data import generate_corpus
+    from fraud_detection_tpu_torch.learn import LearnConfig, LearnLoop
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.models.train_trees import (
+        refresh_gradient_boosting)
+    from fraud_detection_tpu_torch.registry import (HotSwapPipeline,
+                                                    ShadowScorer)
+    from fraud_detection_tpu_torch.utils.device import lane_stream, on_lane
+
+    reg, v1 = lc["registry"], lc["v1"]
+    X, y = fit["X"], fit["y"]
+    rounds = lc["manifest_learn"]["rounds"]
+    corpus = [d.text for d in generate_corpus(n=2000, seed=123)]
+    items = [(json.dumps({"text": corpus[i % len(corpus)], "id": i}).encode(),
+              str(i).encode()) for i in range(LC_RATE_MSGS)]
+    pipe = ServingPipeline(v1.featurizer, v1.model, batch_size=1024,
+                           device=dev)
+
+    def refresh():
+        refresh_gradient_boosting(v1.model, X, y, n_rounds=rounds, device=dev)
+
+    def engine_figures(**kw):
+        _, stats, _, _ = run_engine(pipe, items, 1024, **kw)
+        return dict(msgs_per_sec=stats.msgs_per_sec,
+                    p99_row_latency_ms=stats.row_latency_ms(0.99))
+
+    pipe.predict(corpus[:1024])
+    rates = {"lanes_off": engine_figures()}
+    stop, done = threading.Event(), []
+
+    def refresh_loop():
+        with on_lane(lane_stream(dev, {})):
+            while not stop.is_set():
+                refresh()
+                done.append(1)
+
+    worker = threading.Thread(target=refresh_loop, name="refresh")
+    worker.start()
+    try:
+        rates["during_retrain"] = engine_figures()
+    finally:
+        stop.set()
+        worker.join()
+    rates["during_retrain"]["retrains_finished"] = len(done)
+    _, v2 = reg.load(2, batch_size=1024, device=dev)
+    shadow = ShadowScorer(max_queue=8)
+    shadow.set_candidate(v2, version=2)
+    idle_lane = LearnLoop(registry=reg, hotswap=HotSwapPipeline(pipe, 1),
+                          config=LearnConfig(min_labeled=10 ** 6))
+    try:
+        rates["after_lanes_on"] = engine_figures(shadow=shadow, learn=idle_lane)
+        rates["after_lanes_on"]["shadow_rows"] = shadow.snapshot()["rows"]
+    finally:
+        idle_lane.close(timeout=30.0)
+        shadow.close(timeout=30.0)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        refresh()
+        walls.append(time.perf_counter() - t0)
+    idle = profiled_idle(lambda: refresh)
+    hot = HotSwapPipeline(pipe, version=1)
+    _, cand = reg.load(2, batch_size=1024, device=dev)
+    t0 = time.perf_counter()
+    hot.stage(cand, version=2)
+    prewarm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hot.promote_staged()
+    swap_us = (time.perf_counter() - t0) * 1e6
+    sh = ShadowScorer(max_queue=64)
+    sh.set_candidate(cand, version=2)
+    values = [v for v, _ in items[:LC_SHADOW_ROWS]]
+    prim = pipe.predict([json.loads(v)["text"] for v in values])
+    try:
+        t0 = time.perf_counter()
+        for s in range(0, len(values), 1024):
+            if not sh.submit(values[s:s + 1024], prim.labels[s:s + 1024],
+                             prim.probabilities[s:s + 1024], raw=True):
+                raise AssertionError("shadow queue dropped a batch")
+        if not sh.drain(60.0):
+            raise AssertionError("shadow queue never drained")
+        shadow_rows_s = sh.snapshot()["rows"] / (time.perf_counter() - t0)
+    finally:
+        sh.close(timeout=10.0)
+    out = dict(engine=rates, retrain_wall_s=statistics.median(walls),
+               retrain_device_idle=idle, prewarm_wall_s=prewarm_s,
+               swap_us=swap_us, shadow_rows_per_s=shadow_rows_s,
+               window_rung=fit["drift"]["rung"],
+               window_rows=fit["drift"]["rows"])
+    print(f"[lifecycle] {card}: primary over {LC_RATE_MSGS} msgs (batch "
+          "1024, raw JSON): " + "; ".join(
+              f"{k} {v['msgs_per_sec']:.0f} msgs/s p99 "
+              f"{v['p99_row_latency_ms']} ms" for k, v in rates.items())
+          + f" ({len(done)} refreshes finished during the run); refresh wall "
+          f"{out['retrain_wall_s']:.4f} s (median of 3), device idle "
+          f"{idle:.4f}; prewarm {prewarm_s:.4f} s, pointer swap "
+          f"{swap_us:.1f} us; shadow {shadow_rows_s:.0f} rows/s; window "
+          f"{fit['drift']['rows']} rows at rung {fit['drift']['rung']}")
+    return out
+
+
+def lifecycle_cli(dev, xgb_ckpt: Path, v2_dir: str, out: Path,
+                  card: str) -> dict:
+    """``serve --registry --watch --shadow --promote-policy --learn --demo
+    SERVE_DEMO --batch-size 1024`` on the card: once the engine delivers its
+    first batch, a thread publishes the learn lane's v2 as the registry's
+    v2 and the delivery waits until the watcher has staged it. The run must
+    exit 0 (no lane fault), classify every message and show the stage (or
+    a swap) in the stats JSON's lifecycle block."""
+    import threading
+
+    from fraud_detection_tpu_torch.registry import ModelRegistry
+    from fraud_detection_tpu_torch.stream import engine as engine_mod
+
+    root = out / "lifecycle_cli_registry"
+    shutil.rmtree(root, ignore_errors=True)
+    reg = ModelRegistry(str(root))
+    reg.publish_dir(str(xgb_ckpt))
+    deliver = engine_mod.StreamingClassifier._deliver
+    staged = {}
+
+    def publish():
+        staged["version"] = reg.publish_dir(v2_dir).version
+
+    def first_delivery_publishes(self, *a, **kw):
+        if not staged:
+            staged["thread"] = threading.Thread(target=publish)
+            staged["thread"].start()
+            staged["thread"].join()
+            deadline = time.monotonic() + 30.0
+            while not any(e["event"] == "stage" for e in reg.read_audit()):
+                if time.monotonic() > deadline:
+                    raise AssertionError("the watcher never staged v2")
+                time.sleep(0.005)
+        return deliver(self, *a, **kw)
+
+    engine_mod.StreamingClassifier._deliver = first_delivery_publishes
+    try:
+        r = serve_cli(["--device", str(dev), "--registry", str(root),
+                       "--watch", "--watch-interval", "0.02", "--shadow",
+                       "--promote-policy", LC_POLICY, "--learn", "--demo",
+                       str(SERVE_DEMO), "--batch-size", "1024"], card)
+    finally:
+        engine_mod.StreamingClassifier._deliver = deliver
+    stats, lc = r["stats"], r["stats"]["lifecycle"]
+    events = [e["event"] for e in lc["events"]]
+    if r["classified"] != SERVE_DEMO or stats["processed"] != SERVE_DEMO \
+            or "stage" not in events or staged.get("version") != 2:
+        raise AssertionError(f"serve --registry: classified {r['classified']}"
+                             f", lifecycle {lc}")
+    print(f"[lifecycle] serve --registry --watch --shadow --promote-policy "
+          f"--learn: exit 0, classified {r['classified']}, lifecycle events "
+          f"{events}, active v{lc['active_version']}, swaps {lc['swaps']}, "
+          f"learn window rows {lc['learn']['window']['rows']} ({card})")
+    return dict(msgs_per_sec=stats["msgs_per_sec"], events=events,
+                active_version=lc["active_version"], swaps=lc["swaps"],
+                learn_window_rows=lc["learn"]["window"]["rows"])
+
+
+def lifecycle(dev, xgb_ckpt: Path, out: Path, seed: int, card: str) -> dict:
+    """Phase 7f: the lifecycle's main path, the refresh card vs CPU, the
+    lanes' figures and the serve CLI's registry flags."""
+    lc = lifecycle_run(dev, xgb_ckpt, out, seed, card)
+    fit = refresh_card_vs_cpu(lc, dev)
+    figures = lane_figures(lc, fit, dev, card)
+    cli = lifecycle_cli(dev, xgb_ckpt, lc["registry"].get(2).checkpoint_path,
+                        out, card)
+    keep = ("msgs_per_sec", "p99_row_latency_ms", "launches", "manifest_learn",
+            "events", "promote_shadow_rows", "fresh_drift_flagged",
+            "legit_flagged", "model_pins", "model_block")
+    return dict(run={k: lc[k] for k in keep},
+                learn={k: v for k, v in lc["learn"].items()
+                       if k != "error_by_version"},
+                refresh_card_vs_cpu={k: v for k, v in fit.items()
+                                     if k not in ("X", "y")},
+                figures=figures, serve_cli=cli)
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1955,6 +2478,11 @@ def main(argv=None) -> int:
     serve_runs.update(check_serve_runs("synthetic", SERVE_DEMO, dev, card, {
         "synthetic_host": [],
         "synthetic_featurize_device": ["--featurize-device"]}))
+    # -- 7f. the model lifecycle: registry, shadow, promotion, learn lane ----
+    # (tree-kernel counts reset and read around the learn lane's refresh,
+    # inside lifecycle_run)
+    lifecycle_out = lifecycle(dev, ckpt_dir / "xgb", ckpt_dir,
+                              args.seed + 61, card)
 
     # -- 8. times -------------------------------------------------------------
     def packed_call():
@@ -2322,6 +2850,16 @@ def main(argv=None) -> int:
     del q, k, v, simt_qkv
 
     # -- 15. result lines ----------------------------------------------------
+    def learn_refresh(kernel):
+        """The tree kernels' second main path: phase 7f's learn refresh."""
+        info = lifecycle_out["run"]["manifest_learn"]
+        return {"launches": lifecycle_out["run"]["launches"][kernel],
+                "path": "phase 7f: the learn lane's drift refresh beside "
+                        "the serving engine",
+                "rounds": info["rounds"], "max_depth": info["max_depth"],
+                "window_rows": info["window_rows"],
+                "padded_rows": info["padded_rows"]}
+
     # the tree kernels' main shape: the CLI's xgb level (500 of each
     # kernel's launches on the main path)
     main_h, main_g = tree_times["cli_xgb"], gain_times["cli_xgb"]
@@ -2379,6 +2917,7 @@ def main(argv=None) -> int:
         "other_shapes": {k: v for k, v in tree_times.items()
                          if k != "cli_xgb"},
         "cli_level_widths": hist_width_times,
+        "learn_refresh": learn_refresh("histogram"),
         "card": card,
     }, {
         "name": "best_splits",
@@ -2398,6 +2937,7 @@ def main(argv=None) -> int:
         "other_shapes": {k: v for k, v in gain_times.items()
                          if k != "cli_xgb"},
         "cli_level_widths": width_times,
+        "learn_refresh": learn_refresh("best_splits"),
         "card": card,
     }, {
         "name": "flash_attention",
@@ -2444,6 +2984,7 @@ def main(argv=None) -> int:
         "fit_walls_s": {"cli": cli_walls, "bench": bench_walls},
         "lr_fits": lr_fits, "cli_lr_metrics": report["metrics"]["lr"],
         "resume": resume, "count_featurizer": count,
+        "lifecycle": lifecycle_out,
         "tree_kernels_ms_per_cli_fit": per_fit,
         "llm": {"prefill": pre, "card_vs_cpu": cvc, "generate": gen,
                 "explained_stream": expl}}))

@@ -11,7 +11,11 @@ histogram and split-gain kernels (``ops/histogram``) and writes native
 checkpoints the serving pipeline loads. ``models/llm`` is the explanation
 decoder, whose long prefills run the CUDA causal flash-attention kernel
 (``ops/attention``); ``explain/`` wraps it (and HTTP or canned backends)
-for the agent and for the engine's ``explain_batch_fn``.
+for the agent and for the engine's ``explain_batch_fn``. ``registry/`` and
+``learn/`` are the model lifecycle around the engine: versioned models,
+hot swap, shadow scoring, gated promotion, and a learn lane whose drift
+refreshes (``models/train_trees.refresh_gradient_boosting``) run the tree
+kernels on the card beside serving.
 
 Module paths mirror the JAX package (``featurize/hashing.py`` here is the
 twin of ``fraud_detection_tpu/featurize/hashing.py``). This package imports

@@ -8,7 +8,13 @@ worker: run the micro-batching classifier against a broker on ``--device``
 
 ``--model`` is a native checkpoint directory (``checkpoint/native.py``,
 written by either package), or ``synthetic``: a logistic regression
-trained at startup on the synthetic corpus. By default the host featurizes
+trained at startup on the synthetic corpus. ``--registry`` serves a version
+of a model registry instead (``registry/``): ``--watch`` hot-swaps newer
+versions in, ``--shadow`` stages them beside the active model for shadow
+scoring, ``--promote-policy`` promotes or rejects them, and ``--learn``
+closes the loop (``learn/``: feedback labels joined against the scored
+window, drift-triggered refreshes on the card published into the same
+registry). By default the host featurizes
 with the native C++ featurizer and the engine takes the raw-JSON path with
 C++ frame assembly; ``--featurize-device`` ships raw bytes to the CUDA featurize
 kernel instead. The flags of the reference CLI that the port does not offer
@@ -27,14 +33,7 @@ from fraud_detection_tpu_torch.app import unported
 # Reference flags the port does not offer yet: (flag, takes a value,
 # ROADMAP.md Queue 1 item that holds its module).
 _UNPORTED = (
-    ("--registry", True, 5), ("--model-version", True, 5),
-    ("--watch", False, 5), ("--watch-interval", True, 5),
-    ("--shadow", False, 5), ("--shadow-sample", True, 5),
-    ("--shadow-queue", True, 5), ("--learn", False, 5),
-    ("--learn-feedback-topic", True, 5), ("--learn-window", True, 5),
-    ("--learn-min-rows", True, 5), ("--learn-error-threshold", True, 5),
-    ("--learn-rounds", True, 5), ("--learn-interval", True, 5),
-    ("--promote-policy", True, 5), ("--kafka", False, 5),
+    ("--kafka", False, 5),
     ("--supervise", True, 5), ("--workers", True, 5), ("--fleet", True, 5),
     ("--fleet-health-file", True, 5), ("--fleet-candidates", True, 5),
     ("--autoscale", False, 5), ("--min-workers", True, 5),
@@ -124,6 +123,58 @@ def main(argv=None) -> int:
     ap.add_argument("--model", default=None,
                     help="native checkpoint dir (checkpoint/native.py), or "
                          "'synthetic' (train a demo LR at startup)")
+    ap.add_argument("--registry", default=None, metavar="DIR",
+                    help="serve from a model registry "
+                         "(registry/registry.py layout) instead of a fixed "
+                         "--model; loads are content-hash verified")
+    ap.add_argument("--model-version", type=int, default=None, metavar="N",
+                    help="registry version to serve (--registry; "
+                         "default: latest)")
+    ap.add_argument("--watch", action="store_true",
+                    help="poll --registry for new versions and hot-swap "
+                         "them in with zero downtime (pre-warmed RCU swap "
+                         "between batches; registry/hotswap.py)")
+    ap.add_argument("--watch-interval", type=float, default=2.0,
+                    help="seconds between registry polls (--watch)")
+    ap.add_argument("--shadow", action="store_true",
+                    help="stage new versions as shadow candidates instead "
+                         "of swapping immediately: each micro-batch is "
+                         "also scored by the candidate asynchronously and "
+                         "divergence stats accumulate in health() "
+                         "(registry/shadow.py; requires --watch)")
+    ap.add_argument("--shadow-sample", type=float, default=1.0,
+                    help="fraction of micro-batches shadow-scored "
+                         "(--shadow)")
+    ap.add_argument("--shadow-queue", type=int, default=8,
+                    help="bounded shadow queue depth; overflow drops + "
+                         "counts, never blocks the primary (--shadow)")
+    ap.add_argument("--learn", action="store_true",
+                    help="close the learning loop (learn/): join feedback "
+                         "labels against a sliding window of scored rows, "
+                         "retrain boosted trees on drift (on the card), "
+                         "publish to --registry, auto-promote through the "
+                         "--shadow/--promote-policy gates (requires all "
+                         "three)")
+    ap.add_argument("--learn-feedback-topic", default=None, metavar="TOPIC",
+                    help="ground-truth label topic (stream/feedback.py "
+                         "records; default <input-topic>-feedback)")
+    ap.add_argument("--learn-window", type=int, default=8192,
+                    help="learn window capacity in rows (--learn)")
+    ap.add_argument("--learn-min-rows", type=int, default=256,
+                    help="labeled rows required before any retrain")
+    ap.add_argument("--learn-error-threshold", type=float, default=0.15,
+                    help="drift trigger: recent label-error rate of the "
+                         "live model above this fires a retrain")
+    ap.add_argument("--learn-rounds", type=int, default=8,
+                    help="warm-start boosting rounds per windowed retrain")
+    ap.add_argument("--learn-interval", type=float, default=0.0,
+                    help="retrain cadence in seconds (0 = drift/row "
+                         "triggers only)")
+    ap.add_argument("--promote-policy", default=None, metavar="SPEC",
+                    help="auto promote/reject the staged candidate, e.g. "
+                         "'min_batches=5,min_rows=200,max_disagreement="
+                         "0.02,max_psi=0.25' (--shadow; every transition "
+                         "is audited to <registry>/audit.jsonl)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; 'cpu' "
                          "runs the kernels' plain torch versions)")
@@ -198,8 +249,59 @@ def main(argv=None) -> int:
     for flag, _, item in _UNPORTED:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             raise unported(flag, item)
-    if args.model is None:
+    if (args.model is None) == (args.registry is None):
         raise SystemExit("choose exactly one of --model or --registry")
+    if args.registry is None and (args.model_version is not None or args.watch
+                                  or args.shadow):
+        raise SystemExit("--model-version/--watch/--shadow need --registry")
+    if args.shadow and not args.watch:
+        raise SystemExit("--shadow needs --watch (candidates arrive via "
+                         "registry polling)")
+    if args.promote_policy is not None and not args.shadow:
+        raise SystemExit("--promote-policy needs --shadow (there is no "
+                         "candidate to judge without shadow scoring)")
+    if args.learn:
+        # The loop's whole contract is publish -> stage -> shadow-judge ->
+        # auto-promote, so every leg must be wired explicitly.
+        if not (args.registry and args.watch and args.shadow
+                and args.promote_policy):
+            raise SystemExit(
+                "--learn closes the loop through the registry lifecycle: "
+                "it requires --registry, --watch, --shadow AND "
+                "--promote-policy (docs/online_learning.md)")
+        if args.learn_min_rows < 2 or args.learn_rounds < 1 \
+                or args.learn_window < 2:
+            raise SystemExit("--learn-min-rows/--learn-rounds/"
+                             "--learn-window must be positive")
+    if args.watch_interval <= 0:
+        raise SystemExit(
+            f"--watch-interval must be > 0, got {args.watch_interval}")
+    if not 0.0 < args.shadow_sample <= 1.0:
+        raise SystemExit(
+            f"--shadow-sample must be in (0, 1], got {args.shadow_sample}")
+    if args.shadow_queue < 1:
+        raise SystemExit(
+            f"--shadow-queue must be >= 1, got {args.shadow_queue}")
+    promote_policy = None
+    if args.promote_policy is not None:
+        from fraud_detection_tpu_torch.registry import PromotionPolicy
+
+        try:
+            promote_policy = PromotionPolicy.parse(args.promote_policy)
+        except ValueError as e:
+            raise SystemExit(f"bad --promote-policy: {e}")
+    if args.int8 and args.registry:
+        # Registry candidates (watch/hot-swap) are rebuilt by the watcher,
+        # which would silently serve them fp32 — refuse rather than mix
+        # scoring variants across swaps.
+        raise SystemExit("--int8 is not supported with --registry yet "
+                         "(hot-swap candidates would load fp32)")
+    if args.featurize_device and args.registry:
+        # Same reasoning as --int8: the watcher rebuilds candidates without
+        # the flag, which would silently flip the featurize path at swap.
+        raise SystemExit("--featurize-device is not supported with "
+                         "--registry yet (hot-swap candidates would load "
+                         "host-featurizing)")
     if args.featurize_width is not None and not args.featurize_device:
         raise SystemExit("--featurize-width needs --featurize-device")
     if args.pipeline_depth < 1:
@@ -238,11 +340,33 @@ def main(argv=None) -> int:
                                                   StreamingClassifier)
 
     explain_hook = _explain_hook(args)
-    pipe = build_pipeline(args.model, args.batch_size, int8=args.int8,
-                          featurize_device=args.featurize_device,
-                          featurize_width=args.featurize_width,
-                          device=args.device)
-    model_desc = f"{args.model} (featurize={pipe.device_stats.featurize_path})"
+    registry = shadow = None
+    if args.registry is not None:
+        from fraud_detection_tpu_torch.registry import (HotSwapPipeline,
+                                                        ModelRegistry,
+                                                        RegistryError,
+                                                        ShadowScorer)
+
+        registry = ModelRegistry(args.registry)
+        try:
+            mv, inner = registry.load(args.model_version,
+                                      batch_size=args.batch_size,
+                                      device=args.device)
+        except RegistryError as e:   # RegistryIntegrityError included
+            raise SystemExit(f"--registry: {e}")
+        pipe = HotSwapPipeline(inner, version=mv.version)
+        model_desc = f"registry:{args.registry}@{mv.name}"
+        if args.shadow:
+            shadow = ShadowScorer(max_queue=args.shadow_queue,
+                                  sample=args.shadow_sample)
+    else:
+        pipe = build_pipeline(args.model, args.batch_size, int8=args.int8,
+                              featurize_device=args.featurize_device,
+                              featurize_width=args.featurize_width,
+                              device=args.device)
+        model_desc = args.model
+    model_desc = (f"{model_desc} "
+                  f"(featurize={pipe.device_stats.featurize_path})")
 
     scheduler = None
     if sched_config is not None:
@@ -250,7 +374,8 @@ def main(argv=None) -> int:
 
         # Measure the candidate rungs and warm the selected ladder ONCE,
         # before the engine runs (off the hot path); this worker's engine
-        # drives the same scheduler.
+        # drives the same scheduler. A HotSwapPipeline keeps the ladder and
+        # cost table for every later swap candidate.
         scheduler = AdaptiveScheduler(sched_config, args.batch_size)
         scheduler.prewarm(pipe)
 
@@ -269,6 +394,27 @@ def main(argv=None) -> int:
     dlq_topic = ((args.dlq_topic or f"{args.output_topic}-dlq")
                  if args.dlq else None)
 
+    learn_loop = None
+    if args.learn:
+        # Closed learning loop (learn/): the learn-lane thread joins
+        # feedback labels against the scored-row window and publishes
+        # drift-corrected candidates into the SAME registry the --watch
+        # lifecycle promotes from.
+        from fraud_detection_tpu_torch.learn import LearnConfig, LearnLoop
+
+        feedback_topic = (args.learn_feedback_topic
+                          or f"{args.input_topic}-feedback")
+        learn_loop = LearnLoop(
+            feedback_consumer=broker.consumer([feedback_topic], "learn"),
+            registry=registry, hotswap=pipe, shadow=shadow,
+            config=LearnConfig(
+                window=args.learn_window,
+                min_labeled=args.learn_min_rows,
+                error_threshold=args.learn_error_threshold,
+                refresh_rounds=args.learn_rounds,
+                interval_s=(args.learn_interval
+                            if args.learn_interval > 0 else None)))
+
     print(f"serving: model={model_desc} in={args.input_topic} "
           f"out={args.output_topic} batch={args.batch_size} workers=1 "
           f"device={pipe.device}", flush=True)
@@ -278,7 +424,49 @@ def main(argv=None) -> int:
         batch_size=args.batch_size, max_wait=args.max_wait,
         pipeline_depth=args.pipeline_depth, explain_batch_fn=explain_hook,
         dlq_topic=dlq_topic, dlq_max_attempts=args.dlq_max_attempts,
-        scheduler=scheduler, async_dispatch=args.async_dispatch)
+        scheduler=scheduler, async_dispatch=args.async_dispatch,
+        shadow=shadow, learn=learn_loop)
+
+    lifecycle = watch_stop = watch_thread = None
+    if args.watch:
+        # Poll the registry, verify + pre-warm new versions, swap or
+        # stage+judge per the flags, on a daemon thread; tick() failures
+        # log and never kill serving (a device fault stops the watcher and
+        # fails the run below).
+        from fraud_detection_tpu_torch.registry import LifecycleController
+
+        lifecycle = LifecycleController(
+            registry, pipe, shadow=shadow, policy=promote_policy,
+            batch_size=args.batch_size, health_fn=engine.health,
+            on_transition=(learn_loop.on_transition
+                           if learn_loop is not None else None))
+        if learn_loop is not None:
+            learn_loop.bind_controller(lifecycle)
+        watch_thread, watch_stop = lifecycle.run_in_thread(
+            args.watch_interval)
+
+    def finish_lifecycle():
+        """Stop the learn lane, the watcher and the shadow worker (the
+        learn lane first: a retrain mid-flight finishes and its publish
+        shows in the final state); returns the stats JSON's lifecycle
+        block, or None when not serving from a registry."""
+        if learn_loop is not None:
+            learn_loop.close(timeout=30.0)
+        if watch_stop is not None:
+            watch_stop.set()
+            watch_thread.join(timeout=5.0)
+        if shadow is not None:
+            shadow.close(timeout=5.0)
+        if registry is None:
+            return None
+        out = {"active_version": pipe.active_version,
+               "staged_version": pipe.staged_version,
+               "swaps": pipe.swaps,
+               "events": lifecycle.events if lifecycle is not None else []}
+        if learn_loop is not None:
+            out["learn"] = learn_loop.snapshot()
+        return out
+
     try:
         stats = engine.run(max_messages=max_messages, idle_timeout=1.0)
     except KeyboardInterrupt:
@@ -288,11 +476,19 @@ def main(argv=None) -> int:
         engine.consumer.close()
     out = stats.as_dict()
     out["health"] = engine.health()
+    lifecycle_out = finish_lifecycle()
+    if lifecycle_out is not None:
+        out["lifecycle"] = lifecycle_out
     print(json.dumps(out))
     print(f"classified messages on {args.output_topic}: "
           f"{broker.topic_size(args.output_topic)}")
-    return 0
-
+    faults = [(name, lane.fault) for name, lane in (
+        ("learn", learn_loop), ("watcher", lifecycle), ("shadow", shadow))
+        if lane is not None and lane.fault is not None]
+    for name, fault in faults:
+        print(f"the {name} lane stopped on a device fault: {fault!r}",
+              file=sys.stderr)
+    return 1 if faults else 0
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from fraud_detection_tpu_torch import convert
-from fraud_detection_tpu_torch.models.trees import TreeEnsemble
+from fraud_detection_tpu_torch.models.trees import TreeEnsemble, predict_margin
 from fraud_detection_tpu_torch.ops.histogram import (
     best_splits, node_feature_bin_histogram, node_feature_bin_histogram_multi)
 from fraud_detection_tpu_torch.utils import threefry
@@ -713,6 +713,118 @@ def _boost_round(margin, bins, yf, weights, cfg: TreeTrainConfig):
     f_, b_, l_, r_, s_, row_leaf = _build_tree(bins, stats, weights, cfg)
     values = -s_[:, 0] / (s_[:, 1] + cfg.reg_lambda) * cfg.learning_rate
     return f_, b_, l_, r_, values, row_leaf
+
+
+#: Row-count padding ladder for the windowed refresh trainer (the JAX
+#: package's): every retrain pads its window to the smallest rung that
+#: fits, so a drifting window size keeps to a few tensor shapes.
+REFRESH_ROW_BUCKETS: Tuple[int, ...] = (512, 1024, 2048, 4096, 8192,
+                                        16384, 32768)
+
+
+def refresh_row_bucket(n: int,
+                       buckets: Tuple[int, ...] = REFRESH_ROW_BUCKETS) -> int:
+    """Smallest configured rung >= n (the top rung caps: larger windows
+    keep their most recent rows)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+def refresh_gradient_boosting(
+    ensemble: TreeEnsemble, X, y, *, n_rounds: int = 8,
+    config: Optional[TreeTrainConfig] = None,
+    row_buckets: Tuple[int, ...] = REFRESH_ROW_BUCKETS,
+    sample_weight: Optional[np.ndarray] = None,
+    device="cuda",
+) -> Tuple[TreeEnsemble, dict]:
+    """Warm-started incremental boosting on ``device``: keep every tree of
+    ``ensemble`` and fit ``n_rounds`` new regression trees on the recent
+    window's (grad, hess) statistics, starting from the live model's
+    margins — the learn loop's retrain (``learn/loop.py``).
+
+    The window (host numpy, oldest row first) pads with weight-0 rows to the
+    smallest ``row_buckets`` rung that fits (windows past the top rung keep
+    their most recent rows); quantile edges come from its real rows on the
+    host. It is padded on the host and copied to the device once; the
+    margins come from ``trees.predict_margin`` over it, the bins are cut
+    there once (uint8), and each round is ``_boost_round`` (the histogram
+    and ``best_splits`` kernels on a CUDA device, their plain versions on
+    the CPU). Returns ``(new_ensemble, info)``; ``info`` carries the JAX
+    package's keys (the padded rung, per-round shapes), which the registry
+    manifest records."""
+    if ensemble.kind != "xgboost":
+        raise ValueError(
+            f"refresh_gradient_boosting warm-starts xgboost ensembles; got "
+            f"kind {ensemble.kind!r} (gini forests have no additive margin "
+            "to resume from — retrain those offline)")
+    dev = resolve_device(device)
+    cfg = config or TreeTrainConfig(criterion="xgb")
+    if cfg.criterion != "xgb":
+        cfg = replace(cfg, criterion="xgb")
+    if cfg.max_depth != ensemble.max_depth:
+        # Node-array layouts must agree for the concat below.
+        cfg = replace(cfg, max_depth=ensemble.max_depth)
+    X = np.asarray(X, np.float32)
+    y = np.asarray(y, np.float32)
+    if X.ndim != 2 or X.shape[0] != y.shape[0]:
+        raise ValueError(f"X {X.shape} / y {y.shape} mismatch")
+    if X.shape[0] < 2:
+        raise ValueError("refresh needs at least 2 labeled rows")
+    bucket = refresh_row_bucket(X.shape[0], tuple(row_buckets))
+    if X.shape[0] > bucket:
+        X, y = X[-bucket:], y[-bucket:]
+        if sample_weight is not None:
+            sample_weight = sample_weight[-bucket:]
+    n = X.shape[0]
+    weights = (np.ones(n, np.float32) if sample_weight is None
+               else np.asarray(sample_weight, np.float32))
+    edges = quantile_bin_edges(X, cfg.n_bins)     # the real rows only
+    pad = bucket - n
+    if pad:
+        X = np.concatenate([X, np.zeros((pad, X.shape[1]), np.float32)])
+        y = np.concatenate([y, np.zeros(pad, np.float32)])
+        weights = np.concatenate([weights, np.zeros(pad, np.float32)])
+
+    base = ensemble.to(dev)
+    xd = torch.from_numpy(X).to(dev)
+    # Padded rows take an all-zero row's margin: inert under weight 0.
+    margin = predict_margin(base, xd)
+    bins = apply_bins(xd, torch.from_numpy(edges).to(dev))
+    del xd
+    bins = bins.to(torch.uint8 if cfg.n_bins <= 256 else torch.int32)
+    yd = torch.from_numpy(y).to(dev)
+    wd = torch.from_numpy(weights).to(dev)
+    rounds = []
+    for _ in range(n_rounds):
+        f_, b_, l_, r_, values, row_leaf = _boost_round(margin, bins, yd, wd,
+                                                        cfg)
+        margin = _update_margin(margin, row_leaf, values)
+        rounds.append((f_, b_, l_, r_, values))
+    feature, split_bin, left, right, values = (torch.stack(p)
+                                               for p in zip(*rounds))
+    new = _assemble(feature, split_bin, left, right, values[..., None],
+                    edges=edges, tree_weights=np.ones(n_rounds),
+                    kind="xgboost", cfg=cfg, bias=ensemble.bias, device=dev)
+    refreshed = TreeEnsemble(
+        feature=torch.cat([base.feature, new.feature]),
+        threshold=torch.cat([base.threshold, new.threshold]),
+        left=torch.cat([base.left, new.left]),
+        right=torch.cat([base.right, new.right]),
+        leaf=torch.cat([base.leaf, new.leaf]),
+        tree_weights=torch.cat([base.tree_weights, new.tree_weights]),
+        kind="xgboost", max_depth=ensemble.max_depth, bias=ensemble.bias)
+    info = {
+        "window_rows": n,
+        "padded_rows": bucket,
+        "rounds": n_rounds,
+        "base_trees": int(ensemble.num_trees),
+        "total_trees": int(refreshed.num_trees),
+        "n_bins": cfg.n_bins,
+        "max_depth": cfg.max_depth,
+    }
+    return refreshed, info
 
 
 def _row_leaves(bins: torch.Tensor, feature: torch.Tensor,

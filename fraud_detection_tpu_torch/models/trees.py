@@ -159,6 +159,12 @@ def predict_margin(ensemble: TreeEnsemble, x: torch.Tensor) -> torch.Tensor:
     idx = _leaf_indices(x, ensemble.feature, ensemble.threshold,
                         ensemble.left, ensemble.right, ensemble.max_depth)
     trees = torch.arange(ensemble.num_trees, device=idx.device)[None, :]
-    payload = ensemble.leaf[trees, idx][..., 0]                    # (B, T)
-    return ensemble.bias + torch.sum(
-        payload * ensemble.tree_weights[None, :], dim=1)
+    payload = ensemble.leaf[trees, idx][..., 0] * ensemble.tree_weights
+    # Summed tree by tree in order, not by a reduction kernel, whose order
+    # differs between the card and the CPU: the refresh's warm start must be
+    # bit-equal on both, or a last-bit margin difference breaks the exact
+    # split ties a window of near-identical rows is full of.
+    acc = torch.zeros_like(payload[:, 0])
+    for t in range(payload.shape[1]):
+        acc = acc + payload[:, t]
+    return ensemble.bias + acc

@@ -20,6 +20,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build or to launch: a fault of the
+    card's toolchain or of the card, never of the data, so no lane may log it
+    and carry on (``utils/device.is_device_fault``)."""
+
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,7 +40,7 @@ def _nvcc() -> str:
         cand = os.path.join(CUDA_HOME, "bin", "nvcc")
         found = cand if os.path.exists(cand) else None
     if found is None:
-        raise RuntimeError("nvcc not found (PATH or CUDA_HOME): cannot build "
+        raise KernelError("nvcc not found (PATH or CUDA_HOME): cannot build "
                            "the CUDA kernels")
     return found
 
@@ -78,7 +86,7 @@ def build_all(names) -> list:
         out.with_suffix(".log").write_text(stdout + stderr)
         os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return outs
 
 

@@ -31,6 +31,8 @@ from functools import lru_cache
 
 import torch
 
+from fraud_detection_tpu_torch.ops._build import KernelError
+
 #: Masked scores: exp(s - m) of one underflows to exactly 0 (no inf - inf).
 NEG = -1e30
 #: The sm90 self-test's bound against float64 on the same bf16 inputs (|q|,
@@ -157,7 +159,7 @@ def _launch(q, k, v, out) -> None:
         k.shape[2], d, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: cudaError {rc}")
+        raise KernelError(f"flash attention kernel launch failed: cudaError {rc}")
 
 
 @lru_cache(maxsize=None)
@@ -223,7 +225,7 @@ def _launch_sm90(q, k, v, out) -> None:
         k.shape[2], d, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"sm90 flash attention kernel launch failed: "
+        raise KernelError(f"sm90 flash attention kernel launch failed: "
                            f"cudaError {rc}")
 
 

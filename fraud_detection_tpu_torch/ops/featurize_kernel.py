@@ -37,6 +37,7 @@ import torch
 from fraud_detection_tpu_torch.featurize.hashing import (
     SPARK_HASHING_TF_SEED, murmur3_x86_32, murmur3_x86_32_legacy_tail,
     spark_hash_bucket)
+from fraud_detection_tpu_torch.ops._build import KernelError
 
 # Character classes produced by byte_classes: 1..26 = 'a'..'z', the rest
 # as named below. Everything stripped by clean_text is NOP.
@@ -187,7 +188,7 @@ def _scan_lib() -> ctypes.CDLL:
 
 def _check_rc(rc: int, entry: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+        raise KernelError(f"{entry} launch failed: cudaError {rc}")
 
 
 def _tokenize_hash_cuda(classes: torch.Tensor, legacy: bool):

@@ -48,6 +48,7 @@ from typing import Tuple
 
 import torch
 
+from fraud_detection_tpu_torch.ops._build import KernelError
 from fraud_detection_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("ops.histogram")
@@ -327,7 +328,7 @@ def _histogram_launch(bins, locals_, weights, stats, out, n_nodes, n_bins,
         plan.subs, _smem_budget(copies, n_bins, k), max_tile_rows,
         plan.chunks, int(exact), stream)
     if rc != 0:
-        raise RuntimeError(f"histogram kernel launch failed: cudaError {rc}")
+        raise KernelError(f"histogram kernel launch failed: cudaError {rc}")
 
 
 def _histogram_cuda(bins, locals_, weights, stats, n_nodes, n_bins, exact):
@@ -504,7 +505,7 @@ def _best_splits_cuda(hist, totals, criterion, reg_lambda, min_child_weight,
         best_gain.data_ptr(), L, F, NB, K, int(criterion == "xgb"),
         float(reg_lambda), float(min_child_weight), stream)
     if rc != 0:
-        raise RuntimeError(f"best_splits kernel launch failed: cudaError {rc}")
+        raise KernelError(f"best_splits kernel launch failed: cudaError {rc}")
     best_splits.launches += 1
     return best_f, best_b, best_gain
 

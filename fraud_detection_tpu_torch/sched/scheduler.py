@@ -1,6 +1,7 @@
 """The scheduler facade the streaming engine drives — twin of
 ``fraud_detection_tpu/sched/scheduler.py`` for one worker (the fleet's
-global backlog and the registry's hot-swap ladder are not ported).
+global backlog is not ported). Prewarming a ``registry.HotSwapPipeline``
+hands it the measured ladder and cost table for every later candidate.
 
 :class:`SchedulerConfig` is the validated knob set (the serve CLI's
 ``--batch-deadline-ms/--max-queue/--shed-policy/--target-p99-ms/--max-rate``
@@ -164,16 +165,27 @@ class AdaptiveScheduler:
                 texts: Optional[Sequence[str]] = None) -> int:
         """Time every candidate rung, derive the ladder from the measured
         cost curve, set it as ``pipeline.pad_ladder`` and warm every
-        selected rung off the hot path."""
+        selected rung off the hot path. A ``HotSwapPipeline`` measures on
+        its active pipeline and keeps the cost table and the ladder
+        (``measure_ladder`` / ``configure_ladder``), so every later swap or
+        stage candidate is warmed at the same rungs, never re-measured."""
         with self._region:
-            costs = measure_rung_costs(
-                pipeline, ladder_candidates(self.batch_size), texts=texts)
+            candidates = ladder_candidates(self.batch_size)
+            measure = getattr(pipeline, "measure_ladder", None)
+            if measure is not None:
+                costs = measure(candidates, texts=texts)
+            else:
+                costs = measure_rung_costs(pipeline, candidates, texts=texts)
             self.ladder_costs = dict(costs)
             self.buckets = cost_aware_ladder(costs, self.batch_size,
                                              COST_RATIO)
             # the smallest rung is the governor's budget floor
             self.governor.min_budget = self.buckets[0]
-            prewarm_ladder(pipeline, self.buckets, texts)
+            configure = getattr(pipeline, "configure_ladder", None)
+            if configure is not None:
+                configure(self.buckets, prewarm=True, costs=costs)
+            else:
+                prewarm_ladder(pipeline, self.buckets, texts)
             return len(self.buckets)
 
     def snapshot(self) -> dict:

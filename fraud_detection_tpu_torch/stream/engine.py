@@ -30,6 +30,12 @@ emitted inline as error frames or, with ``dlq_topic``, routed to the DLQ as
 structured records; rows re-delivered more than ``dlq_max_attempts`` times
 without a successful batch are diverted there too (poison screening).
 
+``shadow=`` (``registry.ShadowScorer``) and ``learn=`` (``learn.LearnLoop``)
+are offered each scored micro-batch's valid rows and primary results
+through their bounded non-blocking queues (drop and count, never wait);
+their decoding, scoring and training run on their own threads (and CUDA
+streams). ``health()`` then carries their ``model`` and ``learn`` blocks.
+
 Explanations ride the finish leg synchronously: ``explain_batch_fn`` is
 called once per micro-batch over its valid rows (an on-device LLM then
 explains every flagged row in one batched decode, see
@@ -204,7 +210,9 @@ class StreamingClassifier:
                  dlq_max_attempts: int = 3,
                  dlq_attempts: Optional[dict] = None,
                  scheduler: Optional[object] = None,
-                 async_dispatch: bool = False):
+                 async_dispatch: bool = False,
+                 shadow: Optional[object] = None,
+                 learn: Optional[object] = None):
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         if dlq_max_attempts < 1:
@@ -238,6 +246,14 @@ class StreamingClassifier:
         self._dlq_counts: dict = {}   # reason -> records delivered to the DLQ
         self._sched = scheduler
         self.async_dispatch = bool(async_dispatch)
+        # Optional registry/shadow.ShadowScorer: each scored batch's inputs
+        # + primary results are offered to it (non-blocking bounded queue);
+        # the candidate scores on the shadow worker, never here.
+        self._shadow = shadow
+        # Optional learn.LearnLoop: each scored batch's coordinates, inputs
+        # and results are offered to the learner's bounded queue (same
+        # non-blocking contract); decode/encode/windowing run on its lane.
+        self._learn = learn
         self._lane = None                        # live lane while run()s
         self._lane_stats: Optional[dict] = None  # last run's lane counters
         # Raw-JSON fast path: None = untried, False = unavailable (device
@@ -419,6 +435,10 @@ class StreamingClassifier:
         msgs, texts = inflight.msgs, inflight.texts
         preds = (inflight.pending.resolve()
                  if inflight.pending is not None else None)
+        if preds is not None and self._shadow is not None:
+            self._submit_shadow(inflight, preds)
+        if preds is not None and self._learn is not None:
+            self._submit_learn(inflight, preds)
         if inflight.splice is not None and preds is not None:
             return self._deliver(
                 inflight, self._assemble_frames_native(inflight, preds), t1)
@@ -511,6 +531,54 @@ class StreamingClassifier:
             off = hi
         return wires
 
+    def _submit_shadow(self, inflight: "_InFlight", preds) -> None:
+        """Offer this batch's valid rows + primary results to the shadow
+        scorer. Non-blocking (bounded queue, drop + count on overflow);
+        payloads are REFERENCES (message bytes in raw mode, decoded texts
+        otherwise) — the candidate decode/score happens on the shadow
+        worker, never here."""
+        sh = self._shadow
+        if not sh.wants():
+            return
+        valid = inflight.valid_idx
+        if not valid:
+            return
+        if inflight.raw:
+            # Predictions are positional over ALL rows; slice to valid.
+            payloads = [inflight.msgs[i].value for i in valid]
+            labels = np.asarray(preds.labels)[valid]
+            probs = np.asarray(preds.probabilities)[valid]
+        else:
+            # Predictions already cover exactly the valid rows, in order.
+            payloads = [inflight.texts[i] for i in valid]
+            labels, probs = preds.labels, preds.probabilities
+        sh.submit(payloads, labels, probs, raw=inflight.raw,
+                  text_field=self.text_field)
+
+    def _submit_learn(self, inflight: "_InFlight", preds) -> None:
+        """Offer this batch's valid rows + primary results to the learn
+        loop's window. Non-blocking (bounded queue, drop + count on
+        overflow); payloads are REFERENCES — decode/encode happen on the
+        learn lane, never here."""
+        lr = self._learn
+        if not lr.wants():
+            return
+        valid = inflight.valid_idx
+        if not valid:
+            return
+        msgs = inflight.msgs
+        coords = [(msgs[i].topic, msgs[i].partition, msgs[i].offset)
+                  for i in valid]
+        if inflight.raw:
+            payloads = [msgs[i].value for i in valid]
+            labels = np.asarray(preds.labels)[valid]
+            probs = np.asarray(preds.probabilities)[valid]
+        else:
+            payloads = [inflight.texts[i] for i in valid]
+            labels, probs = preds.labels, preds.probabilities
+        lr.submit(coords, payloads, labels, probs, raw=inflight.raw,
+                  version=getattr(self.pipeline, "active_version", None))
+
     def _dead_letter(self, inflight: "_InFlight", msg: Message, reason: str,
                      error: str) -> None:
         """Divert one row to the DLQ: its record rides THIS batch's delivery
@@ -523,8 +591,21 @@ class StreamingClassifier:
     def health(self) -> dict:
         """Point-in-time engine health snapshot (lock-free racy reads, a
         monitoring sample). ``dlq`` is None when the DLQ is off, ``sched``
-        without a scheduler."""
+        without a scheduler; ``model`` is None for a plain static pipeline
+        without a shadow scorer, ``learn`` without a learn loop."""
         now = time.monotonic()
+        # Model-lifecycle block: present when the engine scores through a
+        # HotSwapPipeline (active/staged versions, swap count) and/or a
+        # ShadowScorer is attached (divergence stats).
+        snap_fn = getattr(self.pipeline, "lifecycle_snapshot", None)
+        model = snap_fn() if callable(snap_fn) else None
+        if self._shadow is not None:
+            if model is None:
+                model = {"active_version": None, "staged_version": None,
+                         "swaps": 0, "last_swap_age_sec": None}
+            model["shadow"] = self._shadow.snapshot()
+        elif model is not None:
+            model["shadow"] = None
         return {
             "running": self._running,
             "stopped": self._stopped,
@@ -549,6 +630,11 @@ class StreamingClassifier:
                 "routed": dict(self._dlq_counts),
                 "tracked_offsets": len(self._dlq_attempts),
             }),
+            "model": model,
+            "learn": (self._learn.snapshot()
+                      if self._learn is not None
+                      and hasattr(self._learn, "snapshot")
+                      else None),
         }
 
     def _device_block(self) -> dict:

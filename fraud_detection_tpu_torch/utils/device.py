@@ -1,6 +1,10 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution shared by every entry point of the port, and the CUDA
+streams of the background lanes that share a card with the serving engine."""
 
 from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Optional
 
 import torch
 
@@ -15,3 +19,51 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain torch versions")
     return dev
+
+
+def lane_stream(device, streams: dict) -> Optional["torch.cuda.Stream"]:
+    """A background lane's own CUDA stream on ``device`` (shadow scoring,
+    the learn lane, the watcher's prewarm), made at first use and kept in
+    the lane's ``streams`` (device -> stream); None on the CPU or for no
+    device.
+
+    The serving engine launches on the device's default stream. A lane on
+    that stream too would queue behind every micro-batch, and each of its
+    host reads would wait for them (and they for it); on a stream of its
+    own a host read waits for the lane's work alone."""
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    dev = torch.device(device)
+    if dev not in streams:
+        streams[dev] = torch.cuda.Stream(device=dev)
+    return streams[dev]
+
+
+@contextmanager
+def on_lane(stream: Optional["torch.cuda.Stream"]):
+    """Run the block's device work on ``stream`` (from ``lane_stream``).
+
+    Model tensors are uploaded on the default stream; the lane's stream
+    first waits (on the card, not the host) for the work queued there, so
+    it never reads a tensor before its upload has landed. Everything the
+    lane allocates stays on its stream; what it hands back crosses as host
+    data, or after the lane synchronized its own stream. No-op for None."""
+    if stream is None:
+        yield
+        return
+    stream.wait_stream(torch.cuda.default_stream(stream.device))
+    with torch.cuda.stream(stream):
+        yield
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """True for a fault of the card or its toolchain — a CUDA error, device
+    memory exhausted, a hand-written kernel that did not build or launch —
+    which a background lane must surface, never log and carry on past (a
+    bad model file or a poison row is not one)."""
+    from fraud_detection_tpu_torch.ops._build import KernelError
+
+    accel = getattr(torch, "AcceleratorError", None)
+    return (isinstance(exc, (KernelError, torch.cuda.OutOfMemoryError))
+            or (accel is not None and isinstance(exc, accel))
+            or (isinstance(exc, RuntimeError) and "CUDA error" in str(exc)))

@@ -51,7 +51,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "sched.scheduler", "sched.batcher", "utils.config",
                  "models.train_linear", "checkpoint.train_state",
                  "eval.word_associations", "registry.registry",
-                 "utils.atomicio"):
+                 "utils.atomicio", "registry.hotswap", "registry.shadow",
+                 "registry.promote", "learn.loop", "learn.store",
+                 "stream.feedback", "scenarios.traffic"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
