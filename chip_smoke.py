@@ -157,6 +157,35 @@ Phases (any failure raises and the script exits non-zero):
    model (1,024 messages, ~5% scam, the CLI's dt as classifier, batch
    512, 48 new tokens): keys exact, ``analysis`` on exactly the flagged
    rows; msgs/s with and without the hook, flagged explanations/s;
+13b. the slot programs (``models/llm.py`` slot and paged decode,
+   ``explain/slotserve/decode.py``) at Gemma widths, 2 layers, f32 (phase
+   11's model), card against CPU, driven by ``SlotServeService``'s own
+   scheduler: five prompts through 2 slots (slot reuse), windows of 4:
+   greedy tokens equal card/CPU and equal to each row's
+   ``generate_tokens_batch``; the paged service (the shared preamble
+   prefilled once, copy-on-write admits) equal to the contiguous one window
+   for window, bit for bit (out, new_lens, steps_run, active_row_steps);
+   the repeated prompt in a reused slot equal to its first decode; no page
+   leaked; sampled rows at temperature 1.0 card vs CPU reported;
+13c. ``SlotServeService`` at full width (phase 10's model, 8 slots, 48 new
+   tokens, max_len 512), contiguous, then paged (page 64, the shared
+   preamble, a 37-page pool), over phase 13's flagged rows and bench.py's
+   8 prompts: every request completed, ``admitted == completed + dropped``,
+   0 leaked pages, paged replies equal to contiguous; tokens/s,
+   explanations/s, occupancy, latency, ``kv_bytes`` and the saving, and
+   the peak device memory of each mode; one window's host syncs (sync
+   debug mode) and device-idle share;
+13d. phase 13's stream with ``explain_async=True`` and
+   ``make_slot_explain_hook`` over the service: keys exact, no frame
+   carries analysis, exactly one annotation record per flagged row, each
+   an explanation; the service decoded every flagged row with no fault,
+   error or drop;
+   msgs/s and flagged explanations/s beside phase 13's inline figures;
+13e. ``serve --model synthetic --explain onpod-demo --explain-slots 4
+   --explain-tokens 8 --demo 4096 --batch-size 1024``, contiguous and
+   with ``--explain-paged --breaker 3``: exit 0, every message classified,
+   the stats JSON's ``explain`` block with ``admitted == completed +
+   dropped`` and no errors;
 14. flash times at T=2048 and 8192, in one run on one card: the sm90
    kernel and the SIMT kernel on the same bf16 inputs (in turns: sm90,
    SIMT, SIMT, sm90), ``scaled_dot_product_attention`` (the library
@@ -173,8 +202,11 @@ before phase 5b's host pipelines and before each serve CLI run;
 training: phase 7, the CLI, and phase 7c, the resume; the learn lane's
 refresh: phase 7f's lifecycle run; the LLM prefill: one T=2048 forward in phase
 10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
-flash kernel) and read just after it. It imports nothing of JAX or of
-``fraud_detection_tpu``.
+flash kernel) and read just after it. The flash counts are reset again
+before phase 13b and must read 0 after phase 13e: the slot lane runs no
+kernel of the table (its prefill is ``causal_attention(use_flash=False)``
+and its decode ``_attend``, as in the reference). It imports nothing of
+JAX or of ``fraud_detection_tpu``.
 """
 
 from __future__ import annotations
@@ -1369,23 +1401,15 @@ def llm_generate(lm, card: str) -> dict:
                 choice_greedy_ms=greedy_ms, choice_sampled_ms=sampled_ms)
 
 
-def explained_stream(lm, dev, ckpt: Path, card: str) -> dict:
+def explained_stream_inputs(dev, ckpt: Path):
     """bench.py's explained-stream recipe on the port: 1,024 messages drawn
-    from generate_corpus(n=2000, seed=42) with ~5% scams (rng 7), the CLI's
-    dt checkpoint as the in-domain classifier (device featurize), batch
-    512, ``make_stream_explain_hook(OnPodBackend.from_model(lm),
-    max_tokens=48)``. One warm run, then a timed run with the hook and one
-    without. Gates: keys exact, frames carry exactly their fields, and
-    ``analysis`` on exactly the flagged rows, with labels equal to the
-    no-hook run's."""
+    from generate_corpus(n=2000, seed=42) with ~5% scams (rng 7), and the
+    CLI's dt checkpoint as the in-domain classifier (device featurize,
+    batch 512). Returns (pipeline, [(value, key)])."""
     import numpy as np
 
     from fraud_detection_tpu_torch.data import generate_corpus
-    from fraud_detection_tpu_torch.explain.onpod import (
-        OnPodBackend, make_stream_explain_hook)
     from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
-    from fraud_detection_tpu_torch.stream import (InProcessBroker,
-                                                  StreamingClassifier)
 
     corpus = generate_corpus(n=2000, seed=42)
     scams = [d.text for d in corpus if d.label == 1]
@@ -1399,30 +1423,52 @@ def explained_stream(lm, dev, ckpt: Path, card: str) -> dict:
     pipe = ServingPipeline.from_checkpoint(
         str(ckpt), device=dev, batch_size=512, featurize_device=True,
         featurize_width=width, featurize_tokens=tokens)
-    hook = make_stream_explain_hook(OnPodBackend.from_model(lm), max_tokens=48)
     items = [(json.dumps({"text": t, "id": i}).encode(), str(i).encode())
              for i, t in enumerate(texts)]
+    return pipe, items
 
-    def run(with_hook: bool):
-        broker = InProcessBroker(num_partitions=3)
-        broker.producer().produce_batch("in", items)
-        engine = StreamingClassifier(
-            pipe, broker.consumer(["in"], "x"), broker.producer(), "out",
-            batch_size=512, max_wait=0.01,
-            explain_batch_fn=hook if with_hook else None)
-        stats = engine.run(max_messages=len(items), idle_timeout=10.0)
-        out = broker.messages("out")
-        if sorted(m.key for m in out) != sorted(k for _, k in items):
-            raise AssertionError("explained stream: output keys != fed keys")
-        if stats.processed != len(items):
-            raise AssertionError(f"explained stream: {stats.processed} processed")
-        return stats, {m.key: json.loads(m.value) for m in out}
 
-    run(True)
-    stats_x, frames_x = run(True)
-    stats_0, frames_0 = run(False)
+def run_stream(pipe, items, **kw):
+    """One engine run (batch 512) over a fresh 3-partition broker holding
+    ``items``: output keys must be exactly the fed keys. Returns (stats,
+    {key: frame}, broker, engine)."""
+    from fraud_detection_tpu_torch.stream import (InProcessBroker,
+                                                  StreamingClassifier)
+
+    broker = InProcessBroker(num_partitions=3)
+    broker.producer().produce_batch("in", items)
+    if kw.get("explain_async"):
+        kw["annotations_producer"] = broker.producer()
+    engine = StreamingClassifier(pipe, broker.consumer(["in"], "x"),
+                                 broker.producer(), "out", batch_size=512,
+                                 max_wait=0.01, **kw)
+    stats = engine.run(max_messages=len(items), idle_timeout=10.0)
+    out = broker.messages("out")
+    if sorted(m.key for m in out) != sorted(k for _, k in items):
+        raise AssertionError("explained stream: output keys != fed keys")
+    if stats.processed != len(items):
+        raise AssertionError(f"explained stream: {stats.processed} processed")
+    return stats, {m.key: json.loads(m.value) for m in out}, broker, engine
+
+
+def explained_stream(lm, dev, ckpt: Path, card: str) -> dict:
+    """Phase 13: the explained stream with the inline hook,
+    ``make_stream_explain_hook(OnPodBackend.from_model(lm), max_tokens=48)``
+    (``explained_stream_inputs``). One warm run, then a timed run with the
+    hook and one without. Gates: keys exact, frames carry exactly their
+    fields, and ``analysis`` on exactly the flagged rows, with labels equal
+    to the no-hook run's. Also returns the inputs and the flagged rows
+    (text, label, confidence) for phases 13c-13d."""
+    from fraud_detection_tpu_torch.explain.onpod import (
+        OnPodBackend, make_stream_explain_hook)
+
+    pipe, items = explained_stream_inputs(dev, ckpt)
+    hook = make_stream_explain_hook(OnPodBackend.from_model(lm), max_tokens=48)
+    run_stream(pipe, items, explain_batch_fn=hook)
+    stats_x, frames_x, _, _ = run_stream(pipe, items, explain_batch_fn=hook)
+    stats_0, frames_0, _, _ = run_stream(pipe, items)
     base = {"prediction", "label", "confidence", "original_text"}
-    flagged = 0
+    rows = []
     for key, f in frames_x.items():
         want = base | ({"analysis"} if f["prediction"] != 0 else set())
         if set(f) != want or f["prediction"] != frames_0[key]["prediction"]:
@@ -1432,7 +1478,8 @@ def explained_stream(lm, dev, ckpt: Path, card: str) -> dict:
         if "analysis" in f:
             if not isinstance(f["analysis"], str):
                 raise AssertionError(f"frame {key}: analysis {f['analysis']!r}")
-            flagged += 1
+            rows.append((f["original_text"], f["prediction"], f["confidence"]))
+    flagged = len(rows)
     if flagged == 0:
         raise AssertionError("explained stream: no row was flagged")
     out = dict(messages=len(items), flagged=flagged,
@@ -1445,7 +1492,370 @@ def explained_stream(lm, dev, ckpt: Path, card: str) -> dict:
     print(f"[time] {card}: explained stream msgs/s with hook "
           f"{stats_x.msgs_per_sec:.1f}, without {stats_0.msgs_per_sec:.1f}; "
           f"flagged explanations/s {flagged / stats_x.elapsed:.2f}")
+    return out, pipe, items, rows
+
+
+# ---------------------------------------------------------------------------
+# the slot lane: slotserve, the paged pool, the async annotation lane
+# ---------------------------------------------------------------------------
+
+def serve_slots(lm, texts, temperature: float, seed: int, **kw):
+    """Run ``texts`` through a 2-slot ``SlotServeService`` (12 new tokens,
+    windows of 4) with every prompt queued before the lane's first
+    iteration, so admission, and with it every window, is deterministic.
+    Returns (the requests, every window's (out, new_lens, steps_run,
+    active_row_steps), the service, closed)."""
+    from fraud_detection_tpu_torch.explain.slotserve import SlotServeService
+
+    svc = SlotServeService(lm, slots=2, max_new_tokens=12, prompt_width=384,
+                           prompt_bucket=16, decode_window=4, seed=seed, **kw)
+    windows, step = [], svc._decoder.step
+
+    def recorded_step(*args):
+        windows.append(step(*args))
+        return windows[-1]
+
+    svc._decoder.step = recorded_step
+    try:
+        # The idle lane waits on this condition's lock, so it finds the whole
+        # queue at its first boundary.
+        with svc._cv:
+            reqs = [svc.submit(t, temperature=temperature) for t in texts]
+        for r in reqs:
+            r.wait(600.0)
+        snap = svc.snapshot()
+    finally:
+        svc.close(timeout=60.0)
+    if svc.fault is not None or snap["errors"] or snap["dropped"] or \
+            snap["completed"] != len(texts):
+        raise AssertionError(f"slot service: {snap}, fault {svc.fault!r}")
+    return reqs, windows, svc
+
+
+def windows_equal(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+        and x[2] == y[2] and x[3] == y[3] for x, y in zip(a, b))
+
+
+def slot_card_vs_cpu(dev, seed: int) -> dict:
+    """Phase 13b: the slot programs at Gemma widths, 2 layers, f32 (phase
+    11's model), card against CPU on the same weights, driven by the
+    service's own scheduler. Five prompts through 2 slots (slot reuse), 12
+    new tokens, windows of 4: two analysis prompts that share the explain
+    preamble and two plain ones, then the first again. Gates: greedy tokens
+    card == CPU, and each equal to its row of ``generate_tokens_batch`` on
+    the card; the paged service (page 64, the shared preamble prefilled
+    once, copy-on-write admits) gives the contiguous service's windows bit
+    for bit (out, new_lens, steps_run, active_row_steps) on the card; the
+    repeated prompt in a reused slot equals its first decode; no page leaks.
+    Sampled rows at temperature 1.0, card vs CPU, are reported (not
+    gated)."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.explain.backends import frame_prompt
+    from fraud_detection_tpu_torch.explain.onpod import flatten_chat
+    from fraud_detection_tpu_torch.explain.prompts import analysis_prompt
+    from fraud_detection_tpu_torch.explain.slotserve.service import (
+        shared_explain_prefix)
+    from fraud_detection_tpu_torch.models.llm import LanguageModel, Transformer
+
+    card = gemma(dev, seed, n_layers=2, dtype=torch.float32)
+    params = Transformer(card.cfg, device="cpu")
+    for name in params.param_names():
+        params.param(name).data.copy_(card.params.param(name))
+    cpu = LanguageModel(card.cfg, params)
+    texts = [flatten_chat(frame_prompt(analysis_prompt(t, 1, 0.93)))
+             for t in ("Caller: this is your bank, read me the code now.",
+                       "Agent: your parcel is held; pay the customs fee in "
+                       "gift cards today.")]
+    texts += [GEN_PROMPTS[0], "Agent: hello, is this Mr Smith?", texts[0]]
+    req_g, win_g, _ = serve_slots(card, texts, 0.0, seed)
+    req_c, _, _ = serve_slots(cpu, texts, 0.0, seed)
+    req_p, win_p, paged = serve_slots(card, texts, 0.0, seed, paged=True)
+    rows_g, rows_c, rows_p = ([r.out for r in reqs]
+                              for reqs in (req_g, req_c, req_p))
+    if rows_g != rows_c:
+        raise AssertionError(f"slot greedy tokens card {rows_g} != cpu {rows_c}")
+    batch = card.generate_tokens_batch([r.tokens for r in req_g[:4]],
+                                       max_new_tokens=12)
+    for i, row in enumerate(rows_g[:4]):
+        if not np.array_equal(batch[i][:len(row)], row):
+            raise AssertionError(f"slot row {i} {row} != generate_tokens_batch "
+                                 f"{batch[i].tolist()}")
+    if rows_g[4] != rows_g[0]:
+        raise AssertionError("the reused slot's decode differs from the fresh one")
+    if not windows_equal(win_g, win_p) or rows_p != rows_g:
+        raise AssertionError("paged windows != contiguous windows on the card")
+    dec = paged._decoder
+    if dec.prefix_hits != 3 or dec.cow_copies != 3:
+        raise AssertionError(f"paged: {dec.prefix_hits} prefix hits, "
+                             f"{dec.cow_copies} copy-on-write admits, want 3")
+    if dec.leaked_pages:
+        raise AssertionError(f"paged decoder leaked {dec.leaked_pages} pages")
+    s_g, _, _ = serve_slots(card, texts[:4], 1.0, seed)
+    s_c, _, _ = serve_slots(cpu, texts[:4], 1.0, seed)
+    sampled_equal = sum(a.out == b.out for a, b in zip(s_g, s_c))
+    print(f"[slot] card vs cpu (Gemma widths, 2 layers, f32): {len(texts)} "
+          f"prompts through a 2-slot service, {len(win_g)} windows: greedy "
+          "tokens equal card/cpu and to generate_tokens_batch; paged (prefix "
+          f"{len(shared_explain_prefix()) + 1} tokens, 3 hits, 3 copy-on-write "
+          "admits) == contiguous window for window bit for bit; reused slot "
+          "== fresh; 0 leaked pages")
+    print(f"[slot] sampled at temperature 1.0, card vs cpu: {sampled_equal}/4 "
+          "rows equal (reported, not gated)")
+    del paged, dec, card, cpu
+    torch.cuda.empty_cache()
+    return dict(windows=len(win_g), rows=len(texts), paged_equal=True,
+                sampled_rows_equal=sampled_equal, sampled_rows=4)
+
+
+def count_host_syncs(fn):
+    """Synchronizing CUDA calls made by ``fn`` (``torch.cuda``'s sync debug
+    mode, one warning each): (count, the distinct warnings' first lines)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # one warning per synchronizing call (torch's one-time notice that the
+    # mode is a prototype is not one)
+    lines = [str(w.message).splitlines()[0][:120] for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return len(lines), sorted(set(lines))
+
+
+def slot_window_figures(dec, prompt, card: str) -> dict:
+    """Host syncs of one decode window and its device-idle share: every slot
+    prefilled with ``prompt``, then one 16-step window over the pool."""
+    import numpy as np
+
+    B, eos = dec.slots, dec.cfg.EOS
+
+    def setup():
+        firsts = [dec.prefill(s, prompt, 0.0, s) for s in range(B)]
+        args = (np.asarray(firsts, np.int32), np.full(B, len(prompt), np.int32),
+                np.ones(B, bool), np.full(B, 16, np.int32),
+                np.zeros(B, np.float32), 0, 16)
+        return lambda: dec.step(*args)
+
+    window = setup()
+    syncs, what = count_host_syncs(window)
+    prefill_syncs, prefill_what = count_host_syncs(
+        lambda: dec.prefill(0, prompt, 0.0, 0))
+    idle = profiled_idle(setup)
+    t0 = time.perf_counter()
+    window()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    breakdown = device_breakdown(window, reps=1)
+    busy = sum(us for _, us, _ in breakdown) / 1e3
+    for s in range(B):
+        dec.release_slot(s)
+    print(f"[slot] one 16-step window at B={B}: {syncs} host syncs "
+          f"(sync debug mode: {what}), a prefill {prefill_syncs} "
+          f"({prefill_what}); device idle {100 * idle:.1f}% ({card})")
+    print(f"[trace] {card}: a 16-step window: device busy {busy:.2f} ms of a "
+          f"{wall_ms:.1f} ms wall, {sum(n for *_, n in breakdown):.0f} device "
+          "ops")
+    for name, us, n in breakdown[:8]:
+        print(f"[trace]   {us:10.1f} us  x{n:.0f}  {name[:90]}")
+    return dict(window_host_syncs=syncs, prefill_host_syncs=prefill_syncs,
+                window_device_idle=idle, window_wall_ms=wall_ms,
+                window_busy_ms=busy, sync_sources=what)
+
+
+def slot_lane(lm, flagged_rows, card: str) -> dict:
+    """Phase 13c: ``SlotServeService`` at full width (phase 10's model, 8
+    slots, 48 new tokens, prompt width 464 in 16-token buckets: max_len
+    512), contiguous, then paged (page 64, the shared preamble, the pool
+    capped at 37 pages: 5 for the preamble and 4 private pages for each of
+    the 8 slots). Each runs ``explain_rows`` over phase 13's flagged rows
+    and ``generate_batch`` over bench.py's 8 prompts. Gates: every request
+    completed, ``admitted == completed + dropped``, 0 leaked pages, and the
+    paged service's greedy texts equal the contiguous one's. Each mode's
+    peak device memory above the model (pool, windows' transients) is
+    printed beside its reserved ``kv_bytes``."""
+    import torch
+
+    from fraud_detection_tpu_torch.explain.slotserve import SlotServeService
+
+    geo = dict(slots=8, max_new_tokens=48, prompt_width=464,
+               prompt_bucket=16, decode_window=16, wait_timeout=600.0)
+    texts, labels, confs = (list(c) for c in zip(*flagged_rows))
+    results, replies = {}, {}
+    for mode, kw in (("contiguous", {}),
+                     ("paged", dict(paged=True, kv_pages=37))):
+        # The lane's device memory: the pool plus everything a window
+        # allocates on top of it (the paged window's gathered view too).
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        svc = SlotServeService(lm, **geo, **kw)
+        try:
+            t0 = time.perf_counter()
+            got = svc.explain_rows(texts, labels, confs, max_tokens=48)
+            got += svc.generate_batch(GEN_PROMPTS, temperature=0.0,
+                                      max_tokens=48)
+            wall = time.perf_counter() - t0
+            snap = svc.snapshot()
+        finally:
+            clean = svc.close(timeout=60.0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        n = len(texts) + len(GEN_PROMPTS)
+        if not clean or snap["completed"] != n or snap["dropped"] != 0 or \
+                snap["admitted"] != snap["completed"] + snap["dropped"]:
+            raise AssertionError(f"slot lane {mode}: {snap} (clean close "
+                                 f"{clean})")
+        leaked = getattr(svc._decoder, "leaked_pages", 0)
+        if leaked:
+            raise AssertionError(f"slot lane {mode}: {leaked} pages leaked")
+        del svc     # its pool must not count in the next mode's base
+        replies[mode] = got
+        results[mode] = dict(
+            requests=n, wall_s=wall, tokens_per_s=snap["tokens_out"] / wall,
+            explanations_per_s=n / wall, occupancy=snap["occupancy"],
+            latency_ms=snap["latency_ms"],
+            admit_to_first_token_ms=snap["admit_to_first_token_ms"],
+            decode_steps=snap["decode_steps"], iterations=snap["iterations"],
+            tokens_out=snap["tokens_out"], truncated=snap["truncated"],
+            kv_bytes=snap["kv_bytes"], kv_pages=snap["kv_pages"],
+            prefix_hits=snap["prefix_hits"], cow_copies=snap["cow_copies"],
+            kv_bytes_saved_vs_contiguous=snap["kv_bytes_saved_vs_contiguous"],
+            peak_lane_bytes=peak)
+        r = results[mode]
+        print(f"[time] {card}: slot lane {mode}: {n} requests ({len(texts)} "
+              f"flagged rows + 8 bench prompts) in {wall:.3f} s: "
+              f"{r['tokens_per_s']:.1f} tokens/s, {r['explanations_per_s']:.2f} "
+              f"explanations/s, occupancy {r['occupancy']}, latency p50/p99 "
+              f"{r['latency_ms']['p50']} / {r['latency_ms']['p99']} ms, "
+              f"{r['decode_steps']} decode steps in {r['iterations']} "
+              f"iterations; kv_bytes {r['kv_bytes']}, saved vs contiguous "
+              f"{r['kv_bytes_saved_vs_contiguous']}, prefix hits "
+              f"{r['prefix_hits']}, copy-on-write {r['cow_copies']}; peak "
+              f"device memory over the model {peak} bytes")
+    if replies["paged"] != replies["contiguous"]:
+        diff = sum(a != b for a, b in zip(replies["paged"],
+                                          replies["contiguous"]))
+        raise AssertionError(f"slot lane: {diff} paged replies differ from "
+                             "the contiguous service's")
+    from fraud_detection_tpu_torch.explain.slotserve.decode import SlotDecoder
+
+    dec = SlotDecoder(lm, 8, prompt_width=464, max_new_tokens=48,
+                      prompt_bucket=16)
+    prompt, _ = dec.encode_prompt(GEN_PROMPTS[0])
+    results["window"] = slot_window_figures(dec, prompt, card)
+    del dec
+    print("[slot] paged greedy replies == contiguous replies; every request "
+          "completed, admitted == completed + dropped, 0 leaked pages")
+    return results
+
+
+def explained_stream_async(lm, pipe, items, sync: dict, card: str) -> dict:
+    """Phase 13d: phase 13's stream with ``explain_async=True`` and
+    ``make_slot_explain_hook`` over a contiguous ``SlotServeService`` (phase
+    13c's geometry). Gates: output keys exactly the fed keys, no frame
+    carries ``analysis``, the annotations topic holds exactly one record
+    per flagged row and nothing else, each an explanation (no dropped or
+    unavailable marker), and the service decoded every flagged row with no
+    fault, error or drop (nor did the annotation lane drop or fail). Prints
+    msgs/s and flagged explanations/s beside phase 13's inline figures."""
+    from fraud_detection_tpu_torch.explain.slotserve import (
+        DROPPED_MARKER, UNAVAILABLE_MARKER, SlotServeService,
+        make_slot_explain_hook)
+
+    svc = SlotServeService(lm, slots=8, max_new_tokens=48, prompt_width=464,
+                           prompt_bucket=16, decode_window=16)
+    try:
+        hook = make_slot_explain_hook(svc, max_tokens=48)
+        t0 = time.perf_counter()
+        stats, frames, broker, engine = run_stream(
+            pipe, items, explain_batch_fn=hook, explain_async=True,
+            explain_service=svc)
+        drained = engine.close_annotations(timeout=300.0)
+        wall = time.perf_counter() - t0
+        lane = engine.annotation_stats()
+        snap = svc.snapshot()
+    finally:
+        svc.close(timeout=60.0)
+    flagged = {k for k, f in frames.items() if f["prediction"] != 0}
+    recs = [(m.key, json.loads(m.value))
+            for m in broker.messages("out-annotations")]
+    if any("analysis" in f for f in frames.values()):
+        raise AssertionError("async stream: a frame carries analysis")
+    if not drained or sorted(k for k, _ in recs) != sorted(flagged):
+        raise AssertionError(f"async stream: {len(recs)} annotation records "
+                             f"for {len(flagged)} flagged rows (drained "
+                             f"{drained}, lane {lane})")
+    markers = tuple(m.split("{")[0] for m in (DROPPED_MARKER,
+                                               UNAVAILABLE_MARKER))
+    for key, rec in recs:
+        if rec["prediction"] != frames[key]["prediction"] or \
+                not isinstance(rec["analysis"], str) or \
+                rec["analysis"].startswith(markers):
+            raise AssertionError(f"async stream: record {key} {rec}")
+    # A decoder that faults or throws still yields one (marker) record per
+    # flagged row, so the lane's own counts decide: every flagged row was
+    # decoded, none dropped or failed.
+    if svc.fault is not None or snap["errors"] or snap["dropped"] or \
+            snap["completed"] != len(flagged) or \
+            snap["admitted"] != snap["completed"] + snap["dropped"] or \
+            lane["dropped"] or lane["backend_errors"]:
+        raise AssertionError(f"async stream: slot lane {snap}, annotation "
+                             f"lane {lane}, fault {svc.fault!r}")
+    out = dict(messages=len(items), flagged=len(flagged),
+               msgs_per_s=stats.msgs_per_sec,
+               flagged_explanations_per_s=len(flagged) / wall,
+               wall_to_last_annotation_s=wall, lane=lane,
+               slot_occupancy=snap["occupancy"])
+    print(f"[engine] async explained stream: {len(items)} messages, "
+          f"{len(flagged)} flagged, no frame carries analysis, one annotation "
+          f"record per flagged row ({lane})")
+    print(f"[time] {card}: async explained stream msgs/s "
+          f"{stats.msgs_per_sec:.1f} (inline hook {sync['msgs_per_s_with_explain']:.1f},"
+          f" no hook {sync['msgs_per_s_without']:.1f}); flagged explanations/s "
+          f"{len(flagged) / wall:.2f} to the last annotation (inline "
+          f"{sync['flagged_explanations_per_s']:.2f})")
     return out
+
+
+def slot_serve_cli(dev, card: str) -> dict:
+    """Phase 13e: ``serve --model synthetic --explain onpod-demo
+    --explain-slots 4 --explain-tokens 8 --demo 4096 --batch-size 1024``,
+    contiguous, then ``--explain-paged --breaker 3``: each exits 0 and
+    classifies every message, and its stats JSON's ``explain`` block holds
+    ``admitted == completed + dropped`` with requests completed and no
+    errors."""
+    results = {}
+    for name, extra in (("contiguous", []),
+                        ("paged_breaker", ["--explain-paged", "--breaker",
+                                           "3"])):
+        r = serve_cli(["--device", str(dev), "--model", "synthetic", "--demo",
+                       str(SERVE_DEMO), "--batch-size", "1024", "--explain",
+                       "onpod-demo", "--explain-slots", "4",
+                       "--explain-tokens", "8", *extra], card)
+        stats, ex = r["stats"], r["stats"]["explain"]
+        if r["classified"] != SERVE_DEMO or stats["processed"] != SERVE_DEMO \
+                or ex["admitted"] != ex["completed"] + ex["dropped"] \
+                or ex["completed"] == 0 or ex["errors"]:
+            raise AssertionError(f"serve {name}: classified {r['classified']},"
+                                 f" explain {ex}")
+        results[name] = dict(msgs_per_sec=stats["msgs_per_sec"], explain=ex,
+                             annotations=stats["annotations"])
+        print(f"[serve] slot lane {name}: explain admitted {ex['admitted']} = "
+              f"completed {ex['completed']} + dropped {ex['dropped']}; "
+              f"annotations {stats['annotations']}")
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -2786,9 +3196,25 @@ def main(argv=None) -> int:
     gen = llm_generate(lm, card)
 
     # -- 13. the engine with explanations ------------------------------------
-    expl = explained_stream(lm, dev, ROOT / "build" / "chip_smoke" / "dt", card)
-    del lm
+    expl, expl_pipe, expl_items, flagged_rows = explained_stream(
+        lm, dev, ROOT / "build" / "chip_smoke" / "dt", card)
+
+    # -- 13b-13e. the slot lane (no flash launch anywhere in it) -------------
+    A.flash_attention.launches = 0
+    A.flash_attention_sm90.launches = A.flash_attention_simt.launches = 0
+    slot_cvc = slot_card_vs_cpu(dev, args.seed + 42)
+    slots = slot_lane(lm, flagged_rows, card)
+    async_stream = explained_stream_async(lm, expl_pipe, expl_items, expl,
+                                          card)
+    del lm, expl_pipe
     torch.cuda.empty_cache()
+    slot_cli = slot_serve_cli(dev, card)
+    if A.flash_attention.launches:
+        raise AssertionError(f"the slot lane launched the flash kernels "
+                             f"{A.flash_attention.launches}x, want 0")
+    print("[slot] phases 13b-13e: 0 flash launches (the slot prefill uses "
+          "causal_attention(use_flash=False), the window _attend, as in the "
+          "reference)")
 
     # -- 14. flash kernel times ------------------------------------------------
     flash_times, simt_times = {}, {}
@@ -2987,7 +3413,9 @@ def main(argv=None) -> int:
         "lifecycle": lifecycle_out,
         "tree_kernels_ms_per_cli_fit": per_fit,
         "llm": {"prefill": pre, "card_vs_cpu": cvc, "generate": gen,
-                "explained_stream": expl}}))
+                "explained_stream": expl, "slot_card_vs_cpu": slot_cvc,
+                "slot_lane": slots, "explained_stream_async": async_stream,
+                "slot_serve_cli": slot_cli}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

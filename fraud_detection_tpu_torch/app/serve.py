@@ -14,7 +14,12 @@ versions in, ``--shadow`` stages them beside the active model for shadow
 scoring, ``--promote-policy`` promotes or rejects them, and ``--learn``
 closes the loop (``learn/``: feedback labels joined against the scored
 window, drift-triggered refreshes on the card published into the same
-registry). By default the host featurizes
+registry). ``--explain`` attaches analyses of flagged messages from a
+language model on the card, inline or (``--explain-async``) onto an
+annotations topic; ``--explain-slots`` serves them through the slotserve
+continuous-batching lane (``--explain-paged``: over a paged KV pool with
+the shared preamble prefilled once), and ``--breaker`` puts a circuit
+breaker in front of the backend. By default the host featurizes
 with the native C++ featurizer and the engine takes the raw-JSON path with
 C++ frame assembly; ``--featurize-device`` ships raw bytes to the CUDA featurize
 kernel instead. The flags of the reference CLI that the port does not offer
@@ -38,11 +43,7 @@ _UNPORTED = (
     ("--fleet-health-file", True, 5), ("--fleet-candidates", True, 5),
     ("--autoscale", False, 5), ("--min-workers", True, 5),
     ("--max-workers", True, 5), ("--scale-cooldown", True, 5),
-    ("--mesh", False, 5), ("--explain-slots", True, 7),
-    ("--explain-queue", True, 7), ("--explain-paged", False, 7),
-    ("--explain-kv-pages", True, 7), ("--explain-async", False, 7),
-    ("--annotations-topic", True, 7), ("--breaker", True, 7),
-    ("--breaker-probe", True, 7), ("--health-file", True, 5),
+    ("--mesh", False, 5), ("--health-file", True, 5),
     ("--health-interval", True, 5), ("--metrics-file", True, 5),
     ("--metrics-interval", True, 5), ("--metrics-port", True, 5),
     ("--alerts", False, 5), ("--alert-rules", True, 5),
@@ -78,10 +79,12 @@ def build_pipeline(spec: str, batch_size: int, int8: bool = False,
         featurize_device=featurize_device, featurize_width=featurize_width)
 
 
-def _explain_hook(args):
-    """The engine's ``explain_batch_fn`` for ``--explain``, or None."""
+def _explain_lane(args):
+    """The engine's ``explain_batch_fn`` for ``--explain``, the circuit
+    breaker (``--breaker``) and the slotserve service (``--explain-slots``)
+    behind it: ``(hook, breaker, service)``, None where off."""
     if args.explain == "off":
-        return None
+        return None, None, None
     from fraud_detection_tpu_torch.explain import make_stream_explain_hook
     from fraud_detection_tpu_torch.utils.config import LLMConfig
 
@@ -91,6 +94,7 @@ def _explain_hook(args):
         raise SystemExit(f"bad LLM_* environment value: {e}")
     # An explicit LLM_TEMPERATURE wins; unset, local backends decode greedy.
     temp = llm_cfg.temperature if "LLM_TEMPERATURE" in os.environ else 0.0
+    slot_lm = None     # the models/llm.py model --explain-slots serves
     if args.explain == "canned":
         from fraud_detection_tpu_torch.explain import CannedBackend
 
@@ -104,18 +108,53 @@ def _explain_hook(args):
         from fraud_detection_tpu_torch.models.llm import (LanguageModel,
                                                           TransformerConfig)
 
-        lm = LanguageModel.init_random(
+        slot_lm = LanguageModel.init_random(
             TransformerConfig(d_model=128, n_layers=2, n_heads=8, d_ff=256,
                               max_seq=2048), seed=0, device=args.device)
-        backend = OnPodBackend.from_model(lm)
+        backend = OnPodBackend.from_model(slot_lm)
     elif args.explain.startswith(("onpod:", "onpod-int8:", "deepseek")):
         raise unported(f"--explain {args.explain.partition(':')[0]} (HF "
                        "checkpoints, int8 weights and the HTTP backend's "
                        "spec)", 7)
     else:
         raise SystemExit(f"unknown --explain spec {args.explain!r}")
-    return make_stream_explain_hook(backend, temperature=temp,
-                                    max_tokens=args.explain_tokens)
+    service = breaker = None
+    if args.explain_slots > 0:
+        # The service REPLACES the fixed-batch backend — same LLMBackend
+        # surface, so the breaker below wraps it unchanged.
+        from fraud_detection_tpu_torch.explain.slotserve import (
+            SlotServeService)
+
+        try:
+            backend = service = SlotServeService(
+                slot_lm, slots=args.explain_slots,
+                max_queue=args.explain_queue,
+                max_new_tokens=args.explain_tokens,
+                paged=args.explain_paged,
+                **({"kv_pages": args.explain_kv_pages}
+                   if args.explain_kv_pages > 0 else {}))
+        except ValueError as e:
+            raise SystemExit(f"--explain-slots: {e}")
+    if args.breaker > 0:
+        # Wrapped BEFORE the hook is built, so every call path shares one
+        # breaker and a dead backend fast-fails instead of stalling.
+        from fraud_detection_tpu_torch.explain import CircuitBreakerBackend
+
+        backend = breaker = CircuitBreakerBackend(
+            backend, failure_threshold=args.breaker,
+            probe_interval=args.breaker_probe)
+    if service is not None:
+        # Backend failures become accounted per-row markers: every flagged
+        # row is explained or accounted on the annotations topic.
+        from fraud_detection_tpu_torch.explain.slotserve import (
+            make_slot_explain_hook)
+
+        hook = make_slot_explain_hook(backend, temperature=temp,
+                                      max_tokens=args.explain_tokens)
+    else:
+        hook = make_stream_explain_hook(backend, temperature=temp,
+                                        max_tokens=args.explain_tokens)
+    return hook, breaker, service
 
 
 def main(argv=None) -> int:
@@ -230,6 +269,39 @@ def main(argv=None) -> int:
                          "per micro-batch: 'off' | 'canned' | 'onpod-demo'")
     ap.add_argument("--explain-tokens", type=int, default=128,
                     help="max new tokens per analysis (--explain)")
+    ap.add_argument("--explain-slots", type=int, metavar="N", default=0,
+                    help="serve explanations through the slot-based "
+                         "continuous-batching lane with N decode slots "
+                         "over one persistent KV cache (0 = off; needs an "
+                         "onpod-family --explain backend; implies "
+                         "--explain-async — docs/explain_serving.md). "
+                         "Every flagged row is explained or accounted, "
+                         "and health() gains the 'explain' block")
+    ap.add_argument("--explain-queue", type=int, default=1024,
+                    help="slotserve admission-queue bound (--explain-slots; "
+                         "overflow drops OLDEST with honest accounting)")
+    ap.add_argument("--explain-paged", action="store_true",
+                    help="page the slot lane's KV cache: fixed-size KV "
+                         "pages behind a refcounted allocator, with the "
+                         "shared explain preamble prefilled ONCE and "
+                         "copy-on-write per admit (--explain-slots; "
+                         "greedy outputs stay bit-equal to contiguous — "
+                         "docs/explain_serving.md \"Paged KV and prefix "
+                         "sharing\")")
+    ap.add_argument("--explain-kv-pages", type=int, metavar="N", default=0,
+                    help="cap the paged pool at N pages (--explain-paged; "
+                         "0 = slots * pages-per-slot, the zero-preemption "
+                         "default; smaller pools preempt the NEWEST admit "
+                         "with a kv_pages_exhausted drop record)")
+    ap.add_argument("--explain-async", action="store_true",
+                    help="annotate flagged rows in the background onto "
+                         "--annotations-topic instead of inline: "
+                         "classification never waits for LLM decode "
+                         "(bounded queue, drop-oldest under overload; "
+                         "stream/annotations.py)")
+    ap.add_argument("--annotations-topic", default=None,
+                    help="side topic for --explain-async records "
+                         "(default: <output-topic>-annotations)")
     ap.add_argument("--dlq", action="store_true",
                     help="route malformed and repeatedly failing messages "
                          "to <output-topic>-dlq as structured records")
@@ -237,6 +309,14 @@ def main(argv=None) -> int:
                     help="dead-letter topic name (implies --dlq)")
     ap.add_argument("--dlq-max-attempts", type=int, default=3,
                     help="re-deliveries before a row is dead-lettered")
+    ap.add_argument("--breaker", type=int, metavar="N", default=0,
+                    help="wrap the --explain backend in a circuit breaker "
+                         "that opens after N consecutive failures (0 = off; "
+                         "open = explanations fast-fail instead of paying "
+                         "the backend's timeout/retry budget)")
+    ap.add_argument("--breaker-probe", type=float, default=30.0,
+                    help="seconds an open breaker waits before probing the "
+                         "backend again (--breaker)")
     for flag, takes_value, item in _UNPORTED:
         ap.add_argument(flag, default=None,
                         **({"metavar": "X"} if takes_value
@@ -308,6 +388,37 @@ def main(argv=None) -> int:
         raise SystemExit(f"--pipeline-depth must be >= 1, got {args.pipeline_depth}")
     if args.explain_tokens < 1:
         raise SystemExit(f"--explain-tokens must be >= 1, got {args.explain_tokens}")
+    if args.explain_slots < 0:
+        raise SystemExit(
+            f"--explain-slots must be >= 0, got {args.explain_slots}")
+    if args.explain_queue < 1:
+        raise SystemExit(
+            f"--explain-queue must be >= 1, got {args.explain_queue}")
+    if args.explain_slots > 0:
+        if not args.explain.startswith("onpod"):
+            raise SystemExit(
+                "--explain-slots needs an onpod-family --explain backend "
+                "(onpod:<dir>, onpod-int8:<dir>, or onpod-demo) — the slot "
+                "lane serves a models/llm.py model from this pod")
+        # The slot lane IS the async configuration: classification never
+        # waits for decode, annotations ride the side topic.
+        args.explain_async = True
+    if args.explain_paged and args.explain_slots < 1:
+        raise SystemExit(
+            "--explain-paged pages the slotserve lane's KV cache — it "
+            "needs --explain-slots")
+    if args.explain_kv_pages < 0:
+        raise SystemExit(
+            f"--explain-kv-pages must be >= 0, got {args.explain_kv_pages}")
+    if args.explain_kv_pages > 0 and not args.explain_paged:
+        raise SystemExit(
+            "--explain-kv-pages caps the paged pool; set --explain-paged")
+    if args.explain_async and args.explain == "off":
+        raise SystemExit("--explain-async needs an --explain backend")
+    if args.annotations_topic is not None and not args.explain_async:
+        raise SystemExit("--annotations-topic only applies with "
+                         "--explain-async (inline analyses ride the "
+                         "output frames)")
     if args.partitions < 1:
         raise SystemExit(f"--partitions must be >= 1, got {args.partitions}")
     sched_config = None
@@ -333,13 +444,20 @@ def main(argv=None) -> int:
     if args.dlq_max_attempts < 1:
         raise SystemExit(
             f"--dlq-max-attempts must be >= 1, got {args.dlq_max_attempts}")
+    if args.breaker < 0:
+        raise SystemExit(f"--breaker must be >= 0, got {args.breaker}")
+    if args.breaker > 0 and args.explain == "off":
+        raise SystemExit("--breaker needs an --explain backend")
+    if args.breaker_probe <= 0:
+        raise SystemExit(
+            f"--breaker-probe must be > 0, got {args.breaker_probe}")
     if args.demo <= 0:
         raise SystemExit("choose --kafka or --demo N (no broker specified)")
 
     from fraud_detection_tpu_torch.stream import (InProcessBroker,
                                                   StreamingClassifier)
 
-    explain_hook = _explain_hook(args)
+    explain_hook, breaker, explain_service = _explain_lane(args)
     registry = shadow = None
     if args.registry is not None:
         from fraud_detection_tpu_torch.registry import (HotSwapPipeline,
@@ -425,7 +543,11 @@ def main(argv=None) -> int:
         pipeline_depth=args.pipeline_depth, explain_batch_fn=explain_hook,
         dlq_topic=dlq_topic, dlq_max_attempts=args.dlq_max_attempts,
         scheduler=scheduler, async_dispatch=args.async_dispatch,
-        shadow=shadow, learn=learn_loop)
+        shadow=shadow, learn=learn_loop, explain_async=args.explain_async,
+        annotations_topic=args.annotations_topic,
+        annotations_producer=(broker.producer() if args.explain_async
+                              else None),
+        breaker=breaker, explain_service=explain_service)
 
     lifecycle = watch_stop = watch_thread = None
     if args.watch:
@@ -467,6 +589,20 @@ def main(argv=None) -> int:
             out["learn"] = learn_loop.snapshot()
         return out
 
+    def finish_annotations():
+        """Drain the async lane, then close the slotserve service (the lane's
+        worker blocks inside explain_rows, so a drained lane means an idle
+        slot lane); returns the stats JSON's annotations block, or None
+        inline."""
+        if not args.explain_async:
+            return None
+        engine.close_annotations(timeout=30.0)
+        lane = engine.annotation_stats()
+        if explain_service is not None:
+            explain_service.close(timeout=30.0)
+        return {k: lane[k] for k in ("submitted", "annotated", "dropped",
+                                     "drop_records", "backend_errors")}
+
     try:
         stats = engine.run(max_messages=max_messages, idle_timeout=1.0)
     except KeyboardInterrupt:
@@ -476,6 +612,12 @@ def main(argv=None) -> int:
         engine.consumer.close()
     out = stats.as_dict()
     out["health"] = engine.health()
+    annotations = finish_annotations()
+    if annotations is not None:
+        out["annotations"] = annotations
+    if explain_service is not None:
+        # Post-drain snapshot (the health block above may predate it).
+        out["explain"] = explain_service.snapshot()
     lifecycle_out = finish_lifecycle()
     if lifecycle_out is not None:
         out["lifecycle"] = lifecycle_out
@@ -483,7 +625,8 @@ def main(argv=None) -> int:
     print(f"classified messages on {args.output_topic}: "
           f"{broker.topic_size(args.output_topic)}")
     faults = [(name, lane.fault) for name, lane in (
-        ("learn", learn_loop), ("watcher", lifecycle), ("shadow", shadow))
+        ("learn", learn_loop), ("watcher", lifecycle), ("shadow", shadow),
+        ("slotserve", explain_service))
         if lane is not None and lane.fault is not None]
     for name, fault in faults:
         print(f"the {name} lane stopped on a device fault: {fault!r}",

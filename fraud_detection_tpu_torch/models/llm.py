@@ -16,8 +16,13 @@ Where the JAX package rounds at a point that matters (RMSNorm's f32
 variance, RoPE's f32 angles cast to the activation type, the embedding
 scale rounded to the model type, bf16 logits cast to f32 after the head,
 first-maximum argmax), this module rounds at the same point, and says so
-beside the code. Tensor and sequence parallelism, int8 weights and the
-slot/paged decode programs are not ported.
+beside the code.
+
+The slot programs of continuous batching (``slot_prefill``,
+``slot_decode_window``) and their paged twins over a flat page pool
+(``init_kv_pages``, ``copy_kv_page``, ``paged_slot_prefill``,
+``paged_decode_window``) serve ``explain/slotserve/``. Tensor and sequence
+parallelism and int8 weights are not ported.
 """
 
 from __future__ import annotations
@@ -323,6 +328,50 @@ def causal_attention(q, k, v, use_flash: Optional[bool] = None) -> torch.Tensor:
 # forward
 # ---------------------------------------------------------------------------
 
+def _embed(params: Transformer, tokens: torch.Tensor,
+           cfg: TransformerConfig) -> torch.Tensor:
+    x = params.embed[tokens].to(cfg.dtype)
+    if cfg.embed_scale != 1.0:
+        # rounded to the model dtype before the multiply (bf16: 45.25)
+        x = x * float(torch.tensor(cfg.embed_scale, dtype=cfg.dtype))
+    return x
+
+
+def _activation(cfg: TransformerConfig):
+    return F.silu if cfg.activation == "silu" else partial(F.gelu,
+                                                           approximate="tanh")
+
+
+def _qkv(layer: DecoderLayer, x: torch.Tensor, cos, sin,
+         cfg: TransformerConfig):
+    """One layer's q (B, T, H, d) and k, v (B, T, Hkv, d), RoPE applied."""
+    B, T, D = x.shape
+    H, Hkv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    h = rms_norm(x, layer.ln1, cfg.rms_eps)
+    q = (h @ layer.wq.reshape(D, H * d)).view(B, T, H, d)
+    k = (h @ layer.wk.reshape(D, Hkv * d)).view(B, T, Hkv, d)
+    v = (h @ layer.wv.reshape(D, Hkv * d)).view(B, T, Hkv, d)
+    return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
+
+
+def _layer_out(layer: DecoderLayer, x: torch.Tensor, attn: torch.Tensor,
+               cfg: TransformerConfig, act) -> torch.Tensor:
+    """The attention output projection and the gated MLP, both residual."""
+    B, T, D = x.shape
+    hd = cfg.n_heads * cfg.head_dim
+    x = x + attn.reshape(B, T, hd) @ layer.wo.reshape(hd, D)
+    h2 = rms_norm(x, layer.ln2, cfg.rms_eps)
+    return x + (act(h2 @ layer.w_gate) * (h2 @ layer.w_up)) @ layer.w_down
+
+
+def _logits_head(x: torch.Tensor, params: Transformer,
+                 cfg: TransformerConfig) -> torch.Tensor:
+    """f32 logits of features ``x`` (..., D): the head product in the model
+    dtype, then f32 (bf16 logits round first)."""
+    head = params.embed if cfg.tie_embeddings else params.lm_head
+    return (x @ head.T).float()
+
+
 def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
             *, positions: Optional[torch.Tensor] = None,
             kv_cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -344,16 +393,11 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
     dev = tokens.device
     if positions is None:
         positions = torch.arange(T, device=dev).expand(B, T)
-    x = params.embed[tokens].to(cfg.dtype)
-    if cfg.embed_scale != 1.0:
-        # rounded to the model dtype before the multiply (bf16: 45.25)
-        x = x * float(torch.tensor(cfg.embed_scale, dtype=cfg.dtype))
-    act = F.silu if cfg.activation == "silu" else partial(F.gelu,
-                                                          approximate="tanh")
+    x = _embed(params, tokens, cfg)
+    act = _activation(cfg)
     rep = cfg.n_heads // cfg.kv_heads
-    H, Hkv, d, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
     # Every layer shares the RoPE tables and the cache mask: built once.
-    cos, sin = _rope_tables(positions, d, cfg.rope_theta, cfg.dtype)
+    cos, sin = _rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
     if kv_cache is not None:
         s_idx = torch.arange(kv_cache["l0.k"].shape[1], device=dev)
         t_idx = cache_len + torch.arange(T, device=dev)
@@ -365,13 +409,7 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
                      | own[None])                                # (B, T, S)
 
     for l, layer in enumerate(params.layers):
-        h = rms_norm(x, layer.ln1, cfg.rms_eps)
-        q = (h @ layer.wq.reshape(D, H * d)).view(B, T, H, d)
-        k = (h @ layer.wk.reshape(D, Hkv * d)).view(B, T, Hkv, d)
-        v = (h @ layer.wv.reshape(D, Hkv * d)).view(B, T, Hkv, d)
-        q = _apply_rope(q, cos, sin)
-        k = _apply_rope(k, cos, sin)
-
+        q, k, v = _qkv(layer, x, cos, sin, cfg)
         if kv_cache is not None:
             ck, cv = kv_cache[f"l{l}.k"], kv_cache[f"l{l}.v"]
             ck[:, cache_len:cache_len + T] = k
@@ -380,17 +418,12 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
                            _expand_kv_heads(cv, rep), valid)
         else:
             attn = causal_attention(q, k, v, use_flash)
-
-        x = x + attn.reshape(B, T, H * d) @ layer.wo.reshape(H * d, D)
-        h2 = rms_norm(x, layer.ln2, cfg.rms_eps)
-        x = x + (act(h2 @ layer.w_gate) * (h2 @ layer.w_up)) @ layer.w_down
+        x = _layer_out(layer, x, attn, cfg, act)
 
     x = rms_norm(x, params.ln_f, cfg.rms_eps)
     if logits_last_only:
         x = x[:, -1:]
-    head = params.embed if cfg.tie_embeddings else params.lm_head
-    # the head product in the model dtype, then f32 (bf16 logits round first)
-    return (x @ head.T).float(), kv_cache
+    return _logits_head(x, params, cfg), kv_cache
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -404,28 +437,349 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
+# slot decode (continuous batching: explain/slotserve/)
+#
+# One PERSISTENT (slots, S, Hkv, d) KV pool where each row owns a slot: a
+# prompt prefills into a free slot at any iteration boundary, and one decode
+# window advances every busy slot — per-slot lengths, per-slot retirement,
+# no barrier. The pools are allocated once and updated in place (JAX's
+# donated functional updates). Host inputs go up in one pinned,
+# non-blocking copy and a window's results come back in ONE host read.
+# ---------------------------------------------------------------------------
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev`` without waiting for the device: a plain copy
+    from pageable memory synchronizes the stream on the card, a pinned
+    non-blocking one does not."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+
+@torch.inference_mode()
+def slot_prefill(params: Transformer, tokens: np.ndarray, length: int,
+                 cfg: TransformerConfig, kv_cache: Dict[str, torch.Tensor],
+                 slot: int, temperature: float, seed: int) -> int:
+    """Prefill ONE prompt into row ``slot`` of a pooled slot cache, in place.
+
+    ``tokens``: (1, Tp) RIGHT-padded (Tp is the prompt bucket). Padding-region
+    k/v land in cache rows [length, Tp): every later read masks to [0, len]
+    and decode overwrites them in order, so they are never attended.
+    Attention over the prompt is ``causal_attention(use_flash=False)``, the
+    reference's choice. Returns the first token, sampled from the logits at
+    ``length - 1`` with ``PRNGKey(seed)`` as the step key."""
+    dev = params.device
+    toks = _to_device(np.asarray(tokens, np.int64), dev)
+    B, T = toks.shape
+    positions = torch.arange(T, device=dev).expand(B, T)
+    cos, sin = _rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
+    x = _embed(params, toks, cfg)
+    act = _activation(cfg)
+    for l, layer in enumerate(params.layers):
+        q, k, v = _qkv(layer, x, cos, sin, cfg)
+        kv_cache[f"l{l}.k"][slot, :T] = k[0]
+        kv_cache[f"l{l}.v"][slot, :T] = v[0]
+        # padded queries attend real+pad keys at or below their position —
+        # garbage-but-finite, and only position length-1 is read
+        attn = causal_attention(q, k, v, use_flash=False)
+        x = _layer_out(layer, x, attn, cfg, act)
+    x_last = rms_norm(x, params.ln_f, cfg.rms_eps)[0, length - 1:length]
+    logits = _logits_head(x_last, params, cfg)                   # (1, V)
+    return int(_sample_with_key(temperature, logits,
+                                threefry.prng_key(seed, dev))[0])
+
+
+def _slot_step_math(params: Transformer, cfg: TransformerConfig,
+                    kv_cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                    lens: torch.Tensor, temperature: torch.Tensor,
+                    step_key: Optional[torch.Tensor]) -> torch.Tensor:
+    """One step of the slot pool: feed (B,) tokens, write their k/v at each
+    row's own ``lens[b]``, attend each row over [0, lens[b]], and choose
+    (B,) next tokens at each row's temperature (``_sample_rows``)."""
+    B = tokens.shape[0]
+    dev = tokens.device
+    rows = torch.arange(B, device=dev)
+    cos, sin = _rope_tables(lens[:, None], cfg.head_dim, cfg.rope_theta,
+                            cfg.dtype)
+    S = kv_cache["l0.k"].shape[1]
+    valid = torch.arange(S, device=dev)[None, None, :] <= lens[:, None, None]
+    rep = cfg.n_heads // cfg.kv_heads
+    act = _activation(cfg)
+    x = _embed(params, tokens[:, None], cfg)
+    for l, layer in enumerate(params.layers):
+        q, k, v = _qkv(layer, x, cos, sin, cfg)
+        ck, cv = kv_cache[f"l{l}.k"], kv_cache[f"l{l}.v"]
+        ck[rows, lens] = k[:, 0]
+        cv[rows, lens] = v[:, 0]
+        attn = _attend(q, _expand_kv_heads(ck, rep),
+                       _expand_kv_heads(cv, rep), valid)
+        x = _layer_out(layer, x, attn, cfg, act)
+    x = rms_norm(x, params.ln_f, cfg.rms_eps)[:, 0]
+    return _sample_rows(temperature, _logits_head(x, params, cfg), step_key)
+
+
+def _slot_window_loop(params: Transformer, cfg: TransformerConfig,
+                      kv_cache: Dict[str, torch.Tensor], tokens, lens, active,
+                      remaining, temperature, seed: int, steps: int):
+    """The window loop over a (B, S, Hkv, d) cache layout, shared by the
+    contiguous pool and the paged pool's gathered view. Host arrays in;
+    device tensors ``(out (B, steps), new_lens, steps_run, active_row_steps)``
+    out, with no host read inside.
+
+    The freeze rule: a row that emits EOS or exhausts its budget emits EOS
+    and writes nothing further. The reference's loop stops once every row
+    froze; this one runs a number of steps the host knows bounds that point
+    (the largest budget of an active row, at least 1), and counts on the
+    device the steps in which a row was active. Steps past the last freeze
+    only rewrite each row's position ``lens[b]``, which the next window or
+    prefill overwrites before anything reads it."""
+    dev = params.device
+    B = len(tokens)
+    ints = _to_device(np.concatenate([np.asarray(a, np.int64).ravel() for a in
+                                      (tokens, lens, active, remaining)]), dev)
+    last, lens_c, act, rem = ints.view(4, B).unbind(0)
+    act = act.bool()
+    temps = np.asarray(temperature, np.float32)
+    sampled = bool((temps > 1e-6).any())
+    temp_t = _to_device(temps, dev) if sampled else None
+    step_keys = (threefry.fold_in(threefry.prng_key(seed, dev),
+                                  torch.arange(steps, device=dev))
+                 if sampled else None)
+    active_np = np.asarray(active, bool)
+    budget = np.asarray(remaining, np.int64)[active_np]
+    run = min(steps, max(1, int(budget.max()))) if active_np.any() else 0
+    out = torch.full((B, steps), cfg.EOS, dtype=torch.int64, device=dev)
+    steps_run = torch.zeros((), dtype=torch.int64, device=dev)
+    row_steps = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(run):
+        tok = _slot_step_math(params, cfg, kv_cache, last, lens_c, temp_t,
+                              step_keys[i] if sampled else None)
+        a = act.long()
+        lens_c = lens_c + a
+        row_steps = row_steps + a.sum()
+        steps_run = steps_run + act.any().long()
+        tok = torch.where(act, tok, cfg.EOS)
+        out[:, i] = tok
+        rem = rem - a
+        act = act & (tok != cfg.EOS) & (rem > 0)
+        last = tok
+    return out, lens_c, steps_run, row_steps
+
+
+def _window_result(out, new_lens, steps_run, row_steps):
+    """The window's one host read: ``(out (B, steps) int32, new_lens int32,
+    steps_run, active_row_steps)``."""
+    B, steps = out.shape
+    flat = torch.cat([out.reshape(-1), new_lens, steps_run[None],
+                      row_steps[None]]).cpu().numpy()
+    return (flat[:B * steps].reshape(B, steps).astype(np.int32),
+            flat[B * steps:B * steps + B].astype(np.int32),
+            int(flat[-2]), int(flat[-1]))
+
+
+@torch.inference_mode()
+def slot_decode_window(params: Transformer, tokens: np.ndarray,
+                       lens: np.ndarray, active: np.ndarray,
+                       remaining: np.ndarray, cfg: TransformerConfig,
+                       kv_cache: Dict[str, torch.Tensor],
+                       temperature: np.ndarray, seed: int, steps: int):
+    """Up to ``steps`` decode iterations for the WHOLE slot pool, the cache
+    updated in place.
+
+    ``tokens``: (B,) last sampled token per slot; ``lens``: (B,) valid cache
+    length per slot; ``active``: (B,) bool (inactive slots compute garbage
+    into index ``lens[b]``, which the next prefill overwrites, and emit
+    EOS); ``remaining``: (B,) per-slot token budget; ``temperature`` (B,).
+    Step ``i`` draws row ``r`` from ``fold_in(fold_in(PRNGKey(seed), i), r)``.
+
+    Returns host ``(out (B, steps) EOS-padded, new_lens, steps_run,
+    active_row_steps)`` after one host read."""
+    return _window_result(*_slot_window_loop(
+        params, cfg, kv_cache, tokens, lens, active, remaining, temperature,
+        seed, steps))
+
+
+# ---------------------------------------------------------------------------
+# paged slot decode (PagedAttention-style KV pool: explain/slotserve/)
+#
+# A flat pool of fixed-size KV pages per layer/tensor, (num_pages, page, Hkv,
+# d), plus a per-slot PAGE TABLE of page ids kept on the host. The programs
+# gather pages into the contiguous layout and scatter the positions they
+# wrote back; nothing here allocates (the allocator lives in
+# explain/slotserve/decode.py).
+# ---------------------------------------------------------------------------
+
+
+def init_kv_pages(cfg: TransformerConfig, num_pages: int, page_size: int,
+                  device) -> Dict[str, torch.Tensor]:
+    """The paged twin of ``init_cache``: a zeroed flat page pool per
+    layer/tensor. A slot's logical position p lives at
+    ``(table[p // page_size], p % page_size)``."""
+    return {f"l{l}.{t}": torch.zeros((num_pages, page_size, cfg.kv_heads,
+                                      cfg.head_dim), dtype=cfg.dtype,
+                                     device=device)
+            for l in range(cfg.n_layers) for t in ("k", "v")}
+
+
+@torch.inference_mode()
+def copy_kv_page(kv_pages: Dict[str, torch.Tensor], src: int,
+                 dst: int) -> Dict[str, torch.Tensor]:
+    """Copy-on-write: page ``src`` -> page ``dst`` across every layer and
+    tensor, in place (the returned pool is the same dict)."""
+    for arr in kv_pages.values():
+        arr[dst].copy_(arr[src])
+    return kv_pages
+
+
+def _gather_view(kv_pages: Dict[str, torch.Tensor], tables: torch.Tensor,
+                 view_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The contiguous layout of ``tables`` (B, n): (B, view_len, Hkv, d) per
+    layer/tensor, ``view_len`` at most (and by default) n * page. Unallocated
+    table entries hold filler id 0: their content is stale pool data, which
+    every read masks and no scatter-back targets."""
+    page = next(iter(kv_pages.values())).shape[1]
+    if view_len is None:
+        view_len = tables.shape[1] * page
+    pos = torch.arange(view_len, device=tables.device)
+    pids = tables[:, pos // page]                           # (B, view_len)
+    offs = pos % page
+    return {name: arr[pids, offs] for name, arr in kv_pages.items()}
+
+
+@torch.inference_mode()
+def paged_slot_prefill(params: Transformer, tokens: np.ndarray, length: int,
+                       cfg: TransformerConfig,
+                       kv_pages: Dict[str, torch.Tensor],
+                       table_row: np.ndarray, temperature: float, seed: int,
+                       prefix_len: int) -> int:
+    """Prefill ONE prompt suffix into the pages of ``table_row``, in place.
+
+    ``tokens``: (1, Ts) RIGHT-padded suffix; the first ``prefix_len``
+    positions of the row are already resident (the shared preamble's
+    read-only pages), so only the suffix is computed (``prefix_len`` 0 is
+    the plain path). ``length`` is the FULL prompt length, as in
+    ``slot_prefill``. ``table_row``: (n,) page ids covering ``prefix_len +
+    Ts`` positions. The suffix k/v scatter into the row's own pages; the
+    prefix region is only gathered. Row j attends every resident position
+    at or below ``prefix_len + j``. Returns the first sampled token."""
+    dev = params.device
+    toks = _to_device(np.asarray(tokens, np.int64), dev)
+    table = _to_device(np.asarray(table_row, np.int64), dev)
+    B, Ts = toks.shape
+    page = next(iter(kv_pages.values())).shape[1]
+    pos = prefix_len + torch.arange(Ts, device=dev)
+    pids, offs = table[pos // page], pos % page
+    kv_mask = (torch.arange(table.shape[0] * page, device=dev)[None, :]
+               <= pos[:, None])                                  # (Ts, Tkv)
+    cos, sin = _rope_tables(pos.expand(B, Ts), cfg.head_dim, cfg.rope_theta,
+                            cfg.dtype)
+    rep = cfg.n_heads // cfg.kv_heads
+    act = _activation(cfg)
+    x = _embed(params, toks, cfg)
+    for l, layer in enumerate(params.layers):
+        q, k, v = _qkv(layer, x, cos, sin, cfg)
+        pk, pv = kv_pages[f"l{l}.k"], kv_pages[f"l{l}.v"]
+        pk[pids, offs] = k[0]
+        pv[pids, offs] = v[0]
+        view = _gather_view({"k": pk, "v": pv}, table[None])
+        attn = _attend(q, _expand_kv_heads(view["k"], rep),
+                       _expand_kv_heads(view["v"], rep), kv_mask)
+        x = _layer_out(layer, x, attn, cfg, act)
+    last = length - 1 - prefix_len
+    x_last = rms_norm(x, params.ln_f, cfg.rms_eps)[0, last:last + 1]
+    logits = _logits_head(x_last, params, cfg)
+    return int(_sample_with_key(temperature, logits,
+                                threefry.prng_key(seed, dev))[0])
+
+
+@torch.inference_mode()
+def paged_decode_window(params: Transformer, tokens: np.ndarray,
+                        lens: np.ndarray, active: np.ndarray,
+                        remaining: np.ndarray, cfg: TransformerConfig,
+                        kv_pages: Dict[str, torch.Tensor], tables: np.ndarray,
+                        temperature: np.ndarray, seed: int, steps: int,
+                        view_len: int):
+    """``slot_decode_window`` over the paged pool: gather every slot's pages
+    into the contiguous (B, view_len, Hkv, d) layout (``view_len`` is the
+    contiguous pool's max_len, so the window runs at exactly its attention
+    width), run the same window loop, then scatter each row's newly
+    written positions [lens[b], new_lens[b]) back to its pages.
+
+    ``tables``: (B, n) page ids; the allocator guarantees every active
+    row's table covers [0, lens + steps). The scatter-back is built on the
+    host after the window's one read, from exactly the written positions:
+    frozen or inactive rows' in-window garbage and unallocated table
+    entries are never written (JAX drops out-of-range scatter indices;
+    torch would raise or fault on them)."""
+    page = next(iter(kv_pages.values())).shape[1]
+    tables = np.asarray(tables, np.int64)
+    if not 0 < view_len <= tables.shape[1] * page:
+        raise ValueError(f"view_len {view_len} outside (0, "
+                         f"{tables.shape[1] * page}]")
+    dev = params.device
+    view = _gather_view(kv_pages, _to_device(tables, dev), view_len)
+    result = _window_result(*_slot_window_loop(
+        params, cfg, view, tokens, lens, active, remaining, temperature,
+        seed, steps))
+    new_lens = result[1].astype(np.int64)
+    lens = np.asarray(lens, np.int64)
+    rows = np.repeat(np.arange(len(lens)), np.maximum(new_lens - lens, 0))
+    if rows.size:
+        pos = np.concatenate([np.arange(a, b) for a, b in zip(lens, new_lens)
+                              if b > a])
+        idx = _to_device(np.stack([rows, pos, tables[rows, pos // page],
+                                   pos % page]), dev)
+        for name, arr in kv_pages.items():
+            arr[idx[2], idx[3]] = view[name][idx[0], idx[1]]
+    return result
+
+
+# ---------------------------------------------------------------------------
 # generation
 # ---------------------------------------------------------------------------
 
-def _sample_token(temperature: float, logits: torch.Tensor, seed: int,
-                  step: int) -> torch.Tensor:
+def _sample_with_key(temperature: float, logits: torch.Tensor,
+                     step_key: torch.Tensor) -> torch.Tensor:
     """Greedy at or below the temperature epsilon (argmax returns the first
-    maximum, as ``jnp.argmax``), else the reference's draw: row ``r`` at
-    ``step`` is ``categorical(fold_in(fold_in(PRNGKey(seed), step), r),
-    logits_r / T)``, the Gumbel-max of JAX's threefry noise in the logits'
-    dtype, so a row's token depends only on (seed, step, row).
-    (B, V) -> (B,) int64."""
+    maximum, as ``jnp.argmax``), else the reference's draw: row ``r`` is
+    ``categorical(fold_in(step_key, r), logits_r / T)``, the Gumbel-max of
+    JAX's threefry noise in the logits' dtype, so a row's token depends only
+    on (key, row). (B, V) -> (B,) int64."""
     if temperature <= 1e-6:
         return logits.argmax(dim=-1)
     dev = logits.device
-    step_key = threefry.fold_in(threefry.prng_key(seed, dev), step)
     row_keys = threefry.fold_in(step_key, torch.arange(logits.shape[0],
                                                        device=dev))
     # a 0-dim tensor on the logits' device, so the division rounds as JAX's
     # does (a Python scalar divisor may become a multiply by its reciprocal)
-    t = torch.tensor(max(temperature, 1e-6), dtype=logits.dtype, device=dev)
+    t = torch.full((), max(temperature, 1e-6), dtype=logits.dtype, device=dev)
     noise = threefry.gumbel(row_keys, (logits.shape[1],), logits.dtype)
     return (noise + logits / t).argmax(dim=-1)
+
+
+def _sample_token(temperature: float, logits: torch.Tensor, seed: int,
+                  step: int) -> torch.Tensor:
+    """``_sample_with_key`` at the decode step's key,
+    ``fold_in(PRNGKey(seed), step)``."""
+    key = threefry.fold_in(threefry.prng_key(seed, logits.device), step)
+    return _sample_with_key(temperature, logits, key)
+
+
+def _sample_rows(temperature: torch.Tensor, logits: torch.Tensor,
+                 step_key: Optional[torch.Tensor]) -> torch.Tensor:
+    """``_sample_with_key`` at a temperature per row (B,): rows at or below
+    the epsilon take the argmax, the others draw from ``fold_in(step_key,
+    row)`` at their own temperature. ``step_key`` None draws no noise: the
+    caller knows every row is greedy."""
+    greedy = logits.argmax(dim=-1)
+    if step_key is None:
+        return greedy
+    row_keys = threefry.fold_in(step_key, torch.arange(logits.shape[0],
+                                                       device=logits.device))
+    scaled = logits / torch.clamp_min(temperature, 1e-6)[:, None]
+    noise = threefry.gumbel(row_keys, (logits.shape[1],), logits.dtype)
+    return torch.where(temperature <= 1e-6, greedy,
+                       (noise + scaled).argmax(dim=-1))
 
 
 @torch.inference_mode()

@@ -1,3 +1,6 @@
+from fraud_detection_tpu_torch.stream.annotations import (  # noqa: F401
+    AsyncAnnotationLane,
+)
 from fraud_detection_tpu_torch.stream.broker import (  # noqa: F401
     CommitFailedError,
     InProcessBroker,

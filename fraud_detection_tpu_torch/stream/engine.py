@@ -36,11 +36,16 @@ through their bounded non-blocking queues (drop and count, never wait);
 their decoding, scoring and training run on their own threads (and CUDA
 streams). ``health()`` then carries their ``model`` and ``learn`` blocks.
 
-Explanations ride the finish leg synchronously: ``explain_batch_fn`` is
-called once per micro-batch over its valid rows (an on-device LLM then
+Inline, explanations ride the finish leg synchronously: ``explain_batch_fn``
+is called once per micro-batch over its valid rows (an on-device LLM then
 explains every flagged row in one batched decode, see
 ``explain/onpod.make_stream_explain_hook``), ``explain_fn`` once per row;
-a non-None result becomes the frame's ``"analysis"`` field.
+a non-None result becomes the frame's ``"analysis"`` field. With
+``explain_async=True`` the frames go out without analysis and the batch's
+flagged rows go to an ``AsyncAnnotationLane`` (``stream/annotations.py``),
+whose worker explains them onto a side topic; ``breaker=`` and
+``explain_service=`` (the circuit breaker and the slotserve service behind
+the hook) only surface their state in ``health()``.
 """
 
 from __future__ import annotations
@@ -212,7 +217,13 @@ class StreamingClassifier:
                  scheduler: Optional[object] = None,
                  async_dispatch: bool = False,
                  shadow: Optional[object] = None,
-                 learn: Optional[object] = None):
+                 learn: Optional[object] = None,
+                 explain_async: bool = False,
+                 annotations_topic: Optional[str] = None,
+                 annotations_producer=None,
+                 annotations_queue: int = 1024,
+                 breaker: Optional[object] = None,
+                 explain_service: Optional[object] = None):
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         if dlq_max_attempts < 1:
@@ -225,6 +236,21 @@ class StreamingClassifier:
             raise ValueError(
                 "scheduler sheds (shed_policy != 'none') but no dlq_topic is "
                 "set — shed rows must land as explicit DLQ records")
+        if explain_async and explain_batch_fn is None:
+            raise ValueError("explain_async requires explain_batch_fn")
+        # The lane's producer is its own: flush() is how both sides account
+        # delivery, and a shared producer would let either side consume the
+        # other's failures.
+        if explain_async and annotations_producer is None:
+            raise ValueError(
+                "explain_async requires a dedicated annotations_producer "
+                "(a second producer on the same transport)")
+        if explain_async and annotations_producer is producer:
+            raise ValueError(
+                "annotations_producer is the engine's own producer object — "
+                "the async lane needs a DEDICATED producer (flush() is how "
+                "both sides account delivery; sharing one lets either side "
+                "consume the other's failures)")
         self.pipeline = pipeline
         self.consumer = consumer
         self.producer = producer
@@ -235,6 +261,23 @@ class StreamingClassifier:
         self.pipeline_depth = pipeline_depth
         self.explain_fn = explain_fn
         self.explain_batch_fn = explain_batch_fn
+        # Async lane: frames go out without analysis (so the raw-JSON and
+        # native-frame paths stay in play) and flagged rows are explained
+        # in the background onto the annotations topic.
+        self._annotation_lane = None
+        if explain_async:
+            from fraud_detection_tpu_torch.stream.annotations import (
+                AsyncAnnotationLane)
+
+            self._annotation_lane = AsyncAnnotationLane(
+                explain_batch_fn, annotations_producer,
+                annotations_topic or f"{output_topic}-annotations",
+                max_queue=annotations_queue)
+            self.explain_fn = explain_fn = None
+            self.explain_batch_fn = explain_batch_fn = None
+        # Surfaced in health() only; the hook and the lane own the calls.
+        self._breaker = breaker
+        self._explain_service = explain_service
         # Dead-letter routing: malformed rows and rows re-delivered more
         # than ``dlq_max_attempts`` times go to the DLQ topic. Pass ONE
         # ``dlq_attempts`` dict to every incarnation so poison counting
@@ -435,6 +478,8 @@ class StreamingClassifier:
         msgs, texts = inflight.msgs, inflight.texts
         preds = (inflight.pending.resolve()
                  if inflight.pending is not None else None)
+        if preds is not None and self._annotation_lane is not None:
+            self._submit_annotations(inflight, preds)
         if preds is not None and self._shadow is not None:
             self._submit_shadow(inflight, preds)
         if preds is not None and self._learn is not None:
@@ -531,6 +576,68 @@ class StreamingClassifier:
             off = hi
         return wires
 
+    def _submit_annotations(self, inflight: "_InFlight", preds) -> None:
+        """Hand this batch's flagged (non-benign) valid rows to the async
+        lane. Non-blocking: the lane's bounded queue absorbs or drops; the
+        frames ship regardless. Text is extracted for flagged rows only, so
+        the raw and native paths keep their zero-decode hot loop."""
+        labels = np.asarray(preds.labels)
+        flagged = np.flatnonzero(labels != 0)
+        if flagged.size == 0:
+            return
+        confs = _confidence_array(preds)
+        flag_labels = labels[flagged].tolist()
+        flag_confs = confs[flagged].tolist()
+        msgs = inflight.msgs
+        items = []
+        if inflight.raw:
+            # Predictions are positional over ALL rows; malformed rows hold
+            # padding garbage — keep valid ones only.
+            valid = frozenset(inflight.valid_idx)
+            for i, label, conf in zip(flagged.tolist(), flag_labels,
+                                      flag_confs):
+                if i not in valid:
+                    continue
+                text = self._annotation_text(inflight, i)
+                if text is not None:
+                    items.append((msgs[i].key, text, label, conf))
+        else:
+            for j, label, conf in zip(flagged.tolist(), flag_labels,
+                                      flag_confs):
+                i = inflight.valid_idx[j]
+                items.append((msgs[i].key, inflight.texts[i], label, conf))
+        if items:
+            self._annotation_lane.submit(items)
+
+    def _annotation_text(self, inflight: "_InFlight", i: int) -> Optional[str]:
+        """Decoded text of row i of a raw-mode batch: the stored literal (or
+        the native path's encode-time span) is the complete QUOTED JSON
+        string, so ``json.loads`` unescapes it exactly."""
+        lit = inflight.texts[i]
+        if lit is None and inflight.splice is not None:
+            _, span_start, span_len = inflight.splice
+            s = int(span_start[i])
+            lit = inflight.msgs[i].value[s: s + int(span_len[i])]
+        if lit is None:
+            return None
+        try:
+            return json.loads(lit)
+        except ValueError:  # cannot happen for scanner-validated literals
+            return None
+
+    def annotation_stats(self) -> Optional[dict]:
+        """Async-lane counters (submitted/annotated/dropped/queue_depth), or
+        None when the engine runs inline or without explanations."""
+        lane = self._annotation_lane
+        return lane.stats() if lane is not None else None
+
+    def close_annotations(self, timeout: float = 30.0) -> bool:
+        """Drain and stop the async lane (no-op inline). Call after the last
+        run() when annotation completeness matters — run() leaves the lane
+        up so repeated runs share it."""
+        lane = self._annotation_lane
+        return lane.close(timeout) if lane is not None else True
+
     def _submit_shadow(self, inflight: "_InFlight", preds) -> None:
         """Offer this batch's valid rows + primary results to the shadow
         scorer. Non-blocking (bounded queue, drop + count on overflow);
@@ -591,8 +698,10 @@ class StreamingClassifier:
     def health(self) -> dict:
         """Point-in-time engine health snapshot (lock-free racy reads, a
         monitoring sample). ``dlq`` is None when the DLQ is off, ``sched``
-        without a scheduler; ``model`` is None for a plain static pipeline
-        without a shadow scorer, ``learn`` without a learn loop."""
+        without a scheduler, ``annotations`` without the async lane,
+        ``breaker`` and ``explain`` without a breaker or slotserve service;
+        ``model`` is None for a plain static pipeline without a shadow
+        scorer, ``learn`` without a learn loop."""
         now = time.monotonic()
         # Model-lifecycle block: present when the engine scores through a
         # HotSwapPipeline (active/staged versions, swap count) and/or a
@@ -630,6 +739,9 @@ class StreamingClassifier:
                 "routed": dict(self._dlq_counts),
                 "tracked_offsets": len(self._dlq_attempts),
             }),
+            "annotations": self.annotation_stats(),
+            "breaker": _snapshot_of(self._breaker),
+            "explain": _snapshot_of(self._explain_service),
             "model": model,
             "learn": (self._learn.snapshot()
                       if self._learn is not None
@@ -830,6 +942,11 @@ class StreamingClassifier:
                 self._running = False
                 self.stats.elapsed = time.perf_counter() - started
         return self.stats
+
+
+def _snapshot_of(component) -> Optional[dict]:
+    snap = getattr(component, "snapshot", None)
+    return snap() if callable(snap) else None
 
 
 class _InlineDispatch:

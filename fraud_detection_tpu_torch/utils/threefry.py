@@ -39,6 +39,13 @@ def _shape(shape: Shape) -> tuple:
     return (shape,) if isinstance(shape, int) else tuple(shape)
 
 
+def _scalar(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 0-dim tensor of ``value`` made on ``device`` by a fill: on the card
+    ``torch.tensor(value, device=...)`` copies from the host and waits for
+    the stream, which a decode step must not do."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & _MASK32
 
@@ -63,8 +70,8 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
 def prng_key(seed: int, device="cpu") -> torch.Tensor:
     """``key_data(jax.random.PRNGKey(seed))``: (2,) int64. With x64 off,
     jax keeps the seed's low 32 bits: (0, seed mod 2**32)."""
-    return torch.tensor([0, int(seed) & _MASK32], dtype=torch.int64,
-                        device=device)
+    return torch.stack((_scalar(0, torch.int64, device),
+                        _scalar(int(seed) & _MASK32, torch.int64, device)))
 
 
 def _counters(key: torch.Tensor, shape: tuple):
@@ -97,7 +104,9 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: the threefry of ``key`` over the
     counter pair (0, data mod 2**32). ``data`` is an int or an integer
     tensor that broadcasts against the key's leading dims."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK32
+    d = (_scalar(data, torch.int64, key.device) if isinstance(data, int)
+         else torch.as_tensor(data, dtype=torch.int64, device=key.device))
+    d = d & _MASK32
     b0, b1 = threefry2x32(key, torch.zeros_like(d), d)
     return torch.stack([b0, b1], dim=-1)
 
@@ -117,8 +126,8 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     bits = random_bits(key, shape)
     fbits = (bits >> (32 - _F32_NMANT)) | _F32_ONE_BITS
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = _scalar(minval, torch.float32, key.device)
+    hi = _scalar(maxval, torch.float32, key.device)
     # XLA fuses the scale and shift into one fused multiply-add; in float64
     # the product of two floats is exact, so one rounding of the sum
     # stands in for the FMA's

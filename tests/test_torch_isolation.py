@@ -53,7 +53,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "eval.word_associations", "registry.registry",
                  "utils.atomicio", "registry.hotswap", "registry.shadow",
                  "registry.promote", "learn.loop", "learn.store",
-                 "stream.feedback", "scenarios.traffic"):
+                 "stream.feedback", "scenarios.traffic",
+                 "explain.slotserve", "explain.slotserve.decode",
+                 "explain.slotserve.service", "stream.annotations"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

@@ -8,7 +8,12 @@ CLI also runs with ``--featurize-device`` and with ``--async-dispatch
 the reference's messages, and refuses every reference flag it does not
 offer yet by naming its ROADMAP item. ``--model synthetic`` trains the
 demo LR at startup (scoring like the JAX package's demo pipeline) and
-serves it under each flag variant.
+serves it under each flag variant. The explanation lane's flags
+(``--explain-slots``, ``--explain-queue``, ``--explain-paged``,
+``--explain-kv-pages``, ``--explain-async``, ``--annotations-topic``,
+``--breaker``, ``--breaker-probe``) refuse bad values with the JAX CLI's
+messages, and the slot lane serves end to end on the CPU, contiguous and
+paged.
 """
 
 import json
@@ -48,7 +53,9 @@ def _serve(main, argv, capsys):
 
 @pytest.mark.parametrize("extra", [[], ["--dlq", "--batch-size", "64"],
                                    ["--explain", "canned",
-                                    "--pipeline-depth", "1"]])
+                                    "--pipeline-depth", "1"],
+                                   ["--explain", "canned", "--explain-async",
+                                    "--breaker", "2"]])
 def test_cli_matches_jax(ckpt, capsys, extra):
     argv = ["--model", ckpt, "--demo", "150", *extra]
     jrc, jstats, jn = _serve(jserve.main, argv, capsys)
@@ -107,6 +114,49 @@ def test_validation_errors_equal_jax(ckpt, argv):
     with pytest.raises(SystemExit) as te:
         tserve.main(["--device", "cpu", *argv])
     assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--explain", "canned", "--explain-slots", "2"],
+    ["--explain", "onpod-demo", "--explain-slots", "-1"],
+    ["--explain", "onpod-demo", "--explain-slots", "2", "--explain-queue",
+     "0"],
+    ["--explain", "onpod-demo", "--explain-paged"],
+    ["--explain", "onpod-demo", "--explain-slots", "2", "--explain-kv-pages",
+     "-1"],
+    ["--explain", "onpod-demo", "--explain-slots", "2", "--explain-kv-pages",
+     "32"],
+    ["--explain-async"],
+    ["--explain", "canned", "--annotations-topic", "side"],
+    ["--explain", "canned", "--breaker", "-1"],
+    ["--breaker", "2"],
+    ["--explain", "canned", "--breaker", "2", "--breaker-probe", "0"],
+])
+def test_explain_lane_refusals_equal_jax(ckpt, argv):
+    argv = ["--model", ckpt, "--demo", "5", *argv]
+    with pytest.raises(SystemExit) as je:
+        jserve.main(argv)
+    with pytest.raises(SystemExit) as te:
+        tserve.main(["--device", "cpu", *argv])
+    assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("extra", [[], ["--explain-paged", "--breaker", "3",
+                                        "--annotations-topic", "side"]])
+def test_slot_lane_serves_end_to_end_on_cpu(ckpt, capsys, extra):
+    rc, stats, n = _serve(tserve.main, [
+        "--device", "cpu", "--model", ckpt, "--demo", "120", "--batch-size",
+        "64", "--max-wait", "0.01", "--explain", "onpod-demo",
+        "--explain-slots", "2", "--explain-tokens", "6", *extra], capsys)
+    assert rc == 0 and n == stats["processed"] == 120
+    ex, lane = stats["explain"], stats["annotations"]
+    assert ex["admitted"] == ex["completed"] + ex["dropped"] > 0
+    assert lane["submitted"] == lane["annotated"] + lane["dropped"]
+    assert ex["completed"] == lane["annotated"]
+    health = stats["health"]
+    assert health["device"]["featurize_path"] == "host"
+    assert (health["breaker"] is not None) == ("--breaker" in extra)
+    assert (ex["kv_pages"] > 0) == ("--explain-paged" in extra)
 
 
 def test_synthetic_model_names_the_missing_trainer(capsys):
