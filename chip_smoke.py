@@ -15,7 +15,7 @@ Phases (any failure raises and the script exits non-zero):
    on hand-reckoned inputs (the histogram's on uint8 and int32 bins, under
    plans that split the pairs into node groups and tree groups and the rows
    into chunks; the featurize kernel's two entries on hand-reckoned rows, an
-   overflow row among them);
+   overflow row among them; the int8 product's on exact small integers);
 3. each kernel against its plain torch version on the same CUDA tensors:
    ``featurize_packed`` (the serving path's one featurize kernel) bit for
    bit, packed output and unique counts, two launches bit-equal, on
@@ -33,7 +33,14 @@ Phases (any failure raises and the script exits non-zero):
    (100,000 x 2,048, zero-inflated bins); both again at every level width
    L in {1, 2, 4, 8, 16} at the CLI shape (the histogram for the xgb, dt
    and 8-tree forest levels, each width its own plan, on both bin widths;
-   ``best_splits`` on the xgb and dt levels it reads);
+   ``best_splits`` on the xgb and dt levels it reads); the weight-only int8
+   product ``w8_matmul`` at every Gemma-2B weight shape (wq/wo, wk/wv,
+   w_gate/w_up, w_down in the kn layout, the head in nk) at M in {1, 8, 35,
+   64, 512, 2048}, and at a ragged M, N and K in both layouts, bf16 (within
+   two bf16 steps plus 2^-15 of the output's sum of |x q| times its scale)
+   and f32 (1e-5 of max |y|), two launches bit-equal, rows [5, 29) of an
+   M = 64 and an M = 2048 launch equal to a launch of those rows alone (the
+   kernel picks another block shape for each);
 4. the serving slice at full width (HashingTF(10000)+IDF, W=2048, L=256,
    B=256; LR fp32, LR int8 and a depth-5 20-tree forest made from --seed)
    on ``cuda`` with device featurization, against the same pipeline on the
@@ -139,20 +146,35 @@ Phases (any failure raises and the script exits non-zero):
    ragged shapes with GQA and at phase 11's shape (1, 600, 8, 256) with one
    K/V head; native-width K/V bit-equal to expanded, two launches
    bit-equal, on every shape;
-10. the explanation LLM's prefill at full width (the Gemma-2B architecture,
-   18 layers, bf16, weights N(0, 0.02) from --seed): ``forward`` at T=2048
-   through the flash kernel (18 launches, all on the sm90 route) against
-   the chunked path, prefill tokens/s at T=2048 and 8192, and a profiler
-   breakdown;
+10. the explanation LLM from a checkpoint: a Hugging Face checkpoint of
+   the Gemma-2B architecture (18 layers, bf16 weights N(0, 0.02) drawn on
+   the card from --seed, Gemma's zero norms) written into a temporary
+   directory (removed afterwards) and loaded by ``load_hf_checkpoint``:
+   bf16 from the shards, again from the bf16 cache, int8 (the int8 miss,
+   from the bf16 cache) and again from the q8 cache, each load's source
+   gated and its wall printed; the int8 params equal ``quantize_params`` of
+   the bf16 model on the card bit for bit; one int8 decode step launches
+   ``w8_matmul`` 7 x 18 + 1 times; int8 logits against the same model
+   through the plain product within 5% of max |logit|, and against bf16
+   correlated above 0.999 at full width and 2 layers (18 layers reported);
+   prefill at T=2048, bf16 and int8 in turns. Then the bf16 model's
+   prefill: ``forward`` at T=2048 through the flash kernel (18 launches, all
+   on the sm90 route) against the chunked path, prefill tokens/s at T=2048
+   and 8192, and a profiler breakdown;
 11. card against CPU at Gemma widths, 2 layers, f32, T=600 (the SIMT
    route's path: 2 launches): last logits within 5e-4, and greedy batched
    generation equal (and equal to B=1); sampled generation at temperature
    1.0, card against CPU, rows equal reported (the logits differ by up to
-   5e-4, so a near-tie may flip a token; not gated);
+   5e-4, so a near-tie may flip a token; not gated); the same model with
+   int8 weights, card (``w8_matmul``'s SIMT route, 15 launches) against
+   CPU: last logits within 5e-4, greedy tokens equal;
 12. greedy generation at full width (bench.py's 8 prompts, 64 new tokens):
    tokens/s and explanations/s; rows equal to B=1 calls is reported (bf16
    GEMMs of other shapes may round apart; phase 11 is the gate); the token
-   choice at B=8 x 256,000, greedy against sampled;
+   choice at B=8 x 256,000, greedy against sampled; then bf16 and int8 in
+   turns (bf16, int8, int8, bf16): tokens/s, explanations/s, peak device
+   memory over the model, the int8 run's ``w8_matmul`` launches (a positive
+   multiple of 127);
 13. the streaming engine with ``explain_batch_fn`` over the on-device
    model (1,024 messages, ~5% scam, the CLI's dt as classifier, batch
    512, 48 new tokens): keys exact, ``analysis`` on exactly the flagged
@@ -174,7 +196,9 @@ Phases (any failure raises and the script exits non-zero):
    0 leaked pages, paged replies equal to contiguous; tokens/s,
    explanations/s, occupancy, latency, ``kv_bytes`` and the saving, and
    the peak device memory of each mode; one window's host syncs (sync
-   debug mode) and device-idle share;
+   debug mode) and device-idle share; then the int8 model: phase 13b's
+   prompts through 2 slots, paged windows == contiguous bit for bit, and
+   the slot lane at full width, contiguous and paged, with the same gates;
 13d. phase 13's stream with ``explain_async=True`` and
    ``make_slot_explain_hook`` over the service: keys exact, no frame
    carries analysis, exactly one annotation record per flagged row, each
@@ -186,14 +210,25 @@ Phases (any failure raises and the script exits non-zero):
    with ``--explain-paged --breaker 3``: exit 0, every message classified,
    the stats JSON's ``explain`` block with ``admitted == completed +
    dropped`` and no errors;
+13f. ``serve --model synthetic --explain onpod-int8:<dir> --explain-slots 4
+   --explain-tokens 8 --demo 4096 --batch-size 1024`` on a 2-layer
+   Gemma-width checkpoint: with ``transformers`` on the machine (and a
+   word-level tokenizer written into the directory) it exits 0 with phase
+   13e's gates; without it the CLI must refuse with the reference's "cannot
+   load ... tokenizer" message; either way ``--explain onpod:/nowhere``
+   refuses with "checkpoint dir ... not found";
 14. flash times at T=2048 and 8192, in one run on one card: the sm90
    kernel and the SIMT kernel on the same bf16 inputs (in turns: sm90,
    SIMT, SIMT, sm90), ``scaled_dot_product_attention`` (the library
    yardstick), the plain version, and the bound; the same four for the
-   SIMT kernel at phase 11's f32 shape;
-15. a ``{"kernels": [...]}`` line (six entries: featurize_packed, the
-   stream entry, histogram, best_splits, both flash routes), then the last
-   line
+   SIMT kernel at phase 11's f32 shape; ``w8_matmul`` at each Gemma-2B
+   shape at decode (M=8) and prefill (M=2048), in turns with cuBLAS bf16
+   ``torch.matmul`` on a bf16 copy of the weight (the yardstick, never
+   called by the port for int8), its plain version and its bound, and a
+   decode step's sum over its 127 products; the f32 route at M=8;
+15. a ``{"kernels": [...]}`` line (eight entries: featurize_packed, the
+   stream entry, histogram, best_splits, both flash routes, both
+   ``w8_matmul`` routes), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are reset just before each main path (serving: phases 4-5;
@@ -202,8 +237,10 @@ before phase 5b's host pipelines and before each serve CLI run;
 training: phase 7, the CLI, and phase 7c, the resume; the learn lane's
 refresh: phase 7f's lifecycle run; the LLM prefill: one T=2048 forward in phase
 10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
-flash kernel) and read just after it. The flash counts are reset again
-before phase 13b and must read 0 after phase 13e: the slot lane runs no
+flash kernel and, at int8, for ``w8_matmul``'s SIMT route; one int8 decode
+step and phase 12's int8 generation, for ``w8_matmul``) and read just after
+it. The flash counts are reset again before phase 13b and must read 0 after
+phase 13f: the slot lane runs no
 kernel of the table (its prefill is ``causal_attention(use_flash=False)``
 and its decode ``_attend``, as in the reference). It imports nothing of
 JAX or of ``fraud_detection_tpu``.
@@ -212,6 +249,7 @@ JAX or of ``fraud_detection_tpu``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import random
@@ -219,6 +257,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -249,7 +288,7 @@ FUZZ_ALPHABET = list("abcXYZ  \t\n0!-'") + ["İ", "K", "ß", "é", "🚀"]
 WIDTH, TOKENS, BATCH, FEATURES = 2048, 256, 256, 10000
 SERVE_DEMO = 4096   # messages a serve CLI run classifies (--demo)
 KERNELS = ("featurize_scan", "histogram", "best_splits", "flash_attention",
-           "flash_attention_sm90")
+           "flash_attention_sm90", "int8_matmul")
 ROOT = Path(__file__).resolve().parent
 # The training CLI's shipped configuration and the JAX bench's training shape.
 DEPTH, NBINS, CLI_N, CLI_SEED = 5, 32, 1600, 42
@@ -1859,6 +1898,658 @@ def slot_serve_cli(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# weight-only int8: the W8A16 kernel, HF checkpoints, the int8 decoder
+# ---------------------------------------------------------------------------
+
+# Gemma-2B's weight products as (K, N, layout): a layer's wq and wo, wk and wv,
+# w_gate and w_up, w_down, and the tied head, in w8_matmul's layouts.
+W8_SHAPES = {"wq,wo": (2048, 2048, "kn"), "wk,wv": (2048, 256, "kn"),
+             "w_gate,w_up": (2048, 16_384, "kn"), "w_down": (16_384, 2048, "kn"),
+             "head": (2048, 256_000, "nk")}
+# launches of each shape in one decode step of the 18-layer model (127)
+W8_STEP_LAUNCHES = {"wq,wo": 36, "wk,wv": 36, "w_gate,w_up": 36, "w_down": 18,
+                    "head": 1}
+W8_M = (1, 8, 35, 64, 512, 2048)
+W8_RAGGED = (1008, 1000)       # K (a ragged 128-k chunk), N (a ragged tile)
+# The row-independence gate: rows [5, 29) of an M = 64 or M = 2048 launch
+# against a launch of those rows alone (M = 24: another block shape).
+W8_ROWS = (5, 29)
+# f32: the kernel and cuBLAS sum the same products in other orders, within
+# 1e-5 of the largest |y| (the f32 flash gate's order of magnitude). bf16:
+# the output is rounded twice (x.q to bf16, times the scale to bf16), so a
+# kernel and a plain value whose f32 sums straddle a rounding boundary sit
+# one step apart at each rounding: two bf16 steps of the larger of the two;
+# plus 2^-15 of the output's sum of |x q| times its scale, the f32 sums' own
+# order difference (about sqrt(K) 2^-24 of it, 2^-17 at K = 16,384, taken 4
+# times), which decides outputs near zero where the products cancel.
+W8_F32_TOL = 1e-5
+W8_BF16_STEPS, W8_BF16_SUM_TOL = 2, 2.0 ** -15
+# Gemma-2B's architecture as an HF config.json (bench.py GEMMA2B_HF_CONFIG).
+GEMMA2B_HF_CONFIG = {
+    "model_type": "gemma", "vocab_size": 256_000, "hidden_size": 2048,
+    "intermediate_size": 16_384, "num_hidden_layers": 18,
+    "num_attention_heads": 8, "num_key_value_heads": 1, "head_dim": 256,
+    "hidden_act": "gelu", "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+    "tie_word_embeddings": True,
+}
+# The reference's bar for int8 against full-precision logits (a trained 2B
+# model). On these N(0, 0.02) weights the per-channel codes' noise grows with
+# depth (on an NVIDIA H100: 0.99964 at 2 layers, 0.9971 at 18, with the
+# quantizer bit-equal to the JAX package's), so the bar is held at full width
+# and 2 layers, and the 18-layer figure is reported beside it.
+INT8_CORR_MIN = 0.999
+
+
+def w8_weight(k: int, n: int, layout: str, dev, seed: int):
+    """An int8 weight as ``quantize_params`` makes it: a bf16 N(0, 0.02)
+    matrix (K, N), or (N, K) for the head, drawn on the card from ``seed``
+    and quantized per output channel. Returns (q, scale (N,))."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import _quantize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape, axes = ((k, n), (0,)) if layout == "kn" else ((n, k), (1,))
+    w = (torch.randn(shape, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    q8 = _quantize(w, axes)
+    return q8.q, q8.scale.reshape(-1)
+
+
+def check_w8(label: str, x, q, scale, layout: str, quiet: bool = True) -> float:
+    """The kernel twice and its plain version once on the same CUDA tensors;
+    raises unless the launches are bit-equal, rows ``W8_ROWS`` of an M = 64 or
+    2048 launch equal a launch of those rows alone (another block shape), and
+    |kernel - plain| is within the tolerance of x's dtype (``W8_F32_TOL``,
+    ``W8_BF16_STEPS``). Returns max |kernel - plain|."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
+
+    a = W.w8_matmul(x, q, scale, layout)
+    b = W.w8_matmul(x, q, scale, layout)
+    rows = None
+    if x.shape[0] in (64, 2048):
+        lo, hi = W8_ROWS
+        rows = W.w8_matmul(x[lo:hi].contiguous(), q, scale, layout)
+    ref = W.w8_matmul_reference(x, q, scale, layout).float()
+    if x.dtype == torch.bfloat16:
+        w = q.float() if layout == "kn" else q.float().T
+        sums = (x.float().abs() @ w.abs()) * scale
+        del w
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"w8_matmul {label}: two launches differ")
+    if rows is not None and not torch.equal(rows, a[W8_ROWS[0]:W8_ROWS[1]]):
+        raise AssertionError(f"w8_matmul {label}: rows {W8_ROWS} alone differ "
+                             f"from the same rows of the M = {x.shape[0]} launch")
+    diff = (a.float() - ref).abs()
+    err = float(diff.max())
+    if x.dtype == torch.bfloat16:
+        mag = torch.maximum(a.float().abs(), ref.abs())
+        step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8)
+        bound = W8_BF16_STEPS * step + W8_BF16_SUM_TOL * sums
+        worst = float((diff / step).max())
+        ok = bool((diff <= bound).all())
+        limit = (f"{W8_BF16_STEPS} bf16 steps + {W8_BF16_SUM_TOL:.3g} of "
+                 f"sum |x q| scale; worst {worst:.2f} steps")
+    else:
+        ok = err <= W8_F32_TOL * float(ref.abs().max())
+        limit = f"{W8_F32_TOL} of max |y| {float(ref.abs().max()):.4g}"
+    if not (ok and bool(torch.isfinite(a).all())):
+        raise AssertionError(f"w8_matmul {label}: kernel vs plain max |diff| "
+                             f"{err} beyond {limit}")
+    if not quiet:
+        print(f"[check] w8_matmul {label}: max |diff| {err:.3g} ({limit}), "
+              "two launches bit-equal"
+              + (f", rows {W8_ROWS} alone equal" if rows is not None else ""))
+    return err
+
+
+def check_w8_all(dev, seed: int) -> dict:
+    """Phase 3 (w8_matmul): the kernel against its plain version at every
+    Gemma-2B weight shape (``W8_SHAPES``) at M in ``W8_M``, bf16 and f32,
+    and at a ragged M, N and K in both layouts. Returns {label: max |diff|}."""
+    import torch
+
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = dict(W8_SHAPES)
+    shapes["ragged"] = (*W8_RAGGED, "kn")
+    shapes["ragged_nk"] = (*W8_RAGGED, "nk")
+    for i, (name, (k, n, layout)) in enumerate(shapes.items()):
+        q, scale = w8_weight(k, n, layout, dev, seed + i)
+        ms = (3, 35, 64) if name.startswith("ragged") else W8_M
+        for dtype in (torch.bfloat16, torch.float32):
+            worst = 0.0
+            for m in ms:
+                x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+                label = f"{name} {layout} {str(dtype)[6:]} M={m}"
+                errs[label] = check_w8(label, x, q, scale, layout)
+                worst = max(worst, errs[label])
+            print(f"[check] w8_matmul {name} ({layout}, K={k}, N={n}) "
+                  f"{str(dtype)[6:]}: M in {ms} within "
+                  + (f"{W8_BF16_STEPS} bf16 steps (+ {W8_BF16_SUM_TOL:.3g} of "
+                     "sum |x q| scale)" if dtype == torch.bfloat16
+                     else f"{W8_F32_TOL} of max |y|")
+                 + f", max |diff| {worst:.3g}; every M two launches "
+                 f"bit-equal; rows {W8_ROWS} of M=64 and 2048 alone equal")
+        del q, scale
+    torch.cuda.empty_cache()
+    return errs
+
+
+def write_gemma_checkpoint(path: Path, dev, seed: int, n_layers: int = 18) -> int:
+    """An HF checkpoint of Gemma-2B's architecture (``GEMMA2B_HF_CONFIG``,
+    ``n_layers`` layers) in ``path``: bf16 N(0, 0.02) weights drawn on the
+    card from ``seed``, Gemma's zero norms (gamma - 1), one
+    model.safetensors, config.json last. Returns the bytes written."""
+    import torch
+
+    from fraud_detection_tpu_torch.checkpoint.hf_convert import (
+        write_safetensors)
+
+    c = {**GEMMA2B_HF_CONFIG, "num_hidden_layers": n_layers}
+    D, dh, F = c["hidden_size"], c["head_dim"], c["intermediate_size"]
+    H, Hkv = c["num_attention_heads"], c["num_key_value_heads"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16).cpu()
+
+    zeros = torch.zeros(D, dtype=torch.bfloat16)
+    tensors = {"model.embed_tokens.weight": w(c["vocab_size"], D),
+               "model.norm.weight": zeros}
+    for l in range(n_layers):
+        pre = f"model.layers.{l}."
+        tensors.update({
+            pre + "self_attn.q_proj.weight": w(H * dh, D),
+            pre + "self_attn.k_proj.weight": w(Hkv * dh, D),
+            pre + "self_attn.v_proj.weight": w(Hkv * dh, D),
+            pre + "self_attn.o_proj.weight": w(D, H * dh),
+            pre + "mlp.gate_proj.weight": w(F, D),
+            pre + "mlp.up_proj.weight": w(F, D),
+            pre + "mlp.down_proj.weight": w(D, F),
+            pre + "input_layernorm.weight": zeros,
+            pre + "post_attention_layernorm.weight": zeros})
+    write_safetensors(str(path / "model.safetensors"), tensors)
+    with open(path / "config.json", "w") as f:
+        json.dump(c, f)
+    return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
+def timed_load(path: Path, want_source: str, **kw):
+    """``load_hf_checkpoint(path, tokenizer="byte", **kw)`` on the card with
+    its wall (host clock to a synchronized card); raises unless
+    ``load_info["source"]`` is ``want_source``."""
+    import torch
+
+    from fraud_detection_tpu_torch.checkpoint.hf_convert import (
+        load_hf_checkpoint)
+
+    info = {}
+    t0 = time.perf_counter()
+    lm = load_hf_checkpoint(str(path), tokenizer="byte", load_info=info, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if info.get("source") != want_source:
+        raise AssertionError(f"load {kw}: source {info.get('source')}, want "
+                             f"{want_source}")
+    return lm, wall
+
+
+def weight_bytes(params) -> int:
+    """Device bytes of a model's weights (int8 codes and scales included)."""
+    return sum(t.numel() * t.element_size()
+               for t in list(params.parameters()) + list(params.buffers()))
+
+
+def load_gemma(path: Path, dev, seed: int, card: str):
+    """Phase 10's models from the synthetic checkpoint: bf16 from the shards
+    (``hf_shards``) and again warm (``bf16_cache``), int8 from the bf16
+    cache (the int8 miss, ``bf16_cache``) and again warm (``q8_cache``).
+    Gates: each load's source; the int8 params equal ``quantize_params`` of
+    the bf16 model on the card bit for bit, and the warm int8 reload equals
+    the first. Returns (bf16 model, int8 model, figures)."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import Q8, quantize_params
+
+    free = shutil.disk_usage(path).free
+    print(f"[load] free disk space at {path}: {free / 1e9:.1f} GB (the shards "
+          "and both caches take ~13 GB)")
+    t0 = time.perf_counter()
+    nbytes = write_gemma_checkpoint(path, dev, seed)
+    write_s = time.perf_counter() - t0
+    lm, cold_bf16 = timed_load(path, "hf_shards")
+    warm, warm_bf16 = timed_load(path, "bf16_cache")
+    del warm
+    lm8, miss_int8 = timed_load(path, "bf16_cache", int8=True)
+    warm8, warm_int8 = timed_load(path, "q8_cache", int8=True)
+    ref = quantize_params(lm.params)
+    torch.cuda.synchronize()
+
+    def same(a, b) -> bool:
+        if isinstance(a, Q8) or isinstance(b, Q8):
+            return (isinstance(a, Q8) and isinstance(b, Q8)
+                    and torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale))
+        return torch.equal(a, b)
+
+    for name in ref.param_names():
+        if not same(ref.param(name), lm8.params.param(name)):
+            raise AssertionError(f"int8 load: {name} differs from "
+                                 "quantize_params of the bf16 model on the card")
+        if not same(lm8.params.param(name), warm8.params.param(name)):
+            raise AssertionError(f"int8 load: {name} of the q8 cache differs")
+    del ref, warm8
+    torch.cuda.empty_cache()
+    out = dict(checkpoint_bytes=nbytes, write_s=write_s,
+               load_s={"bf16 hf_shards": cold_bf16, "bf16 bf16_cache": warm_bf16,
+                       "int8 bf16_cache": miss_int8, "int8 q8_cache": warm_int8},
+               weight_bytes={"bf16": weight_bytes(lm.params),
+                             "int8": weight_bytes(lm8.params)})
+    print(f"[load] Gemma-2B checkpoint ({nbytes / 1e9:.3f} GB of bf16 "
+          f"shards) written in {write_s:.1f} s; load walls ({card}): bf16 from "
+          f"the shards {cold_bf16:.1f} s, from the bf16 cache {warm_bf16:.1f} "
+          f"s; int8 from the bf16 cache {miss_int8:.1f} s, from the q8 cache "
+          f"{warm_int8:.1f} s; sources hf_shards, bf16_cache, bf16_cache, "
+          "q8_cache; int8 params == quantize_params(bf16) on the card bit for "
+          f"bit; weights on the card bf16 {out['weight_bytes']['bf16']} B, "
+          f"int8 {out['weight_bytes']['int8']} B")
+    return lm, lm8, out
+
+
+def logits_corr(pairs) -> float:
+    """Pearson correlation over every logit of ``pairs``, a sequence of
+    (a, b) logit tensors, summed in float64."""
+    import torch
+
+    sums = torch.zeros(6, dtype=torch.float64)
+    for a, b in pairs:
+        a, b = a.double().ravel(), b.double().ravel()
+        sums += torch.stack([a.new_tensor(a.numel()), a.sum(), b.sum(),
+                             (a * b).sum(), (a * a).sum(), (b * b).sum()]).cpu()
+    n, sa, sb, sab, saa, sbb = sums.tolist()
+    return (sab - sa * sb / n) / math.sqrt((saa - sa * sa / n)
+                                           * (sbb - sb * sb / n))
+
+
+def int8_gates(lm, lm8, dev, card: str) -> dict:
+    """Phase 10 at int8. Gates: one decode step (B = 8, one token each)
+    launches ``w8_matmul`` 7 x 18 + 1 times, none on the SIMT route; the
+    int8 model's logits on ``GEN_PROMPTS`` against the same int8 model
+    through the plain version of the product (``w8_matmul_reference``,
+    cuBLAS on the dequantized weight) within 5% of max |logit|, phase 10's
+    flash gate (bf16 through 18 layers); full-width logits of int8 against
+    bf16 correlated above ``INT8_CORR_MIN`` at 2 layers (the model's first
+    two). The 18-layer correlation is reported."""
+    import torch
+
+    from fraud_detection_tpu_torch.models import llm
+    from fraud_detection_tpu_torch.models.llm import (Transformer, forward,
+                                                      init_cache,
+                                                      quantize_params)
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
+
+    cfg = lm8.cfg
+    tok = torch.tensor([[65 + i] for i in range(8)], device=dev)
+    pos = torch.full((8, 1), 3, dtype=torch.int64, device=dev)
+    cache = init_cache(cfg, 8, 16, dev)
+    with torch.inference_mode():
+        forward(lm8.params, tok, cfg, positions=pos, kv_cache=cache,
+                cache_len=3)
+        torch.cuda.synchronize()
+        W.w8_matmul.launches = W.w8_matmul.simt_launches = 0
+        forward(lm8.params, tok, cfg, positions=pos, kv_cache=cache,
+                cache_len=3)
+        torch.cuda.synchronize()
+    step_launches = W.w8_matmul.launches
+    want = 7 * cfg.n_layers + 1
+    if step_launches != want or W.w8_matmul.simt_launches:
+        raise AssertionError(f"an int8 decode step launched w8_matmul "
+                             f"{step_launches}x ({W.w8_matmul.simt_launches} "
+                             f"SIMT), want {want} on the mma route")
+    cfg2 = dataclasses.replace(lm.cfg, n_layers=2)
+    two = Transformer.from_leaves(cfg2, {n: lm.params.param(n)
+                                         for n in Transformer(cfg2, "meta").param_names()})
+    two8 = quantize_params(two)
+    prompts = [torch.from_numpy(lm.tokenizer.encode(p).astype("int64"))[None].to(dev)
+               for p in GEN_PROMPTS]
+    worst = scale = 0.0
+    with torch.inference_mode():
+        def logits(params, c=cfg):
+            return [forward(params, t, c)[0] for t in prompts]
+
+        full, full8 = logits(lm.params), logits(lm8.params)
+        real = llm.w8_matmul
+        llm.w8_matmul = W.w8_matmul_reference
+        try:
+            plain8 = logits(lm8.params)
+        finally:
+            llm.w8_matmul = real
+        for b, c in zip(full8, plain8):
+            worst = max(worst, float((b - c).abs().max()))
+            scale = max(scale, float(c.abs().max()))
+        corr18 = logits_corr(zip(full, full8))
+        corr_plain = logits_corr(zip(full8, plain8))
+        del full, full8, plain8
+        corr2 = logits_corr(zip(logits(two, cfg2), logits(two8, cfg2)))
+    long = torch.randint(0, 258, (1, 2048), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    with torch.inference_mode():
+        runs = {name: (lambda p=p: forward(p, long, cfg, logits_last_only=True))
+                for name, p in (("bf16", lm.params), ("int8", lm8.params))}
+        prefill_ms = {"bf16": [], "int8": []}
+        for name in ("bf16", "int8", "int8", "bf16"):
+            prefill_ms[name].append(cuda_ms(runs[name], 3, 1))
+    if not worst <= 0.05 * scale:
+        raise AssertionError(f"int8 logits, kernel vs plain product: max |d| "
+                             f"{worst} > 5% of max |logit| {scale}")
+    if not corr2 > INT8_CORR_MIN:
+        raise AssertionError(f"int8 vs bf16 logits at 2 layers: correlation "
+                             f"{corr2} <= {INT8_CORR_MIN}")
+    print(f"[int8] one decode step (B=8) launched w8_matmul {step_launches} "
+          f"times (7 x {cfg.n_layers} + 1, all on the mma route); int8 logits "
+          f"kernel vs plain product max |d| {worst:.4g} (max |logit| "
+          f"{scale:.4g}, gate 5%; correlation {corr_plain:.6f}); full-width "
+          f"logits of int8 against bf16 on GEN_PROMPTS: correlation "
+          f"{corr2:.6f} at 2 layers (gate > {INT8_CORR_MIN}), {corr18:.6f} at "
+          f"{cfg.n_layers} layers (reported)")
+    print(f"[time] {card}: prefill T=2048 in turns (bf16, int8, int8, bf16): bf16 "
+          f"{prefill_ms['bf16'][0]:.2f} / {prefill_ms['bf16'][1]:.2f} ms, int8 "
+          f"{prefill_ms['int8'][0]:.2f} / {prefill_ms['int8'][1]:.2f} ms")
+    return dict(step_launches=step_launches, logits_corr_2_layers=corr2,
+                prefill_ms_2048=prefill_ms,
+                logits_corr_18_layers=corr18,
+                logits_corr_kernel_vs_plain=corr_plain,
+                kernel_vs_plain_dlogit=worst, logit_scale=scale)
+
+
+def int8_card_vs_cpu(dev, seed: int) -> dict:
+    """Phase 11 at int8: the 2-layer f32 model of Gemma widths quantized,
+    card against CPU on the same codes: last logits at T=600 within
+    ``CARD_CPU_TOL`` (the card's products on the SIMT route of w8_matmul,
+    2 x 7 + 1 launches), greedy batched generation equal."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import (LanguageModel, Q8,
+                                                      Transformer, forward)
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
+
+    card = gemma(dev, seed, n_layers=2, dtype=torch.float32).quantized()
+    leaves = {}
+    for name in card.params.param_names():
+        v = card.params.param(name)
+        leaves[name] = (Q8(v.q.cpu(), v.scale.cpu()) if isinstance(v, Q8)
+                        else v.detach().cpu())
+    cpu = LanguageModel(card.cfg, Transformer.from_leaves(card.cfg, leaves))
+    toks = torch.randint(0, card.cfg.vocab_size, (1, FLASH_SIMT_MAIN[1]),
+                         generator=torch.Generator().manual_seed(seed))
+    W.w8_matmul.launches = W.w8_matmul.simt_launches = 0
+    with torch.inference_mode():
+        lg = forward(card.params, toks.to(dev), card.cfg,
+                     logits_last_only=True)[0][0, 0].cpu()
+        simt, total = W.w8_matmul.simt_launches, W.w8_matmul.launches
+        lc = forward(cpu.params, toks, cpu.cfg, logits_last_only=True)[0][0, 0]
+    want = 7 * card.cfg.n_layers + 1
+    if simt != want or total != simt:
+        raise AssertionError(f"the f32 int8 forward launched the SIMT route "
+                             f"{simt}x of {total}, want {want}")
+    err = float((lg - lc).abs().max())
+    if not bool((lg - lc).abs().le(CARD_CPU_TOL * (1 + lc.abs())).all()):
+        raise AssertionError(f"int8 card vs cpu logits max |d| {err}")
+    enc = [card.tokenizer.encode(p) for p in
+           (GEN_PROMPTS[0], "Agent: hello, is this Mr Smith?", GEN_PROMPTS[5][:90])]
+    tg = card.generate_tokens_batch(enc, max_new_tokens=8)
+    tc = cpu.generate_tokens_batch(enc, max_new_tokens=8)
+    if not np.array_equal(tg, tc):
+        raise AssertionError(f"int8 greedy tokens card {tg.tolist()} != cpu "
+                             f"{tc.tolist()}")
+    print(f"[int8] card vs cpu (Gemma widths, 2 layers, f32, int8 weights, "
+          f"T=600): last logits max |d| {err:.3g} (tol {CARD_CPU_TOL}), "
+          f"w8_matmul SIMT route {simt} launches; greedy tokens of "
+          f"{len(enc)} uneven prompts equal card/cpu")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return dict(dlogit=err, simt_launches=simt)
+
+
+def generation_turns(lm, lm8, card: str) -> dict:
+    """Phase 12 at int8: greedy generation of ``GEN_PROMPTS`` (8 x 64 new
+    tokens) with the bf16 and the int8 model in turns (bf16, int8, int8,
+    bf16) after a warm call each: tokens/s and explanations/s per turn, and
+    each model's peak device memory above its weights during a turn."""
+    import torch
+
+    enc = [lm.tokenizer.encode(p) for p in GEN_PROMPTS]
+    models = {"bf16": lm, "int8": lm8}
+    for m in models.values():
+        m.generate_tokens_batch(enc, max_new_tokens=4)
+    turns = {"bf16": [], "int8": []}
+    peak = {}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        models[name].generate_tokens_batch(enc, max_new_tokens=64)
+        wall = time.perf_counter() - t0
+        peak[name] = torch.cuda.max_memory_allocated() - base
+        turns[name].append(wall)
+    out = {}
+    for name, walls in turns.items():
+        out[name] = dict(walls_s=walls,
+                         tokens_per_s=[8 * 64 / w for w in walls],
+                         explanations_per_s=[8 / w for w in walls],
+                         peak_bytes_over_model=peak[name])
+    breakdown = device_breakdown(
+        lambda: lm8.generate_tokens_batch(enc, max_new_tokens=16), reps=1)
+    busy = sum(us for _, us, _ in breakdown) / 1e3
+    w8 = sum(us for k, us, _ in breakdown if "w8_" in k) / 1e3
+    out["int8"]["busy_ms_16"] = busy
+    out["int8"]["w8_ms_16"] = w8
+    print(f"[time] {card}: generation B=8 x 64 tokens in turns (bf16, int8, "
+          f"int8, bf16): bf16 {out['bf16']['tokens_per_s'][0]:.1f} / "
+          f"{out['bf16']['tokens_per_s'][1]:.1f} tokens/s, int8 "
+          f"{out['int8']['tokens_per_s'][0]:.1f} / "
+          f"{out['int8']['tokens_per_s'][1]:.1f} tokens/s (explanations/s "
+          f"bf16 {out['bf16']['explanations_per_s'][0]:.3f}, int8 "
+          f"{out['int8']['explanations_per_s'][0]:.3f}); peak device memory "
+          f"over the model bf16 {peak['bf16']} B, int8 {peak['int8']} B")
+    print(f"[trace] {card}: int8 generate B=8 x 16 tokens: device busy "
+          f"{busy:.2f} ms, w8_matmul kernels {w8:.2f} ms of it")
+    for name, us, n in breakdown[:6]:
+        print(f"[trace]   {us:10.1f} us  x{n:.0f}  {name[:90]}")
+    return out
+
+
+def slot_int8(lm8, flagged_rows, seed: int, card: str) -> dict:
+    """Phase 13c at int8: the slot lane (``slot_lane``, contiguous then
+    paged) over the int8 model, and the paged service's windows bit-equal
+    to the contiguous one's under int8 (phase 13b's prompts through 2
+    slots, every window's out, new_lens, steps_run and active_row_steps)."""
+    from fraud_detection_tpu_torch.explain.backends import frame_prompt
+    from fraud_detection_tpu_torch.explain.onpod import flatten_chat
+    from fraud_detection_tpu_torch.explain.prompts import analysis_prompt
+
+    texts = [flatten_chat(frame_prompt(analysis_prompt(t, 1, 0.93)))
+             for t in ("Caller: this is your bank, read me the code now.",
+                       "Agent: your parcel is held; pay the customs fee in "
+                       "gift cards today.")]
+    texts += [GEN_PROMPTS[0], "Agent: hello, is this Mr Smith?", texts[0]]
+    req_c, win_c, _ = serve_slots(lm8, texts, 0.0, seed)
+    req_p, win_p, _ = serve_slots(lm8, texts, 0.0, seed, paged=True)
+    if not windows_equal(win_c, win_p) or [r.out for r in req_c] != \
+            [r.out for r in req_p]:
+        raise AssertionError("int8: paged windows != contiguous windows")
+    print(f"[int8] slot service at full width, int8 weights: paged == "
+          f"contiguous, {len(win_c)} windows bit for bit")
+    lane = slot_lane(lm8, flagged_rows, card)
+    return dict(windows=len(win_c), paged_equal=True, lane=lane)
+
+
+def write_tokenizer(path: Path, vocab_size: int) -> None:
+    """A word-level tokenizer for ``path`` with one entry per id of the
+    checkpoint's vocabulary (``tokenizers``), which ``transformers`` loads
+    from the directory's files."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    words = ["<unk>", "<s>", "</s>"] + [f"w{i}" for i in range(3, vocab_size)]
+    tok = Tokenizer(models.WordLevel(vocab={w: i for i, w in enumerate(words)},
+                                     unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.save(str(path / "tokenizer.json"))
+    with open(path / "tokenizer_config.json", "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                   "bos_token": "<s>", "eos_token": "</s>",
+                   "unk_token": "<unk>"}, f)
+
+
+def hf_serve_cli(dev, path: Path, seed: int, card: str) -> dict:
+    """Phase 13f: ``serve --model synthetic --explain onpod-int8:<dir>
+    --explain-slots 4 --explain-tokens 8 --demo 4096 --batch-size 1024`` on a
+    2-layer Gemma-width checkpoint. With ``transformers`` on the machine the
+    directory gets a word-level tokenizer and the run must exit 0 with every
+    message classified and ``admitted == completed + dropped``, no errors;
+    without it the CLI must refuse with the reference's "cannot load ...
+    tokenizer" message. Either way ``--explain onpod:/nowhere`` must refuse
+    with "checkpoint dir ... not found"."""
+    import importlib.util
+
+    from fraud_detection_tpu_torch.app import serve
+
+    write_gemma_checkpoint(path, dev, seed, n_layers=2)
+    have = importlib.util.find_spec("transformers") is not None
+    if have:
+        write_tokenizer(path, GEMMA2B_HF_CONFIG["vocab_size"])
+    argv = ["--device", str(dev), "--model", "synthetic", "--demo",
+            str(SERVE_DEMO), "--batch-size", "1024", "--explain",
+            f"onpod-int8:{path}", "--explain-slots", "4", "--explain-tokens",
+            "8"]
+    out = dict(transformers=have)
+    if have:
+        r = serve_cli(argv, card)
+        stats, ex = r["stats"], r["stats"]["explain"]
+        if r["classified"] != SERVE_DEMO or stats["processed"] != SERVE_DEMO \
+                or ex["admitted"] != ex["completed"] + ex["dropped"] \
+                or ex["completed"] == 0 or ex["errors"]:
+            raise AssertionError(f"serve onpod-int8: classified "
+                                 f"{r['classified']}, explain {ex}")
+        out.update(msgs_per_sec=stats["msgs_per_sec"], explain=ex)
+        print(f"[serve] onpod-int8 (transformers present, a word-level "
+              f"tokenizer in the directory): explain admitted {ex['admitted']}"
+              f" = completed {ex['completed']} + dropped {ex['dropped']}, no "
+              "errors")
+    else:
+        try:
+            serve.main(argv)
+        except SystemExit as e:
+            msg = str(e)
+        else:
+            raise AssertionError("serve onpod-int8 without transformers: no "
+                                 "refusal")
+        if "cannot load" not in msg or "tokenizer" not in msg:
+            raise AssertionError(f"serve onpod-int8 refusal: {msg!r}")
+        out["refusal"] = msg
+        print(f"[serve] onpod-int8 without transformers on this machine: the "
+              f"CLI refuses as the reference does: {msg[:160]}")
+    try:
+        serve.main(["--device", str(dev), "--model", "synthetic", "--demo",
+                    "8", "--explain", "onpod:/nowhere"])
+    except SystemExit as e:
+        if "checkpoint dir '/nowhere' not found" not in str(e):
+            raise AssertionError(f"onpod:/nowhere refusal: {e}")
+    else:
+        raise AssertionError("onpod:/nowhere did not refuse")
+    print("[serve] --explain onpod:/nowhere refuses: checkpoint dir "
+          "'/nowhere' not found")
+    return out
+
+
+def w8_bound(m: int, k: int, n: int, layout: str, itemsize: int):
+    """(bound ms, "bytes" | "operations"): x read, q (int8) and the scale
+    read and y written once at the HBM rate, against 2 M N K operations at
+    the bf16 tensor-core rate (itemsize 2) or the non-tensor f32 rate."""
+    out_size = itemsize if layout == "kn" else 4
+    nbytes = m * k * itemsize + k * n + 4 * n + m * n * out_size
+    rate = BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, 2 * m * n * k / rate * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def w8_times(dev, seed: int, card: str) -> dict:
+    """Phase 14 (w8_matmul): at each Gemma-2B shape, at decode (M = 8) and
+    prefill (M = 2048), bf16: the kernel in turns with cuBLAS bf16
+    ``torch.matmul`` on a bf16 copy of the same weight (the yardstick, which
+    the port never calls for int8), CUDA events around one call and per call
+    over a back-to-back burst (host cost hidden behind the card), the plain
+    version and the bound; a decode step's sum over its 127 products (burst
+    times); the f32 route at M = 8 beside f32 ``torch.matmul``."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    times = {}
+    for i, (name, (k, n, layout)) in enumerate(W8_SHAPES.items()):
+        q, scale = w8_weight(k, n, layout, dev, seed + i)
+        wb = q.to(torch.bfloat16)
+        for m in (8, 2048):
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            kern = lambda: W.w8_matmul(x, q, scale, layout)
+            lib = (lambda: x @ wb) if layout == "kn" else (lambda: x @ wb.T)
+            reps, burst = (50, 100) if m == 8 else (10, 10)
+            k1, l1 = cuda_ms(kern, reps), cuda_ms(lib, reps)
+            l2, k2 = cuda_ms(lib, reps), cuda_ms(kern, reps)
+            bound, by = w8_bound(m, k, n, layout, 2)
+            t = times[f"{name} M={m}"] = dict(
+                shape=[m, k, n], layout=layout, ms=(k1 + k2) / 2,
+                ms_turns=[k1, k2], library_ms=(l1 + l2) / 2,
+                burst_ms=burst_ms(kern, burst),
+                library_burst_ms=burst_ms(lib, burst),
+                plain_ms=cuda_ms(lambda: W.w8_matmul_reference(x, q, scale,
+                                                               layout), 5, 1),
+                bound_ms=bound, bound_by=by)
+            print(f"[time] {card}: w8_matmul {name} ({layout}) M={m} K={k} "
+                  f"N={n} bf16, CUDA events around one call (a back-to-back "
+                  f"burst, per call): kernel {t['ms']:.4f} ms (turns "
+                  f"{k1:.4f} / {k2:.4f}; burst {t['burst_ms']:.4f}), cuBLAS "
+                  f"bf16 torch.matmul {t['library_ms']:.4f} ms (burst "
+                  f"{t['library_burst_ms']:.4f}), plain {t['plain_ms']:.4f} "
+                  f"ms, bound {bound * 1e3:.2f} us ({by}); kernel burst "
+                  f"{t['burst_ms'] / bound:.2f}x its bound, "
+                  f"{t['burst_ms'] / t['library_burst_ms']:.2f}x cuBLAS's")
+            del x
+        del wb
+        x32 = torch.randn((8, k), generator=g, device=dev)
+        wf = q.float()
+        lib32 = (lambda: x32 @ wf) if layout == "kn" else (lambda: x32 @ wf.T)
+        bound, by = w8_bound(8, k, n, layout, 4)
+        t = times[f"{name} M=8 f32"] = dict(
+            shape=[8, k, n], layout=layout,
+            ms=cuda_ms(lambda: W.w8_matmul(x32, q, scale, layout), 20),
+            plain_ms=cuda_ms(lambda: W.w8_matmul_reference(x32, q, scale,
+                                                           layout), 5, 1),
+            library_ms=cuda_ms(lib32, 20), bound_ms=bound, bound_by=by)
+        print(f"[time] {card}: w8_matmul {name} ({layout}) M=8 f32 (SIMT "
+              f"route): kernel {t['ms']:.4f} ms, f32 torch.matmul "
+              f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"bound {bound * 1e3:.2f} us ({by})")
+        del q, scale, wf, x32
+        torch.cuda.empty_cache()
+    step = {key: sum(times[f"{s} M=8"][key] * W8_STEP_LAUNCHES[s]
+                     for s in W8_SHAPES)
+            for key in ("burst_ms", "library_burst_ms", "bound_ms")}
+    print(f"[time] {card}: one decode step's 127 weight products at M=8 "
+          f"(burst times): w8_matmul {step['burst_ms']:.3f} ms, cuBLAS bf16 "
+          f"{step['library_burst_ms']:.3f} ms, int8 byte bound "
+          f"{step['bound_ms']:.3f} ms")
+    times["decode_step"] = step
+    return times
+
+
+# ---------------------------------------------------------------------------
 # the serve CLI's default path: native host featurize, raw JSON, C++ frames
 # ---------------------------------------------------------------------------
 
@@ -2600,6 +3291,72 @@ def lifecycle(dev, xgb_ckpt: Path, out: Path, seed: int, card: str) -> dict:
                                      if k not in ("X", "y")},
                 figures=figures, serve_cli=cli)
 
+def llm_phases(dev, seed: int, card: str, work: Path) -> dict:
+    """Phases 10-13f: the Gemma-2B-architecture model loaded from a
+    synthetic HF checkpoint at bf16 and at int8 (``load_gemma``), prefill,
+    card against CPU (f32 and int8), generation in turns, the explained
+    stream, the slot lane at both widths, the async stream, the serve CLI's
+    slot lane and its onpod-int8 spec. The checkpoints live under ``work``."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops import attention as A
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
+
+    # -- 10. the model from a checkpoint; full-width prefill (flash's path) --
+    (work / "gemma2b").mkdir()
+    lm, lm8, loads = load_gemma(work / "gemma2b", dev, seed, card)
+    shutil.rmtree(work / "gemma2b")
+    int8 = int8_gates(lm, lm8, dev, card)
+    pre = prefill(lm, dev, seed + 40, card)
+
+    # -- 11. card against CPU, 2 layers, f32 (and its int8 weights) ---------
+    cvc = llm_card_vs_cpu(dev, seed + 41)
+    cvc8 = int8_card_vs_cpu(dev, seed + 41)
+    torch.cuda.empty_cache()
+
+    # -- 12. full-width generation, bf16 then both in turns -----------------
+    gen = llm_generate(lm, card)
+    W.w8_matmul.launches = W.w8_matmul.simt_launches = 0
+    turns = generation_turns(lm, lm8, card)
+    gen8_launches = W.w8_matmul.launches
+    if not gen8_launches or gen8_launches % (7 * lm8.cfg.n_layers + 1) \
+            or W.w8_matmul.simt_launches:
+        raise AssertionError(f"int8 generation launched w8_matmul "
+                             f"{gen8_launches}x ({W.w8_matmul.simt_launches} "
+                             "SIMT), want a positive multiple of 127 on mma")
+
+    # -- 13. the engine with explanations ------------------------------------
+    expl, expl_pipe, expl_items, flagged_rows = explained_stream(
+        lm, dev, ROOT / "build" / "chip_smoke" / "dt", card)
+
+    # -- 13b-13f. the slot lane (no flash launch anywhere in it) -------------
+    A.flash_attention.launches = 0
+    A.flash_attention_sm90.launches = A.flash_attention_simt.launches = 0
+    slot_cvc = slot_card_vs_cpu(dev, seed + 42)
+    slots = slot_lane(lm, flagged_rows, card)
+    slots8 = slot_int8(lm8, flagged_rows, seed + 42, card)
+    async_stream = explained_stream_async(lm, expl_pipe, expl_items, expl,
+                                          card)
+    del lm, lm8, expl_pipe
+    torch.cuda.empty_cache()
+    slot_cli = slot_serve_cli(dev, card)
+    (work / "gemma2l").mkdir()
+    hf_cli = hf_serve_cli(dev, work / "gemma2l", seed + 43, card)
+    if A.flash_attention.launches:
+        raise AssertionError(f"the slot lane launched the flash kernels "
+                             f"{A.flash_attention.launches}x, want 0")
+    print("[slot] phases 13b-13f: 0 flash launches (the slot prefill uses "
+          "causal_attention(use_flash=False), the window _attend, as in the "
+          "reference)")
+    return {"load": loads, "int8": int8, "prefill": pre, "card_vs_cpu": cvc,
+            "card_vs_cpu_int8": cvc8, "generate": gen,
+            "generate_turns": turns, "int8_generate_launches": gen8_launches,
+            "explained_stream": expl, "slot_card_vs_cpu": slot_cvc,
+            "slot_lane": slots, "slot_lane_int8": slots8,
+            "explained_stream_async": async_stream,
+            "slot_serve_cli": slot_cli, "hf_serve_cli": hf_cli}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2624,6 +3381,7 @@ def main(argv=None) -> int:
     from fraud_detection_tpu_torch.ops import attention as A
     from fraud_detection_tpu_torch.ops import featurize_kernel as fk
     from fraud_detection_tpu_torch.ops import histogram as H
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
     from fraud_detection_tpu_torch.stream import (InProcessBroker,
                                                   StreamingClassifier)
 
@@ -2645,6 +3403,7 @@ def main(argv=None) -> int:
     fk.kernel_self_test(dev)
     H.kernel_self_test(dev)
     A.kernel_self_test(dev)
+    W.kernel_self_test(dev)
     print(f"[build] {', '.join(k + '.cu' for k in KERNELS)} built in "
           f"{build_s:.3f} s (one nvcc each, in parallel); self-tests ok")
     native_build = build_native()
@@ -2756,6 +3515,9 @@ def main(argv=None) -> int:
             check_best_splits(f"cli L={width}", h, totals, fit, None)
             width_inputs[(fit, width)] = (h, totals)
         del hist
+
+    # the weight-only int8 product at every Gemma-2B weight shape
+    w8_errs = check_w8_all(dev, args.seed + 80)
 
     # -- 4. the slice at full width (main path) -----------------------------
     lr_gpu, trees_gpu = make_models(feat, args.seed, dev)
@@ -3180,41 +3942,13 @@ def main(argv=None) -> int:
     simt_err = check_flash("phase-11 shape", *simt_qkv, FLASH_F32_TOL,
                            FLASH_F32_TOL)
 
-    # -- 10. full-width prefill (the flash kernel's main path) --------------
-    lm = gemma(dev, args.seed)
-    n_params = sum(p.numel() for p in lm.params.parameters())
-    print(f"[llm] Gemma-2B architecture, {n_params / 1e9:.3f} B parameters "
-          "in bf16 drawn on the card from --seed")
-    pre = prefill(lm, dev, args.seed + 40, card)
-    flash_launches = pre["launches"]
-
-    # -- 11. card against CPU, 2 layers, f32 ---------------------------------
-    cvc = llm_card_vs_cpu(dev, args.seed + 41)
-    torch.cuda.empty_cache()
-
-    # -- 12. full-width generation -------------------------------------------
-    gen = llm_generate(lm, card)
-
-    # -- 13. the engine with explanations ------------------------------------
-    expl, expl_pipe, expl_items, flagged_rows = explained_stream(
-        lm, dev, ROOT / "build" / "chip_smoke" / "dt", card)
-
-    # -- 13b-13e. the slot lane (no flash launch anywhere in it) -------------
-    A.flash_attention.launches = 0
-    A.flash_attention_sm90.launches = A.flash_attention_simt.launches = 0
-    slot_cvc = slot_card_vs_cpu(dev, args.seed + 42)
-    slots = slot_lane(lm, flagged_rows, card)
-    async_stream = explained_stream_async(lm, expl_pipe, expl_items, expl,
-                                          card)
-    del lm, expl_pipe
-    torch.cuda.empty_cache()
-    slot_cli = slot_serve_cli(dev, card)
-    if A.flash_attention.launches:
-        raise AssertionError(f"the slot lane launched the flash kernels "
-                             f"{A.flash_attention.launches}x, want 0")
-    print("[slot] phases 13b-13e: 0 flash launches (the slot prefill uses "
-          "causal_attention(use_flash=False), the window _attend, as in the "
-          "reference)")
+    # -- 10-13f. the explanation LLM, loaded from a checkpoint --------------
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_llm_"))
+    try:
+        llm_out = llm_phases(dev, args.seed, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    pre, cvc = llm_out["prefill"], llm_out["card_vs_cpu"]
 
     # -- 14. flash kernel times ------------------------------------------------
     flash_times, simt_times = {}, {}
@@ -3274,6 +4008,8 @@ def main(argv=None) -> int:
           f"ms; bound {fb * 1e3:.2f} us ({fby}, f32 at 67 TFLOP/s); SIMT "
           f"{simt_main['ms'] / fb:.1f}x bound")
     del q, k, v, simt_qkv
+
+    w8 = w8_times(dev, args.seed + 90, card)
 
     # -- 15. result lines ----------------------------------------------------
     def learn_refresh(kernel):
@@ -3370,7 +4106,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "fraud_detection_tpu_torch/ops/csrc/flash_attention_sm90.cu",
         "replaces": "fraud_detection_tpu/ops/attention.py:75",
-        "launches": flash_launches,
+        "launches": pre["launches"],
         "max_abs_err": flash_err,
         "matched": True,
         "ms": flash_times[2048]["ms"],
@@ -3401,6 +4137,53 @@ def main(argv=None) -> int:
                          "bf16_T8192": simt_times[8192]},
         "main_path": "phase 11: the 2-layer f32 forward at T=600",
         "card": card,
+    }, {
+        "name": "w8_matmul",
+        "route": "cuda",
+        "source": "fraud_detection_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "none: no pl.pallas_call; the reference's int8 products "
+                    "(fraud_detection_tpu/models/llm.py:271 _mm, :793 "
+                    "_logits_head) are left to XLA",
+        "launches": llm_out["int8_generate_launches"],
+        "max_abs_err": max(v for k, v in w8_errs.items() if "bfloat16" in k),
+        "matched": True,
+        "ms": w8["w_gate,w_up M=8"]["ms"],
+        "burst_ms": w8["w_gate,w_up M=8"]["burst_ms"],
+        "library_burst_ms": w8["w_gate,w_up M=8"]["library_burst_ms"],
+        "plain_ms": w8["w_gate,w_up M=8"]["plain_ms"],
+        "bound_ms": w8["w_gate,w_up M=8"]["bound_ms"],
+        "bound_by": w8["w_gate,w_up M=8"]["bound_by"],
+        "library_ms": w8["w_gate,w_up M=8"]["library_ms"],
+        "library": "cuBLAS bf16 torch.matmul on a bf16 copy of the weight",
+        "shape": w8["w_gate,w_up M=8"]["shape"],
+        "dtype": "bfloat16",
+        "per_decode_step": {"launches": llm_out["int8"]["step_launches"],
+                            **w8["decode_step"]},
+        "other_shapes": {k: v for k, v in w8.items()
+                         if k not in ("w_gate,w_up M=8", "decode_step")
+                         and not k.endswith("f32")},
+        "main_path": "phase 12: int8 generation in turns with bf16",
+        "card": card,
+    }, {
+        "name": "w8_matmul_simt",
+        "route": "cuda",
+        "source": "fraud_detection_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "none: no pl.pallas_call (as w8_matmul)",
+        "launches": llm_out["card_vs_cpu_int8"]["simt_launches"],
+        "max_abs_err": max(v for k, v in w8_errs.items() if "float32" in k),
+        "matched": True,
+        "ms": w8["w_gate,w_up M=8 f32"]["ms"],
+        "plain_ms": w8["w_gate,w_up M=8 f32"]["plain_ms"],
+        "bound_ms": w8["w_gate,w_up M=8 f32"]["bound_ms"],
+        "bound_by": w8["w_gate,w_up M=8 f32"]["bound_by"],
+        "library_ms": w8["w_gate,w_up M=8 f32"]["library_ms"],
+        "library": "f32 torch.matmul on an f32 copy of the weight",
+        "shape": w8["w_gate,w_up M=8 f32"]["shape"],
+        "dtype": "float32",
+        "other_shapes": {k: v for k, v in w8.items() if k.endswith("f32")
+                         and k != "w_gate,w_up M=8 f32"},
+        "main_path": "phase 11: the 2-layer f32 int8 forward at T=600",
+        "card": card,
     }], "serving": {"pipeline_rows_per_s": rates, "device_idle": idle,
                     "host_featurize_rows_per_s": host_rates,
                     "host_featurize_device_idle": host_idle,
@@ -3412,10 +4195,7 @@ def main(argv=None) -> int:
         "resume": resume, "count_featurizer": count,
         "lifecycle": lifecycle_out,
         "tree_kernels_ms_per_cli_fit": per_fit,
-        "llm": {"prefill": pre, "card_vs_cpu": cvc, "generate": gen,
-                "explained_stream": expl, "slot_card_vs_cpu": slot_cvc,
-                "slot_lane": slots, "explained_stream_async": async_stream,
-                "slot_serve_cli": slot_cli}}))
+        "llm": llm_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

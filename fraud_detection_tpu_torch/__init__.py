@@ -10,8 +10,10 @@ trees, random forests and gradient boosting level by level over the CUDA
 histogram and split-gain kernels (``ops/histogram``) and writes native
 checkpoints the serving pipeline loads. ``models/llm`` is the explanation
 decoder, whose long prefills run the CUDA causal flash-attention kernel
-(``ops/attention``); ``explain/`` wraps it (and HTTP or canned backends)
-for the agent and for the engine's ``explain_batch_fn``. ``registry/`` and
+(``ops/attention``) and whose int8 weights run the CUDA W8A16 product
+(``ops/int8_matmul``); ``checkpoint/hf_convert`` loads it from a Hugging
+Face checkpoint directory; ``explain/`` wraps it (and HTTP or canned
+backends) for the agent and for the engine's ``explain_batch_fn``. ``registry/`` and
 ``learn/`` are the model lifecycle around the engine: versioned models,
 hot swap, shadow scoring, gated promotion, and a learn lane whose drift
 refreshes (``models/train_trees.refresh_gradient_boosting``) run the tree

@@ -92,15 +92,18 @@ def _explain_lane(args):
         llm_cfg = LLMConfig.from_env()
     except ValueError as e:
         raise SystemExit(f"bad LLM_* environment value: {e}")
-    # An explicit LLM_TEMPERATURE wins; unset, local backends decode greedy.
-    temp = llm_cfg.temperature if "LLM_TEMPERATURE" in os.environ else 0.0
+    # An explicit LLM_TEMPERATURE wins; unset, deepseek keeps the reference
+    # agent's 1.0 and local backends decode greedy.
+    temp = (llm_cfg.temperature
+            if args.explain == "deepseek" or "LLM_TEMPERATURE" in os.environ
+            else 0.0)
     slot_lm = None     # the models/llm.py model --explain-slots serves
     if args.explain == "canned":
         from fraud_detection_tpu_torch.explain import CannedBackend
 
         backend = CannedBackend(responses=[
-            "(offline analysis stub — run --explain onpod-demo on the card "
-            "for a model's analysis)"])
+            "(offline analysis stub — run --explain onpod:<dir> or "
+            "--explain deepseek for a real model)"])
     elif args.explain == "onpod-demo":
         # A tiny random-init on-device model: the real decode path, no
         # checkpoint; its analyses are noise (the name says so).
@@ -112,10 +115,31 @@ def _explain_lane(args):
             TransformerConfig(d_model=128, n_layers=2, n_heads=8, d_ff=256,
                               max_seq=2048), seed=0, device=args.device)
         backend = OnPodBackend.from_model(slot_lm)
-    elif args.explain.startswith(("onpod:", "onpod-int8:", "deepseek")):
-        raise unported(f"--explain {args.explain.partition(':')[0]} (HF "
-                       "checkpoints, int8 weights and the HTTP backend's "
-                       "spec)", 7)
+    elif args.explain.startswith(("onpod:", "onpod-int8:")):
+        from fraud_detection_tpu_torch.explain import OnPodBackend
+
+        spec, _, ckpt = args.explain.partition(":")
+        if not ckpt or not os.path.isdir(ckpt):
+            raise SystemExit(
+                f"--explain {spec}: checkpoint dir {ckpt!r} not found")
+        try:
+            from fraud_detection_tpu_torch.checkpoint.hf_convert import (
+                load_hf_checkpoint)
+
+            # loaded as the model, so that the slot lane serves the same
+            # weights the backend does
+            slot_lm = load_hf_checkpoint(ckpt, max_seq=4096,
+                                         int8=spec == "onpod-int8",
+                                         device=args.device)
+            backend = OnPodBackend.from_model(slot_lm)
+        except (OSError, ValueError, KeyError, NotImplementedError) as e:
+            # a directory without config, weights or tokenizer is a
+            # configuration error, not a crash
+            raise SystemExit(f"--explain {spec}: cannot load {ckpt!r}: {e}")
+    elif args.explain == "deepseek":
+        if not llm_cfg.api_key:
+            raise SystemExit("--explain deepseek needs DEEPSEEK_API_KEY")
+        backend = llm_cfg.make_backend()
     else:
         raise SystemExit(f"unknown --explain spec {args.explain!r}")
     service = breaker = None
@@ -266,7 +290,14 @@ def main(argv=None) -> int:
                     help="in-process demo broker partition count")
     ap.add_argument("--explain", default="off", metavar="SPEC",
                     help="attach LLM analyses to flagged messages, batched "
-                         "per micro-batch: 'off' | 'canned' | 'onpod-demo'")
+                         "per micro-batch: 'off' | 'canned' (offline stub) | "
+                         "'onpod-demo' (a tiny random model) | "
+                         "'onpod:<hf checkpoint dir>' (on the card, "
+                         "checkpoint/hf_convert.py; needs the dir's "
+                         "tokenizer files and transformers) | "
+                         "'onpod-int8:<dir>' (the same, weight-only int8) | "
+                         "'deepseek' (env DEEPSEEK_API_KEY, the reference's "
+                         "backend)")
     ap.add_argument("--explain-tokens", type=int, default=128,
                     help="max new tokens per analysis (--explain)")
     ap.add_argument("--explain-slots", type=int, metavar="N", default=0,

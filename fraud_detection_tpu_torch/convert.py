@@ -17,7 +17,9 @@ import torch
 from fraud_detection_tpu_torch.featurize.text import StopWordFilter
 from fraud_detection_tpu_torch.featurize.tfidf import HashingTfIdfFeaturizer
 from fraud_detection_tpu_torch.models.linear import LogisticRegression
-from fraud_detection_tpu_torch.models.llm import Transformer, TransformerConfig
+from fraud_detection_tpu_torch.models.llm import (_QUANT_REDUCE_AXES, Q8,
+                                                  Transformer,
+                                                  TransformerConfig)
 from fraud_detection_tpu_torch.models.trees import TreeEnsemble
 from fraud_detection_tpu_torch.utils.device import resolve_device
 
@@ -60,24 +62,38 @@ def trees_from_arrays(feature, threshold, left, right, leaf, tree_weights,
         kind=str(kind), max_depth=int(max_depth), bias=float(bias))
 
 
-def llm_params_from_arrays(cfg: TransformerConfig, params: Mapping[str, np.ndarray],
+def llm_params_from_arrays(cfg: TransformerConfig, params: Mapping[str, object],
                            device="cuda") -> Transformer:
     """The decoder's weights from a JAX-layout parameter dict (``embed``,
     ``lm_head`` when untied, ``l{l}.wq`` ..., ``ln_f``), name for name, cast
-    to ``cfg.dtype`` on ``device``. Raises on a missing, extra or misshapen
-    array."""
+    to ``cfg.dtype`` on ``device``. A weight-only int8 leaf (the JAX
+    package's ``Q8``) arrives as its ``(q, scale)`` pair of arrays and stays
+    int8 with an f32 scale. Raises on a missing, extra or misshapen array."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
+    model = Transformer(cfg, device="meta")
     names = model.param_names()
     if sorted(params) != sorted(names):
         raise ValueError(f"parameter names differ: missing "
                          f"{sorted(set(names) - set(params))}, extra "
                          f"{sorted(set(params) - set(names))}")
     for name in names:
-        arr = np.array(params[name], dtype=np.float32)
-        target = model.param(name)
-        if tuple(arr.shape) != tuple(target.shape):
-            raise ValueError(f"{name}: shape {arr.shape}, want "
-                             f"{tuple(target.shape)}")
-        target.data.copy_(torch.from_numpy(arr))
+        want = tuple(model.param(name).shape)
+        value = params[name]
+        if isinstance(value, tuple):
+            q, scale = (np.asarray(a) for a in value)
+            axes = _QUANT_REDUCE_AXES.get(name.rsplit(".", 1)[-1], ())
+            scale_shape = tuple(1 if i in axes else d
+                                for i, d in enumerate(want))
+            if q.shape != want or scale.shape != scale_shape:
+                raise ValueError(f"{name}: q {q.shape} and scale "
+                                 f"{scale.shape}, want {want} and "
+                                 f"{scale_shape}")
+            model.set_param(name, Q8(
+                torch.from_numpy(q.astype(np.int8)).to(dev),
+                torch.from_numpy(scale.astype(np.float32)).to(dev)))
+            continue
+        arr = np.array(value, dtype=np.float32)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"{name}: shape {arr.shape}, want {want}")
+        model.set_param(name, torch.from_numpy(arr).to(dev, cfg.dtype))
     return model

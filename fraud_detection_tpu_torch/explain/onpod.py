@@ -6,9 +6,10 @@ of ``fraud_detection_tpu/explain/onpod.py``.
 flattening chat history into one prompt the way small instruction-tuned
 models expect. ``from_model`` binds it to this package's decoder
 (``models/llm.py``), whose batched decode explains a whole flagged
-micro-batch at once. ``make_stream_explain_hook`` turns a backend into the
-streaming engine's ``explain_batch_fn``. Loading a Hugging Face checkpoint
-(``from_hf_checkpoint`` in the JAX package) is not ported.
+micro-batch at once, and ``from_hf_checkpoint`` to a Hugging Face
+checkpoint directory loaded by ``checkpoint/hf_convert.py`` (optionally
+weight-only int8). ``make_stream_explain_hook`` turns a backend into the
+streaming engine's ``explain_batch_fn``.
 """
 
 from __future__ import annotations
@@ -78,6 +79,23 @@ class OnPodBackend(_GenerateMixin):
                                           max_new_tokens=max_tokens)
 
         return cls(generate_fn, generate_batch_fn)
+
+    @classmethod
+    def from_hf_checkpoint(cls, ckpt_dir: str, *, mesh=None,
+                           max_seq: int = 4096, int8: bool = False,
+                           tokenizer=None, device="cuda") -> "OnPodBackend":
+        """Serve a locally downloaded HF checkpoint directory on the card,
+        in place of the reference's hosted DeepSeek call
+        (``checkpoint/hf_convert.py`` ``load_hf_checkpoint``). ``int8=True``
+        loads it weight-only int8 (quantized on the host before the upload;
+        the same weights as an after-load ``quantize_params``). ``mesh``
+        (tensor parallelism) is not ported."""
+        from fraud_detection_tpu_torch.checkpoint.hf_convert import (
+            load_hf_checkpoint)
+
+        return cls.from_model(load_hf_checkpoint(
+            ckpt_dir, max_seq=max_seq, mesh=mesh, tokenizer=tokenizer,
+            int8=int8, device=device))
 
 
 def make_stream_explain_hook(backend, *, temperature: float = 0.0,

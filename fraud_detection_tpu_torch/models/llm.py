@@ -21,8 +21,16 @@ beside the code.
 The slot programs of continuous batching (``slot_prefill``,
 ``slot_decode_window``) and their paged twins over a flat page pool
 (``init_kv_pages``, ``copy_kv_page``, ``paged_slot_prefill``,
-``paged_decode_window``) serve ``explain/slotserve/``. Tensor and sequence
-parallelism and int8 weights are not ported.
+``paged_decode_window``) serve ``explain/slotserve/``.
+
+Weight-only int8 (``quantize_params``, ``LanguageModel.quantized``, and
+``checkpoint/hf_convert.py``'s ``int8=True`` load): a ``Q8`` leaf (int8
+``q`` and f32 per-output-channel ``scale``) stands in a weight's place, and
+every weight product goes through ``_mm`` or the head's ``_logits_head``,
+which hand an int8 weight to ``ops/int8_matmul.py`` (the hand-written W8A16
+kernel on the card, reading the weight at int8 width), so every program
+above takes int8 weights with no code of its own. Tensor and sequence
+parallelism are not ported.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fraud_detection_tpu_torch.ops.attention import flash_attention
+from fraud_detection_tpu_torch.ops.int8_matmul import w8_matmul
 from fraud_detection_tpu_torch.utils import threefry
 from fraud_detection_tpu_torch.utils.device import resolve_device
 
@@ -90,9 +99,22 @@ def _weight(shape, cfg: TransformerConfig, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+class Q8(nn.Module):
+    """Per-output-channel int8 weight, ``w ~= q * scale``: ``q`` int8 in the
+    weight's shape, ``scale`` f32 with the weight's rank, singleton along its
+    input dims (the JAX package's ``Q8``). Consumers hand ``q`` to the
+    product at int8 width and apply the scale to the product's output."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("scale", scale)
+
+
 class DecoderLayer(nn.Module):
     """One layer's weights: wq (D, H, d), wk/wv (D, Hkv, d), wo (H, d, D),
-    w_gate/w_up (D, F), w_down (F, D), ln1/ln2 (D,)."""
+    w_gate/w_up (D, F), w_down (F, D), ln1/ln2 (D,); a matrix may be a
+    ``Q8``."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -103,7 +125,8 @@ class DecoderLayer(nn.Module):
 class Transformer(nn.Module):
     """The decoder's weights: embed (V, D), lm_head (V, D) unless tied,
     ``layers``, ln_f (D,). ``param(name)`` reads them by the JAX package's
-    parameter names (``embed``, ``l3.wq``, ``ln_f`` ...)."""
+    parameter names (``embed``, ``l3.wq``, ``ln_f`` ...), ``set_param``
+    replaces one (a tensor or a ``Q8``)."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -116,21 +139,42 @@ class Transformer(nn.Module):
                                     for _ in range(cfg.n_layers))
         self.ln_f = _weight((cfg.d_model,), cfg, device)
 
+    @classmethod
+    def from_leaves(cls, cfg: TransformerConfig, leaves) -> "Transformer":
+        """A model holding ``leaves`` ({name: tensor | Q8}, every name of
+        ``param_names``) as they are: nothing is copied or cast."""
+        model = cls(cfg, device="meta")
+        for name in model.param_names():
+            model.set_param(name, leaves[name])
+        return model
+
     def param_names(self) -> list:
         names = ["embed"] + ([] if self.cfg.tie_embeddings else ["lm_head"])
         names += [f"l{l}.{leaf}" for l in range(self.cfg.n_layers)
                   for leaf in _layer_shapes(self.cfg)]
         return names + ["ln_f"]
 
-    def param(self, name: str) -> nn.Parameter:
+    def _owner(self, name: str):
         if "." in name:
             layer, leaf = name.split(".")
-            return getattr(self.layers[int(layer[1:])], leaf)
-        return getattr(self, name)
+            return self.layers[int(layer[1:])], leaf
+        return self, name
+
+    def param(self, name: str):
+        owner, leaf = self._owner(name)
+        return getattr(owner, leaf)
+
+    def set_param(self, name: str, value) -> None:
+        owner, leaf = self._owner(name)
+        if leaf in owner._parameters:
+            delattr(owner, leaf)   # a Parameter's slot takes no module
+        if not isinstance(value, Q8):
+            value = nn.Parameter(value, requires_grad=False)
+        setattr(owner, leaf, value)
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.ln_f.device
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator, *,
@@ -149,6 +193,97 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, *,
             p.data.copy_(torch.randn(p.shape, generator=generator,
                                      device=generator.device).mul_(std))
     return model
+
+
+# ---------------------------------------------------------------------------
+# weight-only int8: decode streams every weight at every step, so int8
+# weights halve the bytes a step reads
+# ---------------------------------------------------------------------------
+
+#: weight name suffix -> axes reduced for the absmax (the INPUT dims).
+_QUANT_REDUCE_AXES = {
+    "wq": (0,), "wk": (0,), "wv": (0,),      # (D, h, d): in = D
+    "wo": (0, 1),                            # (h, d, D): in = (h, d)
+    "w_gate": (0,), "w_up": (0,),            # (D, F): in = D
+    "w_down": (0,),                          # (F, D): in = F
+    "embed": (1,), "lm_head": (1,),          # (V, D): per-row (gather + head)
+}
+
+
+def _quant_axes(name: str, include_embed: bool):
+    """The absmax axes of parameter ``name``, None where it stays as it is
+    (norm gains; the embedding and head unless ``include_embed``)."""
+    suffix = name.rsplit(".", 1)[-1]
+    if suffix in ("embed", "lm_head") and not include_embed:
+        return None
+    return _QUANT_REDUCE_AXES.get(suffix)
+
+
+def _quantize(w: torch.Tensor, axes) -> Q8:
+    """The JAX package's quantizer: f32 math, keepdims absmax over the input
+    axes, scale max(absmax, 1e-8) / 127, round half to even, clip to +-127.
+    Each f32 quotient is taken in float64 and rounded to f32 once, which is
+    the correctly rounded f32 quotient (53 >= 2 x 24 + 2 bits), on every
+    device: torch's CUDA division by a Python scalar multiplies by its
+    reciprocal instead, one ulp off now and then. So the card, the CPU and
+    numpy give the same bits."""
+    wf = w.float()
+    absmax = wf.abs().amax(dim=axes, keepdim=True)
+    denom = torch.full((), 127.0, dtype=torch.float64, device=w.device)
+    scale = (torch.clamp_min(absmax, 1e-8).double() / denom).float()
+    q = torch.round((wf.double() / scale.double()).float())
+    return Q8(torch.clamp(q, -127, 127).to(torch.int8), scale)
+
+
+def quantize_params(params: Transformer, *,
+                    include_embed: bool = True) -> Transformer:
+    """Weight-only int8 copy of ``params`` on its device, per-output-channel
+    scales. Norm gains stay at full precision; ``include_embed=False`` keeps
+    the embedding and output head too. Leaves that stay are shared, not
+    copied."""
+    leaves = {}
+    for name in params.param_names():
+        w = params.param(name)
+        axes = _quant_axes(name, include_embed)
+        leaves[name] = (w if axes is None or isinstance(w, Q8)
+                        else _quantize(w.detach(), axes))
+    return Transformer.from_leaves(params.cfg, leaves)
+
+
+def quantize_params_host(params: Dict[str, torch.Tensor], *,
+                         include_embed: bool = True,
+                         compute_dtype: Optional[torch.dtype] = None) -> dict:
+    """``quantize_params`` over a dict of host tensors ({name: tensor}), for
+    loads that quantize before the upload (``checkpoint/hf_convert.py``):
+    half the bytes go to the card. ``compute_dtype``: the model dtype an
+    after-load ``quantize_params`` would have seen; weights round-trip
+    through it first (round to nearest even), so a checkpoint loaded at
+    another dtype quantizes the same values on both paths. Returns
+    {name: tensor | Q8}."""
+    out = {}
+    for name, w in params.items():
+        axes = _quant_axes(name, include_embed)
+        if axes is None:
+            out[name] = w
+            continue
+        if compute_dtype is not None:
+            w = w.to(compute_dtype)
+        out[name] = _quantize(w, axes)
+    return out
+
+
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """``x`` (..., K) times the weight ``w`` viewed as (K, N): a layer
+    weight's product in the JAX package's layout (``_mm``). An int8 weight
+    goes to ``w8_matmul`` at int8 width, its scale applied to the product's
+    output, at the reference's rounding points: the product in the model
+    dtype, times the f32 scale, rounded to the model dtype again."""
+    k = x.shape[-1]
+    if isinstance(w, Q8):
+        y = w8_matmul(x.reshape(-1, k), w.q.reshape(k, -1),
+                      w.scale.reshape(-1), "kn")
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    return x @ w.reshape(k, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +465,17 @@ def causal_attention(q, k, v, use_flash: Optional[bool] = None) -> torch.Tensor:
 
 def _embed(params: Transformer, tokens: torch.Tensor,
            cfg: TransformerConfig) -> torch.Tensor:
-    x = params.embed[tokens].to(cfg.dtype)
+    emb = params.embed
+    if cfg.vocab_size <= cfg.EOS:
+        # A vocabulary narrower than the byte ids (a small HF checkpoint):
+        # finished rows feed EOS back in, and JAX clamps an out-of-range
+        # gather index where torch raises (or faults on the card).
+        tokens = tokens.clamp(0, cfg.vocab_size - 1)
+    if isinstance(emb, Q8):
+        # only the gathered rows are dequantized (``_embed_rows``)
+        x = (emb.q[tokens].float() * emb.scale[tokens]).to(cfg.dtype)
+    else:
+        x = emb[tokens].to(cfg.dtype)
     if cfg.embed_scale != 1.0:
         # rounded to the model dtype before the multiply (bf16: 45.25)
         x = x * float(torch.tensor(cfg.embed_scale, dtype=cfg.dtype))
@@ -345,30 +490,36 @@ def _activation(cfg: TransformerConfig):
 def _qkv(layer: DecoderLayer, x: torch.Tensor, cos, sin,
          cfg: TransformerConfig):
     """One layer's q (B, T, H, d) and k, v (B, T, Hkv, d), RoPE applied."""
-    B, T, D = x.shape
+    B, T, _ = x.shape
     H, Hkv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     h = rms_norm(x, layer.ln1, cfg.rms_eps)
-    q = (h @ layer.wq.reshape(D, H * d)).view(B, T, H, d)
-    k = (h @ layer.wk.reshape(D, Hkv * d)).view(B, T, Hkv, d)
-    v = (h @ layer.wv.reshape(D, Hkv * d)).view(B, T, Hkv, d)
+    q = _mm(h, layer.wq).view(B, T, H, d)
+    k = _mm(h, layer.wk).view(B, T, Hkv, d)
+    v = _mm(h, layer.wv).view(B, T, Hkv, d)
     return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
 
 
 def _layer_out(layer: DecoderLayer, x: torch.Tensor, attn: torch.Tensor,
                cfg: TransformerConfig, act) -> torch.Tensor:
     """The attention output projection and the gated MLP, both residual."""
-    B, T, D = x.shape
-    hd = cfg.n_heads * cfg.head_dim
-    x = x + attn.reshape(B, T, hd) @ layer.wo.reshape(hd, D)
+    B, T, _ = x.shape
+    x = x + _mm(attn.reshape(B, T, cfg.n_heads * cfg.head_dim), layer.wo)
     h2 = rms_norm(x, layer.ln2, cfg.rms_eps)
-    return x + (act(h2 @ layer.w_gate) * (h2 @ layer.w_up)) @ layer.w_down
+    return x + _mm(act(_mm(h2, layer.w_gate)) * _mm(h2, layer.w_up),
+                   layer.w_down)
 
 
 def _logits_head(x: torch.Tensor, params: Transformer,
                  cfg: TransformerConfig) -> torch.Tensor:
     """f32 logits of features ``x`` (..., D): the head product in the model
-    dtype, then f32 (bf16 logits round first)."""
+    dtype, then f32 (bf16 logits round first). An int8 head goes to
+    ``w8_matmul``'s (V, D) layout, its (V, 1) per-row scale applied to the
+    f32 logits."""
     head = params.embed if cfg.tie_embeddings else params.lm_head
+    if isinstance(head, Q8):
+        y = w8_matmul(x.reshape(-1, x.shape[-1]), head.q,
+                      head.scale.reshape(-1), "nk")
+        return y.reshape(*x.shape[:-1], y.shape[-1])
     return (x @ head.T).float()
 
 
@@ -868,6 +1019,12 @@ class LanguageModel:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return cls(cfg, init_params(cfg, gen, std=std))
+
+    def quantized(self, *, include_embed: bool = True) -> "LanguageModel":
+        """Weight-only int8 copy (see ``quantize_params``): the same API and
+        KV cache, about half the weight bytes per decode step."""
+        return LanguageModel(self.cfg, quantize_params(
+            self.params, include_embed=include_embed), tokenizer=self.tokenizer)
 
     def generate_tokens(self, prompt_tokens, *, max_new_tokens: int = 64,
                         temperature: float = 0.0, seed: int = 0) -> np.ndarray:

@@ -1,6 +1,7 @@
 """Explanation-backend settings from the environment — the ``LLMConfig``
 part of ``fraud_detection_tpu/utils/config.py`` (the serve CLI's
-``--explain`` temperature rule reads it). The same variable names:
+``--explain`` temperature rule and its ``deepseek`` backend read it). The
+same variable names:
 ``DEEPSEEK_API_KEY``, ``LLM_BASE_URL``, ``LLM_MODEL``, ``LLM_TEMPERATURE``,
 ``LLM_TIMEOUT``, ``LLM_MAX_ATTEMPTS``."""
 
@@ -32,3 +33,12 @@ class LLMConfig:
             timeout=float(e.get("LLM_TIMEOUT", "90")),
             max_attempts=int(e.get("LLM_MAX_ATTEMPTS", "3")),
         )
+
+    def make_backend(self, **kw):
+        """The OpenAI-compatible HTTP backend these settings describe (no
+        request is made until the backend is asked for an explanation)."""
+        from fraud_detection_tpu_torch.explain.backends import OpenAIChatBackend
+
+        return OpenAIChatBackend(base_url=self.base_url, model=self.model,
+                                 api_key=self.api_key, timeout=self.timeout,
+                                 max_attempts=self.max_attempts, **kw)

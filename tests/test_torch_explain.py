@@ -7,6 +7,9 @@ outputs, snapshots and errors; the historical store ranks the same cases
 engine with ``explain_batch_fn`` emits frames byte-identical to the JAX
 engine's on the same stream and canned hook, and, with the on-device
 backend over the same tiny decoder, the same greedy explanations.
+``OnPodBackend.from_hf_checkpoint(int8=True)`` serves a checkpoint written
+in the test with the JAX backend's int8 weights, and refuses ``mesh=``
+naming its ROADMAP item.
 """
 
 import json
@@ -248,3 +251,58 @@ def test_engine_onpod_explanations_match_jax(dt_pipes):
     assert (be.generate("why?", temperature=0.0, max_tokens=5)
             == jx.OnPodBackend.from_model(jlm).generate(
                 "why?", temperature=0.0, max_tokens=5))
+
+
+def test_from_hf_checkpoint_int8(tmp_path):
+    """The counterpart of ``tests/test_explain.py``'s
+    ``test_from_hf_checkpoint_int8``: an int8 load of a synthetic Llama
+    checkpoint behind the backend API, its codes equal to the JAX load's;
+    at f32 the backend's greedy analyses equal the JAX backend's (bf16 on
+    the CPU may round a near-tie apart); ``mesh=`` (tensor parallelism) is
+    refused naming its ROADMAP item."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "examples"))
+    try:
+        from convert_hf_checkpoint import make_synthetic_checkpoint
+    finally:
+        sys.path.pop(0)
+    import jax.numpy as jnp
+    import torch
+
+    from fraud_detection_tpu.checkpoint.hf_convert import (
+        load_hf_checkpoint as jload)
+    from fraud_detection_tpu_torch.explain import OnPodBackend
+    from fraud_detection_tpu_torch.models.llm import Q8
+
+    d = str(tmp_path / "ckpt")
+    os.makedirs(d)
+    make_synthetic_checkpoint(d)
+    be = OnPodBackend.from_hf_checkpoint(d, int8=True, tokenizer="byte",
+                                         device="cpu")
+    out = be.generate_batch(["why is this a scam?"], max_tokens=6)
+    assert len(out) == 1 and isinstance(out[0], str)
+
+    jlm = jload(d, tokenizer="byte", int8=True, use_cache=False)
+    from fraud_detection_tpu_torch.checkpoint.hf_convert import (
+        load_hf_checkpoint)
+
+    plm = load_hf_checkpoint(d, tokenizer="byte", int8=True, device="cpu")
+    for name, v in jlm.params.items():
+        if isinstance(v, jllm.Q8):
+            assert isinstance(plm.params.param(name), Q8)
+            np.testing.assert_array_equal(plm.params.param(name).q.numpy(),
+                                          np.asarray(v.q))
+
+    j32 = jx.OnPodBackend.from_model(jload(d, tokenizer="byte", int8=True,
+                                           dtype=jnp.float32))
+    p32 = px.OnPodBackend.from_model(load_hf_checkpoint(
+        d, tokenizer="byte", int8=True, dtype=torch.float32, device="cpu"))
+    prompts = ["why is this a scam?", "Caller: read me the code now."]
+    assert (p32.generate_batch(prompts, max_tokens=6)
+            == j32.generate_batch(prompts, max_tokens=6))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.3"):
+        OnPodBackend.from_hf_checkpoint(d, int8=True, tokenizer="byte",
+                                        device="cpu", mesh=object())

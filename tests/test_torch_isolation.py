@@ -55,7 +55,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "registry.promote", "learn.loop", "learn.store",
                  "stream.feedback", "scenarios.traffic",
                  "explain.slotserve", "explain.slotserve.decode",
-                 "explain.slotserve.service", "stream.annotations"):
+                 "explain.slotserve.service", "stream.annotations",
+                 "checkpoint.hf_convert", "ops.int8_matmul"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -130,6 +131,18 @@ def test_no_cuda_means_no_silent_cpu_llm():
     assert lm.generate_tokens_batch([[cfg.BOS, 65]], max_new_tokens=2).shape == (1, 2)
     with pytest.raises(RuntimeError, match="cuda"):
         HistoricalCaseStore(HashingTfIdfFeaturizer(num_features=16), ["a"], [0])
+
+
+def test_no_cuda_means_no_silent_cpu_checkpoint_load(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from fraud_detection_tpu_torch.checkpoint.hf_convert import (
+        load_hf_checkpoint)
+    from fraud_detection_tpu_torch.explain import OnPodBackend
+
+    for load in (load_hf_checkpoint, OnPodBackend.from_hf_checkpoint):
+        with pytest.raises(RuntimeError, match="cuda"):
+            load(str(tmp_path), tokenizer="byte")
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):

@@ -13,7 +13,11 @@ serves it under each flag variant. The explanation lane's flags
 ``--explain-kv-pages``, ``--explain-async``, ``--annotations-topic``,
 ``--breaker``, ``--breaker-probe``) refuse bad values with the JAX CLI's
 messages, and the slot lane serves end to end on the CPU, contiguous and
-paged.
+paged. ``--explain onpod:<dir>`` and ``onpod-int8:<dir>`` serve a Hugging
+Face checkpoint written in the test (with a word-level tokenizer) with the
+JAX CLI's classified output, analyses on exactly the flagged rows, and
+refuse a missing or unloadable directory with its messages; ``--explain
+deepseek`` needs a key and then builds the reference's backend.
 """
 
 import json
@@ -168,7 +172,8 @@ def test_synthetic_model_names_the_missing_trainer(capsys):
         "classified messages on dialogues-classified: 5"
     with pytest.raises(SystemExit, match=r"pyarrow.*Queue 1 item 6"):
         tserve.main(["--device", "cpu", "--model", "spark:x", "--demo", "5"])
-    with pytest.raises(SystemExit, match=r"Queue 1 item 7"):
+    with pytest.raises(SystemExit,
+                       match=r"checkpoint dir '/nowhere' not found"):
         tserve.main(["--device", "cpu", "--model", "x", "--demo", "5",
                      "--explain", "onpod:/nowhere"])
 
@@ -263,3 +268,136 @@ def test_synthetic_model_serves_with_each_variant(capsys, extra):
     assert device["featurize_path"] == ("torch" if "--featurize-device" in extra
                                         else "host")
     assert device["int8"] is ("--int8" in extra)
+
+
+@pytest.fixture(scope="module")
+def hf_dir(tmp_path_factory):
+    """A tiny Llama checkpoint (``tests/test_hf_convert.py``'s layout) with
+    a word-level tokenizer that ``transformers`` loads from its files."""
+    from tests.test_torch_hf_convert import state, write_dir, write_tokenizer
+
+    path = tmp_path_factory.mktemp("hf")
+    hf, st = state("llama_gqa", seed=21)
+    write_dir(path, hf, st)
+    write_tokenizer(path)
+    return str(path)
+
+
+def _recording_brokers(monkeypatch):
+    """Record every demo broker the two CLIs build."""
+    from fraud_detection_tpu import stream as jstream
+    from fraud_detection_tpu_torch import stream as tstream
+
+    made = {}
+    for name, mod in (("jax", jstream), ("port", tstream)):
+        base = mod.InProcessBroker
+
+        class Recording(base):
+            def __init__(self, *a, _name=name, **kw):
+                super().__init__(*a, **kw)
+                made[_name] = self
+
+        monkeypatch.setattr(mod, "InProcessBroker", Recording)
+    return made
+
+
+@pytest.mark.parametrize("spec", ["onpod", "onpod-int8"])
+def test_explain_hf_checkpoint_matches_jax_cli(ckpt, hf_dir, capsys,
+                                               monkeypatch, spec):
+    """Both CLIs serve the same checkpoint directory (bf16 on the CPU):
+    exit 0, every message classified with equal labels and confidences, and
+    an analysis on exactly the flagged rows. The analyses' tokens may differ:
+    bf16 products of XLA and torch can round a near-tie apart (token
+    equality is held in f32 by tests/test_torch_int8.py and
+    tests/test_torch_llm.py)."""
+    brokers = _recording_brokers(monkeypatch)
+    argv = ["--model", ckpt, "--demo", "60", "--explain",
+            f"{spec}:{hf_dir}", "--explain-tokens", "4"]
+    jrc, jstats, jn = _serve(jserve.main, argv, capsys)
+    trc, tstats, tn = _serve(tserve.main, ["--device", "cpu", *argv], capsys)
+    assert jrc == trc == 0 and jn == tn == 60
+    assert set(tstats) == set(jstats)
+    frames = {name: {m.key: json.loads(m.value)
+                     for m in b.messages("dialogues-classified")}
+              for name, b in brokers.items()}
+    assert frames["port"].keys() == frames["jax"].keys()
+    flagged = 0
+    for key, jf in frames["jax"].items():
+        tf = frames["port"][key]
+        assert (tf["prediction"], tf["label"], tf["original_text"]) == \
+            (jf["prediction"], jf["label"], jf["original_text"])
+        assert abs(tf["confidence"] - jf["confidence"]) <= 1e-5
+        for f in (jf, tf):
+            assert ("analysis" in f) == (f["prediction"] != 0)
+            assert isinstance(f.get("analysis", ""), str)
+        flagged += jf["prediction"] != 0
+    assert flagged > 0
+
+
+def test_explain_checkpoint_refusals_equal_jax(ckpt, tmp_path, monkeypatch):
+    """A missing directory, one without a checkpoint and one without a
+    tokenizer refuse with the JAX CLI's messages; so does deepseek without
+    its key."""
+    from tests.test_torch_hf_convert import state, write_dir
+
+    monkeypatch.delenv("DEEPSEEK_API_KEY", raising=False)
+    no_tok = tmp_path / "no_tokenizer"
+    no_tok.mkdir()
+    write_dir(no_tok, *state("llama_gqa"))
+    for spec in ("onpod:/nowhere", "onpod-int8:", f"onpod:{tmp_path}",
+                 f"onpod-int8:{no_tok}", "deepseek"):
+        argv = ["--model", ckpt, "--demo", "5", "--explain", spec]
+        with pytest.raises(SystemExit) as je:
+            jserve.main(argv)
+        with pytest.raises(SystemExit) as te:
+            tserve.main(["--device", "cpu", *argv])
+        assert str(te.value) == str(je.value), spec
+    assert "needs DEEPSEEK_API_KEY" in str(te.value)
+
+
+def test_explain_deepseek_builds_the_reference_backend(ckpt, capsys,
+                                                       monkeypatch):
+    """With a key, ``--explain deepseek`` builds the backend of
+    ``LLMConfig.make_backend`` (the reference's base URL and model) at the
+    reference agent's temperature, 1.0. No request is made: the backend's
+    transport is replaced by one that answers in-process."""
+    from fraud_detection_tpu.utils.config import LLMConfig as JLLMConfig
+    from fraud_detection_tpu_torch.explain.backends import OpenAIChatBackend
+    from fraud_detection_tpu_torch.utils.config import LLMConfig
+
+    monkeypatch.setenv("DEEPSEEK_API_KEY", "k-test")
+    monkeypatch.delenv("LLM_TEMPERATURE", raising=False)
+    monkeypatch.delenv("LLM_BASE_URL", raising=False)
+    monkeypatch.delenv("LLM_MODEL", raising=False)
+    want = JLLMConfig.from_env().make_backend(transport=lambda *a, **k: None)
+    got = LLMConfig.from_env().make_backend(transport=lambda *a, **k: None)
+    assert isinstance(got, OpenAIChatBackend)
+    for field in ("base_url", "model", "api_key", "timeout", "max_attempts"):
+        assert getattr(got, field) == getattr(want, field), field
+    assert (got.base_url, got.model) == ("https://api.deepseek.com/v1",
+                                         "deepseek-chat")
+
+    calls = []
+
+    class Reply:
+        status_code = 200
+
+        def raise_for_status(self):
+            pass
+
+        def json(self):
+            return {"choices": [{"message": {"content": "an analysis"}}]}
+
+    def transport(url, **kw):
+        calls.append((url, kw["json"]["model"], kw["json"]["temperature"]))
+        return Reply()
+
+    real = LLMConfig.make_backend
+    monkeypatch.setattr(LLMConfig, "make_backend",
+                        lambda self, **kw: real(self, transport=transport))
+    rc, stats, n = _serve(tserve.main, [
+        "--device", "cpu", "--model", ckpt, "--demo", "40", "--explain",
+        "deepseek", "--explain-tokens", "8"], capsys)
+    assert rc == 0 and n == 40
+    assert calls and all(c == ("https://api.deepseek.com/v1/chat/completions",
+                               "deepseek-chat", 1.0) for c in calls)

@@ -27,7 +27,7 @@ Not ported, so not here (each waits for its ROADMAP Queue 1 item):
 ``test_chaos_every_flagged_row_explained_or_accounted`` (``stream/faults.py``,
 item 5.1); ``test_campaign_explain_gameday_passes`` and
 ``test_gameday_validation_rejects_bad_configs`` (``scenarios/gameday``, item
-5.4); ``test_int8_model_serves_through_slots`` (int8 weights, item 7).
+5.4).
 """
 
 import json
@@ -453,3 +453,18 @@ def test_serve_cli_explain_slots_validation():
     with pytest.raises(SystemExit, match="explain-slots must be"):
         tserve.main(["--device", "cpu", "--model", "synthetic", "--demo",
                      "10", "--explain", "onpod-demo", "--explain-slots", "-1"])
+
+
+def test_int8_model_serves_through_slots(lm):
+    """The int8 model rides the same slot programs (``Q8`` weights through
+    ``_mm`` and the int8 head), with the fixed-batch path's greedy replies."""
+    q = lm.quantized()
+    svc = make_service(q, slots=2, max_new_tokens=6)
+    try:
+        prompts = ["int8 row A", "int8 row B", "int8 row C"]
+        out = svc.generate_batch(prompts, temperature=0.0, max_tokens=6)
+        assert out == list(OnPodBackend.from_model(q).generate_batch(
+            prompts, temperature=0.0, max_tokens=6))
+        assert svc.snapshot()["completed"] == 3
+    finally:
+        assert svc.close()
