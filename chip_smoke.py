@@ -40,7 +40,11 @@ Phases (any failure raises and the script exits non-zero):
    two bf16 steps plus 2^-15 of the output's sum of |x q| times its scale)
    and f32 (1e-5 of max |y|), two launches bit-equal, rows [5, 29) of an
    M = 64 and an M = 2048 launch equal to a launch of those rows alone (the
-   kernel picks another block shape for each);
+   kernel picks another block shape for each), and across the dispatch's
+   boundaries rows [0, 8) of M = 2048 (128-row blocks, the K splits added
+   in registers) equal to an M = 8 launch (8-row blocks, the splits in
+   blocks of their own and a second pass) and its row 0 to an M = 1
+   launch; the ragged shapes' plans split K with a ragged last split;
 4. the serving slice at full width (HashingTF(10000)+IDF, W=2048, L=256,
    B=256; LR fp32, LR int8 and a depth-5 20-tree forest made from --seed)
    on ``cuda`` with device featurization, against the same pipeline on the
@@ -1914,6 +1918,11 @@ W8_RAGGED = (1008, 1000)       # K (a ragged 128-k chunk), N (a ragged tile)
 # The row-independence gate: rows [5, 29) of an M = 64 or M = 2048 launch
 # against a launch of those rows alone (M = 24: another block shape).
 W8_ROWS = (5, 29)
+# The dispatch-boundary gate: rows [0, 8) of the M = 2048 launch (128-token
+# tiles, the K splits added in registers) against an M = 8 launch of those
+# rows (8-token tiles, the splits in separate blocks and a second pass), and
+# row 0 of that against an M = 1 launch.
+W8_BOUNDARY_ROWS = (8, 1)
 # f32: the kernel and cuBLAS sum the same products in other orders, within
 # 1e-5 of the largest |y| (the f32 flash gate's order of magnitude). bf16:
 # the output is rounded twice (x.q to bf16, times the scale to bf16), so a
@@ -1958,9 +1967,11 @@ def w8_weight(k: int, n: int, layout: str, dev, seed: int):
 def check_w8(label: str, x, q, scale, layout: str, quiet: bool = True) -> float:
     """The kernel twice and its plain version once on the same CUDA tensors;
     raises unless the launches are bit-equal, rows ``W8_ROWS`` of an M = 64 or
-    2048 launch equal a launch of those rows alone (another block shape), and
-    |kernel - plain| is within the tolerance of x's dtype (``W8_F32_TOL``,
-    ``W8_BF16_STEPS``). Returns max |kernel - plain|."""
+    2048 launch equal a launch of those rows alone (another block shape), at
+    M = 2048 rows ``W8_BOUNDARY_ROWS`` equal launches of those rows alone
+    across the dispatch's boundaries, and |kernel - plain| is within the
+    tolerance of x's dtype (``W8_F32_TOL``, ``W8_BF16_STEPS``). Returns max
+    |kernel - plain|."""
     import torch
 
     from fraud_detection_tpu_torch.ops import int8_matmul as W
@@ -1971,6 +1982,10 @@ def check_w8(label: str, x, q, scale, layout: str, quiet: bool = True) -> float:
     if x.shape[0] in (64, 2048):
         lo, hi = W8_ROWS
         rows = W.w8_matmul(x[lo:hi].contiguous(), q, scale, layout)
+    edge = None
+    if x.shape[0] == 2048:
+        edge = [W.w8_matmul(x[:r].contiguous(), q, scale, layout)
+                for r in W8_BOUNDARY_ROWS]
     ref = W.w8_matmul_reference(x, q, scale, layout).float()
     if x.dtype == torch.bfloat16:
         w = q.float() if layout == "kn" else q.float().T
@@ -1982,6 +1997,14 @@ def check_w8(label: str, x, q, scale, layout: str, quiet: bool = True) -> float:
     if rows is not None and not torch.equal(rows, a[W8_ROWS[0]:W8_ROWS[1]]):
         raise AssertionError(f"w8_matmul {label}: rows {W8_ROWS} alone differ "
                              f"from the same rows of the M = {x.shape[0]} launch")
+    if edge is not None:
+        wide, narrow = W8_BOUNDARY_ROWS
+        if not torch.equal(edge[0], a[:wide]):
+            raise AssertionError(f"w8_matmul {label}: an M = {wide} launch "
+                                 f"differs from rows [0, {wide}) of M = 2048")
+        if not torch.equal(edge[1], edge[0][:narrow]):
+            raise AssertionError(f"w8_matmul {label}: an M = {narrow} launch "
+                                 f"differs from rows [0, {narrow}) of M = {wide}")
     diff = (a.float() - ref).abs()
     err = float(diff.max())
     if x.dtype == torch.bfloat16:
@@ -2001,15 +2024,20 @@ def check_w8(label: str, x, q, scale, layout: str, quiet: bool = True) -> float:
     if not quiet:
         print(f"[check] w8_matmul {label}: max |diff| {err:.3g} ({limit}), "
               "two launches bit-equal"
-              + (f", rows {W8_ROWS} alone equal" if rows is not None else ""))
+              + (f", rows {W8_ROWS} alone equal" if rows is not None else "")
+              + (f", M = {W8_BOUNDARY_ROWS} launches equal its first rows"
+                 if edge is not None else ""))
     return err
 
 
 def check_w8_all(dev, seed: int) -> dict:
     """Phase 3 (w8_matmul): the kernel against its plain version at every
     Gemma-2B weight shape (``W8_SHAPES``) at M in ``W8_M``, bf16 and f32,
-    and at a ragged M, N and K in both layouts. Returns {label: max |diff|}."""
+    and at a ragged M, N and K in both layouts, whose plans split K with a
+    ragged last split (checked). Returns {label: max |diff|}."""
     import torch
+
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
 
     errs = {}
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -2020,6 +2048,17 @@ def check_w8_all(dev, seed: int) -> dict:
         q, scale = w8_weight(k, n, layout, dev, seed + i)
         ms = (3, 35, 64) if name.startswith("ragged") else W8_M
         for dtype in (torch.bfloat16, torch.float32):
+            plan = W._plan(k, n, layout, dtype)
+            last = k - (plan.splits - 1) * plan.split_len
+            if name.startswith("ragged") and not (plan.splits > 1
+                                                  and last < plan.split_len):
+                raise AssertionError(f"w8_matmul {name} {str(dtype)[6:]}: "
+                                     f"{plan} has no ragged last split")
+            routes = sorted({W._config(m, k, n, layout, dtype)[1:] for m in ms})
+            print(f"[check] w8_matmul {name} {str(dtype)[6:]} plan: "
+                  f"{plan.splits} K splits of {plan.split_len} (last "
+                  f"{last}), {plan.tile}-channel tiles; (rows a block, splits "
+                  f"in blocks of their own) over M in {ms}: {routes}")
             worst = 0.0
             for m in ms:
                 x = torch.randn((m, k), generator=g, device=dev).to(dtype)
@@ -2032,7 +2071,10 @@ def check_w8_all(dev, seed: int) -> dict:
                      "sum |x q| scale)" if dtype == torch.bfloat16
                      else f"{W8_F32_TOL} of max |y|")
                  + f", max |diff| {worst:.3g}; every M two launches "
-                 f"bit-equal; rows {W8_ROWS} of M=64 and 2048 alone equal")
+                 f"bit-equal; rows {W8_ROWS} of M=64 and 2048 alone equal"
+                 + ("" if name.startswith("ragged") else
+                    f"; M = {W8_BOUNDARY_ROWS} launches equal M = 2048's "
+                    "first rows"))
         del q, scale
     torch.cuda.empty_cache()
     return errs
@@ -4157,6 +4199,12 @@ def main(argv=None) -> int:
         "library": "cuBLAS bf16 torch.matmul on a bf16 copy of the weight",
         "shape": w8["w_gate,w_up M=8"]["shape"],
         "dtype": "bfloat16",
+        "design": "wgmma swap-AB (int8 weight as A, converted in registers; "
+                  "x as B in shared memory, tokens as instruction N: 8, 32, "
+                  "128 or 256), TMA-fed stage ring on mbarriers, one split plan "
+                  "per (K, N) for every M (K splits in blocks of their own "
+                  "at decode with an ordered second pass, in registers at "
+                  "prefill)",
         "per_decode_step": {"launches": llm_out["int8"]["step_launches"],
                             **w8["decode_step"]},
         "other_shapes": {k: v for k, v in w8.items()
@@ -4180,6 +4228,9 @@ def main(argv=None) -> int:
         "library": "f32 torch.matmul on an f32 copy of the weight",
         "shape": w8["w_gate,w_up M=8 f32"]["shape"],
         "dtype": "float32",
+        "design": "SIMT f32 FMAs in ascending k inside each K split of the "
+                  "same plan, double-buffered 32-k tiles, 8- or 32-row "
+                  "blocks, the same ordered second pass",
         "other_shapes": {k: v for k, v in w8.items() if k.endswith("f32")
                          and k != "w_gate,w_up M=8 f32"},
         "main_path": "phase 11: the 2-layer f32 int8 forward at T=600",

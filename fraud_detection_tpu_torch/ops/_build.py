@@ -3,9 +3,10 @@
 Each ``ops/csrc/<name>.cu`` exposes a plain C entry point. At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` at the repository root (git-ignored), named by a
-hash of its source and flags, so an edited source rebuilds and an unchanged
-one loads straight away. The library is loaded with ``ctypes``. Nothing
-builds at import time; a failed build raises with nvcc's stderr.
+hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one loads straight away.
+The library is loaded with ``ctypes``. Nothing builds at import time; a
+failed build raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -46,9 +47,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (its content hash in the name)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to (a hash of its content, of the
+    shared headers ``csrc/*.cuh`` and of the flags in the name)."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -9,6 +9,7 @@ GPU:
     mkdir -p build/other && git archive <commit> | tar -x -C build/other
     python3 scripts/kernel_times.py --slice tree --other build/other
     python3 scripts/kernel_times.py --slice featurize --other build/other
+    python3 scripts/kernel_times.py --slice int8 --other build/other
 
 Each checkout runs in processes of its own, in turns (other, this, this,
 other), on the same inputs made from ``--seed`` with ``chip_smoke.py``'s
@@ -32,6 +33,14 @@ featurizer widths (HashingTF 10,000, 256 token slots); then the pipeline
 rows/s of LR fp32, LR int8 and a 20-tree forest over 2,048 texts (median of
 5 predicts, with each one's device idle share from a trace of one predict)
 and the engine msgs/s over 4,096 messages (batch 256, depth 2).
+
+``--slice int8``: ``w8_matmul`` at every Gemma-2B weight shape of
+``chip_smoke.py`` (``W8_SHAPES``) at decode (M = 8) and prefill (M = 2,048)
+in bf16, and at M = 8 in f32, beside the library's product on a copy of the
+same weight in x's type (cuBLAS through ``torch.matmul``, which the port
+never calls for int8), each also per call over a back-to-back burst (the
+host's launch cost hidden behind the card); and a decode step's 127
+products (the bursts times ``W8_STEP_LAUNCHES``).
 
 The card's name and power limit lead the output; the whole table goes to
 ``chiprun_out/<slice>_kernel_times.json``.
@@ -187,7 +196,45 @@ def featurize_worker(cs, seed: int) -> dict:
     return out
 
 
-WORKERS = {"tree": tree_worker, "featurize": featurize_worker}
+def int8_worker(cs, seed: int) -> dict:
+    """``w8_matmul`` of one checkout and the library's product beside it;
+    returns {shape and M: {call: times}}."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def timed(fn, burst: int) -> dict:
+        return dict(_time(cs, fn, 10, 20), burst_ms=cs.burst_ms(fn, burst))
+
+    out = {}
+    for i, (name, (k, n, layout)) in enumerate(cs.W8_SHAPES.items()):
+        q, scale = cs.w8_weight(k, n, layout, dev, seed + i)
+        for dtype, ms in ((torch.bfloat16, (8, 2048)), (torch.float32, (8,))):
+            w = q.to(dtype)
+            for m in ms:
+                x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+                lib = (lambda: x @ w) if layout == "kn" else (lambda: x @ w.T)
+                burst = 100 if m == 8 else 10
+                out[f"{name} M={m} {str(dtype)[6:]}"] = {
+                    "w8_matmul": timed(lambda: W.w8_matmul(x, q, scale, layout),
+                                       burst),
+                    "library": timed(lib, burst)}
+            del w
+        del q, scale
+        torch.cuda.empty_cache()
+    out["decode_step M=8 bfloat16"] = {
+        f"{call}_burst_sum_ms": sum(
+            out[f"{s} M=8 bfloat16"][call]["burst_ms"] * cs.W8_STEP_LAUNCHES[s]
+            for s in cs.W8_SHAPES) for call in ("w8_matmul", "library")}
+    return out
+
+
+WORKERS = {"tree": tree_worker, "featurize": featurize_worker,
+           "int8": int8_worker}
 
 
 def _summary(got: list):
@@ -197,11 +244,14 @@ def _summary(got: list):
     then) has no device time and is left out of the median."""
     if all(isinstance(g, dict) and "device_ms" in g for g in got):
         traced = [g["device_ms"] for g in got if g["ops_per_call"]]
-        return dict(device_ms=statistics.median(traced) if traced else None,
+        cell = dict(device_ms=statistics.median(traced) if traced else None,
                     device_ms_turns=[g["device_ms"] for g in got],
                     events_ms_turns=[g["events_ms"] for g in got],
                     ops_per_call_turns=[g["ops_per_call"] for g in got],
                     kernels=got[0]["kernels"])
+        if all("burst_ms" in g for g in got):
+            cell["burst_ms_turns"] = [g["burst_ms"] for g in got]
+        return cell
     return got
 
 
@@ -256,10 +306,14 @@ def main(argv=None) -> int:
                 print(f"[{card}] {name} {key}: other device "
                       f"{o['device_ms']:.4f} ms (turns {o['device_ms_turns']}, "
                       f"events {o['events_ms_turns']}, ops a call "
-                      f"{o['ops_per_call_turns']}), this device "
+                      f"{o['ops_per_call_turns']}"
+                      + (f", bursts {o['burst_ms_turns']}" if "burst_ms_turns" in o
+                         else "") + f"), this device "
                       f"{t['device_ms']:.4f} ms (turns {t['device_ms_turns']}, "
                       f"events {t['events_ms_turns']}, ops a call "
-                      f"{t['ops_per_call_turns']}): "
+                      f"{t['ops_per_call_turns']}"
+                      + (f", bursts {t['burst_ms_turns']}" if "burst_ms_turns" in t
+                         else "") + "): "
                       f"{o['device_ms'] / t['device_ms']:.2f}x")
             else:
                 print(f"[{card}] {name} {key}: other {o}; this {t}")

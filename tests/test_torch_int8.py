@@ -318,6 +318,148 @@ def test_int8_products_go_through_w8_matmul(models, monkeypatch):
     assert calls.count("kn") == 7 * pq.cfg.n_layers and calls.count("nk") == 1
 
 
+# Gemma-2B's weight products as (K, N, layout): wq/wo, wk/wv, w_gate/w_up,
+# w_down and the tied head (chip_smoke.py ``W8_SHAPES``).
+GEMMA_2B_W8 = {"wq,wo": (2048, 2048, "kn"), "wk,wv": (2048, 256, "kn"),
+               "w_gate,w_up": (2048, 16_384, "kn"), "w_down": (16_384, 2048, "kn"),
+               "head": (2048, 256_000, "nk")}
+W8_MS = (1, 8, 35, 64, 512, 2048)
+W8_DTYPES = (torch.bfloat16, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", W8_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("shape", list(GEMMA_2B_W8), ids=list(GEMMA_2B_W8))
+def test_w8_plan_is_the_same_for_every_m(shape, layout, dtype):
+    """The split plan (channel tile, K splits, k chunk) a launch takes at
+    every M is the one of (K, N, layout, dtype): every output's f32 order is
+    fixed by the weight alone, which keeps a row's output bit-equal across M
+    (paged decode == contiguous)."""
+    k, n, _ = GEMMA_2B_W8[shape]
+    plans = {W._config(m, k, n, layout, dtype).plan for m in W8_MS}
+    assert plans == {W._plan(k, n, layout, dtype)}
+
+
+@pytest.mark.parametrize("dtype", W8_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 256), (2048, 16_384),
+                                 (16_384, 2048), (2048, 256_000), (1008, 1000),
+                                 (176, 40), (8, 8), (4096, 11_008)])
+def test_w8_plan_splits_cover_k_in_whole_chunks(k, n, layout, dtype):
+    plan = W._plan(k, n, layout, dtype)
+    assert plan.chunk in W._CHUNKS and plan.split_len % plan.chunk == 0
+    assert plan.split_len >= plan.chunk and plan.splits >= 1
+    # every split holds k; the last one the rest (ragged or whole)
+    assert (plan.splits - 1) * plan.split_len < k <= plan.splits * plan.split_len
+    assert plan.tile in ((64, 128) if dtype == torch.bfloat16 else (64,))
+    if layout == "nk" and dtype == torch.bfloat16:
+        assert plan.tile == 128
+
+
+@pytest.mark.parametrize("dtype", W8_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", ["w_down", "wq,wo", "wk,wv"])
+def test_w8_plan_fills_the_card_at_decode(shape, dtype):
+    """At decode (M = 8) the small-N shapes run at least one block per SM of
+    an H100 (132): channel tiles times K splits."""
+    k, n, layout = GEMMA_2B_W8[shape]
+    launch = W._config(8, k, n, layout, dtype)
+    plan = launch.plan
+    assert launch.across and plan.splits > 1
+    blocks = -(-8 // launch.tokens) * -(-n // plan.tile) * plan.splits
+    assert blocks >= 132, (plan, blocks)
+
+
+def test_w8_plan_known_values():
+    """The plans the card's numbers were taken with (PERF.md §6)."""
+    bf16 = {name: W._plan(k, n, layout, torch.bfloat16)[:3]
+            for name, (k, n, layout) in GEMMA_2B_W8.items()}
+    assert bf16 == {"wq,wo": (128, 16, 64), "wk,wv": (64, 64, 32),
+                    "w_gate,w_up": (128, 1, 128), "w_down": (128, 16, 128),
+                    "head": (128, 1, 128)}
+    assert W._plan(16_384, 2048, "kn", torch.float32)[:3] == (64, 9, 128)
+
+
+@pytest.mark.parametrize("dtype", W8_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", list(GEMMA_2B_W8), ids=list(GEMMA_2B_W8))
+def test_w8_scratch_is_the_partials_of_split_launches(shape, dtype):
+    """A launch writes f32 partials (S, M, N) exactly when its K splits go
+    to separate blocks: at decode for a split plan, never at M = 2048 or
+    for a one-split plan, and never past 16 MiB."""
+    k, n, layout = GEMMA_2B_W8[shape]
+    plan = W._plan(k, n, layout, dtype)
+    for m in W8_MS:
+        got = W._scratch_shape(m, k, n, layout, dtype)
+        launch = W._config(m, k, n, layout, dtype)
+        if got is None:
+            assert not launch.across or plan.splits == 1
+            continue
+        assert got == (plan.splits, m, n) and launch.across
+        assert 4 * plan.splits * m * n <= W._PARTIALS_MAX
+        assert -(-m // launch.tokens) * -(-n // plan.tile) < 132
+    assert W._scratch_shape(2048, k, n, layout, dtype) is None
+    want = (plan.splits, 8, n) if plan.splits > 1 else None
+    assert W._scratch_shape(8, k, n, layout, dtype) == want
+
+
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 35, 64, 65, 600, 2048])
+@pytest.mark.parametrize("shape", list(GEMMA_2B_W8), ids=list(GEMMA_2B_W8))
+def test_w8_token_tiles(m, shape):
+    """bf16 takes 8 rows at decode, 32 up to 64 rows or for a weight of
+    fewer than 8 channel tiles, 256 past 128 rows for a one-split kn weight,
+    else 128; f32 8 or 32."""
+    k, n, layout = GEMMA_2B_W8[shape]
+    bf16 = W._config(m, k, n, layout, torch.bfloat16)
+    f32 = W._config(m, k, n, layout, torch.float32)
+    wide = m > 64 and -(-n // bf16.plan.tile) >= 8
+    widest = wide and m > 128 and layout == "kn" and bf16.plan.splits == 1
+    assert bf16.tokens == (8 if m <= 8 else 256 if widest else 128 if wide else 32)
+    assert f32.tokens == (8 if m <= 8 else 32) and f32.plan.tile == 64
+    if m == 2048 and shape != "wk,wv":
+        assert wide     # every prefill product but wk/wv on 128-row blocks
+
+
+def _takes(k, n, layout, dtype) -> bool:
+    try:
+        W._check_kernel_shape(k, n, layout, dtype)
+    except ValueError:
+        return False
+    return True
+
+
+def test_w8_kernel_accepts_and_refuses_the_same_shapes():
+    """The kernel takes what it took before the split plan: bf16 kn needs K
+    and N multiples of 8, nk K a multiple of 16; f32 any shape. Every shape
+    it takes gets a plan and a launch the C entry point accepts (the
+    arguments it checks, mirrored here)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for k in range(1, 70):
+        for n in (1, 8, 12, 16, 24, 40, 1000, 1016):
+            assert _takes(k, n, "kn", bf16) == (k % 8 == 0 and n % 8 == 0)
+            assert _takes(k, n, "nk", bf16) == (k % 16 == 0)
+            assert _takes(k, n, "kn", f32) and _takes(k, n, "nk", f32)
+            for layout in ("kn", "nk"):
+                for dtype in (bf16, f32):
+                    if not _takes(k, n, layout, dtype):
+                        continue
+                    for m in (1, 8, 9, 64, 65, 3000, 40_000):
+                        plan, tokens, across = W._config(m, k, n, layout, dtype)
+                        assert (plan.splits - 1) * plan.split_len < k \
+                            <= plan.splits * plan.split_len
+                        if dtype == bf16:
+                            assert plan.split_len % 16 == 0
+                            assert tokens in (8, 32, 128, 256)
+                            # 256-row blocks keep no split sums
+                            assert tokens != 256 or plan.splits == 1 or across
+                            assert plan.tile in ((64, 128) if layout == "kn"
+                                                 else (128,))
+                        else:
+                            assert tokens in (8, 32) and plan.tile == 64
+    with pytest.raises(ValueError, match="multiples of 8"):
+        W._check_kernel_shape(1000, 1004, "kn", bf16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        W._check_kernel_shape(1000, 1000, "nk", bf16)
+
+
 @pytest.mark.cuda
 def test_w8_matmul_kernel_matches_reference_on_card():
     if not torch.cuda.is_available():
@@ -335,3 +477,15 @@ def test_w8_matmul_kernel_matches_reference_on_card():
         assert torch.equal(a, b)
         ref = W.w8_matmul_reference(x, q, s, layout)
         assert float((a - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        # a split plan (K 1,008 in 32-k splits, the last ragged): rows alone
+        # and across the dispatch's boundaries equal the same rows in bf16
+        xb = torch.randn((2048, 1008), generator=g, device=dev).bfloat16()
+        assert W._plan(1008, 1000, layout, torch.bfloat16).splits > 1
+        full = W.w8_matmul(xb, q, s, layout)
+        assert torch.equal(full, W.w8_matmul(xb, q, s, layout))
+        for rows in (8, 1):
+            assert torch.equal(W.w8_matmul(xb[:rows].contiguous(), q, s, layout),
+                               full[:rows])
+        refb = W.w8_matmul_reference(xb, q, s, layout).float()
+        step = refb.abs().clamp_min(1e-30) * 2.0 ** -7
+        assert bool(((full.float() - refb).abs() <= 2 * step + 1e-3).all())
