@@ -71,6 +71,26 @@ Phases (any failure raises and the script exits non-zero):
    featurize (no ``featurize_packed`` launch, the raw-JSON path and native
    frames), ``--featurize-device`` (one launch per chunk dispatched) and
    ``--async-dispatch --int8``: each exits 0 and classifies every message;
+5c. serving that survives faults and can be watched, on that checkpoint
+   under device featurize: the engine (batch 256, a DLQ, sync dispatch)
+   supervised by ``run_supervised`` over 4,096 seeded messages (malformed
+   ones included) under ``tests/test_chaos.py``'s mixed fault plan at seed
+   42 (200 faults at most): every key in out ∪ DLQ, no commit past a lost
+   output, restarts, injections and lost records > 0, every delivered
+   label equal to ``predict``, one ``featurize_packed`` launch a chunk
+   dispatched across incarnations, a second run and a run on the dispatch
+   lane byte-identical, the CPU run on the host-featurize pipeline with the
+   same fault report and stream (confidence within two last digits), no
+   thread left
+   and device memory within 1 MB of a clean warm-up run; then the serve
+   CLI with ``--featurize-device --chaos --chaos-seed 7 --trace --alerts
+   --incident-dir --metrics-file --health-file --profile-dir
+   --profile-batches 4``: exit 0, every key classified, restarts and the
+   chaos report, exact span accounting, the Prometheus file covering every
+   health leaf, the final health file, incidents equal to bundles, the
+   ``torch.profiler`` trace holding 1 to (chunks dispatched)
+   ``featurize_packed`` kernel events; and the CLI's msgs/s with and
+   without ``--trace --alerts --metrics-file``, in turns;
 6. the training slice at full width (the CLI's 1,600-dialogue synthetic
    corpus, HashingTF(10000), depth 5, 32 bins), card against CPU: dt and a
    16-tree rf (JAX's threefry draws, made on each device) equal tree for
@@ -237,7 +257,8 @@ Phases (any failure raises and the script exits non-zero):
 
 Launch counts are reset just before each main path (serving: phases 4-5;
 the stream entry: the pass after phase 5; ``featurize_packed`` again
-before phase 5b's host pipelines and before each serve CLI run;
+before phase 5b's host pipelines, before phase 5c's supervised run and
+before each serve CLI run;
 training: phase 7, the CLI, and phase 7c, the resume; the learn lane's
 refresh: phase 7f's lifecycle run; the LLM prefill: one T=2048 forward in phase
 10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
@@ -2762,6 +2783,330 @@ def serve_cli(argv, card: str) -> dict:
                 launches=fk.featurize_bytes.launches)
 
 
+CHAOS_MSGS = 4096        # phase 5c: messages of the seeded chaos run
+CHAOS_SEED = 42          # the mixed plan's seed (tests/test_chaos.py)
+CHAOS_MAX_FAULTS = 200
+CHAOS_BATCH = 256
+SERVE_THREADS = ("dispatch-lane", "health-writer", "metrics-writer",
+                 "metrics-http", "sentinel", "profile-window")
+
+
+def chaos_items(n: int, seed: int):
+    """``n`` seeded messages of the synthetic corpus, ~2% malformed
+    (unterminated JSON, a missing text field); returns (items, texts by
+    key)."""
+    from fraud_detection_tpu_torch.data import generate_corpus
+
+    rng = random.Random(seed)
+    items, want = [], {}
+    for i, d in enumerate(generate_corpus(n=n, seed=seed)):
+        key = str(i).encode()
+        r = rng.random()
+        if r < 0.01:
+            value = b'{"text": "unterminated'
+        elif r < 0.02:
+            value = json.dumps({"body": d.text}).encode()
+        else:
+            value = json.dumps({"text": d.text, "id": i}).encode()
+            want[key] = d.text
+        items.append((value, key))
+    return items, want
+
+
+def chaos_plan(seed: int = CHAOS_SEED):
+    """tests/test_chaos.py's mixed plan: lossy flushes, flush crashes,
+    commit fences, poll errors, duplicates, corruption, zero-cost latency
+    spikes, budgeted at ``CHAOS_MAX_FAULTS``."""
+    from fraud_detection_tpu_torch.stream.faults import FaultPlan
+
+    return FaultPlan(seed=seed, poll_error_rate=0.08, latency_spike_rate=0.05,
+                     latency_spike_sec=0.0, duplicate_rate=0.08,
+                     corrupt_rate=0.05, flush_fail_rate=0.08,
+                     flush_crash_rate=0.06, commit_fence_rate=0.08,
+                     max_faults=CHAOS_MAX_FAULTS, sleep=lambda s: None)
+
+
+def chaos_run(pipe, items, plan=None, **engine_kw) -> dict:
+    """One supervised run (``run_supervised``, backoff 0, a no-op sleep)
+    of the engine (batch 256, no scheduler, a DLQ) over a fresh broker
+    holding ``items``, its clients wrapped by ``plan`` when one is given.
+    Returns the broker, the stats, the producers and the engines built."""
+    from fraud_detection_tpu_torch.stream import (InProcessBroker,
+                                                  StreamingClassifier)
+    from fraud_detection_tpu_torch.stream.engine import run_supervised
+    from fraud_detection_tpu_torch.stream.faults import (ChaosConsumer,
+                                                         ChaosProducer)
+
+    broker = InProcessBroker(num_partitions=3)
+    broker.producer().produce_batch("in", items)
+    producers, engines, attempts = [], [], {}
+
+    def make_engine():
+        cons, prod = broker.consumer(["in"], "chaos"), broker.producer()
+        if plan is not None:
+            cons, prod = ChaosConsumer(cons, plan), ChaosProducer(prod, plan)
+            producers.append(prod)
+        engines.append(StreamingClassifier(
+            pipe, cons, prod, "out", batch_size=CHAOS_BATCH, max_wait=0.01,
+            dlq_topic="out-dlq", dlq_attempts=attempts, **engine_kw))
+        return engines[-1]
+
+    t0 = time.perf_counter()
+    stats = run_supervised(make_engine, max_restarts=300, backoff=0.0,
+                           idle_timeout=0.2, sleep=lambda s: None)
+    return dict(broker=broker, stats=stats, producers=producers,
+                engines=engines, wall_s=time.perf_counter() - t0)
+
+
+def chaos_invariants(run: dict, items, label: str) -> None:
+    """Every fed key is in out ∪ out-dlq, and no committed offset passes an
+    output that was lost."""
+    broker = run["broker"]
+    delivered = ({m.key for m in broker.messages("out")}
+                 | {m.key for m in broker.messages("out-dlq")})
+    missing = {k for _, k in items} - delivered
+    if missing:
+        raise AssertionError(f"{label}: lost {len(missing)} keys, e.g. "
+                             f"{sorted(missing)[:3]}")
+    committed = broker.committed("chaos")
+    for m in broker.messages("in"):
+        if (m.offset < committed.get((m.topic, m.partition), 0)
+                and m.key not in delivered):
+            raise AssertionError(f"{label}: a commit passed the lost output "
+                                 f"{m.key!r} ({m.partition}@{m.offset})")
+
+
+def serve_threads() -> list:
+    import threading
+
+    return sorted(t.name for t in threading.enumerate()
+                  if t.is_alive() and t.name in SERVE_THREADS)
+
+
+def supervised_chaos(dev, ckpt: Path, seed: int, card: str) -> dict:
+    """Phase 5c, part 1: the engine under the seeded mixed plan at the serve
+    CLI's widths on the card with device featurize (``featurize_packed``),
+    supervised. Gates: the delivery invariants; restarts, injections and a
+    lost flush; every delivered label equal to ``predict``; one
+    ``featurize_packed`` launch a chunk dispatched, across incarnations; a
+    second card run (sync) and a run on the dispatch lane byte-identical;
+    the CPU run on the host-featurize pipeline with the same fault report
+    and the same stream (keys, labels and texts in order, confidence within
+    two of the frame's last digits: |dp| <= 1e-6 as phase 5b gates, plus
+    the %.6f rounding); every thread joined and
+    device memory back within 1 MB of a clean warm-up run of the same
+    engine."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+
+    items, want = chaos_items(CHAOS_MSGS, seed + 101)
+    pipe = ServingPipeline.from_checkpoint(str(ckpt), device=dev,
+                                           batch_size=CHAOS_BATCH,
+                                           featurize_device=True)
+    if pipe.device_stats.featurize_path != "cuda":
+        raise AssertionError(f"chaos: featurize path "
+                             f"{pipe.device_stats.featurize_path}")
+    warm = chaos_run(pipe, items)          # clean: no plan
+    chaos_invariants(warm, items, "chaos warm-up")
+    torch.cuda.synchronize()
+    gc.collect()
+    mem_clean = torch.cuda.memory_allocated()
+    threads_before = serve_threads()
+
+    plan = chaos_plan()
+    fk.featurize_bytes.launches = 0
+    chunks0 = pipe.device_stats.chunks
+    run = chaos_run(pipe, items, plan)
+    launches = fk.featurize_bytes.launches
+    chunks = pipe.device_stats.chunks - chunks0
+    stats, report = run["stats"], plan.report()
+    chaos_invariants(run, items, "chaos")
+    lost = sum(len(p.lost) for p in run["producers"])
+    if not (stats.restarts > 0 and plan.total_injected > 0 and lost > 0):
+        raise AssertionError(f"chaos: restarts {stats.restarts}, injected "
+                             f"{report}, lost records {lost}")
+    if launches < 1 or launches != chunks:
+        raise AssertionError(f"chaos: featurize_packed launched {launches}x "
+                             f"over {chunks} chunks dispatched")
+    out = run["broker"].messages("out")
+    keys = sorted(want)
+    expect = dict(zip(keys, pipe.predict([want[k] for k in keys])
+                      .labels.tolist()))
+    frames = [(m.key, json.loads(m.value)) for m in out]
+    bad = [k for k, f in frames
+           if "error" not in f and f["prediction"] != expect.get(k)]
+    if bad:
+        raise AssertionError(f"chaos: {len(bad)} delivered labels != predict")
+    stream = [(m.key, m.value) for m in out]
+
+    again = chaos_run(pipe, items, chaos_plan())
+    lane = chaos_run(pipe, items, chaos_plan(), async_dispatch=True)
+    for name, r in (("second card run", again), ("dispatch lane", lane)):
+        if [(m.key, m.value) for m in r["broker"].messages("out")] != stream:
+            raise AssertionError(f"chaos: the {name}'s output stream != the "
+                                 "first run's")
+    cpu_pipe = ServingPipeline.from_checkpoint(str(ckpt), device="cpu",
+                                               batch_size=CHAOS_BATCH)
+    cpu_plan = chaos_plan()
+    cpu = chaos_run(cpu_pipe, items, cpu_plan)
+    if cpu_plan.report() != report or cpu["stats"].restarts != stats.restarts:
+        raise AssertionError(f"chaos: the CPU run's faults {cpu_plan.report()} "
+                             f"(restarts {cpu['stats'].restarts}) != the "
+                             f"card's {report} ({stats.restarts})")
+    cpu_out = cpu["broker"].messages("out")
+    byte_equal, max_dconf = 0, 0.0
+    if len(cpu_out) != len(out):
+        raise AssertionError(f"chaos: CPU stream {len(cpu_out)} frames, card "
+                             f"{len(out)}")
+    for mc, mg in zip(cpu_out, out):
+        fc, fg = json.loads(mc.value), json.loads(mg.value)
+        dconf = abs(fc.pop("confidence", 0.0) - fg.pop("confidence", 0.0))
+        # |dp| <= 1e-6 (phase 5b) plus the %.6f rounding: two last digits
+        if mc.key != mg.key or fc != fg or round(dconf * 1e6) > 2:
+            raise AssertionError(f"chaos: CPU frame {mc.key!r} != card frame "
+                                 f"{mg.key!r} (|dconf| {dconf})")
+        max_dconf = max(max_dconf, dconf)
+        byte_equal += mc.value == mg.value
+    cpu_dlq = sorted(m.key for m in cpu["broker"].messages("out-dlq"))
+    if cpu_dlq != sorted(m.key for m in run["broker"].messages("out-dlq")):
+        raise AssertionError("chaos: CPU DLQ keys != the card's")
+
+    torch.cuda.synchronize()
+    gc.collect()
+    mem_after = torch.cuda.memory_allocated()
+    leaked = [t for t in serve_threads() if t not in threads_before]
+    if leaked or abs(mem_after - mem_clean) > 1 << 20:
+        raise AssertionError(f"chaos: threads left {leaked}, device memory "
+                             f"{mem_after} B after the runs vs {mem_clean} B "
+                             "after the clean warm-up")
+    print(f"[chaos] {CHAOS_MSGS} msgs, batch {CHAOS_BATCH}, plan seed "
+          f"{CHAOS_SEED}: {report}, restarts {stats.restarts}, lost records "
+          f"{lost}, keys all in out+dlq, no commit past a lost output, "
+          f"labels equal predict; featurize_packed {launches} launches over "
+          f"{chunks} chunks; second run and dispatch lane byte-identical; "
+          f"CPU run same faults and stream ({byte_equal}/{len(out)} frames "
+          f"byte-equal, max |dconf| {max_dconf:.3g}); memory "
+          f"{mem_after - mem_clean:+d} B vs clean, no thread left; wall "
+          f"{run['wall_s']:.2f} s ({card})")
+    return dict(report=report, restarts=stats.restarts, lost_records=lost,
+                processed=stats.processed, dead_lettered=stats.dead_lettered,
+                featurize_packed_launches=launches, chunks=chunks,
+                wall_s=run["wall_s"], clean_wall_s=warm["wall_s"],
+                lane_wall_s=lane["wall_s"], cpu_wall_s=cpu["wall_s"],
+                frames=len(out), cpu_byte_equal_frames=byte_equal,
+                cpu_max_abs_dconf=max_dconf,
+                memory_delta_bytes=mem_after - mem_clean, card=card)
+
+
+def kernel_events(trace_path: str, name: str) -> int:
+    """Kernel events whose name holds ``name`` in a Chrome trace (a
+    kernel's device symbol: ``featurize_packed`` launches ``packed_kernel``)."""
+    with open(trace_path) as f:
+        doc = json.load(f)
+    return sum(1 for e in doc.get("traceEvents", [])
+               if e.get("cat") == "kernel" and name in e.get("name", ""))
+
+
+def chaos_cli(dev, ckpt: Path, work: Path, card: str) -> dict:
+    """Phase 5c, part 2: the serve CLI with every new flag (``--chaos
+    --chaos-seed 7 --trace --alerts --incident-dir --metrics-file
+    --health-file --profile-dir --profile-batches 4``) on the card under
+    ``--featurize-device``. Gates: exit 0, every message classified or
+    dead-lettered, restarts and the chaos report in the stats line, exact
+    span accounting, the metrics file parsed and covering every health
+    leaf, the health file's final state, its incident count equal to the
+    bundles written, the profile trace holding between 1 and the chunks
+    dispatched ``featurize_packed`` kernel events, and no serving thread
+    left. Then the CLI's msgs/s with and without ``--trace --alerts
+    --metrics-file``, in turns (reported, not gated)."""
+    from fraud_detection_tpu_torch.obs.metrics import (leaf_paths,
+                                                       metric_name,
+                                                       parse_prometheus)
+
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    inc, prom, hfile, prof = (work / "incidents", work / "m.prom",
+                              work / "health.json", work / "profile")
+    base = ["--device", str(dev), "--model", str(ckpt), "--demo",
+            str(SERVE_DEMO), "--batch-size", "1024", "--featurize-device"]
+    r = serve_cli(base + ["--chaos", "--chaos-seed", "7", "--trace",
+                          "--alerts", "--incident-dir", str(inc),
+                          "--metrics-file", str(prom), "--health-file",
+                          str(hfile), "--profile-dir", str(prof),
+                          "--profile-batches", "4"], card)
+    stats, engine = r["stats"], r["engine"]
+    broker = engine.consumer.inner.broker
+    out_keys = {m.key for m in broker.messages("dialogues-classified")}
+    if out_keys != {str(i).encode() for i in range(SERVE_DEMO)}:
+        raise AssertionError(f"chaos CLI: {len(out_keys)} of {SERVE_DEMO} keys "
+                             "classified")
+    if stats["restarts"] < 1 or stats.get("chaos", {}).get("total", 0) < 1:
+        raise AssertionError(f"chaos CLI: restarts {stats['restarts']}, chaos "
+                             f"{stats.get('chaos')}")
+    tr = stats["health"]["trace"]
+    if tr["spans_begun"] != tr["spans_ended"] or tr["spans_open"] \
+            or tr["batches_traced"] != tr["batches_closed"] \
+            or tr["batches_traced"] < 1:
+        raise AssertionError(f"chaos CLI: span accounting {tr}")
+    parsed = parse_prometheus(prom.read_text())
+    missing = [p for p in leaf_paths(stats["health"], ("engine",))
+               if metric_name("fraud", p) not in parsed
+               and metric_name("fraud", p) + "_count" not in parsed]
+    if missing:
+        raise AssertionError(f"chaos CLI: health leaves not exported: "
+                             f"{missing[:5]}")
+    health = json.loads(hfile.read_text())
+    final = health["engines"][-1]
+    if health.get("chaos") != stats["chaos"] \
+            or final["processed"] != stats["health"]["processed"]:
+        raise AssertionError("chaos CLI: the health file is not the final "
+                             "state")
+    bundles = ([p for p in inc.iterdir() if p.is_dir()]
+               if inc.exists() else [])
+    if final["alerts"]["fired"] != len(bundles) \
+            or stats["alerts"]["fired"] != len(bundles):
+        raise AssertionError(f"chaos CLI: {final['alerts']['fired']} incidents "
+                             f"in the health file, {len(bundles)} bundles")
+    profile = stats.get("profile") or {}
+    if profile.get("error") is not None or not profile.get("trace"):
+        raise AssertionError(f"chaos CLI: profiler {profile}")
+    n_events = kernel_events(profile["trace"], "packed_kernel")
+    if not 1 <= n_events <= r["launches"]:
+        raise AssertionError(f"chaos CLI: {n_events} featurize_packed kernel "
+                             f"events in the profile, {r['launches']} chunks "
+                             "dispatched")
+    left = serve_threads()
+    if left:
+        raise AssertionError(f"chaos CLI: serving threads left: {left}")
+    print(f"[chaos-cli] exit 0, {SERVE_DEMO} keys classified, restarts "
+          f"{stats['restarts']}, chaos {stats['chaos']}; spans "
+          f"{tr['spans_begun']} begun = ended, batches {tr['batches_traced']} "
+          f"traced = closed; {len(parsed)} metric names cover every health "
+          f"leaf; health file final; incidents {len(bundles)} = bundles "
+          f"({stats['alerts']['firing']} firing); profile: {n_events} "
+          f"featurize_packed kernel events of {r['launches']} launches")
+    rates = {"plain": [], "traced": []}
+    obs_flags = ["--trace", "--alerts", "--metrics-file",
+                 str(work / "turns.prom")]
+    for arm in ("plain", "traced", "traced", "plain"):
+        t = serve_cli(base + (obs_flags if arm == "traced" else []), card)
+        rates[arm].append(t["stats"]["msgs_per_sec"])
+    print(f"[chaos-cli] serve msgs/s in turns (plain, traced, traced, plain):"
+          f" plain {rates['plain']}, with --trace --alerts --metrics-file "
+          f"{rates['traced']} ({card})")
+    return dict(restarts=stats["restarts"], chaos=stats["chaos"],
+                spans=tr["spans_begun"], batches_traced=tr["batches_traced"],
+                incidents=len(bundles), firing=stats["alerts"]["firing"],
+                metric_names=len(parsed), profile_kernel_events=n_events,
+                featurize_packed_launches=r["launches"],
+                msgs_per_sec=rates, card=card)
+
+
 def check_serve_runs(ckpt, n: int, dev, card: str, variants) -> dict:
     """Serve ``ckpt`` with each flag variant over ``--demo n``: every run
     classifies n (or n minus its shed rows); host featurize launches no
@@ -3656,6 +4001,15 @@ def main(argv=None) -> int:
     serve_runs = check_serve_runs(ckpt_dir / "lr", SERVE_DEMO, dev, card, {
         "lr_host": [], "lr_featurize_device": ["--featurize-device"],
         "lr_async_int8": ["--async-dispatch", "--int8"]})
+    # -- 5c. supervision, chaos and observability on the card ---------------
+    # (featurize_packed counts reset and read around each of its main paths:
+    # the supervised run and the serve CLI, inside the two functions)
+    t5c = time.perf_counter()
+    supervised = supervised_chaos(dev, ckpt_dir / "lr", args.seed, card)
+    supervised["cli"] = chaos_cli(dev, ckpt_dir / "lr",
+                                  ckpt_dir / "chaos_cli", card)
+    supervised["phase_wall_s"] = time.perf_counter() - t5c
+    print(f"[chaos] phase 5c wall {supervised['phase_wall_s']:.1f} s ({card})")
 
     # -- 6. training slice, card against CPU ---------------------------------
     train_walls = train_card_vs_cpu(Xtr, ytr, Xte, dev)
@@ -4244,7 +4598,7 @@ def main(argv=None) -> int:
         "fit_walls_s": {"cli": cli_walls, "bench": bench_walls},
         "lr_fits": lr_fits, "cli_lr_metrics": report["metrics"]["lr"],
         "resume": resume, "count_featurizer": count,
-        "lifecycle": lifecycle_out,
+        "lifecycle": lifecycle_out, "supervised": supervised,
         "tree_kernels_ms_per_cli_fit": per_fit,
         "llm": llm_out}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,15 @@ language model on the card, inline or (``--explain-async``) onto an
 annotations topic; ``--explain-slots`` serves them through the slotserve
 continuous-batching lane (``--explain-paged``: over a paged KV pool with
 the shared preamble prefilled once), and ``--breaker`` puts a circuit
-breaker in front of the backend. By default the host featurizes
+breaker in front of the backend. ``--supervise N`` restarts a failed engine
+from the committed offsets (``--chaos``: under a seeded fault plan, which
+implies ``--supervise 25``); ``--trace`` traces rows from poll to terminal,
+``--metrics-file``/``--metrics-port`` export every ``health()`` key
+(Prometheus text or JSON, plus ``/healthz``), ``--health-file`` dumps the
+engine's health, ``--alerts`` runs the sentinel's alert rules (incident
+bundles under ``--incident-dir``), and ``--profile-dir`` captures a
+``torch.profiler`` trace of the card's kernels over the first
+``--profile-batches`` batches. By default the host featurizes
 with the native C++ featurizer and the engine takes the raw-JSON path with
 C++ frame assembly; ``--featurize-device`` ships raw bytes to the CUDA featurize
 kernel instead. The flags of the reference CLI that the port does not offer
@@ -32,28 +40,61 @@ import argparse
 import json
 import os
 import sys
+import threading
+import time
 
 from fraud_detection_tpu_torch.app import unported
 
 # Reference flags the port does not offer yet: (flag, takes a value,
 # ROADMAP.md Queue 1 item that holds its module).
 _UNPORTED = (
-    ("--kafka", False, 5),
-    ("--supervise", True, 5), ("--workers", True, 5), ("--fleet", True, 5),
-    ("--fleet-health-file", True, 5), ("--fleet-candidates", True, 5),
-    ("--autoscale", False, 5), ("--min-workers", True, 5),
-    ("--max-workers", True, 5), ("--scale-cooldown", True, 5),
-    ("--mesh", False, 5), ("--health-file", True, 5),
-    ("--health-interval", True, 5), ("--metrics-file", True, 5),
-    ("--metrics-interval", True, 5), ("--metrics-port", True, 5),
-    ("--alerts", False, 5), ("--alert-rules", True, 5),
-    ("--alert-interval", True, 5), ("--incident-dir", True, 5),
-    ("--trace", False, 5), ("--trace-sample", True, 5),
-    ("--trace-record", True, 5), ("--scenario", True, 5),
-    ("--scenario-scale", True, 5), ("--scenario-time-scale", True, 5),
-    ("--profile-dir", True, 5), ("--profile-batches", True, 5),
-    ("--chaos", False, 5), ("--chaos-seed", True, 5),
+    ("--kafka", False, "5.5"),
+    ("--workers", True, "5.3"), ("--fleet", True, "5.3"),
+    ("--fleet-health-file", True, "5.3"), ("--fleet-candidates", True, "5.3"),
+    ("--autoscale", False, "5.3"), ("--min-workers", True, "5.3"),
+    ("--max-workers", True, "5.3"), ("--scale-cooldown", True, "5.3"),
+    ("--mesh", False, "5.6"),
+    ("--trace-record", True, "5.4"), ("--scenario", True, "5.4"),
+    ("--scenario-scale", True, "5.4"), ("--scenario-time-scale", True, "5.4"),
 )
+
+
+def start_health_writer(path, interval, current_engines, fault_plan=None):
+    """Launch the ``--health-file`` dumper: every ``interval`` seconds the
+    current engines' ``health()`` snapshots are written to ``path`` by an
+    atomic replace (readers never see a torn file). Returns ``finish()``,
+    which stops the thread and writes the FINAL state — call it on every
+    exit path, so the file on disk reflects how the run finished. A no-op
+    finish when ``path`` is None."""
+    if path is None:
+        return lambda: None
+    from fraud_detection_tpu_torch.utils.atomicio import atomic_write_json
+
+    def dump():
+        snap = {"time": time.time(),
+                "engines": [e.health() for e in list(current_engines())
+                            if e is not None]}
+        if fault_plan is not None:
+            snap["chaos"] = fault_plan.report()
+        # A failed write is swallowed inside: health reporting never kills
+        # serving.
+        atomic_write_json(path, snap)
+
+    stop = threading.Event()
+
+    def loop():
+        while not stop.wait(interval):
+            dump()
+
+    thread = threading.Thread(target=loop, daemon=True, name="health-writer")
+    thread.start()
+
+    def finish():
+        stop.set()
+        thread.join(timeout=5.0)
+        dump()
+
+    return finish
 
 
 def build_pipeline(spec: str, batch_size: int, int8: bool = False,
@@ -286,6 +327,11 @@ def main(argv=None) -> int:
     ap.add_argument("--input-topic", default=os.getenv("KAFKA_INPUT_TOPIC", "customer-dialogues-raw"))
     ap.add_argument("--output-topic", default=os.getenv("KAFKA_OUTPUT_TOPIC", "dialogues-classified"))
     ap.add_argument("--max-messages", type=int, default=None)
+    ap.add_argument("--supervise", type=int, metavar="N", default=0,
+                    help="restart the engine up to N times on crash/flush "
+                         "failure (resumes from committed offsets; see "
+                         "stream.engine.run_supervised; a fault of the card "
+                         "is never restarted around)")
     ap.add_argument("--partitions", type=int, default=3,
                     help="in-process demo broker partition count")
     ap.add_argument("--explain", default="off", metavar="SPEC",
@@ -348,6 +394,73 @@ def main(argv=None) -> int:
     ap.add_argument("--breaker-probe", type=float, default=30.0,
                     help="seconds an open breaker waits before probing the "
                          "backend again (--breaker)")
+    ap.add_argument("--health-file", default=None,
+                    help="periodically dump an engine-health JSON snapshot "
+                         "to this path (atomic replace; final state written "
+                         "at exit)")
+    ap.add_argument("--health-interval", type=float, default=2.0,
+                    help="seconds between --health-file dumps")
+    ap.add_argument("--metrics-file", default=None,
+                    help="periodically dump the unified metrics exporter "
+                         "to this path (atomic replace, final state at "
+                         "exit, exactly like --health-file): Prometheus "
+                         "text for .prom/.txt paths, JSON otherwise — "
+                         "every health() key maps in, ONE schema")
+    ap.add_argument("--metrics-interval", type=float, default=2.0,
+                    help="seconds between --metrics-file dumps")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve /metrics (Prometheus text), /metrics.json, "
+                         "and /healthz (readiness: 200, or 503 with the "
+                         "firing rule names while a critical alert fires — "
+                         "--alerts) on this local port (stdlib HTTP, "
+                         "daemon thread; 0 picks a free port, printed at "
+                         "startup)")
+    ap.add_argument("--alerts", action="store_true",
+                    help="run the sentinel alerting engine (obs/sentinel/): "
+                         "the default rule pack (shed/DLQ burn rates, "
+                         "breaker opens, p99 SLO burn, dispatch stall, span "
+                         "leaks, fence events, restart churn) evaluates "
+                         "against live engine health; firing state rides "
+                         "health()['alerts'], the exit stats JSON, "
+                         "/metrics, and /healthz")
+    ap.add_argument("--alert-rules", default=None, metavar="FILE",
+                    help="JSON alert-rule file replacing the default pack; "
+                         "implies --alerts")
+    ap.add_argument("--alert-interval", type=float, default=1.0,
+                    help="seconds between sentinel evaluations (--alerts)")
+    ap.add_argument("--incident-dir", default=None, metavar="DIR",
+                    help="flight-recorder output (implies --alerts): every "
+                         "alert transition appends to DIR/incidents.jsonl "
+                         "and a firing incident captures a bundle dir "
+                         "(evidence window, metric deltas, health, "
+                         "implicated trace chains)")
+    ap.add_argument("--trace", action="store_true",
+                    help="row/batch tracing (obs/trace.py): correlation "
+                         "ids minted at poll ride every row to its "
+                         "terminal; flagged/shed/DLQ rows always keep "
+                         "their span chain, clean batches head-sample at "
+                         "--trace-sample; per-stage p50/p99 in health() "
+                         "and the exporter")
+    ap.add_argument("--trace-sample", type=float, default=0.05,
+                    help="fraction of CLEAN batches whose spans are kept "
+                         "(--trace; interesting batches are always kept)")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="capture torch.profiler traces (the card's kernels "
+                         "and the host's ops): one around prewarm/ladder "
+                         "measurement, one over the first --profile-batches "
+                         "serving batches (Chrome/Perfetto .trace.json)")
+    ap.add_argument("--profile-batches", type=int, default=50,
+                    help="batches in the serving-window profiler capture "
+                         "(--profile-dir)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="demo mode only: run the in-process broker under a "
+                         "seeded fault plan (poll errors, lossy flushes, "
+                         "commit fences, duplicates, corruption) to "
+                         "demonstrate graceful degradation; implies "
+                         "supervision (stream/faults.py)")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="fault-plan seed (--chaos; same seed = same "
+                         "fault schedule)")
     for flag, takes_value, item in _UNPORTED:
         ap.add_argument(flag, default=None,
                         **({"metavar": "X"} if takes_value
@@ -452,6 +565,10 @@ def main(argv=None) -> int:
                          "output frames)")
     if args.partitions < 1:
         raise SystemExit(f"--partitions must be >= 1, got {args.partitions}")
+    if args.chaos and not args.demo:
+        raise SystemExit("--chaos needs --demo N (faults are injected into "
+                         "the in-process broker; against real Kafka use a "
+                         "real chaos tool)")
     sched_config = None
     if (args.batch_deadline_ms is not None or args.max_queue is not None
             or args.shed_policy != "none" or args.target_p99_ms is not None
@@ -482,11 +599,48 @@ def main(argv=None) -> int:
     if args.breaker_probe <= 0:
         raise SystemExit(
             f"--breaker-probe must be > 0, got {args.breaker_probe}")
+    if args.health_interval <= 0:
+        raise SystemExit(
+            f"--health-interval must be > 0, got {args.health_interval}")
+    if args.metrics_interval <= 0:
+        raise SystemExit(
+            f"--metrics-interval must be > 0, got {args.metrics_interval}")
+    if args.metrics_port is not None and args.metrics_port < 0:
+        raise SystemExit(
+            f"--metrics-port must be >= 0, got {args.metrics_port}")
+    if not 0.0 <= args.trace_sample <= 1.0:
+        raise SystemExit(
+            f"--trace-sample must be in [0, 1], got {args.trace_sample}")
+    if args.alert_rules is not None or args.incident_dir is not None:
+        args.alerts = True
+    if args.alert_interval <= 0:
+        raise SystemExit(
+            f"--alert-interval must be > 0, got {args.alert_interval}")
+    alert_rules = None
+    if args.alerts:
+        from fraud_detection_tpu_torch.obs.sentinel import (default_rule_pack,
+                                                            load_rules)
+
+        if args.alert_rules is not None:
+            try:
+                alert_rules = load_rules(args.alert_rules)
+            except (OSError, ValueError) as e:
+                raise SystemExit(f"bad --alert-rules: {e}")
+        else:
+            alert_rules = default_rule_pack()
+    if args.profile_batches < 1:
+        raise SystemExit(
+            f"--profile-batches must be >= 1, got {args.profile_batches}")
+    if args.chaos and args.supervise == 0:
+        # Chaos without supervision dies on the first injected fault by
+        # design; enough restarts for the demo plan's budget.
+        args.supervise = 25
     if args.demo <= 0:
         raise SystemExit("choose --kafka or --demo N (no broker specified)")
 
     from fraud_detection_tpu_torch.stream import (InProcessBroker,
                                                   StreamingClassifier)
+    from fraud_detection_tpu_torch.utils.tracing import device_trace
 
     explain_hook, breaker, explain_service = _explain_lane(args)
     registry = shadow = None
@@ -522,11 +676,13 @@ def main(argv=None) -> int:
         from fraud_detection_tpu_torch.sched import AdaptiveScheduler
 
         # Measure the candidate rungs and warm the selected ladder ONCE,
-        # before the engine runs (off the hot path); this worker's engine
-        # drives the same scheduler. A HotSwapPipeline keeps the ladder and
-        # cost table for every later swap candidate.
+        # before the engine runs (off the hot path); every incarnation of
+        # this worker's engine drives the same scheduler. A HotSwapPipeline
+        # keeps the ladder and cost table for every later swap candidate.
+        # --profile-dir gives the measurement a profiler capture of its own.
         scheduler = AdaptiveScheduler(sched_config, args.batch_size)
-        scheduler.prewarm(pipe)
+        with device_trace("prewarm", args.profile_dir, device=pipe.device):
+            scheduler.prewarm(pipe)
 
     from fraud_detection_tpu_torch.data import generate_corpus
 
@@ -540,8 +696,27 @@ def main(argv=None) -> int:
                        key=str(i).encode())
     max_messages = (args.max_messages if args.max_messages is not None
                     else args.demo)
+    idle = 1.0
     dlq_topic = ((args.dlq_topic or f"{args.output_topic}-dlq")
                  if args.dlq else None)
+
+    def make_clients():
+        return (broker.consumer([args.input_topic], "serve-demo"),
+                broker.producer())
+
+    fault_plan = None
+    if args.chaos:
+        # One plan shared by every incarnation: its single seeded draw
+        # stream is what makes the fault schedule reproducible, and its
+        # budget guarantees convergence once spent.
+        from fraud_detection_tpu_torch.stream.faults import FaultPlan
+
+        fault_plan = FaultPlan.demo(seed=args.chaos_seed)
+        plain_clients = make_clients
+
+        def make_clients():
+            cons, prod = plain_clients()
+            return fault_plan.consumer(cons), fault_plan.producer(prod)
 
     learn_loop = None
     if args.learn:
@@ -564,21 +739,110 @@ def main(argv=None) -> int:
                 interval_s=(args.learn_interval
                             if args.learn_interval > 0 else None)))
 
-    print(f"serving: model={model_desc} in={args.input_topic} "
-          f"out={args.output_topic} batch={args.batch_size} workers=1 "
-          f"device={pipe.device}", flush=True)
-    engine = StreamingClassifier(
-        pipe, broker.consumer([args.input_topic], "serve-demo"),
-        broker.producer(), args.output_topic,
-        batch_size=args.batch_size, max_wait=args.max_wait,
-        pipeline_depth=args.pipeline_depth, explain_batch_fn=explain_hook,
-        dlq_topic=dlq_topic, dlq_max_attempts=args.dlq_max_attempts,
-        scheduler=scheduler, async_dispatch=args.async_dispatch,
-        shadow=shadow, learn=learn_loop, explain_async=args.explain_async,
-        annotations_topic=args.annotations_topic,
-        annotations_producer=(broker.producer() if args.explain_async
-                              else None),
-        breaker=breaker, explain_service=explain_service)
+    # Unified metrics exporter: one registry, health() mapped in as a
+    # collector, published by file and/or HTTP.
+    metrics_registry = None
+    if args.metrics_file is not None or args.metrics_port is not None:
+        from fraud_detection_tpu_torch.obs import MetricsRegistry
+
+        metrics_registry = MetricsRegistry()
+
+    def start_metrics(healthz_fn=None):
+        """Start the --metrics-file writer and the --metrics-port endpoint;
+        returns finish(). ``healthz_fn`` wires the sentinel's readiness
+        verdict into /healthz."""
+        if metrics_registry is None:
+            return lambda: None
+        from fraud_detection_tpu_torch.obs.export import (MetricsServer,
+                                                          start_metrics_writer)
+
+        server = None
+        if args.metrics_port is not None:
+            server = MetricsServer(metrics_registry, args.metrics_port,
+                                   healthz_fn=healthz_fn)
+            print(f"metrics: http://127.0.0.1:{server.port}/metrics",
+                  flush=True)
+        finish_file = start_metrics_writer(args.metrics_file,
+                                           args.metrics_interval,
+                                           metrics_registry)
+
+        def finish():
+            finish_file()
+            if server is not None:
+                server.close()
+
+        return finish
+
+    # Row tracing and alerting: ONE tracer and ONE sentinel for the worker,
+    # shared across its supervised incarnations (like the DLQ poison
+    # tracker), so chains and incident accounting survive restarts. The
+    # sentinel reads a chain-cumulative health source whose counters survive
+    # restarts and whose supervisor.restarts feeds the restart-churn rule.
+    rowtrace = sentinel = sentinel_source = None
+    if args.trace:
+        from fraud_detection_tpu_torch.obs import RowTracer
+
+        rowtrace = RowTracer(worker="w0", sample=args.trace_sample,
+                             capacity=4096)
+    if alert_rules is not None:
+        from fraud_detection_tpu_torch.obs.sentinel import (
+            ChainedHealthSource, IncidentRecorder, Sentinel)
+
+        sentinel_source = ChainedHealthSource()
+        recorder = (IncidentRecorder(args.incident_dir, rowtrace=rowtrace)
+                    if args.incident_dir is not None else None)
+        sentinel = Sentinel(sentinel_source, alert_rules, recorder=recorder,
+                            worker="w0")
+    if explain_service is not None and rowtrace is not None:
+        # Completed explanations land per-row "explain" spans (slot id and
+        # admission wait) on the rows' chains.
+        explain_service.set_rowtrace(rowtrace)
+
+    engines_built = []   # the live engine only: a replaced one is harvested
+    # Lane counters of engines already replaced and closed.
+    annotations_harvested = {"submitted": 0, "annotated": 0, "dropped": 0,
+                             "drop_records": 0, "backend_errors": 0}
+    dlq_attempts = {} if dlq_topic is not None else None
+
+    def make_engine(replacing=None):
+        """Build an engine; ``replacing`` is the previous incarnation on a
+        supervised restart: its async annotation lane is drained (briefly)
+        and stopped so restarts do not accumulate lane threads, its lane
+        counters are harvested into the exit aggregate and the dead engine
+        is dropped. The DLQ poison tracker, the scheduler, the tracer and
+        the sentinel are shared across incarnations."""
+        if replacing is not None:
+            replacing.close_annotations(timeout=5.0)
+            harvested = replacing.annotation_stats()
+            if harvested:
+                for k in annotations_harvested:
+                    annotations_harvested[k] += harvested.get(k, 0)
+            try:
+                engines_built.remove(replacing)
+            except ValueError:
+                pass
+        consumer, producer = make_clients()
+        engine = StreamingClassifier(
+            pipe, consumer, producer, args.output_topic,
+            batch_size=args.batch_size, max_wait=args.max_wait,
+            pipeline_depth=args.pipeline_depth, explain_batch_fn=explain_hook,
+            dlq_topic=dlq_topic, dlq_max_attempts=args.dlq_max_attempts,
+            dlq_attempts=dlq_attempts,
+            scheduler=scheduler, async_dispatch=args.async_dispatch,
+            shadow=shadow, learn=learn_loop, explain_async=args.explain_async,
+            annotations_topic=args.annotations_topic,
+            annotations_producer=(broker.producer() if args.explain_async
+                                  else None),
+            breaker=breaker, explain_service=explain_service,
+            rowtrace=rowtrace, sentinel=sentinel)
+        engines_built.append(engine)
+        if sentinel_source is not None:
+            # Fold the replaced incarnation's counters into the chain.
+            sentinel_source.attach(engine)
+        return engine
+
+    def live_health():
+        return engines_built[-1].health() if engines_built else None
 
     lifecycle = watch_stop = watch_thread = None
     if args.watch:
@@ -590,7 +854,7 @@ def main(argv=None) -> int:
 
         lifecycle = LifecycleController(
             registry, pipe, shadow=shadow, policy=promote_policy,
-            batch_size=args.batch_size, health_fn=engine.health,
+            batch_size=args.batch_size, health_fn=live_health,
             on_transition=(learn_loop.on_transition
                            if learn_loop is not None else None))
         if learn_loop is not None:
@@ -621,28 +885,79 @@ def main(argv=None) -> int:
         return out
 
     def finish_annotations():
-        """Drain the async lane, then close the slotserve service (the lane's
-        worker blocks inside explain_rows, so a drained lane means an idle
-        slot lane); returns the stats JSON's annotations block, or None
+        """Drain the live engine's async lane, then close the slotserve
+        service (the lane's worker blocks inside explain_rows, so a drained
+        lane means an idle slot lane); returns the stats JSON's annotations
+        block (replaced incarnations' counters included), or None
         inline."""
         if not args.explain_async:
             return None
-        engine.close_annotations(timeout=30.0)
-        lane = engine.annotation_stats()
+        agg = dict(annotations_harvested)
+        for e in engines_built:
+            e.close_annotations(timeout=30.0)
+            s = e.annotation_stats() or {}
+            for k in agg:
+                agg[k] += s.get(k, 0)
         if explain_service is not None:
             explain_service.close(timeout=30.0)
-        return {k: lane[k] for k in ("submitted", "annotated", "dropped",
-                                     "drop_records", "backend_errors")}
+        return agg
 
-    try:
-        stats = engine.run(max_messages=max_messages, idle_timeout=1.0)
-    except KeyboardInterrupt:
-        engine.stop()
-        stats = engine.stats
-    finally:
-        engine.consumer.close()
+    print(f"serving: model={model_desc} in={args.input_topic} "
+          f"out={args.output_topic} batch={args.batch_size} workers=1 "
+          f"device={pipe.device}", flush=True)
+    finish_health = start_health_writer(
+        args.health_file, args.health_interval, lambda: engines_built[-1:],
+        fault_plan)
+    if metrics_registry is not None:
+        metrics_registry.add_collector("engine", live_health)
+    finish_metrics = start_metrics(
+        healthz_fn=sentinel.healthz if sentinel is not None else None)
+    finish_sentinel = lambda: None  # noqa: E731
+    if sentinel is not None:
+        from fraud_detection_tpu_torch.obs.sentinel import start_sentinel
+
+        finish_sentinel = start_sentinel([sentinel], args.alert_interval)
+    from fraud_detection_tpu_torch.obs.export import start_profile_window
+
+    finish_profile = start_profile_window(
+        args.profile_dir, args.profile_batches,
+        lambda: engines_built[-1].stats.batches if engines_built else 0,
+        device=pipe.device)
+    gave_up = None
+    if args.supervise > 0:
+        # The supervisor builds and closes every consumer/producer itself
+        # (on Ctrl-C too, where it returns the aggregated stats).
+        from fraud_detection_tpu_torch.stream.engine import (StreamStats,
+                                                             run_supervised)
+
+        try:
+            stats = run_supervised(
+                lambda: make_engine(
+                    replacing=engines_built[-1] if engines_built else None),
+                max_restarts=args.supervise, max_messages=max_messages,
+                idle_timeout=idle)
+        except Exception as e:  # noqa: BLE001 — give-up surfaced as exit code
+            # Restarts exhausted (or a fault of the card, which is never
+            # restarted around): report the partial progress plus the
+            # final health and exit non-zero.
+            gave_up = e
+            stats = getattr(e, "supervisor_stats", None) or StreamStats()
+            print(f"supervised run gave up after {args.supervise} restarts: "
+                  f"{e!r} (offsets stay at the last commit; a restarted "
+                  f"serve resumes there)", file=sys.stderr, flush=True)
+    else:
+        engine = make_engine()
+        try:
+            stats = engine.run(max_messages=max_messages, idle_timeout=idle)
+        except KeyboardInterrupt:
+            engine.stop()
+            stats = engine.stats
+        finally:
+            engine.consumer.close()
     out = stats.as_dict()
-    out["health"] = engine.health()
+    out["health"] = live_health()
+    if fault_plan is not None:
+        out["chaos"] = fault_plan.report()
     annotations = finish_annotations()
     if annotations is not None:
         out["annotations"] = annotations
@@ -652,6 +967,14 @@ def main(argv=None) -> int:
     lifecycle_out = finish_lifecycle()
     if lifecycle_out is not None:
         out["lifecycle"] = lifecycle_out
+    profile = finish_profile()
+    if profile is not None:
+        out["profile"] = profile
+    finish_sentinel()
+    if sentinel is not None:
+        out["alerts"] = sentinel.snapshot()
+    finish_metrics()
+    finish_health()
     print(json.dumps(out))
     print(f"classified messages on {args.output_topic}: "
           f"{broker.topic_size(args.output_topic)}")
@@ -662,6 +985,8 @@ def main(argv=None) -> int:
     for name, fault in faults:
         print(f"the {name} lane stopped on a device fault: {fault!r}",
               file=sys.stderr)
+    if gave_up is not None:
+        return 3
     return 1 if faults else 0
 
 if __name__ == "__main__":

@@ -36,7 +36,9 @@ annotations topic) and the lane goes on serving. A fault of the card
 (``utils/device.is_device_fault``) fails them the same way, then stops the
 lane and sets ``fault``: later requests fail at once, and nothing retries
 on the CPU. ``snapshot()`` is the engine's ``health()["explain"]`` block.
-Row tracing (the reference's ``rowtrace``) is not ported.
+With a ``rowtrace`` (``obs.RowTracer``), every explained row's chain gains
+an "explain" span with its slot, token count and admission wait, and every
+dropped or failed row an ok=False event.
 """
 
 from __future__ import annotations
@@ -82,15 +84,16 @@ class _SlotRequest:
     under the service's condition; the ``done`` event is the completion
     latch every waiter blocks on."""
 
-    __slots__ = ("tokens", "max_new", "temperature", "submitted_at",
+    __slots__ = ("tokens", "max_new", "temperature", "cid", "submitted_at",
                  "first_token_at", "out", "text", "dropped", "error", "done",
                  "slot")
 
     def __init__(self, tokens, max_new: int, temperature: float,
-                 submitted_at: float):
+                 cid: Optional[str], submitted_at: float):
         self.tokens = tokens
         self.max_new = max_new
         self.temperature = temperature
+        self.cid = cid
         self.submitted_at = submitted_at
         self.first_token_at: Optional[float] = None
         self.out: List[int] = []
@@ -126,7 +129,7 @@ class SlotServeService:
     def __init__(self, lm, *, slots: int = 8, max_queue: int = 1024,
                  max_new_tokens: int = 128, prompt_width: int = 384,
                  prompt_bucket: int = 64, decode_window: int = 16,
-                 seed: int = 0, wait_timeout: float = 600.0,
+                 seed: int = 0, rowtrace=None, wait_timeout: float = 600.0,
                  paged: bool = False, kv_pages: Optional[int] = None,
                  shared_prefix: bool = True):
         if max_queue < 1:
@@ -175,6 +178,7 @@ class SlotServeService:
         self.wait_timeout = wait_timeout
         self._clock = time.perf_counter
         self._seed = seed
+        self._rowtrace = rowtrace
         # A fault of the card stops the lane (set once, by the worker).
         self.fault: Optional[BaseException] = None
         # --- worker-only slot state (never read off the lane thread) ---
@@ -216,14 +220,16 @@ class SlotServeService:
     # ------------------------------------------------------------------
 
     def submit(self, prompt: str, *, max_tokens: Optional[int] = None,
-               temperature: float = 0.0) -> _SlotRequest:
+               temperature: float = 0.0,
+               cid: Optional[str] = None) -> _SlotRequest:
         """Enqueue one (already framed) prompt; never blocks. Over capacity
         the OLDEST queued request drops (counted; its ticket resolves to a
         ``DROPPED_MARKER``). After a fault of the card the request fails at
         once."""
         toks, truncated = self._decoder.encode_prompt(prompt)
         max_new = min(max_tokens or self.max_new_tokens, self.max_new_tokens)
-        req = _SlotRequest(toks, max(1, max_new), temperature, self._clock())
+        req = _SlotRequest(toks, max(1, max_new), temperature, cid,
+                           self._clock())
         evicted: List[_SlotRequest] = []
         with self._cv:
             self._admitted += 1
@@ -249,6 +255,11 @@ class SlotServeService:
                 self._q.append(req)
                 self._cv.notify()
         for old in evicted:
+            if self._rowtrace is not None and old.cid is not None:
+                self._rowtrace.record_event(
+                    old.cid, "explain", ok=False,
+                    detail=(f"dropped:{old.dropped}" if old.error is None
+                            else type(old.error).__name__))
             old.done.set()
         return req
 
@@ -283,14 +294,17 @@ class SlotServeService:
                      cids: Optional[Sequence[Optional[str]]] = None,
                      temperature: float = 0.0,
                      max_tokens: int = 128) -> List[str]:
-        """Explain flagged rows: each row's analysis prompt is built here
-        (the same ``analysis_prompt`` + chat-template framing as every other
-        path). ``cids``, the rows' trace ids, are the hook protocol's; with
-        row tracing not ported they are accepted and not recorded."""
+        """Explain flagged rows WITH their trace identity: each row's
+        analysis prompt is built here (the same ``analysis_prompt`` +
+        chat-template framing as every other path) and its cid rides into
+        the slot, so the completed row's ``chain(cid)`` carries an
+        "explain" span with slot and latency detail."""
         reqs = [self.submit(flatten_chat(frame_prompt(
                     analysis_prompt(text, label, conf))),
-                    max_tokens=max_tokens, temperature=temperature)
-                for text, label, conf in zip(texts, labels, confs)]
+                    max_tokens=max_tokens, temperature=temperature,
+                    cid=cids[i] if cids else None)
+                for i, (text, label, conf) in enumerate(zip(texts, labels,
+                                                            confs))]
         return [r.wait(self.wait_timeout) for r in reqs]
 
     # ------------------------------------------------------------------
@@ -364,7 +378,7 @@ class SlotServeService:
                                           self._seed + self._seq)
             now = self._clock()
             req.first_token_at = now
-            self._first.add_many([max(0.0, now - req.submitted_at)])
+            self._first.add(max(0.0, now - req.submitted_at))
             self._lens[slot] = len(req.tokens)
             self._last_tok[slot] = first
             self._temps[slot] = req.temperature
@@ -432,6 +446,9 @@ class SlotServeService:
         req.dropped = "kv_pages_exhausted"
         with self._cv:
             self._dropped += 1
+        if self._rowtrace is not None and req.cid is not None:
+            self._rowtrace.record_event(req.cid, "explain", ok=False,
+                                        detail="dropped:kv_pages_exhausted")
         log.warning("page pool exhausted: preempting slot %d "
                     "(%d tokens emitted) to free its pages",
                     slot, len(req.out))
@@ -460,7 +477,14 @@ class SlotServeService:
             with self._cv:
                 self._completed += 1
                 self._tokens_out += len(req.out)
-            self._lat.add_many([dt])
+            self._lat.add(dt)
+            tr = self._rowtrace
+            if tr is not None and req.cid is not None:
+                wait_ms = round(1e3 * max(0.0, (req.first_token_at or dt)
+                                          - req.submitted_at), 2)
+                tr.record_span(req.cid, "explain", dt,
+                               detail=f"slot={slot} tokens={len(req.out)} "
+                                      f"admit_ms={wait_ms}")
             req.done.set()
             self._release(slot)
 
@@ -504,7 +528,17 @@ class SlotServeService:
             self._busy = 0
             self._free = list(range(self.slots))
         for req in failed:
+            if self._rowtrace is not None and req.cid is not None:
+                self._rowtrace.record_event(req.cid, "explain", ok=False,
+                                            detail=type(exc).__name__)
             req.done.set()
+
+    def set_rowtrace(self, rowtrace) -> None:
+        """Attach (or replace) the tracer completed rows report into — the
+        serve CLI builds tracers after the service exists. A plain reference
+        swap: the lane reads the current value per completion."""
+        with self._cv:
+            self._rowtrace = rowtrace
 
     # ------------------------------------------------------------------
     # lifecycle + observability (any thread)

@@ -136,11 +136,13 @@ class AdmissionController:
             f = self.shed_fraction * self.shed_decay
             self.shed_fraction = f if f > 1e-3 else 0.0
 
-    def admit(self, msgs: List, backlog: Optional[int]
+    def admit(self, msgs: List, backlog: Optional[int], trace=None
               ) -> Tuple[List, List[Tuple[object, str]]]:
         """Split a polled batch into (kept, [(msg, shed_reason)]).
         ``backlog`` is the rows still queued behind this batch (None when
-        the transport cannot say: the watermark is then inert)."""
+        the transport cannot say: the watermark is then inert). ``trace``
+        is the batch's ``obs.trace.BatchTrace`` when tracing is on: every
+        shed row records its event at the shed site, naming the rule."""
         self.last_backlog = backlog
         if not msgs:
             return msgs, []
@@ -156,6 +158,9 @@ class AdmissionController:
             nonlocal keep
             if n_keep < len(keep):
                 shed.extend((m, reason) for m in keep[n_keep:])
+                if trace is not None:
+                    for m in keep[n_keep:]:
+                        trace.shed(m, reason)
                 self.counters[reason] += len(keep) - n_keep
                 keep = keep[:n_keep]
 
@@ -167,6 +172,9 @@ class AdmissionController:
             stale = [m for m in keep if 0.0 < m.timestamp < cutoff]
             if stale:
                 shed.extend((m, SHED_DEADLINE) for m in stale)
+                if trace is not None:
+                    for m in stale:
+                        trace.shed(m, SHED_DEADLINE)
                 self.counters[SHED_DEADLINE] += len(stale)
                 keep = [m for m in keep
                         if not 0.0 < m.timestamp < cutoff]

@@ -146,10 +146,10 @@ class AdaptiveScheduler:
         except Exception:  # noqa: BLE001 — lag reporting must never kill serving
             return None
 
-    def admit(self, msgs: List, backlog: Optional[int]
+    def admit(self, msgs: List, backlog: Optional[int], trace=None
               ) -> Tuple[List, List[Tuple[object, str]]]:
         with self._region:
-            return self.admission.admit(msgs, backlog)
+            return self.admission.admit(msgs, backlog, trace=trace)
 
     def observe_batch(self, n_rows: int, batch_sec: float,
                       row_latencies: Optional[Sequence[float]] = None) -> None:

@@ -41,6 +41,9 @@ class LatencySketch:
         self.sum = 0.0
         self.max = 0.0
 
+    def add(self, sec: float) -> None:
+        self.add_many(np.asarray([sec], np.float64))
+
     def add_many(self, secs) -> None:
         """Insert a batch of samples (seconds): one vectorized pass + one
         lock acquisition regardless of batch size."""
@@ -69,6 +72,10 @@ class LatencySketch:
             i = int(np.searchsorted(cum, target, side="left"))
         return float(_EDGES[min(i, _N_BUCKETS - 1)])
 
+    @property
+    def mean(self) -> Optional[float]:
+        return self.sum / self.count if self.count else None
+
     def merge(self, other: "LatencySketch") -> None:
         """Lossless merge (bucket counts add); ``other`` is read under its
         own lock first, then added under this one's."""
@@ -80,6 +87,42 @@ class LatencySketch:
             self.count += count
             self.sum += total
             self.max = max(self.max, mx)
+
+    def to_wire(self) -> dict:
+        """JSON-safe sparse encoding of the full sketch (non-zero bucket
+        indexes + counts + exact aggregates); ``from_wire`` round-trips it
+        losslessly, so sketches published by several workers merge into
+        exactly the sketch one process would have built. The same wire as
+        the JAX package's."""
+        with self._lock:
+            idx = np.flatnonzero(self._counts)
+            return {"v": 1,
+                    "idx": idx.tolist(),
+                    "counts": self._counts[idx].tolist(),
+                    "count": self.count,
+                    "sum": self.sum,
+                    "max": self.max}
+
+    @classmethod
+    def from_wire(cls, wire) -> Optional["LatencySketch"]:
+        """Rebuild a sketch from :meth:`to_wire` output; None on any
+        malformed or foreign payload (telemetry ingest never raises)."""
+        try:
+            if not isinstance(wire, dict) or wire.get("v") != 1:
+                return None
+            sk = cls()
+            idx = np.asarray(wire["idx"], np.int64)
+            counts = np.asarray(wire["counts"], np.int64)
+            if idx.shape != counts.shape or (
+                    idx.size and (idx.min() < 0 or idx.max() >= _N_BUCKETS)):
+                return None
+            sk._counts[idx] = counts
+            sk.count = int(wire["count"])
+            sk.sum = float(wire["sum"])
+            sk.max = float(wire["max"])
+            return sk
+        except (KeyError, TypeError, ValueError):
+            return None
 
     def snapshot(self) -> dict:
         """p50/p95/p99/max/mean in milliseconds + count, one consistent read."""

@@ -13,8 +13,9 @@ can explain them, the queue drops the OLDEST first and leaves a structured
 drop record for each: the sampling rate is a recorded fact, not a stall.
 
 Consumers join annotations to classifications by message key. A raising
-backend is logged and counted; the lane and classification go on. Row
-tracing (the reference's ``rowtrace``) is not ported.
+backend is logged and counted; the lane and classification go on. With a
+``rowtrace`` (``obs.RowTracer``) each row's explain span and annotate event
+land on its correlation id, failures and drops as ok=False.
 """
 
 from __future__ import annotations
@@ -48,11 +49,18 @@ class AsyncAnnotationLane:
 
     def __init__(self, explain_batch_fn: Callable, producer, topic: str, *,
                  max_queue: int = 1024, max_batch: int = 64,
+                 rowtrace=None,
                  clock: Callable[[], float] = time.perf_counter):
         if max_queue < 1 or max_batch < 1:
             raise ValueError(
                 f"max_queue/max_batch must be >= 1, got {max_queue}/{max_batch}")
         self._clock = clock   # injectable: drain/close deadlines in tests
+        # Optional obs.trace.RowTracer: items may carry a 5th element (the
+        # row's correlation id); the lane then records an "explain" span per
+        # backend call and an "annotate" event per row (ok=False on backend
+        # errors, breaker fast-fails and drops). Flagged rows are always
+        # kept by the tracer, so these record straight into its ring.
+        self._rowtrace = rowtrace
         self._fn = explain_batch_fn
         self._producer = producer
         self.topic = topic
@@ -63,7 +71,7 @@ class AsyncAnnotationLane:
         self._closed = False
         # Structured drop records pending emission (built at the drop site
         # under _cv, produced by the WORKER so they ride the lane's
-        # single-producer delivery accounting): (value_bytes, key).
+        # single-producer delivery accounting): (value_bytes, key, cid).
         self._drop_backlog: List[tuple] = []
         # submitted/dropped mutate under _cv; the rest are worker-thread
         # writes, read racily by stats() (snapshots, not invariants).
@@ -110,15 +118,16 @@ class AsyncAnnotationLane:
     @staticmethod
     def _drop_record(item: tuple, reason: str) -> tuple:
         """One structured drop record from a queued item: (value_bytes,
-        key). Same key and fields as an annotation record, ``analysis``
+        key, cid). Same key and fields as an annotation record, ``analysis``
         null, ``dropped`` true, and ``trace`` when the row carries an id."""
         key, _text, label, conf = item[:4]
+        cid = item[4] if len(item) == 5 else None
         rec = {"prediction": label, "label": label_name(label),
                "confidence": round(conf, 6), "analysis": None,
                "dropped": True, "reason": reason}
-        if len(item) == 5 and item[4] is not None:
-            rec["trace"] = item[4]
-        return json.dumps(rec).encode(), key
+        if cid is not None:
+            rec["trace"] = cid
+        return json.dumps(rec).encode(), key, cid
 
     def _run(self) -> None:
         while True:
@@ -155,7 +164,7 @@ class AsyncAnnotationLane:
     def _emit_drops(self, drops: List[tuple]) -> None:
         """Produce + flush the pending drop records, then count the
         delivered ones (the annotation records' accounting rule)."""
-        for value, key in drops:
+        for value, key, _cid in drops:
             self._producer.produce(self.topic, value, key=key)
         undelivered = int(self._producer.flush() or 0)
         self.drop_records += len(drops) - min(len(drops), undelivered)
@@ -163,25 +172,50 @@ class AsyncAnnotationLane:
             log.warning("producer left %d drop records undelivered "
                         "(dropped counter stays ahead of drop_records)",
                         undelivered)
+        if self._rowtrace is not None:
+            for _value, _key, cid in drops:
+                if cid is not None:
+                    self._rowtrace.record_event(
+                        cid, "annotate", ok=False,
+                        detail="dropped:queue_overflow")
 
     def _annotate(self, batch: List[tuple]) -> None:
         # Items are (key, text, label, conf[, trace_id]).
         batch = [it if len(it) == 5 else (*it, None) for it in batch]
         keys, texts, labels, confs, cids = map(list, zip(*batch))
-        if getattr(self._fn, "accepts_cids", False):
-            analyses = self._fn(texts, labels, confs, cids=cids)
-        else:
-            analyses = self._fn(texts, labels, confs)
+        tr = self._rowtrace
+        t0 = time.perf_counter()
+        try:
+            if getattr(self._fn, "accepts_cids", False):
+                analyses = self._fn(texts, labels, confs, cids=cids)
+            else:
+                analyses = self._fn(texts, labels, confs)
+        except Exception as e:
+            if tr is not None:
+                # One failed explain span for the call and a failed annotate
+                # event per traced row (breaker fast-fails land here too).
+                tr.record_span("lane", "explain", time.perf_counter() - t0,
+                               ok=False, detail=type(e).__name__)
+                for cid in cids:
+                    if cid is not None:
+                        tr.record_event(cid, "annotate", ok=False,
+                                        detail=type(e).__name__)
+            raise
+        if tr is not None:
+            tr.record_span("lane", "explain", time.perf_counter() - t0,
+                           detail=f"rows={len(batch)}")
         if len(analyses) != len(batch):  # mirrors the engine's inline check
             raise ValueError(f"explain_batch_fn returned {len(analyses)} "
                              f"analyses for {len(batch)} rows")
-        out = []
-        for key, label, conf, analysis in zip(keys, labels, confs, analyses):
+        out, out_cids = [], []
+        for key, label, conf, cid, analysis in zip(keys, labels, confs,
+                                                   cids, analyses):
             if analysis is None:
                 continue
             rec = {"prediction": label, "label": label_name(label),
                    "confidence": round(conf, 6), "analysis": analysis}
             out.append((json.dumps(rec).encode(), key))
+            out_cids.append(cid)
         if not out:
             return
         batch_produce = getattr(self._producer, "produce_batch", None)
@@ -201,6 +235,10 @@ class AsyncAnnotationLane:
                         "(counted as not annotated)", undelivered)
         # max() keeps the running tally monotonic while the queue is deep.
         self.annotated = max(self.annotated, self.produced - int(undelivered))
+        if tr is not None:
+            for cid in out_cids:
+                if cid is not None:
+                    tr.record_event(cid, "annotate", ok=not undelivered)
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Block until the queue is empty and the worker is idle (or

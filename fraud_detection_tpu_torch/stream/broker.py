@@ -15,7 +15,7 @@ import itertools
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Protocol, Sequence
 
 from fraud_detection_tpu_torch.utils.racecheck import ExclusiveRegion
 
@@ -35,9 +35,38 @@ class Message:
     seq: int = 0
 
 
+class Consumer(Protocol):
+    def poll(self, timeout: float = 1.0) -> Optional[Message]: ...
+    def poll_batch(self, max_messages: int, timeout: float) -> List[Message]: ...
+    def commit(self) -> None: ...
+
+    def commit_offsets(self, offsets: Dict[tuple, int]) -> None:
+        """Commit explicit next-offsets per (topic, partition): a pipelined
+        engine records batch N while batch N+1 is already consumed."""
+        ...
+
+    def close(self) -> None: ...
+
+
+class Producer(Protocol):
+    def produce(self, topic: str, value: bytes, key: Optional[bytes] = None) -> None: ...
+
+    def flush(self, timeout: float = 10.0) -> int:
+        """Block until queued messages are delivered; returns how many are
+        STILL undelivered (0 = fully drained)."""
+        ...
+
+
 class CommitFailedError(RuntimeError):
     """Commit advanced a partition this member does not currently own — the
     group rebalanced underneath it (Kafka's CommitFailedError)."""
+
+
+class TransientBrokerError(RuntimeError):
+    """Transport-level broker failure that is expected to heal (a broker
+    down while the client retries, or an injected chaos fault). Raised from
+    the poll path; it kills the engine incarnation and ``run_supervised``
+    restarts from the last committed offsets."""
 
 
 class _GroupState:
@@ -222,6 +251,14 @@ class InProcessBroker:
         return (group.generation, owned,
                 {pair: group.acquired[pair] for pair in owned})
 
+    def group_assignment(self, group_id: str) -> Dict[str, List[tuple]]:
+        """Current member -> sorted [(topic, partition)] map."""
+        with self._lock:
+            group = self._groups.get(group_id)
+            if group is None:
+                return {}
+            return {m: sorted(pairs) for m, pairs in group.assignment.items()}
+
 
 class InProcessConsumer:
     """Earliest-offset group consumer with manual commit. Not thread-safe
@@ -266,6 +303,12 @@ class InProcessConsumer:
             for key in owned}
         self._owned = set(owned)
         self._generation = gen
+
+    def assignment(self) -> List[tuple]:
+        """This member's current (topic, partition) ownership (refreshed)."""
+        with self._region, self.broker._lock:
+            self._refresh_locked()
+            return sorted(self._owned)
 
     def _next_from(self, topic: str, part_idx: int) -> Optional[Message]:
         parts = self.broker._partitions(topic)
@@ -316,6 +359,36 @@ class InProcessConsumer:
                     self._position[key] = pos + take
         return out
 
+    def commit(self) -> None:
+        """Commit the consumer's current position. A partition whose
+        uncommitted read-ahead was rebalanced away (or bounced away and
+        back, restamped at a new generation) raises ``CommitFailedError``,
+        as Kafka does for a stale generation."""
+        with self._region:
+            before_pos = dict(self._position)
+            before_committed = dict(self._committed)
+            before_acq = dict(self._acquired)
+            with self.broker._lock:
+                self._refresh_locked()
+            lost = sorted(key for key, pos in before_pos.items()
+                          if (key not in self._owned
+                              or self._acquired.get(key) != before_acq.get(key))
+                          and pos > before_committed.get(key, 0))
+            if lost:
+                raise CommitFailedError(
+                    f"group {self.group_id!r} rebalanced: member "
+                    f"{self.member_id!r} no longer owns {lost}; "
+                    "offsets stay uncommitted — the new owner reprocesses")
+            self._committed.update(self._position)
+            self._write_through()
+
+    def _write_through(self) -> None:
+        with self.broker._lock:
+            for (t, p), off in self._committed.items():
+                key = (self.group_id, t, p)
+                if off > self.broker._group_offsets.get(key, 0):
+                    self.broker._group_offsets[key] = off
+
     def commit_offsets(self, offsets: Dict[tuple, int]) -> None:
         """Commit explicit next-offsets per (topic, partition), so a
         pipelined engine records batch N while batch N+1 is in flight."""
@@ -330,11 +403,8 @@ class InProcessConsumer:
                         f"group {self.group_id!r} rebalanced: member "
                         f"{self.member_id!r} no longer owns {sorted(lost)}; "
                         "offsets stay uncommitted — the new owner reprocesses")
-                self._committed.update(advances)
-                for (t, p), off in self._committed.items():
-                    key = (self.group_id, t, p)
-                    if off > self.broker._group_offsets.get(key, 0):
-                        self.broker._group_offsets[key] = off
+            self._committed.update(advances)
+            self._write_through()
 
     def committed_offsets(self) -> Dict[tuple, int]:
         return dict(self._committed)
@@ -352,6 +422,15 @@ class InProcessConsumer:
                     total += max(0, len(parts[p])
                                  - self._position.get((topic, p), 0))
             return total
+
+    def seek_to_committed(self) -> None:
+        """Simulate a restart: resume every owned partition from the GROUP's
+        durable offsets (the committed truth — each commit writes through)."""
+        with self._region, self.broker._lock:
+            self._refresh_locked()
+            offsets = self.broker._group_offsets
+            self._position = {key: offsets.get((self.group_id, *key), 0)
+                              for key in self._owned}
 
     def close(self) -> None:
         if not self._closed:

@@ -46,6 +46,14 @@ flagged rows go to an ``AsyncAnnotationLane`` (``stream/annotations.py``),
 whose worker explains them onto a side topic; ``breaker=`` and
 ``explain_service=`` (the circuit breaker and the slotserve service behind
 the hook) only surface their state in ``health()``.
+
+``rowtrace=`` (``obs.RowTracer``) mints a correlation id per polled batch
+and carries it to every row's terminal: batch stage spans (poll, admit,
+launch, device, deliver) plus row events for flagged, shed and
+dead-lettered rows, whose DLQ records carry the row's id. ``sentinel=``
+(``obs.sentinel.Sentinel``) only surfaces its alert block in ``health()``.
+``run_supervised`` rebuilds a failed engine (a broker fault, a lost flush)
+from the group's committed offsets with jittered exponential backoff.
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ from fraud_detection_tpu_torch.sched.sketch import LatencySketch
 from fraud_detection_tpu_torch.stream.broker import (CommitFailedError,
                                                      Message)
 from fraud_detection_tpu_torch.utils import get_logger
+from fraud_detection_tpu_torch.utils.device import is_device_fault
 from fraud_detection_tpu_torch.utils.racecheck import ExclusiveRegion
 
 log = get_logger("stream.engine")
@@ -106,9 +115,11 @@ def _malformed_wire(msg: Message) -> bytes:
 
 
 def _dlq_record(msg: Message, reason: str, error: str,
-                attempts: Optional[int] = None) -> bytes:
+                attempts: Optional[int] = None,
+                trace: Optional[str] = None) -> bytes:
     """Structured dead-letter record: why the row was diverted plus the
-    source coordinates to find and replay it (keyed by the source key)."""
+    source coordinates to find and replay it (keyed by the source key);
+    ``trace`` is the row's correlation id when tracing is on."""
     rec = {
         "reason": reason,
         "error": error,
@@ -118,6 +129,8 @@ def _dlq_record(msg: Message, reason: str, error: str,
     }
     if attempts is not None:
         rec["attempts"] = attempts
+    if trace is not None:
+        rec["trace"] = trace
     return json.dumps(rec).encode()
 
 
@@ -131,7 +144,7 @@ class StreamStats:
     batches: int = 0
     commits_skipped: int = 0  # producer didn't drain; offsets left uncommitted
     rebalanced_commits: int = 0  # commit fenced by a group rebalance (routine)
-    restarts: int = 0         # supervised rebuilds (supervision not ported: 0)
+    restarts: int = 0         # supervised engine rebuilds (run_supervised)
     elapsed: float = 0.0
     batch_latency_sum: float = 0.0
     batch_latency_max: float = 0.0
@@ -145,6 +158,11 @@ class StreamStats:
     def record_latency(self, dt: float) -> None:
         self.batch_latency_sum += dt
         self.batch_latency_max = max(self.batch_latency_max, dt)
+        self._reservoir_add(dt)
+
+    def _reservoir_add(self, dt: float) -> None:
+        """Add a sample to the percentile reservoir without touching the
+        exact sum/max (the supervisor's merge reuses this)."""
         self._seen += 1
         if len(self.latencies) < self._latency_cap:
             self.latencies.append(dt)
@@ -223,7 +241,10 @@ class StreamingClassifier:
                  annotations_producer=None,
                  annotations_queue: int = 1024,
                  breaker: Optional[object] = None,
-                 explain_service: Optional[object] = None):
+                 explain_service: Optional[object] = None,
+                 rowtrace: Optional[object] = None,
+                 sentinel: Optional[object] = None,
+                 clock: Callable[[], float] = time.monotonic):
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         if dlq_max_attempts < 1:
@@ -272,12 +293,17 @@ class StreamingClassifier:
             self._annotation_lane = AsyncAnnotationLane(
                 explain_batch_fn, annotations_producer,
                 annotations_topic or f"{output_topic}-annotations",
-                max_queue=annotations_queue)
+                max_queue=annotations_queue, rowtrace=rowtrace)
             self.explain_fn = explain_fn = None
             self.explain_batch_fn = explain_batch_fn = None
-        # Surfaced in health() only; the hook and the lane own the calls.
+        # Surfaced in health() only; the hook and the lane own the calls
+        # (the sentinel is evaluated by its own driver thread). Share ONE
+        # sentinel, like ONE row tracer, across a worker's supervised
+        # incarnations, so incident and span accounting survive restarts.
         self._breaker = breaker
         self._explain_service = explain_service
+        self._sentinel = sentinel
+        self._rowtrace = rowtrace
         # Dead-letter routing: malformed rows and rows re-delivered more
         # than ``dlq_max_attempts`` times go to the DLQ topic. Pass ONE
         # ``dlq_attempts`` dict to every incarnation so poison counting
@@ -305,7 +331,9 @@ class StreamingClassifier:
             None if explain_fn is None and explain_batch_fn is None else False)
         # Native output-frame assembly: None = untried (probed on first use).
         self._frames_ok: Optional[bool] = None
-        self._created_at = time.monotonic()
+        # Injectable monotonic clock for health ages (tests drive it).
+        self._clock = clock
+        self._created_at = clock()
         self._last_batch_at: Optional[float] = None
         self._inflight_depth = 0
         self._max_inflight = 0
@@ -339,6 +367,10 @@ class StreamingClassifier:
         """Driver-side admission for a freshly polled batch: offset cover,
         scheduler shedding, poison screening."""
         t0 = time.perf_counter()
+        # Correlation id minted at poll: this batch's trace context rides
+        # _Prep/_InFlight through every later leg.
+        bt = (self._rowtrace.batch_begin(len(msgs))
+              if self._rowtrace is not None else None)
         # Offsets cover the ORIGINAL batch — rows screened out below are
         # handled (their DLQ record ships with this batch) and must commit.
         offsets: dict = {}
@@ -353,23 +385,29 @@ class StreamingClassifier:
             # never shed); a shed row's record rides THIS batch's delivery
             # and commit, so key-set accounting stays exact.
             keep, shed_rows = self._sched.admit(
-                msgs, self._sched.backlog_of(self.consumer))
+                msgs, self._sched.backlog_of(self.consumer), trace=bt)
             if shed_rows:
                 dead, dead_reasons = [], {}
                 for m, reason in shed_rows:
                     dead.append((_dlq_record(
                         m, reason,
                         "shed by admission control; replay from the DLQ "
-                        "record's source coordinates"), m.key))
+                        "record's source coordinates",
+                        trace=(bt.row_cid(m) if bt is not None else None)),
+                        m.key))
                     dead_reasons[reason] = dead_reasons.get(reason, 0) + 1
                 shed_n = len(shed_rows)
                 msgs = keep
         if self._dlq_attempts is not None:
             if dead is None:
                 dead, dead_reasons = [], {}
-            msgs = self._screen_poison(msgs, dead, dead_reasons)
-        return _Prep(msgs, offsets, dead, dead_reasons, shed_n,
-                     time.perf_counter() - t0)
+            msgs = self._screen_poison(msgs, dead, dead_reasons, bt)
+        prep_time = time.perf_counter() - t0
+        if bt is not None:
+            bt.add("admit", prep_time,
+                   detail=f"kept={len(msgs)} shed={shed_n}")
+        return _Prep(msgs, offsets, dead, dead_reasons, shed_n, prep_time,
+                     bt)
 
     def _launch(self, prep: "_Prep") -> "_InFlight":
         """Featurize + device dispatch for a prepared batch; does NOT wait
@@ -388,6 +426,11 @@ class StreamingClassifier:
                        if valid_idx else None)
             inflight = _InFlight(msgs, texts, valid_idx, pending, offsets,
                                  time.perf_counter() - t0)
+        inflight.trace = prep.trace
+        if prep.trace is not None:
+            # The featurize + upload + launch leg (maybe on the lane's
+            # thread: the trace travels with its batch, FIFO, never shared).
+            prep.trace.add("launch", inflight.dispatch_time)
         inflight.dispatch_time += prep.prep_time
         if prep.dead:
             inflight.dead = prep.dead
@@ -438,7 +481,8 @@ class StreamingClassifier:
         return self._frames_ok
 
     def _screen_poison(self, msgs: List[Message], dead: List[tuple],
-                       dead_reasons: dict) -> List[Message]:
+                       dead_reasons: dict,
+                       bt: Optional[object] = None) -> List[Message]:
         """Count this delivery against each row and divert rows whose count
         exceeded ``dlq_max_attempts``. Counts clear on batch success
         (``_deliver``) and are tracked per source offset."""
@@ -452,7 +496,9 @@ class StreamingClassifier:
                     m, "max_attempts_exceeded",
                     f"re-delivered {n} times without a successful batch "
                     f"(dlq_max_attempts={self.dlq_max_attempts})",
-                    attempts=n), m.key))
+                    attempts=n,
+                    trace=(bt.dlq(m, "max_attempts_exceeded")
+                           if bt is not None else None)), m.key))
                 dead_reasons["max_attempts_exceeded"] = (
                     dead_reasons.get("max_attempts_exceeded", 0) + 1)
             else:
@@ -476,8 +522,18 @@ class StreamingClassifier:
         flush, commit that batch's offsets. Returns messages handled."""
         t1 = time.perf_counter()
         msgs, texts = inflight.msgs, inflight.texts
-        preds = (inflight.pending.resolve()
-                 if inflight.pending is not None else None)
+        bt = inflight.trace
+        if inflight.pending is None:
+            preds = None
+        elif bt is not None:
+            # Ends when the host holds the labels (the device-to-host copy
+            # included), not at launch.
+            with bt.span("device"):
+                preds = inflight.pending.resolve()
+        else:
+            preds = inflight.pending.resolve()
+        if bt is not None and preds is not None:
+            self._trace_flags(inflight, preds)
         if preds is not None and self._annotation_lane is not None:
             self._submit_annotations(inflight, preds)
         if preds is not None and self._shadow is not None:
@@ -589,6 +645,7 @@ class StreamingClassifier:
         flag_labels = labels[flagged].tolist()
         flag_confs = confs[flagged].tolist()
         msgs = inflight.msgs
+        bt = inflight.trace
         items = []
         if inflight.raw:
             # Predictions are positional over ALL rows; malformed rows hold
@@ -600,14 +657,39 @@ class StreamingClassifier:
                     continue
                 text = self._annotation_text(inflight, i)
                 if text is not None:
-                    items.append((msgs[i].key, text, label, conf))
+                    items.append((msgs[i].key, text, label, conf,
+                                  bt.row_cid(msgs[i])
+                                  if bt is not None else None))
         else:
             for j, label, conf in zip(flagged.tolist(), flag_labels,
                                       flag_confs):
                 i = inflight.valid_idx[j]
-                items.append((msgs[i].key, inflight.texts[i], label, conf))
+                items.append((msgs[i].key, inflight.texts[i], label, conf,
+                              bt.row_cid(msgs[i])
+                              if bt is not None else None))
         if items:
             self._annotation_lane.submit(items)
+
+    def _trace_flags(self, inflight: "_InFlight", preds) -> None:
+        """Row events for this batch's flagged (non-benign) rows: flagged
+        rows are always kept by the tracer (head sampling only throttles
+        clean traffic), stored as one compact block of (partition, offset)
+        pairs — the row ids materialize when the ring is read."""
+        labels = np.asarray(preds.labels)
+        flagged = np.flatnonzero(labels != 0)
+        if flagged.size == 0:
+            return
+        if not inflight.raw:
+            idxs = [inflight.valid_idx[j] for j in flagged.tolist()]
+        elif len(inflight.valid_idx) == len(inflight.msgs):
+            idxs = flagged.tolist()
+        else:
+            valid = frozenset(inflight.valid_idx)
+            idxs = [i for i in flagged.tolist() if i in valid]
+        msgs = inflight.msgs
+        inflight.trace.events_rows(
+            "flag", [(m.partition, m.offset)
+                     for m in map(msgs.__getitem__, idxs)])
 
     def _annotation_text(self, inflight: "_InFlight", i: int) -> Optional[str]:
         """Decoded text of row i of a raw-mode batch: the stored literal (or
@@ -692,7 +774,11 @@ class StreamingClassifier:
         (same flush/commit accounting as the output frames)."""
         if inflight.dead is None:
             inflight.dead, inflight.dead_reasons = [], {}
-        inflight.dead.append((_dlq_record(msg, reason, error), msg.key))
+        bt = inflight.trace
+        inflight.dead.append((_dlq_record(
+            msg, reason, error,
+            trace=(bt.dlq(msg, reason) if bt is not None else None)),
+            msg.key))
         inflight.dead_reasons[reason] = inflight.dead_reasons.get(reason, 0) + 1
 
     def health(self) -> dict:
@@ -702,7 +788,7 @@ class StreamingClassifier:
         ``breaker`` and ``explain`` without a breaker or slotserve service;
         ``model`` is None for a plain static pipeline without a shadow
         scorer, ``learn`` without a learn loop."""
-        now = time.monotonic()
+        now = self._clock()
         # Model-lifecycle block: present when the engine scores through a
         # HotSwapPipeline (active/staged versions, swap count) and/or a
         # ShadowScorer is attached (divergence stats).
@@ -747,6 +833,12 @@ class StreamingClassifier:
                       if self._learn is not None
                       and hasattr(self._learn, "snapshot")
                       else None),
+            # Row tracing: span begun/ended counters, ring depth and drops,
+            # per-stage latency quantiles.
+            "trace": (self._rowtrace.snapshot()
+                      if self._rowtrace is not None else None),
+            # Alerting: rule states, firing lists, incident accounting.
+            "alerts": _snapshot_of(self._sentinel),
         }
 
     def _device_block(self) -> dict:
@@ -779,6 +871,8 @@ class StreamingClassifier:
     def _deliver(self, inflight: "_InFlight", wires: List[tuple],
                  t1: float) -> int:
         msgs = inflight.msgs
+        bt = inflight.trace
+        t_del = time.perf_counter() if bt is not None else 0.0
         self.producer.produce_batch(self.output_topic, wires)
         if inflight.dead:
             self.producer.produce_batch(self.dlq_topic, inflight.dead)
@@ -792,6 +886,12 @@ class StreamingClassifier:
             self._flush_fail_streak += 1
             self._flush_failed = True
             self._running = False
+            if bt is not None:
+                # The batch will be replayed: its deliver leg closes failed
+                # and its trace is kept (aborted batches are interesting).
+                bt.add("deliver", time.perf_counter() - t_del, ok=False,
+                       detail=f"undelivered={undelivered}")
+                self._rowtrace.abort(bt, "flush_failed")
             return 0
         self._flush_fail_streak = 0
         try:
@@ -829,7 +929,18 @@ class StreamingClassifier:
             self.stats.row_sketch.add_many(lats)
             if self._sched is not None:
                 self._sched.observe_batch(len(msgs), dt, lats)
-        self._last_batch_at = time.monotonic()
+        self._last_batch_at = self._clock()
+        if bt is not None:
+            if msgs and getattr(self._rowtrace, "record_rows", False):
+                # Record mode: every delivered row's source coordinates, the
+                # census an exact replay needs.
+                bt.events_rows("row", [(m.partition, m.offset)
+                                       for m in msgs])
+            # Terminal: the deliver leg closes and the batch's spans commit
+            # to the ring (kept when sampled or interesting).
+            bt.add("deliver", time.perf_counter() - t_del,
+                   detail=f"rows={len(wires)}")
+            self._rowtrace.commit(bt)
         return len(msgs) + inflight.dead_screened
 
     def process_batch(self, msgs: List[Message]) -> int:
@@ -877,7 +988,14 @@ class StreamingClassifier:
         submit or on the dispatch lane's thread (``async_dispatch``).
         ``next()`` returns batches strictly FIFO, and a launch failure
         re-raises here at the failed batch's position (newer batches are
-        then discarded uncommitted)."""
+        then discarded uncommitted).
+
+        An incarnation that dies (a broker fault, a flush crash, a lane
+        failure) with batches in flight stops the lane (its thread joined,
+        its launched batches dropped with their pending device-to-host
+        copies), commits none of their offsets, and closes their traces as
+        aborted — the failed batch's too, so every minted batch reaches a
+        terminal."""
         if self.async_dispatch:
             from fraud_detection_tpu_torch.sched.batcher import DispatchLane
 
@@ -886,6 +1004,8 @@ class StreamingClassifier:
             lane = _InlineDispatch(self._launch)
         self._lane = lane
         pending: "deque[_Prep]" = deque()   # submitted, not yet delivered
+        discarded: list = []                # abandoned batches (their traces
+                                            # close after the lane joins)
         idle_since: Optional[float] = None
 
         def deliver_oldest() -> None:
@@ -918,22 +1038,31 @@ class StreamingClassifier:
                     continue
                 idle_since = None
                 prep = self._prepare(msgs)
+                pending.append(prep)   # first: a failed launch still aborts
                 lane.submit(prep)
-                pending.append(prep)
                 if len(pending) > self.pipeline_depth:
                     deliver_oldest()
                 self._inflight_depth = len(pending)
         except BaseException:
             # Never finish newer batches past an interrupted one: leave
             # them uncommitted for a restart to replay (at-least-once).
+            discarded.extend(pending)
             pending.clear()
             raise
         finally:
             try:
                 while pending and not self._flush_failed:
                     deliver_oldest()
+            except BaseException:
+                discarded.extend(pending)
+                pending.clear()
+                raise
             finally:
                 lane.stop()
+                self._abort_traces(discarded, "engine_abort")
+                # Left behind a failed flush: replayed by the next run.
+                self._abort_traces(pending, "discarded_after_flush_failure")
+                pending.clear()
                 self._lane_stats = lane.stats()
                 self._max_inflight = max(self._max_inflight,
                                          lane.max_inflight)
@@ -942,6 +1071,16 @@ class StreamingClassifier:
                 self._running = False
                 self.stats.elapsed = time.perf_counter() - started
         return self.stats
+
+
+    def _abort_traces(self, batches, reason: str) -> None:
+        """Close the traces of batches being discarded (crash / flush-fail
+        replay paths), so every minted batch reaches a terminal. Abort is
+        idempotent: a batch whose trace already closed is skipped."""
+        if self._rowtrace is None:
+            return
+        for b in batches:
+            self._rowtrace.abort(b.trace, reason)
 
 
 def _snapshot_of(component) -> Optional[dict]:
@@ -984,6 +1123,7 @@ class _Prep:
     dead_reasons: Optional[dict]
     shed_n: int
     prep_time: float            # seconds spent preparing
+    trace: Optional[object] = None  # obs.trace.BatchTrace (tracing on)
 
     @property
     def n_rows(self) -> int:
@@ -1009,3 +1149,119 @@ class _InFlight:
     dead_screened: int = 0      # dead rows NOT in msgs (poison screen + shed)
     shed_n: int = 0             # of dead_screened, rows shed by admission
     recv_wall: float = 0.0      # wall-clock poll receipt (latency fallback)
+    trace: Optional[object] = None  # obs.trace.BatchTrace (tracing on)
+
+
+def run_supervised(make_engine: Callable[[], StreamingClassifier], *,
+                   max_restarts: int = 5,
+                   backoff: float = 0.5,
+                   backoff_cap: float = 30.0,
+                   max_messages: Optional[int] = None,
+                   idle_timeout: Optional[float] = None,
+                   sleep=time.sleep,
+                   jitter: bool = True,
+                   rng: Optional[random.Random] = None) -> StreamStats:
+    """Failure-detecting restart loop around the streaming engine.
+
+    ``make_engine`` builds a fresh engine (a new consumer resumes from the
+    group's committed offsets); a failed incarnation — an exception out of
+    ``run`` or out of ``make_engine`` itself, or a producer flush that left
+    outputs undelivered — is restarted after an exponential backoff that
+    resets after any run that made progress. Gives up after
+    ``max_restarts`` consecutive failures and re-raises the last error with
+    the aggregated stats attached as ``.supervisor_stats``.
+
+    A fault of the card (``utils/device.is_device_fault``: a CUDA error, a
+    kernel that did not build or launch, device memory exhausted) is not
+    restarted around: it re-raises at once, with zero restarts spent on
+    it. Restarts are for broker and transport faults.
+
+    Backoff uses FULL JITTER: each wait is uniform in [0, min(backoff *
+    2^(n-1), backoff_cap)], so workers failed by one outage do not rejoin
+    in synchronized waves. ``jitter=False`` restores the deterministic
+    ceiling; ``rng`` injects a seeded ``random.Random`` for reproducible
+    schedules. Returns StreamStats aggregated across incarnations
+    (``restarts`` counts the rebuilds)."""
+    uniform = (rng.uniform if rng is not None else random.uniform)
+    total = StreamStats()
+    consecutive = 0
+    while True:
+        budget = None if max_messages is None else max_messages - total.processed
+        if budget is not None and budget <= 0:
+            break
+        engine: Optional[StreamingClassifier] = None
+        failed: Optional[BaseException] = None
+        interrupted = False
+        stats = StreamStats()
+        try:
+            # Inside the guard: with the broker down, building the clients
+            # can raise — a failed incarnation, not a supervisor crash.
+            engine = make_engine()
+            stats = engine.run(max_messages=budget, idle_timeout=idle_timeout)
+        except KeyboardInterrupt:
+            if engine is not None:
+                stats = engine.stats
+            interrupted = True
+        except Exception as e:  # noqa: BLE001 — the supervisor's whole job
+            if engine is not None:
+                stats = engine.stats
+            failed = e
+        finally:
+            # A crashed incarnation's consumer leaves the group promptly
+            # (a zombie would hold its partitions) and its clients close.
+            if engine is not None:
+                for client in (engine.consumer, engine.producer):
+                    close = getattr(client, "close", None)
+                    if close is not None:
+                        try:
+                            close()
+                        except Exception:  # noqa: BLE001
+                            pass
+        _merge_stats(total, stats)
+        if interrupted:
+            break
+        if failed is not None and is_device_fault(failed):
+            failed.supervisor_stats = total
+            raise failed
+        flush_failed = stats.commits_skipped > 0
+        if failed is None and not flush_failed:
+            break  # clean exit (idle timeout / max_messages / stop())
+        if stats.processed > 0:
+            consecutive = 0  # made progress: a fresh incident
+        consecutive += 1
+        if consecutive > max_restarts:
+            if failed is None:
+                failed = RuntimeError(
+                    f"producer flush kept failing after {max_restarts} "
+                    f"restarts (last committed offsets hold; "
+                    f"{total.processed} processed)")
+            failed.supervisor_stats = total
+            raise failed
+        total.restarts += 1
+        delay = min(backoff * (2 ** (consecutive - 1)), backoff_cap)
+        if jitter:
+            delay = uniform(0.0, delay)
+        try:
+            sleep(delay)
+        except KeyboardInterrupt:
+            break
+    return total
+
+
+def _merge_stats(total: StreamStats, part: StreamStats) -> None:
+    total.processed += part.processed
+    total.malformed += part.malformed
+    total.dead_lettered += part.dead_lettered
+    total.shed += part.shed
+    total.batches += part.batches
+    total.commits_skipped += part.commits_skipped
+    total.rebalanced_commits += part.rebalanced_commits
+    total.elapsed += part.elapsed
+    # Sum/max merge exactly; the percentile reservoir merges by samples.
+    total.batch_latency_sum += part.batch_latency_sum
+    total.batch_latency_max = max(total.batch_latency_max,
+                                  part.batch_latency_max)
+    for dt in part.latencies:
+        total._reservoir_add(dt)
+    # The row-latency sketch merges losslessly (bucket counts add).
+    total.row_sketch.merge(part.row_sketch)

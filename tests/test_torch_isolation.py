@@ -56,7 +56,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "stream.feedback", "scenarios.traffic",
                  "explain.slotserve", "explain.slotserve.decode",
                  "explain.slotserve.service", "stream.annotations",
-                 "checkpoint.hf_convert", "ops.int8_matmul"):
+                 "checkpoint.hf_convert", "ops.int8_matmul",
+                 "stream.faults", "obs", "obs.trace", "obs.metrics",
+                 "obs.export", "obs.sentinel", "obs.sentinel.rules",
+                 "obs.sentinel.engine", "obs.sentinel.bundle",
+                 "utils.tracing"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

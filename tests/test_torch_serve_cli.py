@@ -17,7 +17,15 @@ paged. ``--explain onpod:<dir>`` and ``onpod-int8:<dir>`` serve a Hugging
 Face checkpoint written in the test (with a word-level tokenizer) with the
 JAX CLI's classified output, analyses on exactly the flagged rows, and
 refuse a missing or unloadable directory with its messages; ``--explain
-deepseek`` needs a key and then builds the reference's backend.
+deepseek`` needs a key and then builds the reference's backend. The
+supervision and observability flags (``--supervise``, ``--chaos``,
+``--chaos-seed``, ``--health-file``, ``--health-interval``,
+``--metrics-file``, ``--metrics-interval``, ``--metrics-port``,
+``--alerts``, ``--alert-rules``, ``--alert-interval``, ``--incident-dir``,
+``--trace``, ``--trace-sample``, ``--profile-dir``, ``--profile-batches``)
+refuse bad values with the JAX CLI's messages, ``--chaos`` implies
+``--supervise 25``, and a chaos demo with every one of them on prints the
+JAX CLI's stats keys.
 """
 
 import json
@@ -176,6 +184,107 @@ def test_synthetic_model_names_the_missing_trainer(capsys):
                        match=r"checkpoint dir '/nowhere' not found"):
         tserve.main(["--device", "cpu", "--model", "x", "--demo", "5",
                      "--explain", "onpod:/nowhere"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--demo", "5", "--health-interval", "0"],
+    ["--demo", "5", "--metrics-interval", "-1"],
+    ["--demo", "5", "--metrics-port", "-2"],
+    ["--demo", "5", "--trace-sample", "1.5"],
+    ["--demo", "5", "--trace", "--trace-sample", "-0.1"],
+    ["--demo", "5", "--alerts", "--alert-interval", "0"],
+    ["--demo", "5", "--incident-dir", "inc", "--alert-interval", "-1"],
+    ["--demo", "5", "--alert-rules", "/nowhere/rules.json"],
+    ["--demo", "5", "--profile-dir", "p", "--profile-batches", "0"],
+    ["--chaos"],
+    ["--chaos", "--chaos-seed", "3", "--supervise", "2"],
+])
+def test_supervision_and_obs_flag_errors_equal_jax(ckpt, argv):
+    argv = ["--model", ckpt, *argv]
+    with pytest.raises(SystemExit) as je:
+        jserve.main(argv)
+    with pytest.raises(SystemExit) as te:
+        tserve.main(["--device", "cpu", *argv])
+    assert str(te.value) == str(je.value)
+
+
+def test_bad_alert_rule_file_refuses_like_jax(ckpt, tmp_path):
+    bad = tmp_path / "bad.json"
+    bad.write_text(json.dumps([{"name": "x", "kind": "wat"}]))
+    argv = ["--model", ckpt, "--demo", "5", "--alert-rules", str(bad)]
+    with pytest.raises(SystemExit) as je:
+        jserve.main(argv)
+    with pytest.raises(SystemExit, match="bad --alert-rules") as te:
+        tserve.main(["--device", "cpu", *argv])
+    assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("extra,want", [(["--chaos"], 25),
+                                        (["--chaos", "--supervise", "3"], 3),
+                                        (["--supervise", "4"], 4)])
+def test_chaos_implies_supervision(ckpt, capsys, monkeypatch, extra, want):
+    """``--chaos`` without ``--supervise`` supervises with 25 restarts, as
+    the JAX CLI does; an explicit ``--supervise`` wins."""
+    from fraud_detection_tpu_torch.stream import engine as tengine
+
+    seen = {}
+    real = tengine.run_supervised
+
+    def spy(make_engine, **kw):
+        seen.update(kw)
+        return real(make_engine, **kw)
+
+    monkeypatch.setattr(tengine, "run_supervised", spy)
+    rc, stats, n = _serve(tserve.main, ["--device", "cpu", "--model", ckpt,
+                                        "--demo", "300", "--batch-size", "64",
+                                        "--max-wait", "0.01", "--dlq", *extra],
+                          capsys)
+    assert rc == 0 and seen["max_restarts"] == want
+    assert ("chaos" in stats) == ("--chaos" in extra)
+
+
+def test_chaos_demo_with_every_obs_flag_matches_jax_keys(ckpt, capsys,
+                                                         tmp_path):
+    """``--demo 300 --chaos --trace --alerts --metrics-file --health-file``
+    (and the profile window) on both CLIs: exit 0, every message classified
+    or dead-lettered, the same stats keys, the same health keys, and the
+    port's metrics, health file and spans accounted."""
+    def argv(tag):
+        d = tmp_path / tag
+        return ["--model", ckpt, "--demo", "300", "--batch-size", "64",
+                "--max-wait", "0.01", "--dlq", "--chaos", "--chaos-seed", "7",
+                "--trace", "--alerts", "--incident-dir", str(d / "inc"),
+                "--metrics-file", str(d / "m.prom"),
+                "--health-file", str(d / "h.json"),
+                "--profile-dir", str(d / "prof"), "--profile-batches", "2"]
+
+    jrc, jstats, _ = _serve(jserve.main, argv("jax"), capsys)
+    trc, tstats, tn = _serve(tserve.main, ["--device", "cpu", *argv("port")],
+                             capsys)
+    assert jrc == trc == 0
+    assert set(tstats) == set(jstats)
+    assert set(tstats["health"]) == set(jstats["health"])
+    assert tstats["restarts"] > 0 and tstats["chaos"]["total"] > 0
+    assert tstats["profile"]["error"] is None
+    trace = tstats["health"]["trace"]
+    assert trace["spans_begun"] == trace["spans_ended"]
+    assert trace["batches_traced"] == trace["batches_closed"]
+    d = tmp_path / "port"
+    from fraud_detection_tpu_torch.obs.metrics import (leaf_paths,
+                                                       metric_name,
+                                                       parse_prometheus)
+
+    parsed = parse_prometheus((d / "m.prom").read_text())
+    for path in leaf_paths(tstats["health"], ("engine",)):
+        name = metric_name("fraud", path)
+        assert name in parsed or name + "_count" in parsed, path
+    health = json.loads((d / "h.json").read_text())
+    assert health["chaos"] == tstats["chaos"]
+    assert health["engines"][0]["processed"] == tstats["health"]["processed"]
+    alerts = tstats["alerts"]
+    bundles = [p for p in (d / "inc").iterdir() if p.is_dir()] \
+        if (d / "inc").exists() else []
+    assert len(bundles) == alerts["fired"]
 
 
 @pytest.mark.parametrize("flag,takes_value,item", tserve._UNPORTED)

@@ -18,14 +18,13 @@ The model is the JAX test's (d 64, 2 layers, 4 heads, d_ff 128, max_seq
   accounted markers behind the breaker;
 * **schema** — ``snapshot()`` has the JAX service's keys
   (``tests/test_slotserve.py``'s ``SLOTSERVE_BLOCK_SCHEMA``);
+* **tracing** — explained rows' "explain" spans carry their slot, drop
+  records carry trace ids that join back to the rows' chains, and under
+  seeded broker chaos every flagged row is explained or accounted;
 * **end to end** — the serve CLI with ``--explain-slots``.
 
 Not ported, so not here (each waits for its ROADMAP Queue 1 item):
-``test_explain_rows_positional_and_traced``'s span checks and
-``test_lane_drop_records_carry_trace_ids``'s trace ids (row tracing,
-``obs/``, item 5.2: the positional and drop-record halves are below);
-``test_chaos_every_flagged_row_explained_or_accounted`` (``stream/faults.py``,
-item 5.1); ``test_campaign_explain_gameday_passes`` and
+``test_campaign_explain_gameday_passes`` and
 ``test_gameday_validation_rejects_bad_configs`` (``scenarios/gameday``, item
 5.4).
 """
@@ -166,6 +165,28 @@ def test_explain_rows_positional(lm):
         singles = [svc.explain_rows([t], [1], [c], max_tokens=8)[0]
                    for t, c in zip(texts, (0.9, 0.8, 0.7))]
         assert out == singles and all(isinstance(s, str) for s in out)
+    finally:
+        svc.close()
+
+
+def test_explain_rows_positional_and_traced(lm):
+    """Every traced row gets exactly one ok "explain" span naming its
+    slot; an untraced row (cid None) records nothing."""
+    from fraud_detection_tpu_torch.obs.trace import RowTracer
+
+    tracer = RowTracer(worker="t0", sample=1.0)
+    svc = make_service(lm, rowtrace=tracer)
+    try:
+        cids = ["t0-1:0:5", None, "t0-1:0:7"]
+        out = svc.explain_rows(["scam text A", "scam text B", "scam text C"],
+                               [1, 1, 1], [0.9, 0.8, 0.7], cids=cids,
+                               max_tokens=8)
+        assert len(out) == 3 and all(isinstance(s, str) for s in out)
+        for cid in ("t0-1:0:5", "t0-1:0:7"):
+            spans = [s for s in tracer.chain(cid) if s.stage == "explain"]
+            assert len(spans) == 1 and spans[0].ok
+            assert "slot=" in spans[0].detail
+        assert tracer.snapshot()["spans_begun"] == 2
     finally:
         svc.close()
 
@@ -364,6 +385,86 @@ def test_lane_drop_records_account_every_drop(pipeline):
     assert len(drops) == stats["drop_records"]
     for rec in drops:
         assert rec["reason"] == "queue_overflow" and rec["analysis"] is None
+
+
+def test_lane_drop_records_carry_trace_ids(pipeline):
+    """Every eviction's record on the side topic carries a ``trace`` id that
+    joins back to the row's chain: flagged at classification, then the
+    failed annotate the drop recorded."""
+    from fraud_detection_tpu_torch.obs.trace import RowTracer
+
+    tracer = RowTracer(worker="w0", sample=1.0)
+    broker = InProcessBroker(num_partitions=2)
+    _feed(broker, 48, scam_every=2)
+    slow = threading.Event()
+
+    def hook(texts, labels, confs, cids=None):
+        slow.wait(0.25)          # a slow backend so the queue overflows
+        return ["ok"] * len(texts)
+
+    hook.accepts_cids = True
+    engine = StreamingClassifier(
+        pipeline, broker.consumer(["in"], "g"), broker.producer(), "out",
+        batch_size=16, max_wait=0.01,
+        explain_batch_fn=hook, explain_async=True,
+        annotations_producer=broker.producer(), annotations_queue=4,
+        rowtrace=tracer)
+    engine.run(max_messages=48, idle_timeout=1.0)
+    engine.close_annotations(timeout=30.0)
+    stats = engine.annotation_stats()
+    assert stats["dropped"] > 0
+    assert stats["drop_records"] == stats["dropped"]
+    drops = [r for r in (json.loads(m.value)
+                         for m in broker.messages("out-annotations"))
+             if r.get("dropped")]
+    assert len(drops) == stats["drop_records"]
+    for rec in drops:
+        chain = tracer.chain(rec["trace"])
+        assert {"flag", "annotate"} <= {s.stage for s in chain}
+        assert any(s.stage == "annotate" and not s.ok
+                   and "dropped" in (s.detail or "") for s in chain)
+
+
+def test_chaos_every_flagged_row_explained_or_accounted(lm, pipeline):
+    """Seeded broker chaos on the classification path with slotserve behind
+    the lane: no lost classification, the lane's coverage invariant
+    (submitted == annotated + drop_records), exact slot accounting and no
+    open span."""
+    from fraud_detection_tpu_torch.obs.trace import RowTracer
+    from fraud_detection_tpu_torch.stream.faults import FaultPlan
+
+    tracer = RowTracer(worker="w0", sample=1.0)
+    svc = make_service(lm, slots=2, max_new_tokens=6, rowtrace=tracer)
+    try:
+        hook = make_slot_explain_hook(svc, max_tokens=6)
+        broker = InProcessBroker(num_partitions=2)
+        _feed(broker, 60, scam_every=3)
+        plan = FaultPlan(seed=11, duplicate_rate=0.1, corrupt_rate=0.05,
+                         flush_fail_rate=0.05, max_faults=12)
+        engine = StreamingClassifier(
+            pipeline, plan.consumer(broker.consumer(["in"], "g")),
+            plan.producer(broker.producer()), "out",
+            batch_size=16, max_wait=0.01,
+            explain_batch_fn=hook, explain_async=True,
+            annotations_producer=broker.producer(), annotations_queue=8,
+            explain_service=svc, dlq_topic="dlq", rowtrace=tracer)
+        engine.run(max_messages=60, idle_timeout=1.0)
+        engine.close_annotations(timeout=60.0)
+        fed = {str(i).encode() for i in range(60)}
+        out_keys = {m.key for m in broker.messages("out")}
+        dlq_keys = {m.key for m in broker.messages("dlq")}
+        assert fed <= (out_keys | dlq_keys)
+        stats = engine.annotation_stats()
+        assert stats["submitted"] > 0
+        assert stats["submitted"] == stats["annotated"] + stats["dropped"]
+        assert stats["drop_records"] == stats["dropped"]
+        snap = svc.snapshot()
+        assert snap["admitted"] == snap["completed"] + snap["dropped"]
+        h = engine.health()
+        assert h["explain"]["slots"] == 2
+        assert h["trace"]["spans_open"] == 0
+    finally:
+        svc.close()
 
 
 # ---------------------------------------------------------------------------
