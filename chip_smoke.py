@@ -91,6 +91,26 @@ Phases (any failure raises and the script exits non-zero):
    ``torch.profiler`` trace holding 1 to (chunks dispatched)
    ``featurize_packed`` kernel events; and the CLI's msgs/s with and
    without ``--trace --alerts --metrics-file``, in turns;
+5d. the fleet (``fleet/``): N worker threads sharing ONE pipeline on the
+   card, on that checkpoint under device featurize, 8,192 seeded messages
+   (malformed ones included) over 4 partitions, batch 256. Three workers
+   under ``Fleet.in_process``: every key classified exactly once, the
+   malformed count exact, every label equal to ``predict``, and
+   ``featurize_packed`` launches equal to the chunks dispatched summed over
+   the workers; the same drain on phase 4's forest; a seeded worker death
+   (``WorkerDeathPlan(seed=5, kills=1)``: zero lost or duplicated keys,
+   each source partition in order, a death and rebalances); a coordinator
+   kill under 2 candidates (keys exact, term >= 2, a handoff); the CPU twin
+   on the host-featurize pipeline (labels equal per key, |dp| <= 1e-6);
+   the serve CLI's ``--fleet 3 --partitions 4 --demo 8192`` on host and on
+   device featurize (launches equal the chunks), ``--workers 3
+   --partitions 3`` and ``--fleet 2 --autoscale --min-workers 2
+   --max-workers 3 --fleet-health-file --alerts`` (the final health file
+   and the stats JSON carry the reference's autoscale block): each exits 0
+   with every message classified; then no fleet thread alive and device
+   memory within 1 MB of the warm-up. Printed beside the card: msgs/s at 1,
+   2 and 3 workers, ``os.cpu_count()`` and the 3-worker drain's
+   device-idle share;
 6. the training slice at full width (the CLI's 1,600-dialogue synthetic
    corpus, HashingTF(10000), depth 5, 32 bins), card against CPU: dt and a
    16-tree rf (JAX's threefry draws, made on each device) equal tree for
@@ -257,8 +277,8 @@ Phases (any failure raises and the script exits non-zero):
 
 Launch counts are reset just before each main path (serving: phases 4-5;
 the stream entry: the pass after phase 5; ``featurize_packed`` again
-before phase 5b's host pipelines, before phase 5c's supervised run and
-before each serve CLI run;
+before phase 5b's host pipelines, before phase 5c's supervised run, before
+phase 5d's 3-worker drain and before each serve CLI run;
 training: phase 7, the CLI, and phase 7c, the resume; the learn lane's
 refresh: phase 7f's lifecycle run; the LLM prefill: one T=2048 forward in phase
 10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
@@ -3107,6 +3127,333 @@ def chaos_cli(dev, ckpt: Path, work: Path, card: str) -> dict:
                 msgs_per_sec=rates, card=card)
 
 
+FLEET_MSGS = 8192        # phase 5d: messages of each fleet drain
+FLEET_PARTITIONS = 4
+FLEET_WORKERS = 3
+# Heartbeats ride the poll path, so a worker whose batch outlasts its lease
+# loses it (and its partitions' rows go round again): 2 s is ~100x a card
+# batch, and a crashed worker's partitions wait that long to move.
+FLEET_LEASE_TTL = 2.0
+FLEET_THREAD_PREFIXES = ("fleet-", "serve-w")
+FLEET_AUTOSCALE_KEYS = {"desired", "live", "min", "max", "scale_outs",
+                        "scale_ins", "replacements", "denied",
+                        "cooldown_remaining_s", "last_decision",
+                        "provisioner", "decisions"}
+
+
+def fleet_threads() -> list:
+    """Live threads of a fleet (workers, monitor, candidates) or of
+    ``--workers`` (serve-w<i>)."""
+    import threading
+
+    return sorted(t.name for t in threading.enumerate()
+                  if t.is_alive() and t.name.startswith(FLEET_THREAD_PREFIXES))
+
+
+def fleet_drain(pipe, items, n_workers: int, *, profile: bool = False,
+                idle: float = 0.5, **fleet_kw) -> dict:
+    """One ``Fleet.in_process`` drain of ``items`` (4 partitions, batch 256)
+    by ``n_workers`` workers that share ``pipe``. A watcher thread stamps
+    the moment the output topic holds every key, so ``drain_s`` (and the
+    aggregate msgs/s) excludes the idle tail that ends a drain run; with
+    ``profile`` the run is traced and ``idle`` is the device-idle share of
+    that drain window."""
+    import threading
+
+    import torch
+
+    from fraud_detection_tpu_torch.fleet import Fleet
+    from fraud_detection_tpu_torch.stream import InProcessBroker
+
+    broker = InProcessBroker(num_partitions=FLEET_PARTITIONS)
+    broker.producer().produce_batch("in", items)
+    fleet = Fleet.in_process(broker, pipe, "in", "out", n_workers,
+                             batch_size=CHAOS_BATCH,
+                             lease_ttl=FLEET_LEASE_TTL,
+                             heartbeat_interval=0.05, tick_interval=0.05,
+                             **fleet_kw)
+    done = threading.Event()
+    stamp = {}
+
+    def watch():
+        while not done.is_set():
+            if broker.topic_size("out") >= len(items):
+                stamp["full"] = time.perf_counter()
+                return
+            time.sleep(0.001)
+
+    watcher = threading.Thread(target=watch, name="fleet-drain-watch")
+    torch.cuda.synchronize()
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        prof = torch_profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA],
+                             acc_events=True)
+        prof.__enter__()
+    t0 = time.perf_counter()
+    watcher.start()
+    try:
+        result = fleet.run(idle_timeout=idle, join_timeout=120.0)
+    finally:
+        done.set()
+        watcher.join(10.0)
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    wall = time.perf_counter() - t0
+    drain_s = stamp.get("full", time.perf_counter()) - t0
+    out = dict(broker=broker, result=result, fleet=fleet, wall_s=wall,
+               drain_s=drain_s, msgs_per_s=len(items) / drain_s)
+    if prof is not None:
+        busy_us = sum(e.device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if not busy_us:
+            raise AssertionError("fleet: the profiled drain recorded no "
+                                 "device time")
+        out["idle"] = 1 - busy_us / (drain_s * 1e6)
+    return out
+
+
+def fleet_gates(run: dict, items, want: dict, predict, label: str,
+                order: bool = False, malformed: bool = True) -> dict:
+    """Every key classified exactly once, every label equal to ``predict``
+    on its text, no worker error; the malformed count exact (with
+    ``malformed``: a killed worker's aborted batch counts its malformed
+    rows once more when its successor re-reads them); with ``order`` each
+    source partition's rows in offset order. Returns the output frames by
+    key."""
+    broker, result = run["broker"], run["result"]
+    keys = [m.key for m in broker.messages("out")]
+    fed = sorted(k for _, k in items)
+    if sorted(keys) != fed:
+        raise AssertionError(
+            f"{label}: {len(set(fed) - set(keys))} keys lost, "
+            f"{len(keys) - len(set(keys))} duplicated")
+    if result["errors"]:
+        raise AssertionError(f"{label}: worker errors {result['errors']}")
+    if malformed and result["malformed"] != len(items) - len(want):
+        raise AssertionError(f"{label}: malformed {result['malformed']} != "
+                             f"fed {len(items) - len(want)}")
+    frames = {m.key: json.loads(m.value) for m in broker.messages("out")}
+    good = sorted(want)
+    expect = dict(zip(good, predict([want[k] for k in good]).labels.tolist()))
+    bad = [k for k in good if frames[k].get("prediction") != expect[k]]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} labels != predict")
+    if order:
+        pos = {m.key: i for i, m in enumerate(broker.messages("out"))}
+        for p in range(FLEET_PARTITIONS):
+            seen = [pos[m.key] for m in broker.messages("in")
+                    if m.partition == p]
+            if seen != sorted(seen):
+                raise AssertionError(f"{label}: partition {p} out of order")
+    return frames
+
+
+def fleet_phase(dev, ckpt: Path, forest, work: Path, seed: int,
+                card: str) -> dict:
+    """Phase 5d: N worker threads sharing ONE pipeline on the card (the
+    seeded LR checkpoint at the serve CLI's widths, device featurize).
+    Gates (``fleet_gates`` on every drain): the 3-worker drain, with
+    ``featurize_packed`` launches equal to the chunks dispatched summed over
+    the workers; the same drain on phase 4's forest; a seeded worker death
+    (zero lost or duplicated keys, partition order, deaths and rebalances);
+    a coordinator kill under 2 candidates (term >= 2, a handoff); the CPU
+    twin on the host-featurize pipeline (labels equal per key, |dp| <=
+    1e-6); the serve CLI's --fleet (host and device featurize), --workers
+    and --fleet --autoscale --alerts --fleet-health-file runs; no fleet
+    thread left and device memory within 1 MB of the warm-up. Printed, not
+    gated: msgs/s at 1, 2 and 3 workers, the host's cores and the 3-worker
+    drain's device-idle share."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+    from fraud_detection_tpu_torch.stream.faults import (CoordinatorKillSpec,
+                                                         WorkerDeathPlan)
+
+    t_phase = time.perf_counter()
+    items, want = chaos_items(FLEET_MSGS, seed + 131)
+    pipe = ServingPipeline.from_checkpoint(str(ckpt), device=dev,
+                                           batch_size=CHAOS_BATCH,
+                                           featurize_device=True)
+    if pipe.device_stats.featurize_path != "cuda":
+        raise AssertionError(f"fleet: featurize path "
+                             f"{pipe.device_stats.featurize_path}")
+    rates = {}
+    warm = fleet_drain(pipe, items, 1)               # warm-up, 1 worker
+    fleet_gates(warm, items, want, pipe.predict, "fleet 1 worker")
+    torch.cuda.synchronize()
+    gc.collect()
+    mem_clean = torch.cuda.memory_allocated()
+    for n in (1, 2):
+        r = fleet_drain(pipe, items, n)
+        fleet_gates(r, items, want, pipe.predict, f"fleet {n} workers")
+        rates[n] = dict(drain=r["msgs_per_s"],
+                        run=r["result"]["msgs_per_sec"])
+
+    # the gated drain: launches reset just before, read just after
+    fk.featurize_bytes.launches = 0
+    chunks0 = pipe.device_stats.chunks
+    main = fleet_drain(pipe, items, FLEET_WORKERS)
+    launches = fk.featurize_bytes.launches
+    chunks = pipe.device_stats.chunks - chunks0
+    frames = fleet_gates(main, items, want, pipe.predict, "fleet drain")
+    if launches < 1 or launches != chunks:
+        raise AssertionError(f"fleet: featurize_packed launched {launches}x "
+                             f"over {chunks} chunks dispatched by "
+                             f"{FLEET_WORKERS} workers")
+    per_worker = main["result"]["per_worker_processed"]
+    rates[FLEET_WORKERS] = dict(drain=main["msgs_per_s"],
+                                run=main["result"]["msgs_per_sec"])
+    profiled = fleet_drain(pipe, items, FLEET_WORKERS, profile=True)
+    fleet_gates(profiled, items, want, pipe.predict, "fleet profiled drain")
+
+    forest_run = fleet_drain(forest, items, FLEET_WORKERS)
+    fleet_gates(forest_run, items, want, forest.predict, "fleet forest")
+
+    plan = WorkerDeathPlan(seed=5, kills=1)
+    death = fleet_drain(pipe, items, FLEET_WORKERS, death_plan=plan)
+    fleet_gates(death, items, want, pipe.predict, "fleet worker death",
+                order=True, malformed=False)
+    dres = death["result"]
+    if len(dres["deaths"]) < 1 or dres["rebalances"] < 1:
+        raise AssertionError(f"fleet: deaths {dres['deaths']}, rebalances "
+                             f"{dres['rebalances']}")
+
+    kill = CoordinatorKillSpec(seed=seed + 7, kills=1, min_ticks=2,
+                               max_ticks=4)
+    succ_run = fleet_drain(pipe, items, FLEET_WORKERS, idle=1.5,
+                           candidates=2, role_ttl=0.3, coordinator_kill=kill)
+    fleet_gates(succ_run, items, want, pipe.predict, "fleet coordinator kill")
+    succ = succ_run["result"]["succession"]
+    if succ["term"] < 2 or len(succ["handoffs"]) < 1:
+        raise AssertionError(f"fleet: succession term {succ['term']}, "
+                             f"handoffs {succ['handoffs']}")
+
+    cpu_pipe = ServingPipeline.from_checkpoint(str(ckpt), device="cpu",
+                                               batch_size=CHAOS_BATCH)
+    cpu = fleet_drain(cpu_pipe, items, FLEET_WORKERS)
+    cpu_frames = fleet_gates(cpu, items, want, cpu_pipe.predict,
+                             "fleet CPU twin")
+    good = sorted(want)
+    pg = pipe.predict([want[k] for k in good])
+    pc = cpu_pipe.predict([want[k] for k in good])
+    dp = float(np.abs(pg.probabilities - pc.probabilities).max())
+    if not np.array_equal(pg.labels, pc.labels) or dp > 1e-6:
+        raise AssertionError(f"fleet: card vs CPU labels differ or |dp| {dp}")
+    diff = [k for k in good if frames[k]["prediction"]
+            != cpu_frames[k]["prediction"]
+            or round(abs(frames[k]["confidence"]
+                         - cpu_frames[k]["confidence"]) * 1e6) > 2]
+    if diff:
+        raise AssertionError(f"fleet: {len(diff)} card frames != the CPU "
+                             "twin's")
+
+    # the serve CLI: --fleet (host and device featurize), --workers, and the
+    # autoscaled fleet with alerts and the health file
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cli = {}
+    base = ["--device", str(dev), "--model", str(ckpt), "--batch-size",
+            "1024"]
+    for name, extra in (
+            ("fleet_host", ["--demo", str(FLEET_MSGS), "--fleet", "3",
+                            "--partitions", "4"]),
+            ("fleet_featurize_device", ["--demo", str(FLEET_MSGS), "--fleet",
+                                        "3", "--partitions", "4",
+                                        "--featurize-device"]),
+            ("workers", ["--demo", str(SERVE_DEMO), "--workers", "3",
+                         "--partitions", "3"]),
+            ("fleet_autoscale", ["--demo", str(SERVE_DEMO), "--fleet", "2",
+                                 "--partitions", "4", "--autoscale",
+                                 "--min-workers", "2", "--max-workers", "3",
+                                 "--fleet-health-file",
+                                 str(work / "fleet.json"), "--alerts"])):
+        r = serve_cli(base + extra, card)
+        stats, n = r["stats"], int(extra[1])
+        if r["classified"] != n or stats["processed"] != n:
+            raise AssertionError(f"fleet CLI {name}: classified "
+                                 f"{r['classified']} of {n}")
+        dispatched = r["engine"].pipeline.device_stats.chunks
+        if "--featurize-device" in extra:
+            if r["launches"] < 1 or r["launches"] != dispatched:
+                raise AssertionError(f"fleet CLI {name}: featurize_packed "
+                                     f"{r['launches']}x over {dispatched} "
+                                     "chunks")
+        elif r["launches"]:
+            raise AssertionError(f"fleet CLI {name}: featurize_packed "
+                                 f"launched {r['launches']}x on host "
+                                 "featurize")
+        cli[name] = dict(msgs_per_sec=stats["msgs_per_sec"],
+                         workers=stats["workers"],
+                         featurize_packed_launches=r["launches"],
+                         chunks=dispatched)
+        if name == "fleet_autoscale":
+            if set(stats["autoscale"]) != FLEET_AUTOSCALE_KEYS:
+                raise AssertionError(f"fleet CLI: autoscale block keys "
+                                     f"{sorted(stats['autoscale'])}")
+            doc = json.loads((work / "fleet.json").read_text())
+            block = (doc.get("fleet") or {}).get("autoscale")
+            if not isinstance(block, dict) or set(block) != \
+                    FLEET_AUTOSCALE_KEYS - {"provisioner", "decisions"}:
+                raise AssertionError(f"fleet CLI: the final health file's "
+                                     f"autoscale block {block}")
+            cli[name]["autoscale"] = {k: stats["autoscale"][k] for k in
+                                      ("desired", "scale_outs", "scale_ins",
+                                       "replacements")}
+
+    idle = profiled["idle"]
+    del warm, main, profiled, forest_run, death, succ_run, cpu
+    torch.cuda.synchronize()
+    gc.collect()
+    mem_after = torch.cuda.memory_allocated()
+    left = fleet_threads()
+    if left or abs(mem_after - mem_clean) > 1 << 20:
+        raise AssertionError(f"fleet: threads left {left}, device memory "
+                             f"{mem_after} B vs {mem_clean} B after the "
+                             "warm-up")
+    cores = os.cpu_count()
+    wall = time.perf_counter() - t_phase
+    print(f"[fleet] {FLEET_MSGS} msgs, {FLEET_PARTITIONS} partitions, batch "
+          f"{CHAOS_BATCH}, {FLEET_WORKERS} workers on one pipeline: keys "
+          f"exact, malformed exact, labels equal predict (LR and forest); "
+          f"featurize_packed {launches} launches = {chunks} chunks "
+          f"dispatched (per worker {per_worker}); worker death "
+          f"{dres['death_plan']['killed']} with {dres['rebalances']} "
+          f"rebalances, {dres['lease_expirations']} lease expirations, keys "
+          f"exact, partition order kept; coordinator kill "
+          f"{succ['kill_plan']['killed']}: term {succ['term']}, "
+          f"{len(succ['handoffs'])} handoff(s); CPU twin labels equal, max "
+          f"|dp| {dp:.3g}; serve CLI {sorted(cli)} exit 0; no fleet thread "
+          f"left, memory {mem_after - mem_clean:+d} B; phase wall "
+          f"{wall:.1f} s ({card})")
+    print(f"[fleet] aggregate msgs/s to the last key (and Fleet.run's, idle "
+          f"tail included): "
+          + ", ".join(f"{n} worker(s) {r['drain']:.1f} ({r['run']})"
+                      for n, r in sorted(rates.items()))
+          + f"; os.cpu_count() {cores}; device idle over the "
+          f"{FLEET_WORKERS}-worker drain {idle:.4f} ({card})")
+    return dict(msgs=FLEET_MSGS, workers=FLEET_WORKERS, rates=rates,
+                cores=cores, idle_3_workers=idle,
+                featurize_packed_launches=launches, chunks=chunks,
+                per_worker_processed=per_worker,
+                death=dres["death_plan"], rebalances=dres["rebalances"],
+                lease_expirations=dres["lease_expirations"],
+                succession=dict(term=succ["term"],
+                                handoffs=succ["handoffs"]),
+                cpu_max_abs_dp=dp, cli=cli,
+                memory_delta_bytes=mem_after - mem_clean, wall_s=wall,
+                card=card)
+
+
 def check_serve_runs(ckpt, n: int, dev, card: str, variants) -> dict:
     """Serve ``ckpt`` with each flag variant over ``--demo n``: every run
     classifies n (or n minus its shed rows); host featurize launches no
@@ -4010,6 +4357,11 @@ def main(argv=None) -> int:
                                   ckpt_dir / "chaos_cli", card)
     supervised["phase_wall_s"] = time.perf_counter() - t5c
     print(f"[chaos] phase 5c wall {supervised['phase_wall_s']:.1f} s ({card})")
+    # -- 5d. the fleet: N worker threads sharing one pipeline on the card ----
+    # (featurize_packed counts reset and read around the 3-worker drain and
+    # around each serve CLI run, inside fleet_phase)
+    fleet_out = fleet_phase(dev, ckpt_dir / "lr", pipes["forest"],
+                            ckpt_dir / "fleet", args.seed, card)
 
     # -- 6. training slice, card against CPU ---------------------------------
     train_walls = train_card_vs_cpu(Xtr, ytr, Xte, dev)
@@ -4599,7 +4951,7 @@ def main(argv=None) -> int:
         "lr_fits": lr_fits, "cli_lr_metrics": report["metrics"]["lr"],
         "resume": resume, "count_featurizer": count,
         "lifecycle": lifecycle_out, "supervised": supervised,
-        "tree_kernels_ms_per_cli_fit": per_fit,
+        "fleet": fleet_out, "tree_kernels_ms_per_cli_fit": per_fit,
         "llm": llm_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

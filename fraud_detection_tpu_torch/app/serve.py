@@ -1,10 +1,14 @@
-"""Streaming serve CLI — twin of ``fraud_detection_tpu/app/serve.py`` for one
-worker: run the micro-batching classifier against a broker on ``--device``
-(the card unless ``--device cpu``).
+"""Streaming serve CLI — twin of ``fraud_detection_tpu/app/serve.py``: run
+the micro-batching classifier against a broker on ``--device`` (the card
+unless ``--device cpu``).
 
     # self-contained demo: an in-process broker fed with synthetic traffic
     python -m fraud_detection_tpu_torch.app.serve --model ./fraud_model \\
         --demo 5000 --batch-size 1024
+
+    # three partition-owning workers behind the lease coordinator
+    python -m fraud_detection_tpu_torch.app.serve --model synthetic \\
+        --demo 8192 --fleet 3 --partitions 4
 
 ``--model`` is a native checkpoint directory (``checkpoint/native.py``,
 written by either package), or ``synthetic``: a logistic regression
@@ -27,7 +31,12 @@ implies ``--supervise 25``); ``--trace`` traces rows from poll to terminal,
 engine's health, ``--alerts`` runs the sentinel's alert rules (incident
 bundles under ``--incident-dir``), and ``--profile-dir`` captures a
 ``torch.profiler`` trace of the card's kernels over the first
-``--profile-batches`` batches. By default the host featurizes
+``--profile-batches`` batches. ``--workers N`` runs N engines in one
+consumer group; ``--fleet N`` runs N workers that own partition leases
+behind the fleet coordinator (``fleet/``: ``--fleet-candidates`` for
+coordinator succession, ``--autoscale`` between ``--min-workers`` and
+``--max-workers``). Every worker scores on the one shared pipeline, so on
+the card N threads dispatch onto it at once. By default the host featurizes
 with the native C++ featurizer and the engine takes the raw-JSON path with
 C++ frame assembly; ``--featurize-device`` ships raw bytes to the CUDA featurize
 kernel instead. The flags of the reference CLI that the port does not offer
@@ -49,10 +58,6 @@ from fraud_detection_tpu_torch.app import unported
 # ROADMAP.md Queue 1 item that holds its module).
 _UNPORTED = (
     ("--kafka", False, "5.5"),
-    ("--workers", True, "5.3"), ("--fleet", True, "5.3"),
-    ("--fleet-health-file", True, "5.3"), ("--fleet-candidates", True, "5.3"),
-    ("--autoscale", False, "5.3"), ("--min-workers", True, "5.3"),
-    ("--max-workers", True, "5.3"), ("--scale-cooldown", True, "5.3"),
     ("--mesh", False, "5.6"),
     ("--trace-record", True, "5.4"), ("--scenario", True, "5.4"),
     ("--scenario-scale", True, "5.4"), ("--scenario-time-scale", True, "5.4"),
@@ -332,8 +337,53 @@ def main(argv=None) -> int:
                          "failure (resumes from committed offsets; see "
                          "stream.engine.run_supervised; a fault of the card "
                          "is never restarted around)")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="engines sharing ONE consumer group: each owns a "
+                         "disjoint partition subset (the reference's "
+                         "--partitions 3 scale-out unit); every worker "
+                         "scores on the one shared pipeline")
+    ap.add_argument("--fleet", type=int, metavar="N", default=0,
+                    help="fleet serving lane (fleet/): N partition-OWNING "
+                         "workers behind a lease coordinator — "
+                         "revoke->drain->commit->reassign rebalance on "
+                         "worker death, health on the fleet bus, shedding "
+                         "coordinated on the GLOBAL backlog watermark "
+                         "(demo mode; against real Kafka use --workers, "
+                         "whose group assignor is broker-side)")
     ap.add_argument("--partitions", type=int, default=3,
-                    help="in-process demo broker partition count")
+                    help="in-process demo broker partition count (the "
+                         "reference provisions --partitions 3; a fleet "
+                         "scales to min(partitions, workers))")
+    ap.add_argument("--fleet-health-file", default=None,
+                    help="periodically dump the aggregated fleet view + "
+                         "every worker's health to this path (atomic "
+                         "replace; --fleet)")
+    ap.add_argument("--fleet-candidates", type=int, metavar="K", default=1,
+                    help="coordinator succession: K candidates contend on "
+                         "the leased coordinator role over the control "
+                         "lane, so the fleet survives its own coordinator "
+                         "dying (K >= 2 arms standby successors; 1 = the "
+                         "classic single coordinator; --fleet)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="closed-loop autoscaling: the fleet sizes itself "
+                         "from its own sentinel signals — scale-out on "
+                         "fleet_watermark_burn, voluntary-leave scale-in on "
+                         "sustained fleet_idle, dead capacity replaced — "
+                         "bounded by --min-workers/--max-workers. Needs "
+                         "--fleet N (the starting size); without --alerts "
+                         "there is no signal plane and the loop only "
+                         "replaces dead workers")
+    ap.add_argument("--min-workers", type=int, metavar="N", default=None,
+                    help="autoscale floor (default: 1; --autoscale)")
+    ap.add_argument("--max-workers", type=int, metavar="N", default=None,
+                    help="autoscale ceiling (default: the larger of "
+                         "--fleet and --partitions — a worker past the "
+                         "partition count would sit idle; --autoscale)")
+    ap.add_argument("--scale-cooldown", type=float, metavar="S",
+                    default=30.0,
+                    help="seconds between resizes — the anti-flap window; "
+                         "hysteresis credits a burn that started during "
+                         "it (--autoscale)")
     ap.add_argument("--explain", default="off", metavar="SPEC",
                     help="attach LLM analyses to flagged messages, batched "
                          "per micro-batch: 'off' | 'canned' (offline stub) | "
@@ -530,6 +580,8 @@ def main(argv=None) -> int:
         raise SystemExit("--featurize-width needs --featurize-device")
     if args.pipeline_depth < 1:
         raise SystemExit(f"--pipeline-depth must be >= 1, got {args.pipeline_depth}")
+    if args.workers < 1:
+        raise SystemExit(f"--workers must be >= 1, got {args.workers}")
     if args.explain_tokens < 1:
         raise SystemExit(f"--explain-tokens must be >= 1, got {args.explain_tokens}")
     if args.explain_slots < 0:
@@ -563,8 +615,66 @@ def main(argv=None) -> int:
         raise SystemExit("--annotations-topic only applies with "
                          "--explain-async (inline analyses ride the "
                          "output frames)")
+    if args.fleet < 0:
+        raise SystemExit(f"--fleet must be >= 0, got {args.fleet}")
     if args.partitions < 1:
         raise SystemExit(f"--partitions must be >= 1, got {args.partitions}")
+    if args.fleet > 0:
+        if not args.demo:
+            raise SystemExit(
+                "--fleet needs --demo N (the lease coordinator drives the "
+                "in-process broker's manual-assignment mode; against real "
+                "Kafka use --workers — its group assignor is broker-side)")
+        if args.workers > 1:
+            raise SystemExit("--fleet and --workers > 1 are mutually "
+                             "exclusive (two assignment authorities)")
+        if args.registry or args.explain != "off" or args.chaos:
+            raise SystemExit("--fleet does not combine with --registry/"
+                             "--explain/--chaos yet (docs/fleet.md)")
+        if args.supervise:
+            raise SystemExit("--fleet supervises itself (lease expiry + "
+                             "rebalance); drop --supervise")
+        if args.max_messages is not None:
+            raise SystemExit("--max-messages cannot be split across a "
+                             "fleet; workers drain until the group's "
+                             "committed lag clears")
+    if args.fleet_health_file is not None and args.fleet == 0:
+        raise SystemExit("--fleet-health-file needs --fleet N")
+    if args.fleet_candidates < 1:
+        raise SystemExit(f"--fleet-candidates must be >= 1, "
+                         f"got {args.fleet_candidates}")
+    if args.fleet_candidates > 1 and args.fleet == 0:
+        raise SystemExit("--fleet-candidates needs --fleet N")
+    if (args.min_workers is not None or args.max_workers is not None) \
+            and not args.autoscale:
+        raise SystemExit("--min-workers/--max-workers need --autoscale")
+    autoscale_config = None
+    if args.autoscale:
+        # Closed-loop elasticity rides the in-process fleet lane only: the
+        # provisioner spawns THREADS against the demo broker.
+        if args.fleet == 0:
+            raise SystemExit("--autoscale needs --fleet N (the elastic "
+                             "lane; docs/autoscaling.md)")
+        lo = args.min_workers if args.min_workers is not None else 1
+        hi = (args.max_workers if args.max_workers is not None
+              else max(args.fleet, args.partitions))
+        if lo < 1:
+            raise SystemExit(f"--min-workers must be >= 1, got {lo}")
+        if not lo <= args.fleet <= hi:
+            raise SystemExit(
+                f"--fleet {args.fleet} must sit within the autoscale "
+                f"bounds [{lo}, {hi}] (--min-workers/--max-workers)")
+        if args.scale_cooldown < 0:
+            raise SystemExit(f"--scale-cooldown must be >= 0, "
+                             f"got {args.scale_cooldown}")
+        autoscale_config = dict(min_workers=lo, max_workers=hi,
+                                cooldown_s=args.scale_cooldown)
+    if args.workers > 1 and args.max_messages is not None:
+        # A global message cap cannot be split across workers: refuse before
+        # the pipeline build, like every other config conflict above.
+        raise SystemExit(
+            "--max-messages cannot be split across --workers > 1; "
+            "drop one of the two (workers drain until idle)")
     if args.chaos and not args.demo:
         raise SystemExit("--chaos needs --demo N (faults are injected into "
                          "the in-process broker; against real Kafka use a "
@@ -671,18 +781,26 @@ def main(argv=None) -> int:
     model_desc = (f"{model_desc} "
                   f"(featurize={pipe.device_stats.featurize_path})")
 
-    scheduler = None
+    sched_ladder_costs = None
     if sched_config is not None:
+        import dataclasses
+
         from fraud_detection_tpu_torch.sched import AdaptiveScheduler
 
         # Measure the candidate rungs and warm the selected ladder ONCE,
-        # before the engine runs (off the hot path); every incarnation of
-        # this worker's engine drives the same scheduler. A HotSwapPipeline
-        # keeps the ladder and cost table for every later swap candidate.
-        # --profile-dir gives the measurement a profiler capture of its own.
-        scheduler = AdaptiveScheduler(sched_config, args.batch_size)
+        # before any engine runs (off the hot path). The measured ladder is
+        # pinned back into the config, so every worker's scheduler (built
+        # later, one per worker) agrees with the shapes the pipeline warmed,
+        # and each gets a copy of the cost table for health(). A
+        # HotSwapPipeline keeps the ladder and cost table for every later
+        # swap candidate. --profile-dir gives the measurement a profiler
+        # capture of its own.
+        prewarmer = AdaptiveScheduler(sched_config, args.batch_size)
         with device_trace("prewarm", args.profile_dir, device=pipe.device):
-            scheduler.prewarm(pipe)
+            prewarmer.prewarm(pipe)
+        sched_config = dataclasses.replace(sched_config,
+                                           buckets=tuple(prewarmer.buckets))
+        sched_ladder_costs = prewarmer.ladder_costs
 
     from fraud_detection_tpu_torch.data import generate_corpus
 
@@ -773,44 +891,145 @@ def main(argv=None) -> int:
 
         return finish
 
-    # Row tracing and alerting: ONE tracer and ONE sentinel for the worker,
-    # shared across its supervised incarnations (like the DLQ poison
-    # tracker), so chains and incident accounting survive restarts. The
-    # sentinel reads a chain-cumulative health source whose counters survive
-    # restarts and whose supervisor.restarts feeds the restart-churn rule.
-    rowtrace = sentinel = sentinel_source = None
-    if args.trace:
+    # Row tracing and alerting: one tracer and one sentinel per worker,
+    # shared across that worker's supervised incarnations (like its DLQ
+    # poison tracker and its scheduler), so chains and incident accounting
+    # survive restarts, but never across workers, which own disjoint
+    # partitions. Each sentinel reads a chain-cumulative health source whose
+    # counters survive restarts and whose supervisor.restarts feeds the
+    # restart-churn rule. The fleet wires its own coordinator-level
+    # sentinel through Fleet.in_process instead.
+    trace_per_worker: dict = {}
+    sentinel_per_worker: dict = {}
+    sentinel_sources: dict = {}
+
+    def rowtrace_for(worker: int):
+        if not args.trace:
+            return None
         from fraud_detection_tpu_torch.obs import RowTracer
 
-        rowtrace = RowTracer(worker="w0", sample=args.trace_sample,
-                             capacity=4096)
-    if alert_rules is not None:
+        tr = trace_per_worker.get(worker)
+        if tr is None:
+            tr = trace_per_worker[worker] = RowTracer(
+                worker=f"w{worker}", sample=args.trace_sample,
+                capacity=4096)
+        return tr
+
+    def sentinel_for(worker: int):
+        if alert_rules is None or args.fleet > 0:
+            return None
         from fraud_detection_tpu_torch.obs.sentinel import (
             ChainedHealthSource, IncidentRecorder, Sentinel)
 
-        sentinel_source = ChainedHealthSource()
-        recorder = (IncidentRecorder(args.incident_dir, rowtrace=rowtrace)
-                    if args.incident_dir is not None else None)
-        sentinel = Sentinel(sentinel_source, alert_rules, recorder=recorder,
-                            worker="w0")
-    if explain_service is not None and rowtrace is not None:
-        # Completed explanations land per-row "explain" spans (slot id and
-        # admission wait) on the rows' chains.
-        explain_service.set_rowtrace(rowtrace)
+        s = sentinel_per_worker.get(worker)
+        if s is None:
+            source = sentinel_sources[worker] = ChainedHealthSource()
+            recorder = (IncidentRecorder(args.incident_dir,
+                                         rowtrace=rowtrace_for(worker))
+                        if args.incident_dir is not None else None)
+            s = sentinel_per_worker[worker] = Sentinel(
+                source, alert_rules, recorder=recorder, worker=f"w{worker}")
+        return s
 
-    engines_built = []   # the live engine only: a replaced one is harvested
+    def sentinels_healthz():
+        """Readiness across every worker's sentinel: not ready while ANY
+        critical alert fires anywhere."""
+        firing = []
+        for s in sentinel_per_worker.values():
+            firing.extend(s.critical_firing())
+        return (not firing, sorted(set(firing)))
+
+    if explain_service is not None and args.trace and args.workers == 1:
+        # Completed explanations land per-row "explain" spans (slot id and
+        # admission wait) on the single worker's chains. Multi-worker runs
+        # keep lane-level spans only: one service serves every worker, and
+        # a row's span must not land on another worker's tracer.
+        explain_service.set_rowtrace(rowtrace_for(0))
+
+    def lane_faults():
+        """Device faults that stopped a lifecycle or explanation lane (the
+        run then exits 1)."""
+        faults = [(name, lane.fault) for name, lane in (
+            ("learn", learn_loop), ("watcher", lifecycle), ("shadow", shadow),
+            ("slotserve", explain_service))
+            if lane is not None and lane.fault is not None]
+        for name, fault in faults:
+            print(f"the {name} lane stopped on a device fault: {fault!r}",
+                  file=sys.stderr)
+        return faults
+
+    lifecycle = None
+    if args.fleet > 0:
+        # Fleet serving lane (fleet/): N partition-owning workers under the
+        # lease coordinator, health on the fleet bus, shedding on the global
+        # backlog watermark, every worker scoring on the one shared
+        # pipeline. Drains until the group's committed lag clears, then
+        # exits with the merged fleet stats.
+        from fraud_detection_tpu_torch.featurize import native
+        from fraud_detection_tpu_torch.fleet import Fleet
+
+        # Build the native featurizer's library now (g++ at first use):
+        # a worker stuck in that build would stop heartbeating, lose its
+        # lease and see its first batch replayed by the next owner.
+        native.available()
+        fleet_sentinel_kw = {}
+        if args.alerts:
+            # Coordinator-level fleet rules + per-worker engine sentinels
+            # riding the bus.
+            from fraud_detection_tpu_torch.obs.sentinel import (
+                IncidentRecorder, fleet_rule_pack)
+
+            fleet_sentinel_kw = dict(
+                sentinel_rules=(alert_rules if args.alert_rules is not None
+                                else fleet_rule_pack()),
+                sentinel_recorder=(
+                    IncidentRecorder(args.incident_dir)
+                    if args.incident_dir is not None else None))
+        fleet = Fleet.in_process(
+            broker, pipe, args.input_topic, args.output_topic, args.fleet,
+            batch_size=args.batch_size, max_wait=args.max_wait,
+            pipeline_depth=args.pipeline_depth,
+            async_dispatch=args.async_dispatch,
+            sched_config=sched_config, dlq_topic=dlq_topic,
+            health_file=args.fleet_health_file,
+            candidates=args.fleet_candidates,
+            autoscale=autoscale_config,
+            trace=args.trace, trace_sample=args.trace_sample,
+            **fleet_sentinel_kw)
+        if metrics_registry is not None:
+            metrics_registry.add_collector("fleet", fleet.fleet_health)
+        finish_metrics = start_metrics(
+            healthz_fn=(fleet.sentinel.healthz
+                        if fleet.sentinel is not None else None))
+        print(f"serving: model={model_desc} in={args.input_topic} "
+              f"out={args.output_topic} batch={args.batch_size} "
+              f"fleet={args.fleet} partitions={args.partitions} "
+              f"device={pipe.device}", flush=True)
+        try:
+            out = fleet.run(idle_timeout=1.0)
+        finally:
+            finish_metrics()
+        print(json.dumps(out))
+        n_out = broker.topic_size(args.output_topic)
+        print(f"classified messages on {args.output_topic}: {n_out}")
+        return 1 if out["errors"] else 0
+
+    engines_built = []   # LIVE engines only: a replaced one is harvested
     # Lane counters of engines already replaced and closed.
     annotations_harvested = {"submitted": 0, "annotated": 0, "dropped": 0,
                              "drop_records": 0, "backend_errors": 0}
-    dlq_attempts = {} if dlq_topic is not None else None
+    dlq_trackers: dict = {}
+    sched_per_worker: dict = {}
 
-    def make_engine(replacing=None):
+    def make_engine(replacing=None, worker=0):
         """Build an engine; ``replacing`` is the previous incarnation on a
         supervised restart: its async annotation lane is drained (briefly)
         and stopped so restarts do not accumulate lane threads, its lane
         counters are harvested into the exit aggregate and the dead engine
         is dropped. The DLQ poison tracker, the scheduler, the tracer and
-        the sentinel are shared across incarnations."""
+        the sentinel are shared across one WORKER's incarnations (which run
+        one after another, so the one-thread contracts hold) but never
+        across workers."""
         if replacing is not None:
             replacing.close_annotations(timeout=5.0)
             harvested = replacing.annotation_stats()
@@ -821,6 +1040,20 @@ def main(argv=None) -> int:
                 engines_built.remove(replacing)
             except ValueError:
                 pass
+        dlq_attempts = (dlq_trackers.setdefault(worker, {})
+                        if dlq_topic is not None else None)
+        scheduler = None
+        if sched_config is not None:
+            from fraud_detection_tpu_torch.sched import AdaptiveScheduler
+
+            scheduler = sched_per_worker.get(worker)
+            if scheduler is None:
+                scheduler = AdaptiveScheduler(sched_config, args.batch_size)
+                # The startup measurement's per-rung cost table, reported
+                # in each worker's health().
+                scheduler.ladder_costs = (dict(sched_ladder_costs)
+                                          if sched_ladder_costs else None)
+                sched_per_worker[worker] = scheduler
         consumer, producer = make_clients()
         engine = StreamingClassifier(
             pipe, consumer, producer, args.output_topic,
@@ -834,22 +1067,43 @@ def main(argv=None) -> int:
             annotations_producer=(broker.producer() if args.explain_async
                                   else None),
             breaker=breaker, explain_service=explain_service,
-            rowtrace=rowtrace, sentinel=sentinel)
+            rowtrace=rowtrace_for(worker), sentinel=sentinel_for(worker))
         engines_built.append(engine)
-        if sentinel_source is not None:
+        source = sentinel_sources.get(worker)
+        if source is not None:
             # Fold the replaced incarnation's counters into the chain.
-            sentinel_source.attach(engine)
+            source.attach(engine)
         return engine
 
     def live_health():
         return engines_built[-1].health() if engines_built else None
 
-    lifecycle = watch_stop = watch_thread = None
+    def start_alerting():
+        """Build every worker's sentinel and start the ONE "sentinel"
+        evaluation thread; returns finish() (a no-op without --alerts)."""
+        if alert_rules is None:
+            return lambda: None
+        from fraud_detection_tpu_torch.obs.sentinel import start_sentinel
+
+        return start_sentinel([sentinel_for(i) for i in range(args.workers)],
+                              args.alert_interval)
+
+    def alerts_out():
+        """The exit stats' 'alerts' block: one snapshot (one worker) or a
+        per-worker list."""
+        if alert_rules is None or not sentinel_per_worker:
+            return None
+        snaps = [sentinel_per_worker[w].snapshot()
+                 for w in sorted(sentinel_per_worker)]
+        return snaps[0] if args.workers == 1 else snaps
+
+    watch_stop = watch_thread = None
     if args.watch:
-        # Poll the registry, verify + pre-warm new versions, swap or
-        # stage+judge per the flags, on a daemon thread; tick() failures
-        # log and never kill serving (a device fault stops the watcher and
-        # fails the run below).
+        # One watcher for the whole process (every worker shares ``pipe``,
+        # so a swap lands everywhere at once): poll the registry, verify +
+        # pre-warm new versions, swap or stage+judge per the flags, on a
+        # daemon thread; tick() failures log and never kill serving (a
+        # device fault stops the watcher and fails the run below).
         from fraud_detection_tpu_torch.registry import LifecycleController
 
         lifecycle = LifecycleController(
@@ -885,7 +1139,7 @@ def main(argv=None) -> int:
         return out
 
     def finish_annotations():
-        """Drain the live engine's async lane, then close the slotserve
+        """Drain every live engine's async lane, then close the slotserve
         service (the lane's worker blocks inside explain_rows, so a drained
         lane means an idle slot lane); returns the stats JSON's annotations
         block (replaced incarnations' counters included), or None
@@ -902,23 +1156,153 @@ def main(argv=None) -> int:
             explain_service.close(timeout=30.0)
         return agg
 
+    def finish_run(out):
+        """Close every lane and watcher, add their blocks to the exit stats
+        ``out`` and print it; returns the device faults of the lanes."""
+        if fault_plan is not None:
+            out["chaos"] = fault_plan.report()
+        annotations = finish_annotations()
+        if annotations is not None:
+            out["annotations"] = annotations
+        if explain_service is not None:
+            # Post-drain snapshot (the health block may predate it).
+            out["explain"] = explain_service.snapshot()
+        lifecycle_out = finish_lifecycle()
+        if lifecycle_out is not None:
+            out["lifecycle"] = lifecycle_out
+        profile = finish_profile()
+        if profile is not None:
+            out["profile"] = profile
+        finish_sentinel()
+        alerts = alerts_out()
+        if alerts is not None:
+            out["alerts"] = alerts
+        finish_metrics()
+        finish_health()
+        print(json.dumps(out))
+        print(f"classified messages on {args.output_topic}: "
+              f"{broker.topic_size(args.output_topic)}")
+        return lane_faults()
+
+    from fraud_detection_tpu_torch.obs.export import start_profile_window
+
     print(f"serving: model={model_desc} in={args.input_topic} "
-          f"out={args.output_topic} batch={args.batch_size} workers=1 "
-          f"device={pipe.device}", flush=True)
+          f"out={args.output_topic} batch={args.batch_size} "
+          f"workers={args.workers} device={pipe.device}", flush=True)
+    if args.workers > 1:
+        # Horizontal scale-out: N engines, ONE consumer group — the broker
+        # deals each a disjoint partition subset; a worker's exit rebalances
+        # ONLY its partitions to the survivors (balanced-sticky assignor).
+        # Every worker scores on the one shared pipeline (on the card, N
+        # threads dispatch onto it at once; its counters are exact under
+        # threads). --max-messages was already refused above.
+        from fraud_detection_tpu_torch.stream.engine import (StreamStats,
+                                                             _merge_stats,
+                                                             run_supervised)
+
+        results = [None] * args.workers
+        errors = [None] * args.workers
+        live = [None] * args.workers     # current engine, for Ctrl-C stop
+        finish_health = start_health_writer(
+            args.health_file, args.health_interval, lambda: live, fault_plan)
+        if metrics_registry is not None:
+            # One collector, every live worker's full health(), flattened
+            # with an index label per worker at render time.
+            metrics_registry.add_collector(
+                "engine", lambda: [e.health() for e in live if e is not None])
+        finish_metrics = start_metrics(
+            healthz_fn=sentinels_healthz if args.alerts else None)
+        finish_sentinel = start_alerting()
+        finish_profile = start_profile_window(
+            args.profile_dir, args.profile_batches,
+            lambda: sum(e.stats.batches for e in live if e is not None),
+            device=pipe.device)
+        # Cooperative shutdown: KeyboardInterrupt reaches only the main
+        # thread, so an engine built after the operator's Ctrl-C is stopped
+        # before it runs.
+        shutdown = threading.Event()
+        # Every worker's engine is built BEFORE any consumes: group members
+        # join at consumer construction, so the group settles at its final
+        # generation first (staggered joins would let worker 0 drain the
+        # topic and then have its commit fenced by the late joiners'
+        # rebalance — duplicates a settled group never produces).
+        prebuilt = [make_engine(worker=i) for i in range(args.workers)]
+
+        def run_worker(i: int) -> None:
+            def make():
+                if prebuilt[i] is not None:
+                    live[i], prebuilt[i] = prebuilt[i], None
+                else:
+                    live[i] = make_engine(replacing=live[i], worker=i)
+                if shutdown.is_set():
+                    live[i].stop()
+                return live[i]
+
+            try:
+                if args.supervise > 0:
+                    results[i] = run_supervised(
+                        make, max_restarts=args.supervise,
+                        max_messages=None, idle_timeout=idle)
+                else:
+                    engine = make()
+                    try:
+                        results[i] = engine.run(max_messages=None,
+                                                idle_timeout=idle)
+                    finally:
+                        engine.consumer.close()
+            except BaseException as e:  # noqa: BLE001 — surfaced via exit code
+                errors[i] = e
+                print(f"worker {i} died: {e!r} (survivors keep their "
+                      f"partitions; exit code will be nonzero)",
+                      file=sys.stderr, flush=True)
+
+        threads = [threading.Thread(target=run_worker, args=(i,),
+                                    daemon=True, name=f"serve-w{i}")
+                   for i in range(args.workers)]
+        for t in threads:
+            t.start()
+        try:
+            for t in threads:
+                t.join()
+        except KeyboardInterrupt:
+            # Graceful drain: stop every live engine (its run() returns and
+            # the worker's close/supervisor path leaves the group).
+            shutdown.set()
+            for engine in live:
+                if engine is not None:
+                    engine.stop()
+            for t in threads:
+                t.join(timeout=30)
+        total = StreamStats()
+        for r in results:
+            if r is not None:
+                _merge_stats(total, r)
+        done = [r for r in results if r is not None]
+        # Workers overlap: the wall clock is the slowest worker's, not the
+        # sum _merge_stats makes of it; restarts are the supervisors' sums.
+        total.elapsed = max((r.elapsed for r in done), default=0.0)
+        total.restarts = sum(r.restarts for r in done)
+        merged = {**total.as_dict(), "workers": args.workers,
+                  "per_worker_processed": [r.processed if r else None
+                                           for r in results],
+                  "health": [e.health() if e is not None else None
+                             for e in live]}
+        faults = finish_run(merged)
+        failures = [e for e in errors if e is not None]
+        if failures:
+            print(f"{len(failures)} worker(s) failed; first: {failures[0]!r}",
+                  file=sys.stderr)
+            return 1
+        return 1 if faults else 0
+
     finish_health = start_health_writer(
         args.health_file, args.health_interval, lambda: engines_built[-1:],
         fault_plan)
     if metrics_registry is not None:
         metrics_registry.add_collector("engine", live_health)
     finish_metrics = start_metrics(
-        healthz_fn=sentinel.healthz if sentinel is not None else None)
-    finish_sentinel = lambda: None  # noqa: E731
-    if sentinel is not None:
-        from fraud_detection_tpu_torch.obs.sentinel import start_sentinel
-
-        finish_sentinel = start_sentinel([sentinel], args.alert_interval)
-    from fraud_detection_tpu_torch.obs.export import start_profile_window
-
+        healthz_fn=sentinels_healthz if args.alerts else None)
+    finish_sentinel = start_alerting()
     finish_profile = start_profile_window(
         args.profile_dir, args.profile_batches,
         lambda: engines_built[-1].stats.batches if engines_built else 0,
@@ -956,35 +1340,7 @@ def main(argv=None) -> int:
             engine.consumer.close()
     out = stats.as_dict()
     out["health"] = live_health()
-    if fault_plan is not None:
-        out["chaos"] = fault_plan.report()
-    annotations = finish_annotations()
-    if annotations is not None:
-        out["annotations"] = annotations
-    if explain_service is not None:
-        # Post-drain snapshot (the health block above may predate it).
-        out["explain"] = explain_service.snapshot()
-    lifecycle_out = finish_lifecycle()
-    if lifecycle_out is not None:
-        out["lifecycle"] = lifecycle_out
-    profile = finish_profile()
-    if profile is not None:
-        out["profile"] = profile
-    finish_sentinel()
-    if sentinel is not None:
-        out["alerts"] = sentinel.snapshot()
-    finish_metrics()
-    finish_health()
-    print(json.dumps(out))
-    print(f"classified messages on {args.output_topic}: "
-          f"{broker.topic_size(args.output_topic)}")
-    faults = [(name, lane.fault) for name, lane in (
-        ("learn", learn_loop), ("watcher", lifecycle), ("shadow", shadow),
-        ("slotserve", explain_service))
-        if lane is not None and lane.fault is not None]
-    for name, fault in faults:
-        print(f"the {name} lane stopped on a device fault: {fault!r}",
-              file=sys.stderr)
+    faults = finish_run(out)
     if gave_up is not None:
         return 3
     return 1 if faults else 0

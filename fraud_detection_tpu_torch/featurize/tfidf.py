@@ -18,6 +18,7 @@ The trainers take the dense (B, F) TF-IDF matrix (``featurize_dense``).
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -27,6 +28,10 @@ import torch
 from fraud_detection_tpu_torch.featurize.hashing import HashingTF
 from fraud_detection_tpu_torch.featurize.text import StopWordFilter, clean_text, tokenize
 from fraud_detection_tpu_torch.utils.device import resolve_device
+
+# Serializes the lazy native-handle build of every featurizer (rare: once
+# per featurizer).
+_NATIVE_INIT_LOCK = threading.Lock()
 
 
 class EncodedBatch(NamedTuple):
@@ -108,15 +113,22 @@ class HashingTfIdfFeaturizer:
 
     def _native_featurizer(self):
         """The C++ clean/tokenize/hash path, or None (no library, or the
-        legacy hash the library does not implement)."""
+        legacy hash the library does not implement). Built once under a
+        lock: worker threads sharing one pipeline call this at once, and a
+        thread that found the build begun but not finished would take None,
+        i.e. the slow path, for good."""
         if not self._native_tried:
-            self._native_tried = True
-            from fraud_detection_tpu_torch.featurize import native
+            with _NATIVE_INIT_LOCK:
+                if not self._native_tried:
+                    from fraud_detection_tpu_torch.featurize import native
 
-            if not self.legacy and native.available():
-                self._native = native.NativeFeaturizer(
-                    self.stop_filter.words if self.remove_stopwords else [],
-                    self.num_features, self.binary_tf, self.remove_stopwords)
+                    if not self.legacy and native.available():
+                        self._native = native.NativeFeaturizer(
+                            self.stop_filter.words if self.remove_stopwords
+                            else [],
+                            self.num_features, self.binary_tf,
+                            self.remove_stopwords)
+                    self._native_tried = True
         return self._native
 
     @property

@@ -19,6 +19,7 @@ waits for them.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -61,13 +62,15 @@ def unpack_packed_host(packed) -> Tuple[np.ndarray, np.ndarray]:
 
 class DeviceStats:
     """Per-pipeline device-path counters (the ``device`` block of engine
-    health). Single-writer — the dispatching thread — with racy reads from
-    health pollers by design. Snapshot keys match the JAX package's."""
+    health). Every worker thread that shares the pipeline dispatches
+    through it, so the updates (each a read, an add and a store) and the
+    rung set's reads take a lock; health pollers read the plain counters
+    without it. Snapshot keys match the JAX package's."""
 
     __slots__ = ("uploads", "upload_bytes", "chunks", "donated",
                  "pinned_bytes", "pins", "int8", "mesh_devices", "_rungs",
                  "featurize_path", "feat_bytes_in", "feat_rows",
-                 "truncated_rows")
+                 "truncated_rows", "_lock")
 
     def __init__(self, int8: bool = False):
         self.uploads = 0        # host->device copies
@@ -88,22 +91,33 @@ class DeviceStats:
         self.feat_bytes_in = 0
         self.feat_rows = 0
         self.truncated_rows = 0
+        self._lock = threading.Lock()
 
     def record_chunk(self, nbytes: int, transfers: int = 1,
                      rows: Optional[int] = None) -> None:
-        self.chunks += 1
-        self.uploads += transfers
-        self.upload_bytes += nbytes
-        if rows:
-            self._rungs.add(rows)
+        with self._lock:
+            self.chunks += 1
+            self.uploads += transfers
+            self.upload_bytes += nbytes
+            if rows:
+                self._rungs.add(rows)
 
     def record_featurize(self, nbytes: int, rows: int, truncated: int) -> None:
-        self.feat_bytes_in += nbytes
-        self.feat_rows += rows
-        self.truncated_rows += truncated
+        with self._lock:
+            self.feat_bytes_in += nbytes
+            self.feat_rows += rows
+            self.truncated_rows += truncated
+
+    def record_pin(self, nbytes: int) -> None:
+        with self._lock:
+            self.pinned_bytes = nbytes
+            self.pins += 1
 
     def per_chip_rungs(self) -> list:
-        return sorted(self._rungs)
+        # under the lock: a set that another thread adds to while this
+        # iterates raises "Set changed size during iteration"
+        with self._lock:
+            return sorted(self._rungs)
 
     def snapshot(self) -> dict:
         chunks = self.chunks
@@ -229,6 +243,7 @@ class ServingPipeline:
                 device=self.device)
             self.device_stats.featurize_path = self._dev_feat.path
         self._pinned = False
+        self._pin_lock = threading.Lock()
 
     @classmethod
     def from_checkpoint(cls, path: str, device="cuda",
@@ -305,22 +320,24 @@ class ServingPipeline:
         """Account every model-side constant resident on the device: fused
         LR weights (int8 codes + scales when enabled), tree arrays + IDF,
         and the featurize stop table. They were placed at construction;
-        this counts them (once per pipeline) and returns the pin stats."""
+        this counts them (once per pipeline, however many engines start on
+        it at once) and returns the pin stats."""
         ds = self.device_stats
-        if not self._pinned:
-            src = self._fused_model if self._fused_model is not None else self.model
-            tensors = [v for v in vars(src).values()
-                       if isinstance(v, torch.Tensor)]
-            if self._tree_idf is not None:
-                tensors.append(self._tree_idf)
-            if self._q8 is not None:
-                tensors.extend(self._q8)
-            if self._dev_feat is not None:
-                tensors.append(self._dev_feat.stop_table())
-            ds.pinned_bytes = int(sum(t.numel() * t.element_size()
-                                      for t in tensors))
-            ds.pins += 1
-            self._pinned = True
+        with self._pin_lock:
+            if not self._pinned:
+                src = (self._fused_model if self._fused_model is not None
+                       else self.model)
+                tensors = [v for v in vars(src).values()
+                           if isinstance(v, torch.Tensor)]
+                if self._tree_idf is not None:
+                    tensors.append(self._tree_idf)
+                if self._q8 is not None:
+                    tensors.extend(self._q8)
+                if self._dev_feat is not None:
+                    tensors.append(self._dev_feat.stop_table())
+                ds.record_pin(int(sum(t.numel() * t.element_size()
+                                      for t in tensors)))
+                self._pinned = True
         return {"pinned_bytes": ds.pinned_bytes, "model_pins": ds.pins}
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:

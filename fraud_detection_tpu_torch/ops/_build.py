@@ -7,6 +7,11 @@ hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source or header rebuilds and an unchanged one loads straight away.
 The library is loaded with ``ctypes``. Nothing builds at import time; a
 failed build raises with nvcc's stderr.
+
+Serving threads share the kernels: a process-wide lock makes a first call
+from several threads at once build and load each library exactly once, and
+``count_launch`` keeps every wrapper's ``.launches`` count exact under
+threads.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from functools import lru_cache
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -27,6 +32,22 @@ class KernelError(RuntimeError):
     """A hand-written kernel failed to build or to launch: a fault of the
     card's toolchain or of the card, never of the data, so no lane may log it
     and carry on (``utils/device.is_device_fault``)."""
+
+
+# Held across a build and a load: two threads that miss at the same moment
+# must not start two nvcc runs writing one library (re-entrant: ``load``
+# builds under it).
+_BUILD_LOCK = threading.RLock()
+_loaded: dict = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """Add one to ``fn.<attr>``, a wrapper's launch count. ``+=`` on an
+    attribute is a read, an add and a store, which threads launching the
+    same kernel can interleave and lose a count by; this takes a lock."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,6 +88,11 @@ def build_all(names) -> list:
     """Compile every ``csrc/<name>.cu`` whose current build is missing, one
     nvcc process per source, all started together; returns the library
     paths in order. Raises with nvcc's stderr if any build fails."""
+    with _BUILD_LOCK:
+        return _build_all(list(names))
+
+
+def _build_all(names) -> list:
     outs = [library_path(n) for n in names]
     todo = [(n, out) for n, out in zip(names, outs) if not out.exists()]
     if not todo:
@@ -100,8 +126,11 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-@lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library, once per
-    process."""
-    return ctypes.CDLL(str(build(name)))
+    process, whichever threads ask first."""
+    with _BUILD_LOCK:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+        return lib

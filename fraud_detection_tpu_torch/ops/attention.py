@@ -31,7 +31,7 @@ from functools import lru_cache
 
 import torch
 
-from fraud_detection_tpu_torch.ops._build import KernelError
+from fraud_detection_tpu_torch.ops._build import KernelError, count_launch
 
 #: Masked scores: exp(s - m) of one underflows to exactly 0 (no inf - inf).
 NEG = -1e30
@@ -147,8 +147,8 @@ def _flash_simt(q, k, v):
     if out.numel() == 0:
         return out
     _launch(q, k, v, out)
-    flash_attention.launches += 1
-    flash_attention_simt.launches += 1
+    count_launch(flash_attention)
+    count_launch(flash_attention_simt)
     return out
 
 
@@ -213,8 +213,8 @@ def _flash_sm90(q, k, v):
     if out.numel() == 0:
         return out
     _launch_sm90(q, k, v, out)
-    flash_attention.launches += 1
-    flash_attention_sm90.launches += 1
+    count_launch(flash_attention)
+    count_launch(flash_attention_sm90)
     return out
 
 

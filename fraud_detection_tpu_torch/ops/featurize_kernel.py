@@ -37,7 +37,7 @@ import torch
 from fraud_detection_tpu_torch.featurize.hashing import (
     SPARK_HASHING_TF_SEED, murmur3_x86_32, murmur3_x86_32_legacy_tail,
     spark_hash_bucket)
-from fraud_detection_tpu_torch.ops._build import KernelError
+from fraud_detection_tpu_torch.ops._build import KernelError, count_launch
 
 # Character classes produced by byte_classes: 1..26 = 'a'..'z', the rest
 # as named below. Everything stripped by clean_text is NOP.
@@ -210,7 +210,7 @@ def _tokenize_hash_cuda(classes: torch.Tensor, legacy: bool):
     _check_rc(fn(classes.data_ptr(), h.data_ptr(), w0.data_ptr(),
                  w1.data_ptr(), tl.data_ptr(), emp.data_ptr(), rows, cols,
                  int(legacy), stream), "featurize_scan")
-    tokenize_hash.launches += 1
+    count_launch(tokenize_hash)
     return h, w0, w1, tl, emp
 
 
@@ -510,7 +510,7 @@ def _featurize_packed_cuda(staged: torch.Tensor, stop_table: torch.Tensor,
                  spec.num_features, spec.n_slots, int(spec.binary),
                  int(spec.legacy), spec.empty_bucket, int(spec.empty_is_stop),
                  stream), "featurize_packed")
-    featurize_bytes.launches += 1
+    count_launch(featurize_bytes)
     return packed, n_unique
 
 

@@ -48,7 +48,7 @@ from typing import Tuple
 
 import torch
 
-from fraud_detection_tpu_torch.ops._build import KernelError
+from fraud_detection_tpu_torch.ops._build import KernelError, count_launch
 from fraud_detection_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("ops.histogram")
@@ -362,7 +362,7 @@ def _histogram_cuda(bins, locals_, weights, stats, n_nodes, n_bins, exact):
         return out.zero_()
     _histogram_launch(bins, locals_, weights, stats, out, n_nodes, n_bins,
                       exact, plan)
-    node_feature_bin_histogram_multi.launches += 1
+    count_launch(node_feature_bin_histogram_multi)
     return out
 
 
@@ -506,7 +506,7 @@ def _best_splits_cuda(hist, totals, criterion, reg_lambda, min_child_weight,
         float(reg_lambda), float(min_child_weight), stream)
     if rc != 0:
         raise KernelError(f"best_splits kernel launch failed: cudaError {rc}")
-    best_splits.launches += 1
+    count_launch(best_splits)
     return best_f, best_b, best_gain
 
 

@@ -42,7 +42,7 @@ from typing import NamedTuple
 
 import torch
 
-from fraud_detection_tpu_torch.ops._build import KernelError
+from fraud_detection_tpu_torch.ops._build import KernelError, count_launch
 from fraud_detection_tpu_torch.ops.attention import _packed
 
 LAYOUTS = ("kn", "nk")
@@ -96,9 +96,9 @@ def w8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     _check_kernel_shape(k, n, layout, x.dtype)
     x, q = _packed(x), _packed(q)
     _launch(x, q, scale.contiguous(), out, layout)
-    w8_matmul.launches += 1
+    count_launch(w8_matmul)
     if x.dtype == torch.float32:
-        w8_matmul.simt_launches += 1
+        count_launch(w8_matmul, "simt_launches")
     return out
 
 

@@ -1,7 +1,8 @@
 """The scheduler facade the streaming engine drives — twin of
-``fraud_detection_tpu/sched/scheduler.py`` for one worker (the fleet's
-global backlog is not ported). Prewarming a ``registry.HotSwapPipeline``
-hands it the measured ladder and cost table for every later candidate.
+``fraud_detection_tpu/sched/scheduler.py``. Prewarming a
+``registry.HotSwapPipeline`` hands it the measured ladder and cost table for
+every later candidate; under the fleet each worker's scheduler also sheds
+against the fleet's global backlog watermark (``fleet_backlog``).
 
 :class:`SchedulerConfig` is the validated knob set (the serve CLI's
 ``--batch-deadline-ms/--max-queue/--shed-policy/--target-p99-ms/--max-rate``
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from fraud_detection_tpu_torch.sched.admission import (SHED_POLICIES,
                                                        AdmissionController,
@@ -42,9 +43,10 @@ from fraud_detection_tpu_torch.sched.sketch import SloTracker
 from fraud_detection_tpu_torch.utils.racecheck import ExclusiveRegion
 
 
-# Knobs the reference exposes for its fleet prewarmer and gameday scenarios
-# (explicit buckets, a fixed ladder, a token burst, a batch-wall bound); one
-# worker runs them at the reference's defaults.
+# The reference's SchedulerConfig also has ``cost_aware``, ``burst``,
+# ``max_batch_sec``, ``window_sec`` and ``cost_ratio``, which only its game
+# days set (ROADMAP Queue 1 item 5.4): until they are ported the port runs
+# them at the reference's defaults.
 WINDOW_SEC = 10.0   # SLO tracker rotation window
 COST_RATIO = 1.25   # cost gap that justifies keeping a smaller ladder rung
 
@@ -59,6 +61,11 @@ class SchedulerConfig:
     shed_policy: str = "none"
     target_p99_ms: Optional[float] = None
     max_rate: Optional[float] = None      # admitted rows/s; None = off
+    # An explicit ladder pins the rung geometry (the rungs are still timed
+    # for the health cost table); None derives it from measured costs. The
+    # serve CLI sets it from one prewarmer's measured ladder, so that every
+    # worker's scheduler shares the shapes the pipeline warmed.
+    buckets: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         if self.shed_policy not in SHED_POLICIES:
@@ -101,8 +108,10 @@ class AdaptiveScheduler:
                  clock=time.monotonic, sleep=time.sleep):
         self.config = config
         self.batch_size = batch_size
-        # The default ladder until prewarm() derives one from measured costs.
-        self.buckets: Tuple[int, ...] = tuple(default_ladder(batch_size))
+        # An explicit ladder, else the default one until prewarm() derives
+        # one from measured costs.
+        self.buckets: Tuple[int, ...] = tuple(
+            config.buckets if config.buckets else default_ladder(batch_size))
         # Measured per-rung cost (seconds/batch, warm-up excluded), set by
         # prewarm(); the ladder's source.
         self.ladder_costs: Optional[dict] = None
@@ -118,6 +127,12 @@ class AdaptiveScheduler:
             config.resolved_max_batch_sec(),
             min_budget=self.buckets[0])
         self._sleep = sleep
+        # Fleet-coordinated shedding: an optional zero-arg callable returning
+        # the fleet's backlog per worker (None while the fleet view is stale
+        # or absent). When it reports more than this worker's own partitions
+        # show, admission sheds against the global watermark, so a drowning
+        # fleet sheds everywhere at once.
+        self.fleet_backlog: Optional[Callable[[], Optional[float]]] = None
         self._region = ExclusiveRegion("AdaptiveScheduler.drive")
 
     @property
@@ -136,15 +151,26 @@ class AdaptiveScheduler:
             return self.batcher.collect(consumer, budget, first_wait)
 
     def backlog_of(self, consumer) -> Optional[int]:
-        """Rows queued behind the consumer's poll position (its
-        ``backlog()``), or None when the transport cannot report it."""
+        """The queue depth admission sheds against: rows queued behind the
+        consumer's poll position (its ``backlog()``; None when the transport
+        cannot report it), raised to the fleet's backlog per worker when a
+        ``fleet_backlog`` source is wired and reports more."""
         backlog = getattr(consumer, "backlog", None)
-        if backlog is None:
-            return None
-        try:
-            return backlog()
-        except Exception:  # noqa: BLE001 — lag reporting must never kill serving
-            return None
+        local: Optional[int] = None
+        if backlog is not None:
+            try:
+                local = backlog()
+            except Exception:  # noqa: BLE001 — lag reporting must never kill serving
+                local = None
+        fleet = self.fleet_backlog
+        if fleet is not None:
+            try:
+                g = fleet()
+            except Exception:  # noqa: BLE001 — same contract as the local probe
+                g = None
+            if g is not None:
+                return max(int(g), local if local is not None else 0)
+        return local
 
     def admit(self, msgs: List, backlog: Optional[int], trace=None
               ) -> Tuple[List, List[Tuple[object, str]]]:
@@ -170,17 +196,20 @@ class AdaptiveScheduler:
         (``measure_ladder`` / ``configure_ladder``), so every later swap or
         stage candidate is warmed at the same rungs, never re-measured."""
         with self._region:
-            candidates = ladder_candidates(self.batch_size)
+            explicit = self.config.buckets is not None
+            candidates = (self.buckets if explicit
+                          else ladder_candidates(self.batch_size))
             measure = getattr(pipeline, "measure_ladder", None)
             if measure is not None:
                 costs = measure(candidates, texts=texts)
             else:
                 costs = measure_rung_costs(pipeline, candidates, texts=texts)
             self.ladder_costs = dict(costs)
-            self.buckets = cost_aware_ladder(costs, self.batch_size,
-                                             COST_RATIO)
-            # the smallest rung is the governor's budget floor
-            self.governor.min_budget = self.buckets[0]
+            if not explicit:
+                self.buckets = cost_aware_ladder(costs, self.batch_size,
+                                                 COST_RATIO)
+                # the smallest rung is the governor's budget floor
+                self.governor.min_budget = self.buckets[0]
             configure = getattr(pipeline, "configure_ladder", None)
             if configure is not None:
                 configure(self.buckets, prewarm=True, costs=costs)

@@ -3,6 +3,7 @@ from fraud_detection_tpu_torch.stream.annotations import (  # noqa: F401
 )
 from fraud_detection_tpu_torch.stream.broker import (  # noqa: F401
     CommitFailedError,
+    InProcessAssignedConsumer,
     InProcessBroker,
     InProcessConsumer,
     InProcessProducer,

@@ -1,4 +1,4 @@
-"""In-process message broker — twin of the group-mode ``InProcessBroker`` in
+"""In-process message broker — twin of ``InProcessBroker`` in
 ``fraud_detection_tpu/stream/broker.py``.
 
 A partitioned, offset-tracked queue broker with Kafka semantics where they
@@ -6,7 +6,10 @@ matter to the engine: per-partition FIFO, consumer offsets advance only on
 commit, and consumer-GROUP partition assignment — members of one group own
 disjoint partition subsets (balanced-sticky assignor), rebalanced on
 join/leave/eviction, with commits rejected for partitions the member no
-longer owns (``CommitFailedError``).
+longer owns (``CommitFailedError``). The fleet (``fleet/``) reads through
+manual-assignment consumers instead (``assigned_consumer``, Kafka's
+``assign()``): its coordinator owns the partition leases, and
+``group_lag`` is its drain-complete signal.
 """
 
 from __future__ import annotations
@@ -141,6 +144,35 @@ class InProcessBroker:
 
     def consumer(self, topics: Sequence[str], group_id: str = "default") -> "InProcessConsumer":
         return InProcessConsumer(self, list(topics), group_id)
+
+    def assigned_consumer(self, partitions: Sequence[tuple],
+                          group_id: str = "default", fence=None
+                          ) -> "InProcessAssignedConsumer":
+        """Manual-assignment consumer (Kafka's ``assign()`` mode): reads
+        EXACTLY the given (topic, partition) pairs, never joins the group's
+        assignor, commits into the same group-durable offsets. Partition
+        exclusivity is the CALLER's contract (the fleet coordinator's
+        leases); ``fence`` lets that caller fail stale commits."""
+        return InProcessAssignedConsumer(self, list(partitions), group_id,
+                                         fence=fence)
+
+    def group_lag(self, group_id: str,
+                  topics: Optional[Sequence[str]] = None) -> int:
+        """Rows appended but not yet COMMITTED by ``group_id`` across
+        ``topics`` (all topics when None). Counted from the group-durable
+        offsets, so it still sees a dead member's polled-but-uncommitted
+        rows: the fleet's drain-complete signal."""
+        with self._lock:
+            names = list(topics) if topics is not None else list(self._topics)
+            total = 0
+            for t in names:
+                parts = self._topics.get(t)
+                if parts is None:
+                    continue
+                for p, part in enumerate(parts):
+                    total += max(0, len(part)
+                                 - self._group_offsets.get((group_id, t, p), 0))
+            return total
 
     def producer(self) -> "InProcessProducer":
         return InProcessProducer(self)
@@ -436,6 +468,129 @@ class InProcessConsumer:
         if not self._closed:
             self._closed = True
             self.broker._leave_group(self.group_id, self.member_id)
+
+
+class InProcessAssignedConsumer:
+    """Manual-assignment consumer: an explicit (topic, partition) set, no
+    group membership, commits write through to the group-durable offsets.
+
+    Construction resumes every pair from the group's committed offsets
+    (earliest where the group never committed): whatever a dead owner failed
+    to commit is exactly what the next owner re-reads. An optional ``fence``
+    callable, given the pairs a commit would advance, returns those the
+    caller no longer owns; any makes the commit raise ``CommitFailedError``
+    instead of advancing a partition someone else now owns."""
+
+    def __init__(self, broker: InProcessBroker, partitions: Sequence[tuple],
+                 group_id: str, fence=None):
+        self.broker = broker
+        self.group_id = group_id
+        self.partitions = [tuple(p) for p in partitions]
+        self._fence = fence
+        self._closed = False
+        with broker._lock:
+            offsets = broker._group_offsets
+            self._position: Dict[tuple, int] = {
+                pair: offsets.get((group_id, *pair), 0)
+                for pair in self.partitions}
+        self._committed: Dict[tuple, int] = dict(self._position)
+        # Same one-thread contract as InProcessConsumer.
+        self._region = ExclusiveRegion("InProcessAssignedConsumer")
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError(
+                f"assigned consumer (group {self.group_id!r}, "
+                f"{self.partitions}) is closed")
+
+    def assignment(self) -> List[tuple]:
+        return sorted(self.partitions)
+
+    def poll(self, timeout: float = 1.0) -> Optional[Message]:
+        with self._region:
+            self._check_open()
+            deadline = time.time() + timeout
+            while True:
+                for topic, p in sorted(self.partitions):
+                    parts = self.broker._partitions(topic)
+                    key = (topic, p)
+                    pos = self._position.get(key, 0)
+                    with self.broker._lock:
+                        part = parts[p]
+                        if pos < len(part):
+                            self._position[key] = pos + 1
+                            return part[pos]
+                if time.time() >= deadline:
+                    return None
+                time.sleep(0.001)
+
+    def poll_batch(self, max_messages: int, timeout: float) -> List[Message]:
+        out: List[Message] = []
+        first = self.poll(timeout)
+        if first is None:
+            return out
+        out.append(first)
+        with self._region, self.broker._lock:
+            for topic, p in sorted(self.partitions):
+                if len(out) >= max_messages:
+                    return out
+                all_parts = self.broker._topics.get(topic)
+                if all_parts is None:
+                    continue
+                part = all_parts[p]
+                key = (topic, p)
+                pos = self._position.get(key, 0)
+                take = min(len(part) - pos, max_messages - len(out))
+                if take > 0:
+                    out.extend(part[pos : pos + take])
+                    self._position[key] = pos + take
+        return out
+
+    def commit(self) -> None:
+        with self._region:
+            self._check_open()
+            self._commit_locked(dict(self._position))
+
+    def commit_offsets(self, offsets: Dict[tuple, int]) -> None:
+        with self._region:
+            self._check_open()
+            self._commit_locked({key: off for key, off in offsets.items()
+                                 if off > self._committed.get(key, 0)})
+
+    def _commit_locked(self, advances: Dict[tuple, int]) -> None:
+        fence = self._fence
+        if fence is not None and advances:
+            lost = fence(sorted(advances))
+            if lost:
+                raise CommitFailedError(
+                    f"lease for {sorted(lost)} was revoked from this worker "
+                    f"(group {self.group_id!r}); offsets stay uncommitted — "
+                    "the partitions' new owner reprocesses")
+        self._committed.update(advances)
+        with self.broker._lock:
+            for (t, p), off in advances.items():
+                key = (self.group_id, t, p)
+                if off > self.broker._group_offsets.get(key, 0):
+                    self.broker._group_offsets[key] = off
+
+    def committed_offsets(self) -> Dict[tuple, int]:
+        return dict(self._committed)
+
+    def backlog(self) -> int:
+        """Rows appended to the assigned partitions but not yet polled (the
+        scheduler's local queue depth; the fleet coordinator sums these
+        into the global watermark)."""
+        with self._region, self.broker._lock:
+            total = 0
+            for topic, p in self.partitions:
+                parts = self.broker._topics.get(topic)
+                if parts is not None:
+                    total += max(0, len(parts[p])
+                                 - self._position.get((topic, p), 0))
+            return total
+
+    def close(self) -> None:
+        self._closed = True   # no group to leave: assignment is external
 
 
 class InProcessProducer:

@@ -17,11 +17,11 @@ rng), the give-up path, and the health block. The port adds: a fault of the
 card is never restarted around, and a failed incarnation stops its
 dispatch lane.
 
-Cases of ``tests/test_chaos.py`` that wait for other items: the circuit
-breaker ones are ``explain/circuit.py``'s (ported with the explanation
-lane, tested in ``tests/test_torch_explain.py``); ``WorkerKilled`` is only
-raised through ``fleet/`` (Queue 1 item 5.3), so the plan is held equal
-here and exercised there.
+Cases of ``tests/test_chaos.py`` tested elsewhere: the circuit breaker ones
+are ``explain/circuit.py``'s (ported with the explanation lane, tested in
+``tests/test_torch_explain.py``); ``WorkerKilled`` is only raised through
+``fleet/``, so the plan is held equal here and its deaths are exercised in
+``tests/test_torch_fleet.py``.
 """
 
 import json

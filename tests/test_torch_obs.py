@@ -12,13 +12,10 @@ honesty, head sampling with forced keeps, exact span accounting under
 seeded chaos, the exporter's coverage of every ``health()`` leaf, the HTTP
 endpoint (bound to port 0, the bound port read back), the metrics file
 writer, the serve CLI with tracing and a metrics file, and the
-``torch.profiler`` window (started and stopped on its watcher thread).
-
-Cases of ``tests/test_obs.py`` that wait for other items:
-``test_span_accounting_exact_under_fleet_worker_kills`` and
-``test_coordinator_tick_merges_live_workers_stage_wires`` need ``fleet/``
-(Queue 1 item 5.3); the merge they rest on,
-``aggregate_stage_wires``, is held equal here.
+``torch.profiler`` window (started and stopped on its watcher thread), and
+the fleet cases: every worker's tracer stays exact under seeded worker
+kills, and the coordinator's tick merges the live workers' stage wires
+into the view as the JAX coordinator does.
 """
 
 import json
@@ -47,7 +44,7 @@ from fraud_detection_tpu_torch.sched.sketch import LatencySketch
 from fraud_detection_tpu_torch.stream import InProcessBroker, StreamingClassifier
 from fraud_detection_tpu_torch.utils import tracing as ttracing
 from tests.fixtures import BENIGN_DIALOGUE, SCAM_DIALOGUE
-from tests.torch_parity import port_featurizer, port_model
+from tests.torch_parity import port_featurizer, port_model, warmed
 
 
 @pytest.fixture(scope="module")
@@ -60,9 +57,9 @@ def jpipe():
 
 @pytest.fixture(scope="module")
 def pipe(jpipe):
-    return ServingPipeline(port_featurizer(jpipe.featurizer),
-                           port_model(jpipe.model), batch_size=64,
-                           device="cpu")
+    return warmed(ServingPipeline(port_featurizer(jpipe.featurizer),
+                                  port_model(jpipe.model), batch_size=64,
+                                  device="cpu"))
 
 
 def _feed(broker, n, topic="in", scam_every=None):
@@ -546,6 +543,61 @@ def test_tracer_and_rate_counter_equal_jax():
         tr.record("a", 1.5)
         mod._got = (rc.rate(now=12.0), tr.as_dict())
     assert ttracing._got == jtracing._got
+
+
+# ---------------------------------------------------------------------------
+# the fleet
+# ---------------------------------------------------------------------------
+
+def test_span_accounting_exact_under_fleet_worker_kills(pipe):
+    """A fleet run with a seeded whole-worker kill: every worker's tracer
+    stays exact, and the merged per-stage latency block is populated."""
+    from fraud_detection_tpu_torch.fleet import Fleet
+    from fraud_detection_tpu_torch.stream.faults import WorkerDeathPlan
+
+    broker = InProcessBroker(num_partitions=4)
+    _feed(broker, 400)
+    fleet = Fleet.in_process(
+        broker, pipe, "in", "out", 2, batch_size=32,
+        death_plan=WorkerDeathPlan(seed=11, kills=1, modes=("crash",)),
+        lease_ttl=1.0, heartbeat_interval=0.02, tick_interval=0.02,
+        trace=True, trace_sample=1.0, trace_seed=0)
+    out = fleet.run(idle_timeout=1.0, join_timeout=90.0)
+    assert out["errors"] == []
+    assert {m.key for m in broker.messages("out")} \
+        == {str(i).encode() for i in range(400)}
+    assert fleet.tracers
+    for tr in fleet.tracers.values():
+        _assert_exact_accounting(tr)
+    stage_lat = out["stage_latency_ms"]
+    assert stage_lat and stage_lat["deliver"]["count"] > 0
+
+
+def test_coordinator_tick_merges_live_workers_stage_wires():
+    """A member's bus doc carrying stage wires lands merged in the published
+    fleet view, equal to the JAX coordinator's view of the same docs."""
+    from fraud_detection_tpu import fleet as jfleet
+    from fraud_detection_tpu_torch import fleet as tfleet
+
+    views = []
+    for mod, tracer_cls in ((tfleet, RowTracer), (jfleet, jtrace.RowTracer)):
+        bus = mod.FleetBus(clock=lambda: 1.0)
+        coord = mod.FleetCoordinator(["in"], 2, bus=bus,
+                                     clock=lambda: 2.0, wall=lambda: 3.0)
+        coord.join("w0")
+        coord.join("w1")
+        for i, w in enumerate(("w0", "w1", "ghost")):
+            tr = tracer_cls(worker=w, sample=1.0, seed=0)
+            tr._observe_stage("device", 0.004 * (i + 1))
+            tr._observe_stage("deliver", 0.001)
+            bus.publish(w, {"backlog": i,
+                            "obs": {"stages": tr.stages_wire()}})
+        view = coord.tick()
+        assert bus.fleet_view()["stage_latency_ms"] == \
+            view["stage_latency_ms"]
+        views.append(json.loads(json.dumps(view)))
+    assert views[0]["stage_latency_ms"]["device"]["count"] == 2
+    assert views[0] == views[1]
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,12 @@ supervision and observability flags (``--supervise``, ``--chaos``,
 ``--trace``, ``--trace-sample``, ``--profile-dir``, ``--profile-batches``)
 refuse bad values with the JAX CLI's messages, ``--chaos`` implies
 ``--supervise 25``, and a chaos demo with every one of them on prints the
-JAX CLI's stats keys.
+JAX CLI's stats keys. The scale-out flags (``--workers``, ``--fleet``,
+``--fleet-health-file``, ``--fleet-candidates``, ``--autoscale``,
+``--min-workers``, ``--max-workers``, ``--scale-cooldown``) serve the demo
+with every message classified and the JAX CLI's stats keys (the fleet
+view's, the autoscale and succession blocks' too), and refuse every bad
+combination with the JAX CLI's message.
 """
 
 import json
@@ -285,6 +290,119 @@ def test_chaos_demo_with_every_obs_flag_matches_jax_keys(ckpt, capsys,
     bundles = [p for p in (d / "inc").iterdir() if p.is_dir()] \
         if (d / "inc").exists() else []
     assert len(bundles) == alerts["fired"]
+
+
+def _block_keys(stats):
+    """The stats JSON's keys, and those of its fleet-level blocks."""
+    out = {"": sorted(stats)}
+    for name in ("fleet", "autoscale", "succession", "death_plan"):
+        if isinstance(stats.get(name), dict):
+            out[name] = sorted(stats[name])
+    fleet = stats.get("fleet") or {}
+    for name in ("coordinator", "autoscale"):
+        if isinstance(fleet.get(name), dict):
+            out[f"fleet.{name}"] = sorted(fleet[name])
+    alerts = stats.get("alerts")
+    if isinstance(alerts, dict):
+        out["alerts"] = sorted(alerts)
+    elif isinstance(alerts, list):
+        out["alerts"] = [sorted(a) for a in alerts]
+    if stats.get("per_worker"):
+        out["per_worker"] = sorted(stats["per_worker"][0])
+    return out
+
+
+@pytest.mark.fleet
+@pytest.mark.parametrize("extra", [
+    ["--fleet", "2", "--partitions", "4"],
+    ["--fleet", "2", "--partitions", "4", "--fleet-candidates", "2"],
+    ["--fleet", "2", "--partitions", "4", "--autoscale", "--min-workers",
+     "2", "--max-workers", "3", "--scale-cooldown", "5"],
+    ["--fleet", "3", "--partitions", "4", "--alerts", "--trace", "--dlq",
+     "--batch-deadline-ms", "20", "--shed-policy", "reject",
+     "--max-queue", "100000"],
+    ["--workers", "2"],
+    ["--workers", "3", "--partitions", "3", "--supervise", "2", "--alerts",
+     "--trace", "--dlq"],
+], ids=["fleet", "candidates", "autoscale", "fleet-obs", "workers",
+        "workers-obs"])
+def test_scale_out_cli_matches_jax(ckpt, capsys, extra):
+    argv = ["--model", ckpt, "--demo", "300", "--batch-size", "64", *extra]
+    jrc, jstats, jn = _serve(jserve.main, argv, capsys)
+    trc, tstats, tn = _serve(tserve.main, ["--device", "cpu", *argv], capsys)
+    assert jrc == trc == 0
+    assert jn == tn == 300
+    assert tstats["processed"] == jstats["processed"] == 300
+    assert _block_keys(tstats) == _block_keys(jstats)
+    workers = int(extra[extra.index("--fleet" if "--fleet" in extra
+                                    else "--workers") + 1])
+    assert tstats["workers"] >= workers
+    if "--workers" in extra:
+        assert sum(tstats["per_worker_processed"]) == 300
+        assert len(tstats["health"]) == workers
+    else:
+        assert tstats["errors"] == [] and tstats["deaths"] == []
+    if "--autoscale" in extra:
+        scale = tstats["autoscale"]
+        assert scale["provisioner"] == "thread"
+        assert (scale["min"], scale["max"]) == (2, 3)
+        assert scale["desired"] == 2 and scale["scale_ins"] == 0
+    if "--fleet-candidates" in extra:
+        succ = tstats["succession"]
+        assert succ["term"] == 1 and succ["elections"] == 0
+        assert succ["candidates"] == {"c0": "leading", "c1": "standby"}
+
+
+@pytest.mark.fleet
+def test_fleet_health_file_and_metrics_collector(ckpt, tmp_path, capsys):
+    health = tmp_path / "fleet.json"
+    metrics = tmp_path / "m.json"
+    rc, stats, n = _serve(tserve.main, [
+        "--device", "cpu", "--model", ckpt, "--demo", "300",
+        "--batch-size", "64", "--fleet", "2", "--partitions", "4",
+        "--fleet-health-file", str(health), "--autoscale",
+        "--min-workers", "2", "--max-workers", "3", "--alerts",
+        "--metrics-file", str(metrics)], capsys)
+    assert rc == 0 and n == 300
+    doc = json.loads(health.read_text())
+    assert set(doc) == {"time", "fleet", "alerts", "workers"}
+    assert set(doc["fleet"]["autoscale"]) == set(
+        k for k in stats["autoscale"] if k not in ("provisioner",
+                                                   "decisions"))
+    assert isinstance(doc["alerts"], dict)
+    assert "fleet" in json.loads(metrics.read_text())["collectors"]
+
+
+@pytest.mark.fleet
+@pytest.mark.parametrize("argv", [
+    ["--fleet", "2"],
+    ["--demo", "10", "--fleet", "-1"],
+    ["--demo", "10", "--workers", "0"],
+    ["--demo", "10", "--fleet", "2", "--workers", "3"],
+    ["--demo", "10", "--fleet", "2", "--supervise", "3"],
+    ["--demo", "10", "--fleet", "2", "--max-messages", "5"],
+    ["--demo", "10", "--fleet", "2", "--chaos"],
+    ["--demo", "10", "--fleet", "2", "--explain", "canned"],
+    ["--demo", "10", "--workers", "2", "--max-messages", "5"],
+    ["--demo", "10", "--fleet-health-file", "f.json"],
+    ["--demo", "10", "--fleet-candidates", "0"],
+    ["--demo", "10", "--fleet-candidates", "2"],
+    ["--demo", "10", "--min-workers", "2"],
+    ["--demo", "10", "--fleet", "2", "--max-workers", "3"],
+    ["--demo", "10", "--autoscale"],
+    ["--demo", "10", "--fleet", "2", "--autoscale", "--min-workers", "3"],
+    ["--demo", "10", "--fleet", "2", "--autoscale", "--max-workers", "1"],
+    ["--demo", "10", "--fleet", "2", "--autoscale", "--min-workers", "0"],
+    ["--demo", "10", "--fleet", "2", "--autoscale", "--scale-cooldown",
+     "-1"],
+])
+def test_scale_out_refusals_equal_jax(ckpt, argv):
+    argv = ["--model", ckpt, *argv]
+    with pytest.raises(SystemExit) as je:
+        jserve.main(argv)
+    with pytest.raises(SystemExit) as te:
+        tserve.main(["--device", "cpu", *argv])
+    assert str(te.value) == str(je.value)
 
 
 @pytest.mark.parametrize("flag,takes_value,item", tserve._UNPORTED)

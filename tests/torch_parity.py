@@ -58,6 +58,16 @@ def port_model(jmodel, device="cpu"):
         device=device)
 
 
+def warmed(pipe):
+    """``pipe`` after one text and one raw-JSON message went through it: the
+    native featurizer's library builds at first use (g++, seconds on a fresh
+    checkout), and a fleet worker stuck in that build stops heartbeating,
+    loses its lease and sees its batch replayed by the next owner."""
+    pipe.predict(["warm up the featurizer"])
+    pipe.predict_json_async([b'{"text": "warm up the raw JSON path"}'])
+    return pipe
+
+
 def port_llm_config(jcfg):
     """The port's twin of a JAX ``TransformerConfig`` (float32 or bfloat16)."""
     dtype = {"float32": torch.float32,
