@@ -35,7 +35,10 @@ bundles under ``--incident-dir``), and ``--profile-dir`` captures a
 consumer group; ``--fleet N`` runs N workers that own partition leases
 behind the fleet coordinator (``fleet/``: ``--fleet-candidates`` for
 coordinator succession, ``--autoscale`` between ``--min-workers`` and
-``--max-workers``). Every worker scores on the one shared pipeline, so on
+``--max-workers``). ``--scenario NAME[:seed]`` feeds a catalog game day's
+seeded traffic live instead of the uniform ``--demo`` preload and gates on
+its SLOs (exit 4 on a violation); ``--trace-record FILE`` dumps the run as
+a replayable recording (``scenarios/``). Every worker scores on the one shared pipeline, so on
 the card N threads dispatch onto it at once. By default the host featurizes
 with the native C++ featurizer and the engine takes the raw-JSON path with
 C++ frame assembly; ``--featurize-device`` ships raw bytes to the CUDA featurize
@@ -59,8 +62,6 @@ from fraud_detection_tpu_torch.app import unported
 _UNPORTED = (
     ("--kafka", False, "5.5"),
     ("--mesh", False, "5.6"),
-    ("--trace-record", True, "5.4"), ("--scenario", True, "5.4"),
-    ("--scenario-scale", True, "5.4"), ("--scenario-time-scale", True, "5.4"),
 )
 
 
@@ -123,6 +124,46 @@ def build_pipeline(spec: str, batch_size: int, int8: bool = False,
     return ServingPipeline.from_checkpoint(
         spec, device=device, batch_size=batch_size, int8=int8,
         featurize_device=featurize_device, featurize_width=featurize_width)
+
+
+def _judge_scenario(scenario, events, feeder, broker, args, out,
+                    tracers) -> dict:
+    """Evaluate a --scenario run's SLO gates from the serve-side evidence
+    (broker key multisets + the exit stats/health). Scope is "serve":
+    fleet-only gates (worker kills, hot swaps) report skipped — the full
+    game-day runner owns those."""
+    from fraud_detection_tpu_torch.scenarios import evaluate
+
+    health = out.get("health") or {}
+    dlq_topic = ((args.dlq_topic or f"{args.output_topic}-dlq")
+                 if args.dlq else None)
+    stats = {k: v for k, v in out.items() if isinstance(v, (int, float))}
+    evidence = {
+        "planned": len(events),
+        "fed": feeder.fed,
+        "fed_keys": [e.key.decode() for e in events],
+        "out_keys": [m.key.decode()
+                     for m in broker.messages(args.output_topic)
+                     if m.key is not None],
+        "dlq_keys": ([m.key.decode() for m in broker.messages(dlq_topic)
+                      if m.key is not None] if dlq_topic else []),
+        "stats": stats,
+        "health": health,
+        "sched": health.get("sched"),
+        "breaker": health.get("breaker"),
+        "chaos": out.get("chaos"),
+        "traces": [t.snapshot() for t in tracers.values()],
+        "tracing": bool(args.trace),
+        "feeder": feeder.stats(),
+        "errors": ([f"feeder: {feeder.error!r}"]
+                   if feeder.error is not None else []),
+    }
+    evidence["shed_fraction"] = round(
+        stats.get("shed", 0) / max(1, len(events)), 4)
+    report = evaluate(scenario.slos, evidence, scope="serve")
+    return {"name": scenario.name, "seed": scenario.seed, "ok": report.ok,
+            "fed": feeder.fed, "planned": len(events),
+            "verdicts": [v.as_dict() for v in report.verdicts]}
 
 
 def _explain_lane(args):
@@ -494,6 +535,29 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-sample", type=float, default=0.05,
                     help="fraction of CLEAN batches whose spans are kept "
                          "(--trace; interesting batches are always kept)")
+    ap.add_argument("--trace-record", default=None, metavar="FILE",
+                    help="record this run for replay: tracing runs in "
+                         "record mode (sample forced to 1.0 + a per-batch "
+                         "row census) and the SpanRing dumps to FILE as "
+                         "JSONL at exit via the atomic writer; replay with "
+                         "python -m fraud_detection_tpu_torch.scenarios."
+                         "replay. Implies --trace; single worker only")
+    ap.add_argument("--scenario", default=None, metavar="NAME[:seed]",
+                    help="drive a named scenario's seeded traffic against "
+                         "this live serve run instead of the uniform "
+                         "--demo preload, then gate on the scenario's "
+                         "SLOs (exit 4 on violation; scenario catalog: "
+                         "python -m fraud_detection_tpu_torch.scenarios."
+                         "gameday --list). Engine config still comes from "
+                         "the serve flags; fleet-only gates (worker kills, "
+                         "hot swaps) report as skipped — run the full "
+                         "game day via the gameday CLI. Needs --demo")
+    ap.add_argument("--scenario-scale", type=float, default=1.0,
+                    help="traffic-rate multiplier for --scenario")
+    ap.add_argument("--scenario-time-scale", type=float, default=1.0,
+                    help="timeline pacing for --scenario: 1 = the "
+                         "scenario's real-time curve (default), 0 = warp "
+                         "(feed as fast as the engine drains)")
     ap.add_argument("--profile-dir", default=None, metavar="DIR",
                     help="capture torch.profiler traces (the card's kernels "
                          "and the host's ops): one around prewarm/ladder "
@@ -738,6 +802,40 @@ def main(argv=None) -> int:
                 raise SystemExit(f"bad --alert-rules: {e}")
         else:
             alert_rules = default_rule_pack()
+    if args.trace_record is not None:
+        # Record mode: full sampling + the per-batch row census, one ring.
+        if args.workers > 1 or args.fleet > 0:
+            raise SystemExit("--trace-record supports a single worker "
+                             "only (one recording = one worker's ring)")
+        args.trace = True
+    scenario = None
+    if args.scenario is not None:
+        # The reference also refuses here when --kafka replaces --demo; the
+        # port refuses --kafka itself first (Queue 1 item 5.5, above).
+        if not args.demo:
+            raise SystemExit("--scenario needs --demo N (traffic is fed "
+                             "into the in-process broker; N is ignored — "
+                             "the scenario defines the rows)")
+        if args.workers > 1 or args.fleet > 0:
+            raise SystemExit("--scenario drives a single serve worker; "
+                             "run multi-worker scenarios via "
+                             "python -m fraud_detection_tpu_torch.scenarios."
+                             "gameday")
+        if args.scenario_scale <= 0:
+            raise SystemExit(f"--scenario-scale must be > 0, "
+                             f"got {args.scenario_scale}")
+        if args.scenario_time_scale < 0:
+            raise SystemExit(f"--scenario-time-scale must be >= 0, "
+                             f"got {args.scenario_time_scale}")
+        from fraud_detection_tpu_torch.scenarios import (get_scenario,
+                                                         parse_scenario_ref)
+
+        try:
+            name, scenario_seed = parse_scenario_ref(args.scenario)
+            scenario = get_scenario(name, scenario_seed,
+                                    scale=args.scenario_scale)
+        except (KeyError, ValueError) as e:
+            raise SystemExit(f"bad --scenario: {e}")
     if args.profile_batches < 1:
         raise SystemExit(
             f"--profile-batches must be >= 1, got {args.profile_batches}")
@@ -805,16 +903,39 @@ def main(argv=None) -> int:
     from fraud_detection_tpu_torch.data import generate_corpus
 
     broker = InProcessBroker(num_partitions=args.partitions)
-    feeder = broker.producer()
-    corpus = generate_corpus(n=min(args.demo, 2000), seed=123)
-    for i in range(args.demo):
-        d = corpus[i % len(corpus)]
-        feeder.produce(args.input_topic,
-                       json.dumps({"text": d.text, "id": i}).encode(),
-                       key=str(i).encode())
-    max_messages = (args.max_messages if args.max_messages is not None
-                    else args.demo)
-    idle = 1.0
+    scenario_events = scenario_feeder = None
+    if scenario is not None:
+        # Scenario traffic: the seeded timeline feeds the broker LIVE from
+        # the scenario-feeder thread while the engine serves — shaped
+        # curves and campaign waves instead of a uniform preload. Chaos
+        # (--chaos) composes on top.
+        from fraud_detection_tpu_torch.scenarios import (ScenarioClock,
+                                                         TrafficFeeder,
+                                                         compose)
+
+        scenario_clock = ScenarioClock(
+            scenario.seed, time_scale=args.scenario_time_scale)
+        scenario_events = compose(scenario.traffic, scenario_clock)
+        scenario_feeder = TrafficFeeder(
+            broker.producer(), args.input_topic, scenario_events,
+            scenario_clock)
+        scenario_feeder.start()
+        max_messages = args.max_messages
+        gaps = [b - a for a, b in zip([e.t for e in scenario_events],
+                                      [e.t for e in scenario_events][1:])]
+        idle = max(1.0, 2.0 * args.scenario_time_scale
+                   * max(gaps, default=0.0))
+    else:
+        feeder = broker.producer()
+        corpus = generate_corpus(n=min(args.demo, 2000), seed=123)
+        for i in range(args.demo):
+            d = corpus[i % len(corpus)]
+            feeder.produce(args.input_topic,
+                           json.dumps({"text": d.text, "id": i}).encode(),
+                           key=str(i).encode())
+        max_messages = (args.max_messages if args.max_messages is not None
+                        else args.demo)
+        idle = 1.0
     dlq_topic = ((args.dlq_topic or f"{args.output_topic}-dlq")
                  if args.dlq else None)
 
@@ -910,9 +1031,15 @@ def main(argv=None) -> int:
 
         tr = trace_per_worker.get(worker)
         if tr is None:
+            record = args.trace_record is not None
             tr = trace_per_worker[worker] = RowTracer(
-                worker=f"w{worker}", sample=args.trace_sample,
-                capacity=4096)
+                worker=f"w{worker}",
+                # Record mode: keep everything (sample 1.0 + row census)
+                # in a ring sized for a whole demo run, so the dumped
+                # recording is complete and exactly replayable.
+                sample=1.0 if record else args.trace_sample,
+                capacity=65536 if record else 4096,
+                record_rows=record)
         return tr
 
     def sentinel_for(worker: int):
@@ -1156,6 +1283,8 @@ def main(argv=None) -> int:
             explain_service.close(timeout=30.0)
         return agg
 
+    scenario_failed: list = []    # the scenario's name once its gates fail
+
     def finish_run(out):
         """Close every lane and watcher, add their blocks to the exit stats
         ``out`` and print it; returns the device faults of the lanes."""
@@ -1179,6 +1308,27 @@ def main(argv=None) -> int:
             out["alerts"] = alerts
         finish_metrics()
         finish_health()
+        if args.trace_record is not None and trace_per_worker:
+            # Atomic JSONL dump of the ring at exit (scenarios/record.py):
+            # the run is now a replayable regression input.
+            from fraud_detection_tpu_torch.scenarios import dump_tracer
+
+            header = dump_tracer(trace_per_worker[0], args.trace_record,
+                                 now=time.time())
+            out["trace_record"] = {"path": args.trace_record,
+                                   "spans": header["spans"],
+                                   "complete": header["complete"]}
+        if scenario is not None:
+            scenario_feeder.join(timeout=120.0)
+            out["scenario"] = _judge_scenario(
+                scenario, scenario_events, scenario_feeder, broker, args,
+                out, trace_per_worker)
+            if not out["scenario"]["ok"]:
+                scenario_failed.append(scenario.name)
+                failed = [v["name"] for v in out["scenario"]["verdicts"]
+                          if not v["ok"] and not v["skipped"]]
+                print(f"scenario {scenario.name!r} FAILED its SLO gates "
+                      f"(exit 4): {failed}", file=sys.stderr, flush=True)
         print(json.dumps(out))
         print(f"classified messages on {args.output_topic}: "
               f"{broker.topic_size(args.output_topic)}")
@@ -1343,7 +1493,9 @@ def main(argv=None) -> int:
     faults = finish_run(out)
     if gave_up is not None:
         return 3
-    return 1 if faults else 0
+    if faults:
+        return 1
+    return 4 if scenario_failed else 0
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -43,14 +43,6 @@ from fraud_detection_tpu_torch.sched.sketch import SloTracker
 from fraud_detection_tpu_torch.utils.racecheck import ExclusiveRegion
 
 
-# The reference's SchedulerConfig also has ``cost_aware``, ``burst``,
-# ``max_batch_sec``, ``window_sec`` and ``cost_ratio``, which only its game
-# days set (ROADMAP Queue 1 item 5.4): until they are ported the port runs
-# them at the reference's defaults.
-WINDOW_SEC = 10.0   # SLO tracker rotation window
-COST_RATIO = 1.25   # cost gap that justifies keeping a smaller ladder rung
-
-
 @dataclass(frozen=True)
 class SchedulerConfig:
     """Validated scheduler knobs. All defaults: no deadline (one poll), no
@@ -61,11 +53,20 @@ class SchedulerConfig:
     shed_policy: str = "none"
     target_p99_ms: Optional[float] = None
     max_rate: Optional[float] = None      # admitted rows/s; None = off
+    burst: Optional[float] = None         # token burst; None = 1 s of rate
+    window_sec: float = 10.0              # SLO tracker rotation window
+    max_batch_sec: Optional[float] = None  # None = derived (see resolve)
     # An explicit ladder pins the rung geometry (the rungs are still timed
     # for the health cost table); None derives it from measured costs. The
     # serve CLI sets it from one prewarmer's measured ladder, so that every
     # worker's scheduler shares the shapes the pipeline warmed.
     buckets: Optional[Tuple[int, ...]] = None
+    # Cost-aware ladder: prewarm() times the candidate rungs and derives
+    # the rung set from the measured cost curve; False keeps the fixed
+    # default ladder (the game days run that way). cost_ratio is the least
+    # cost gap that justifies keeping a smaller rung.
+    cost_aware: bool = True
+    cost_ratio: float = 1.25
 
     def __post_init__(self):
         if self.shed_policy not in SHED_POLICIES:
@@ -82,6 +83,8 @@ class SchedulerConfig:
                 f"target_p99_ms must be > 0, got {self.target_p99_ms}")
         if self.max_rate is not None and self.max_rate <= 0:
             raise ValueError(f"max_rate must be > 0, got {self.max_rate}")
+        if self.window_sec <= 0:
+            raise ValueError(f"window_sec must be > 0, got {self.window_sec}")
         if self.shed_policy == "adaptive" and self.target_p99_ms is None:
             raise ValueError(
                 "shed_policy='adaptive' sheds on SLO pressure and needs "
@@ -91,11 +94,16 @@ class SchedulerConfig:
             raise ValueError(
                 "shed_policy='reject' needs a limit to enforce: set "
                 "max_queue and/or max_rate")
+        if self.cost_ratio <= 1.0:
+            raise ValueError(f"cost_ratio must be > 1, got {self.cost_ratio}")
 
     def resolved_max_batch_sec(self) -> float:
-        """The governor's batch-wall bound: half the latency target (queue
-        wait needs the other half); else a 2 s backstop that keeps poll
-        cadence inside a broker session timeout."""
+        """The governor's batch-wall bound: an explicit value wins; else
+        half the latency target (queue wait needs the other half); else a
+        2 s backstop that keeps poll cadence inside a broker session
+        timeout."""
+        if self.max_batch_sec is not None:
+            return self.max_batch_sec
         if self.target_p99_ms is not None:
             return self.target_p99_ms / 2e3
         return 2.0
@@ -116,9 +124,9 @@ class AdaptiveScheduler:
         # prewarm(); the ladder's source.
         self.ladder_costs: Optional[dict] = None
         self.slo = SloTracker(target_p99_ms=config.target_p99_ms,
-                              window_sec=WINDOW_SEC, clock=clock)
+                              window_sec=config.window_sec, clock=clock)
         self.batcher = DynamicBatcher(config.batch_deadline_ms, clock=clock)
-        bucket = (TokenBucket(config.max_rate, clock=clock)
+        bucket = (TokenBucket(config.max_rate, config.burst, clock=clock)
                   if config.max_rate is not None else None)
         self.admission = AdmissionController(
             config.shed_policy, max_queue=config.max_queue,
@@ -196,8 +204,9 @@ class AdaptiveScheduler:
         (``measure_ladder`` / ``configure_ladder``), so every later swap or
         stage candidate is warmed at the same rungs, never re-measured."""
         with self._region:
-            explicit = self.config.buckets is not None
-            candidates = (self.buckets if explicit
+            cfg = self.config
+            explicit = cfg.buckets is not None
+            candidates = (self.buckets if explicit or not cfg.cost_aware
                           else ladder_candidates(self.batch_size))
             measure = getattr(pipeline, "measure_ladder", None)
             if measure is not None:
@@ -205,9 +214,9 @@ class AdaptiveScheduler:
             else:
                 costs = measure_rung_costs(pipeline, candidates, texts=texts)
             self.ladder_costs = dict(costs)
-            if not explicit:
+            if not explicit and cfg.cost_aware:
                 self.buckets = cost_aware_ladder(costs, self.batch_size,
-                                                 COST_RATIO)
+                                                 cfg.cost_ratio)
                 # the smallest rung is the governor's budget floor
                 self.governor.min_budget = self.buckets[0]
             configure = getattr(pipeline, "configure_ladder", None)

@@ -60,7 +60,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "stream.faults", "obs", "obs.trace", "obs.metrics",
                  "obs.export", "obs.sentinel", "obs.sentinel.rules",
                  "obs.sentinel.engine", "obs.sentinel.bundle",
-                 "utils.tracing"):
+                 "utils.tracing", "scenarios", "scenarios.clock",
+                 "scenarios.slo", "scenarios.labels", "scenarios.record",
+                 "scenarios.replay", "scenarios.gameday", "analysis",
+                 "analysis.core", "analysis.entrypoints",
+                 "analysis.conformance"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

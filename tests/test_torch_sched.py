@@ -155,7 +155,8 @@ def test_slo_tracker_equal_jax():
 
 _BAD_CONFIGS = [dict(shed_policy="drop"), dict(batch_deadline_ms=0),
                 dict(max_queue=0), dict(target_p99_ms=-1), dict(max_rate=0),
-                dict(shed_policy="adaptive"), dict(shed_policy="reject")]
+                dict(shed_policy="adaptive"), dict(shed_policy="reject"),
+                dict(window_sec=0), dict(cost_ratio=1.0)]
 
 
 @pytest.mark.parametrize("kw", _BAD_CONFIGS)
@@ -171,15 +172,15 @@ def test_scheduler_config_refusals_equal_jax(kw):
     {}, dict(target_p99_ms=300), dict(batch_deadline_ms=5, max_rate=2000.0),
     dict(shed_policy="adaptive", target_p99_ms=80, max_queue=500)])
 def test_scheduler_defaults_equal_jax(kw):
-    """The knobs the port fixes (SLO window, ladder cost ratio, token burst,
-    batch-wall bound) take the JAX config's defaults: a fresh scheduler
-    reports what JAX's reports."""
-    from fraud_detection_tpu_torch.sched import scheduler as Tsch
-
+    """The game-day knobs (SLO window, cost-aware ladder and its cost
+    ratio, token burst, batch-wall bound) default to the JAX config's
+    values: a fresh scheduler reports what JAX's reports."""
     jcfg = J.SchedulerConfig(**kw)
-    assert (Tsch.WINDOW_SEC, Tsch.COST_RATIO) == (jcfg.window_sec,
-                                                  jcfg.cost_ratio)
     tcfg = T.SchedulerConfig(**kw)
+    fields = ("window_sec", "cost_ratio", "cost_aware", "burst",
+              "max_batch_sec")
+    assert ([getattr(tcfg, f) for f in fields]
+            == [getattr(jcfg, f) for f in fields])
     assert tcfg.resolved_max_batch_sec() == jcfg.resolved_max_batch_sec()
     snaps = []
     for mod, cfg in ((J, jcfg), (T, tcfg)):

@@ -30,7 +30,11 @@ JAX CLI's stats keys. The scale-out flags (``--workers``, ``--fleet``,
 ``--min-workers``, ``--max-workers``, ``--scale-cooldown``) serve the demo
 with every message classified and the JAX CLI's stats keys (the fleet
 view's, the autoscale and succession blocks' too), and refuse every bad
-combination with the JAX CLI's message.
+combination with the JAX CLI's message. ``--scenario NAME[:seed]`` gates a
+live run on the scenario's SLOs with the JAX CLI's verdicts (exit 4 on a
+violation), ``--trace-record`` dumps a complete recording that both
+packages replay to the exact key set, and their bad combinations refuse
+with the JAX CLI's messages.
 """
 
 import json
@@ -628,3 +632,106 @@ def test_explain_deepseek_builds_the_reference_backend(ckpt, capsys,
     assert rc == 0 and n == 40
     assert calls and all(c == ("https://api.deepseek.com/v1/chat/completions",
                                "deepseek-chat", 1.0) for c in calls)
+
+
+# ---------------------------------------------------------------------------
+# --scenario and --trace-record
+# ---------------------------------------------------------------------------
+
+def _scenario_run(main, argv, capsys):
+    rc = main(argv)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    return rc, json.loads(lines[-1])
+
+
+def test_scenario_and_trace_record_replay_exactly(ckpt, tmp_path, capsys):
+    """A live --scenario run gates on the scenario's SLOs and its
+    --trace-record recording replays to the exact key set in both
+    packages; the scenario block reads like the JAX CLI's."""
+    from fraud_detection_tpu.models.pipeline import ServingPipeline as JPipe
+    from fraud_detection_tpu.scenarios import run_replay as jreplay
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.scenarios import run_replay
+
+    argv = ["--model", ckpt, "--demo", "1", "--batch-size", "256",
+            "--scenario", "diurnal_hotkey:3", "--scenario-scale", "0.25",
+            "--scenario-time-scale", "0"]
+    rec = tmp_path / "run.jsonl"
+    rc, out = _scenario_run(tserve.main, ["--device", "cpu", *argv,
+                                          "--trace-record", str(rec)],
+                            capsys)
+    assert rc == 0
+    sc = out["scenario"]
+    assert sc["name"] == "diurnal_hotkey" and sc["seed"] == 3
+    assert sc["ok"] is True and sc["fed"] == sc["planned"] > 0
+    assert {"exact_accounting", "spans_exact"} <= {v["name"]
+                                                   for v in sc["verdicts"]}
+    assert out["trace_record"]["complete"] is True
+    assert out["trace_record"]["spans"] > sc["planned"]
+    jrc, jout = _scenario_run(jserve.main, [*argv, "--trace"], capsys)
+    assert jrc == 0
+    jsc = jout["scenario"]
+    assert ([(v["name"], v["ok"], v["skipped"]) for v in sc["verdicts"]]
+            == [(v["name"], v["ok"], v["skipped"]) for v in jsc["verdicts"]])
+    assert (sc["fed"], sc["planned"]) == (jsc["fed"], jsc["planned"])
+    tpipe = ServingPipeline.from_checkpoint(ckpt, device="cpu",
+                                            batch_size=256)
+    jpipe = JPipe.from_checkpoint(ckpt, batch_size=256)
+    for report in (run_replay(str(rec), tpipe), jreplay(str(rec), jpipe)):
+        assert report["keys_exact"] is True
+        assert report["rows"] == report["fed"] == sc["planned"]
+
+
+def test_scenario_slo_failure_exits_4_like_jax(ckpt, capsys):
+    """flash_crowd without any shed flags: the admission_shed_bit gate
+    fails and both CLIs exit 4."""
+    argv = ["--model", ckpt, "--demo", "1", "--batch-size", "256",
+            "--scenario", "flash_crowd:3", "--scenario-scale", "0.2",
+            "--scenario-time-scale", "0"]
+    results = []
+    for main, extra in ((jserve.main, []), (tserve.main,
+                                            ["--device", "cpu"])):
+        rc, out = _scenario_run(main, [*extra, *argv], capsys)
+        sc = out["scenario"]
+        failed = {v["name"] for v in sc["verdicts"]
+                  if not v["ok"] and not v["skipped"]}
+        results.append((rc, sc["ok"], failed, sc["planned"]))
+    assert results[1] == results[0]
+    rc, ok, failed, _ = results[1]
+    assert rc == 4 and ok is False and "admission_shed_bit" in failed
+
+
+@pytest.mark.parametrize("argv", [
+    ["--scenario", "flash_crowd"],
+    ["--demo", "100", "--workers", "2", "--scenario", "flash_crowd"],
+    ["--demo", "100", "--fleet", "2", "--scenario", "flash_crowd"],
+    ["--demo", "100", "--scenario", "no_such_scenario"],
+    ["--demo", "100", "--scenario", "flash_crowd:x"],
+    ["--demo", "100", "--scenario", "flash_crowd", "--scenario-scale", "0"],
+    ["--demo", "100", "--scenario", "flash_crowd",
+     "--scenario-time-scale", "-1"],
+    ["--demo", "100", "--fleet", "2", "--trace-record", "/tmp/x.jsonl"],
+    ["--demo", "100", "--workers", "2", "--trace-record", "/tmp/x.jsonl"],
+])
+def test_scenario_refusals_equal_jax(ckpt, argv):
+    """The JAX CLI's messages; where one names the game-day CLI's module,
+    the port's names its own."""
+    argv = ["--model", ckpt, *argv]
+    with pytest.raises(SystemExit) as je:
+        jserve.main(argv)
+    with pytest.raises(SystemExit) as te:
+        tserve.main(["--device", "cpu", *argv])
+    assert str(te.value) == str(je.value).replace(
+        "fraud_detection_tpu.", "fraud_detection_tpu_torch.")
+
+
+def test_scenario_with_kafka_refuses_naming_its_item(ckpt):
+    """The reference refuses --scenario with --kafka ("needs --demo"); the
+    port refuses --kafka itself first, naming its queue item."""
+    with pytest.raises(SystemExit, match="--scenario needs --demo"):
+        jserve.main(["--model", ckpt, "--kafka", "--scenario",
+                     "flash_crowd"])
+    with pytest.raises(SystemExit, match=r"--kafka is not ported .*item 5\.5"):
+        tserve.main(["--device", "cpu", "--model", ckpt, "--kafka",
+                     "--scenario", "flash_crowd"])

@@ -88,3 +88,58 @@ def port_llm(jlm, device="cpu"):
     params = convert.llm_params_from_arrays(
         cfg, {k: np.asarray(v) for k, v in jlm.params.items()}, device=device)
     return port_llm_module.LanguageModel(cfg, params)
+
+
+# Game-day gates whose verdict is a property of a run's data, not of its
+# timing: a port run and a JAX run of one scenario at one seed and scale
+# read the same on them.
+STEADY_GATES = {"exact_accounting", "zero_loss", "spans_exact", "no_errors",
+                "breaker_tripped", "explain_coverage", "explained_bit",
+                "slot_accounting_exact", "prefix_shared",
+                "paged_pool_capped", "hbm_saved", "zero_incidents",
+                "worker_killed", "hot_swap_landed", "coordinator_killed",
+                "control_zero_loss", "spec_conformance", "no_scale_out",
+                "no_scale_in", "no_replace", "lifecycle_audited",
+                "join_accounting_exact", "labels_joined_bit"}
+
+
+def gameday_pipelines():
+    """The JAX scenario tests' game-day pipeline (LR, 1,024 features, batch
+    128, the separable corpus) and the port's twin of its arrays, warmed."""
+    from fraud_detection_tpu.models.pipeline import synthetic_demo_pipeline
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+
+    jp = synthetic_demo_pipeline(batch_size=128, n=300, seed=3,
+                                 num_features=1024,
+                                 corpus_kwargs=dict(hard_fraction=0.0,
+                                                    label_noise=0.0))
+    tp = ServingPipeline(port_featurizer(jp.featurizer), port_model(jp.model),
+                         batch_size=128, device="cpu")
+    return warmed(jp), warmed(tp)
+
+
+def gameday_twins(name, seed, scale, pipelines, *, jax=True):
+    """Run one catalog game day in the port (and, with ``jax``, in the JAX
+    package) on ``pipelines``; the two runs must judge the same gates, plan
+    the same rows and agree on every steady gate. Returns (jax, port)
+    results."""
+    from fraud_detection_tpu.scenarios import gameday as Jgd
+    from fraud_detection_tpu_torch.scenarios import gameday as Tgd
+
+    jp, tp = pipelines
+    tres = Tgd.run_gameday(Tgd.get_scenario(name, seed, scale=scale),
+                           pipeline=tp)
+    if not jax:
+        return None, tres
+    jres = Jgd.run_gameday(Jgd.get_scenario(name, seed, scale=scale),
+                           pipeline=jp)
+    assert ([v.name for v in tres.report.verdicts]
+            == [v.name for v in jres.report.verdicts])
+    assert tres.evidence["planned"] == jres.evidence["planned"]
+    assert tres.mode == jres.mode
+    port = {v.name: v.ok for v in tres.report.verdicts
+            if v.name in STEADY_GATES}
+    ref = {v.name: v.ok for v in jres.report.verdicts
+           if v.name in STEADY_GATES}
+    assert port == ref, (port, ref, tres.table(), jres.table())
+    return jres, tres
