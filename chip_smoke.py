@@ -192,6 +192,38 @@ Phases (any failure raises and the script exits non-zero):
    --demo 4096 --batch-size 1024``, a thread publishing v2 once the first
    batch is delivered: exit 0, every message classified, the stage in the
    stats JSON's lifecycle block;
+7g. Kafka: ``serve --kafka`` on phase 5b's LR checkpoint (batch 1,024) over
+   4,096 seeded messages (malformed ones included) on 3 partitions of a
+   stand-in broker (``tests/torch_fake_kafka.py`` ``FakeCluster`` behind
+   the ``confluent_kafka`` client surface; there is no librdkafka here):
+   every fed key out once, each partition's committed offset its last
+   offset + 1; host featurize on the raw-JSON path with native frames and
+   no ``featurize_packed`` launch, in turns with ``--demo`` (kafka, demo,
+   demo, kafka); ``--featurize-device`` with one launch per chunk; a
+   ``KafkaControlBus`` round trip over the compacted control topic;
+7h. mesh serving: ``MeshServingPipeline`` over the local devices (one
+   card: the plain pipeline, byte-identical, ``mesh_devices`` 1); a virtual
+   mesh of 4 shards on cuda:0 (per-chip 256, global 1,024, device
+   featurize at W=2,048, 256 slots) against the single-device card
+   pipeline (labels equal, |dp| <= 1e-6), ``featurize_packed`` launches =
+   chunks x 4, every prewarmed rung a multiple of 4, the engine over it
+   (keys exact, launches = chunks x 4), no plain featurize, rows/s in turns
+   with the single-device pipeline; ``serve --mesh --featurize-device
+   --demo 4096``;
+7i. data-parallel training: the training CLI at its defaults with
+   ``--mesh`` (dt's metrics equal the recorded run's, lr's as phase 7
+   gates them, rf's and xgb's printed: a mesh forest draws over its padded
+   rows, as the reference's mesh path does); on a virtual mesh of 4
+   shards on cuda:0, dt at the CLI shape equal to the card's
+   single-device fit, xgb5 on the reference's mesh-test data (301 x 6)
+   within its 1e-4 in p, xgb8 at the CLI shape within the same 1e-4 of
+   the card's single-device fit and equal to the same mesh fit on the
+   CPU, each fit
+   launching the histogram shards x levels x trees times and
+   ``best_splits`` levels x trees, no plain tree version run;
+7j. with two or more cards, a 2-process NCCL rendezvous (global batch and
+   data-axis sum across the processes); with one card, a line saying it
+   was not run and why;
 8. timings (CUDA events, median of >= 10 after warm-up) of each kernel, its
    plain version and its library call where one exists (both featurize
    entries in turns with their profiler device time, beside the first scan
@@ -307,7 +339,10 @@ phase 5d's 3-worker drain, before each phase 5e game day and before each
 serve CLI run; the tree kernels before phase 5e's drift_shift pipeline fit
 and again before its run;
 training: phase 7, the CLI, and phase 7c, the resume; the learn lane's
-refresh: phase 7f's lifecycle run; the LLM prefill: one T=2048 forward in phase
+refresh: phase 7f's lifecycle run; ``featurize_packed`` again around each
+``--kafka`` run, the virtual-mesh predict, its engine run and ``serve
+--mesh``, and the tree kernels around each virtual-mesh fit (phases
+7g-7i); the LLM prefill: one T=2048 forward in phase
 10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
 flash kernel and, at int8, for ``w8_matmul``'s SIMT route; one int8 decode
 step and phase 12's int8 generation, for ``w8_matmul``) and read just after
@@ -2824,8 +2859,11 @@ def serve_cli(argv, card: str, rc: int = 0) -> dict:
     if got != rc:
         raise AssertionError(f"serve {argv}: exit {got}, want {rc}\n"
                              f"{log.getvalue()}")
-    stats = json.loads(lines[-2])
-    n = int(lines[-1].rsplit(":", 1)[1])
+    # a demo broker's run ends with its classified count (``--kafka`` has
+    # no broker to count)
+    counted = lines[-1].startswith("classified messages")
+    stats = json.loads(lines[-2] if counted else lines[-1])
+    n = int(lines[-1].rsplit(":", 1)[1]) if counted else stats["processed"]
     print(f"[serve] {' '.join(argv)}: exit {rc}, classified {n}, msgs/s "
           f"{stats['msgs_per_sec']} ({card})")
     return dict(stats=stats, classified=n, engine=engines[-1],
@@ -4400,6 +4438,547 @@ def lifecycle(dev, xgb_ckpt: Path, out: Path, seed: int, card: str) -> dict:
                                      if k not in ("X", "y")},
                 figures=figures, serve_cli=cli)
 
+# ---------------------------------------------------------------------------
+# serving from Kafka and across devices: the Kafka adapter over a stand-in
+# broker, mesh serving, data-parallel training, the multi-process helpers
+# ---------------------------------------------------------------------------
+
+KAFKA_MSGS = 4096        # phase 7g: messages of each --kafka run
+MESH_SHARDS = 4          # phases 7h-7i: the virtual mesh's shards on cuda:0
+MESH_PER_CHIP = 256      # phase 7h: rows a shard scores (global batch 1,024)
+MESH_XGB_ROUNDS = 8      # phase 7i: rounds of the CLI-shape virtual-mesh xgb
+
+
+def fake_kafka():
+    """The stand-in ``confluent_kafka`` of the port's tests
+    (``tests/torch_fake_kafka.py``), loaded from the checkout's tests."""
+    import importlib.util
+
+    path = ROOT / "tests" / "torch_fake_kafka.py"
+    spec = importlib.util.spec_from_file_location("torch_fake_kafka", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kafka_serve(argv, cluster, items, topic: str, card: str) -> dict:
+    """``serve --kafka`` in-process (``serve_cli``) over the stand-in
+    cluster holding ``items`` on ``topic``: exit 0, every fed key out once
+    (malformed rows as error records), each partition's committed offset
+    its last offset + 1."""
+    for value, key in items:
+        cluster.append(topic, value, key)
+    out_topic = f"{topic}-out"
+    r = serve_cli(["--kafka", "--input-topic", topic, "--output-topic",
+                   out_topic, "--max-messages", str(len(items)),
+                   "--batch-size", "1024", *argv], card)
+    keys = sorted(m.key() for m in cluster.records(out_topic))
+    if keys != sorted(k for _, k in items):
+        raise AssertionError(f"serve --kafka {argv}: {len(keys)} output keys "
+                             f"!= the {len(items)} fed")
+    high = cluster.high_watermarks(topic)
+    committed = {p: cluster.committed.get(("dialogue-classifier-group", topic,
+                                           p)) for p in high}
+    if committed != high:
+        raise AssertionError(f"serve --kafka {argv}: committed {committed} "
+                             f"!= last offset + 1 {high}")
+    return r
+
+
+def kafka_phase(dev, ckpt: Path, card: str, seed: int) -> dict:
+    """Phase 7g: the serve CLI's ``--kafka`` path over the stand-in broker
+    (``tests/torch_fake_kafka.py``: partitions, group offsets, compaction;
+    no real broker or librdkafka on this machine) at the CLI's batch
+    (1,024) on the LR checkpoint, host featurize (the raw-JSON path and
+    native frames, no ``featurize_packed`` launch) and
+    ``--featurize-device`` (one launch per chunk dispatched); the host run
+    in turns with ``--demo`` on the same checkpoint (kafka, demo, demo,
+    kafka); then a ``KafkaControlBus`` round trip: lease records published,
+    the control topic compacted, the newest lease read back by a second
+    bus."""
+    fk_mod = fake_kafka()
+    cluster = fk_mod.FakeCluster(num_partitions=3)
+    restore = fk_mod.install(fk_mod.module(cluster))
+    print("[kafka] the broker is a stand-in: tests/torch_fake_kafka.py "
+          "FakeCluster behind the confluent_kafka client surface (no "
+          "librdkafka, no network)")
+    try:
+        items, _ = chaos_items(KAFKA_MSGS, seed + 71)
+        base = ["--device", str(dev), "--model", str(ckpt)]
+        turns = {"kafka": [], "demo": []}
+        runs = {}
+        for i, mode in enumerate(("kafka", "demo", "demo", "kafka")):
+            if mode == "kafka":
+                r = kafka_serve(base, cluster, items, f"kafka-host-{i}", card)
+                eng, dev_block = r["engine"], r["stats"]["health"]["device"]
+                if r["launches"] or not (eng._json_fast is True
+                                         and eng._frames_ok is True):
+                    raise AssertionError(
+                        f"serve --kafka: featurize_packed {r['launches']}x, "
+                        f"_json_fast {eng._json_fast}, _frames_ok "
+                        f"{eng._frames_ok}")
+                turns["kafka"].append(r["stats"]["msgs_per_sec"])
+                runs["host"] = dict(msgs_per_sec=r["stats"]["msgs_per_sec"],
+                                    chunks=dev_block["uploads"],
+                                    json_fast=eng._json_fast,
+                                    frames_ok=eng._frames_ok)
+            else:
+                r = serve_cli([*base, "--demo", str(KAFKA_MSGS),
+                               "--batch-size", "1024"], card)
+                turns["demo"].append(r["stats"]["msgs_per_sec"])
+        r = kafka_serve([*base, "--featurize-device"], cluster, items,
+                        "kafka-device", card)
+        dev_block = r["stats"]["health"]["device"]
+        if (dev_block["featurize_path"] != "cuda" or r["launches"] < 1
+                or r["launches"] != dev_block["uploads"]):
+            raise AssertionError(f"serve --kafka --featurize-device: "
+                                 f"featurize_packed {r['launches']}x over "
+                                 f"{dev_block['uploads']} chunks")
+        runs["featurize_device"] = dict(
+            msgs_per_sec=r["stats"]["msgs_per_sec"],
+            featurize_packed_launches=r["launches"],
+            chunks=dev_block["uploads"],
+            # the raw-JSON path fronts the host featurize the kernel
+            # replaces, so the engine takes the decode path here by design
+            json_fast=r["engine"]._json_fast)
+        print(f"[kafka] {card}: serve --kafka over {KAFKA_MSGS} messages x3 "
+              f"partitions, keys exact, committed = last offset + 1 on every "
+              f"partition; host featurize msgs/s {turns['kafka']} (raw JSON, "
+              f"native frames, 0 featurize_packed launches) beside --demo "
+              f"{turns['demo']} in turns; --featurize-device "
+              f"{runs['featurize_device']['msgs_per_sec']} msgs/s, "
+              f"featurize_packed {r['launches']} launches = "
+              f"{dev_block['uploads']} chunks")
+        from fraud_detection_tpu_torch.fleet import KafkaControlBus
+        from fraud_detection_tpu_torch.utils.config import KafkaConfig
+
+        pub = KafkaControlBus(KafkaConfig(consumer_group="fleet-pub"))
+        for term in (1, 2, 3):
+            pub.publish("lease", "coordinator",
+                        {"partition": 0, "owner": "w1", "epoch": term},
+                        term=term)
+        pub.publish("heartbeat", "w1", {"batches": 7})
+        removed = cluster.compact("__fleet_control")
+        got = KafkaControlBus(KafkaConfig(consumer_group="fleet-read")).poll()
+        leases = [r for r in got if r.kind == "lease"]
+        if (removed != 2 or len(got) != 2 or len(leases) != 1
+                or leases[0].payload["epoch"] != 3 or leases[0].term != 3):
+            raise AssertionError(f"KafkaControlBus round trip: removed "
+                                 f"{removed}, read {got}")
+        print("[kafka] KafkaControlBus: 4 records published, compaction "
+              "removed 2, a second bus read back the newest lease (term 3) "
+              "and the heartbeat")
+        return {"runs": runs, "turns": turns, "msgs": KAFKA_MSGS,
+                "stand_in": "tests/torch_fake_kafka.py FakeCluster",
+                "control_bus_removed": removed}
+    finally:
+        restore()
+
+
+def plain_calls(names):
+    """Count calls of the kernels' plain versions (``ops`` module
+    attributes) while the block runs: (counts, restore)."""
+    from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+    from fraud_detection_tpu_torch.ops import histogram as H
+
+    mods = {"histogram_reference": H, "best_splits_reference": H,
+            "featurize_bytes_reference": fk}
+    counts = {n: 0 for n in names}
+    saved = {n: getattr(mods[n], n) for n in names}
+
+    def wrap(n):
+        fn = saved[n]
+
+        def counted(*a, **kw):
+            counts[n] += 1
+            return fn(*a, **kw)
+
+        return counted
+
+    for n in names:
+        setattr(mods[n], n, wrap(n))
+
+    def restore():
+        for n in names:
+            setattr(mods[n], n, saved[n])
+
+    return counts, restore
+
+
+def mesh_serving_phase(dev, ckpt: Path, feat, lr_gpu, texts, card: str,
+                       seed: int) -> dict:
+    """Phase 7h: ``MeshServingPipeline`` over the real local devices (on one
+    card: the plain pipeline, labels and probabilities byte-identical,
+    ``mesh_devices`` 1); a named virtual mesh of MESH_SHARDS shards on
+    cuda:0 at the shipped widths (HashingTF 10,000, W = 2,048, 256 slots,
+    per-chip 256, global 1,024) against the single-device card pipeline
+    (labels equal, |dp| <= 1e-6), ``featurize_packed`` launches = chunks x
+    shards, every prewarmed rung a shard multiple, the engine over it
+    (keys exact, launches = chunks x shards), no plain version run, rows/s
+    in turns with the single-device pipeline; then ``serve --mesh
+    --featurize-device --demo 4096``."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+    from fraud_detection_tpu_torch.parallel import make_mesh
+    from fraud_detection_tpu_torch.parallel.serving import (
+        MeshServingPipeline, local_device_count)
+    from fraud_detection_tpu_torch.sched import (AdaptiveScheduler,
+                                                 SchedulerConfig)
+
+    kw = dict(featurize_device=True, featurize_width=WIDTH,
+              featurize_tokens=TOKENS)
+    single = ServingPipeline(feat, lr_gpu, batch_size=MESH_PER_CHIP
+                             * MESH_SHARDS, device=dev, **kw)
+    real = MeshServingPipeline.from_pipeline(single)
+    n_local = local_device_count(torch.device(dev).type)
+    want = single.predict(texts)
+    fk.featurize_bytes.launches = 0
+    chunks0 = real.device_stats.chunks
+    got = real.predict(texts)
+    real_launches = fk.featurize_bytes.launches
+    real_chunks = real.device_stats.chunks - chunks0
+    if n_local == 1 and (real.mesh is not None or not np.array_equal(
+            want.labels, got.labels) or not np.array_equal(
+            want.probabilities, got.probabilities)):
+        raise AssertionError("one-card mesh pipeline is not the plain one")
+    real_dp = float(np.abs(got.probabilities - want.probabilities).max())
+    if not np.array_equal(want.labels, got.labels) or real_dp > 1e-6:
+        raise AssertionError(f"mesh over the local devices: labels differ or "
+                             f"|dp| {real_dp}")
+    if (real.device_stats.snapshot()["mesh_devices"] != n_local
+            or real_launches != real_chunks * n_local):
+        raise AssertionError(f"mesh over local devices: {real_launches} "
+                             f"launches over {real_chunks} chunks, "
+                             f"{real.device_stats.snapshot()}")
+    print(f"[mesh] MeshServingPipeline over the {n_local} local device(s): "
+          f"mesh_devices {n_local}, featurize_packed {real_launches} "
+          f"launches = {real_chunks} chunks x {n_local}"
+          + (", the plain pipeline, labels and p byte-identical"
+             if n_local == 1 else f", labels equal, max |dp| {real_dp:.3g}"))
+    mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+    vpipe = MeshServingPipeline(feat, lr_gpu, per_chip_batch=MESH_PER_CHIP,
+                                mesh=mesh, **kw)
+    counts, restore = plain_calls(("featurize_bytes_reference",))
+    try:
+        fk.featurize_bytes.launches = 0
+        chunks0 = vpipe.device_stats.chunks
+        got = vpipe.predict(texts)
+        launches = fk.featurize_bytes.launches
+        chunks = vpipe.device_stats.chunks - chunks0
+        dp = float(np.abs(got.probabilities - want.probabilities).max())
+        if not np.array_equal(got.labels, want.labels) or dp > 1e-6:
+            raise AssertionError(f"virtual mesh: labels differ or |dp| {dp}")
+        if launches != chunks * MESH_SHARDS or launches < 1:
+            raise AssertionError(f"virtual mesh: featurize_packed {launches}x "
+                                 f"over {chunks} chunks x {MESH_SHARDS}")
+        sched = AdaptiveScheduler(SchedulerConfig(batch_deadline_ms=10),
+                                  vpipe.batch_size)
+        sched.prewarm(vpipe)
+        rungs = list(vpipe.pad_ladder)
+        if any(r % MESH_SHARDS for r in rungs):
+            raise AssertionError(f"virtual mesh rungs {rungs}")
+        per_chip = vpipe.device_stats.snapshot()["per_chip_rungs"]
+        items, _ = chaos_items(KAFKA_MSGS, seed + 73)
+        fk.featurize_bytes.launches = 0
+        chunks0 = vpipe.device_stats.chunks
+        engine, stats, out, dlq = run_engine(vpipe, items, vpipe.batch_size)
+        eng_launches = fk.featurize_bytes.launches
+        eng_chunks = vpipe.device_stats.chunks - chunks0
+        if sorted(m.key for m in out) != sorted(k for _, k in items):
+            raise AssertionError("virtual-mesh engine: keys != fed")
+        if eng_launches != eng_chunks * MESH_SHARDS:
+            raise AssertionError(f"virtual-mesh engine: {eng_launches} "
+                                 f"launches over {eng_chunks} chunks")
+        if engine.health()["device"]["mesh_devices"] != MESH_SHARDS:
+            raise AssertionError(f"engine health {engine.health()['device']}")
+        if counts["featurize_bytes_reference"]:
+            raise AssertionError("a plain featurize ran on the card")
+    finally:
+        restore()
+    print(f"[mesh] virtual mesh {MESH_SHARDS} x {dev} (per-chip "
+          f"{MESH_PER_CHIP}, global {vpipe.batch_size}): {len(texts)} labels "
+          f"equal the single-device card pipeline's, max |dp| {dp:.3g}; "
+          f"featurize_packed {launches} launches = {chunks} chunks x "
+          f"{MESH_SHARDS}; prewarmed rungs {rungs} (per chip {per_chip}); "
+          f"engine over {len(items)} messages keys exact, {eng_launches} "
+          f"launches = {eng_chunks} chunks x {MESH_SHARDS}; no plain version "
+          "ran")
+    arms = {"single": single, "virtual_mesh": vpipe}
+    if n_local > 1:
+        arms["local_mesh"] = real
+    order = [*arms, *reversed(arms)]
+    turns = {k: [] for k in arms}
+    for k in order:
+        turns[k].append(pipeline_rate(arms[k], texts))
+    rates = {k: statistics.median(r[0] for r in v) for k, v in turns.items()}
+    idle = {k: statistics.median(r[1] for r in v) for k, v in turns.items()}
+    print(f"[time] {card}: pipeline rows/s at global batch "
+          f"{vpipe.batch_size}, device featurize, in turns: "
+          + ", ".join(f"{k} {rates[k]:.0f} (idle {100 * idle[k]:.1f}%)"
+                      for k in arms)
+          + f" (virtual mesh: {MESH_SHARDS} x {dev})")
+    cli = serve_cli(["--device", str(dev), "--model", str(ckpt), "--mesh",
+                     "--featurize-device", "--demo", str(SERVE_DEMO),
+                     "--batch-size", "1024"], card)
+    block = cli["stats"]["health"]["device"]
+    if (cli["classified"] != SERVE_DEMO or block["mesh_devices"] != n_local
+            or cli["launches"] != block["uploads"]
+            or not block["per_chip_rungs"]):
+        raise AssertionError(f"serve --mesh: {cli['classified']} classified, "
+                             f"{cli['launches']} launches, {block}")
+    torch.cuda.synchronize()
+    return {"local_devices": n_local, "virtual_shards": MESH_SHARDS,
+            "local_launches": real_launches, "local_chunks": real_chunks,
+            "local_max_abs_dp": real_dp,
+            "max_abs_dp": dp, "launches": launches, "chunks": chunks,
+            "engine_launches": eng_launches, "engine_chunks": eng_chunks,
+            "engine_msgs_per_s": stats.msgs_per_sec, "rungs": rungs,
+            "per_chip_rungs": per_chip, "rows_per_s": rates,
+            "device_idle": idle,
+            "serve_cli": dict(msgs_per_sec=cli["stats"]["msgs_per_sec"],
+                              launches=cli["launches"],
+                              mesh_devices=block["mesh_devices"])}
+
+
+def fit_plan_launches(cfg, trees: int, shards: int) -> tuple:
+    """(histogram, best_splits) launches of a DT or boosting fit of
+    ``trees`` trees over ``shards`` shards: a histogram a shard and a
+    split choice per split level (``max_depth`` levels a tree; the leaves'
+    totals are derived, not scanned)."""
+    return shards * cfg.max_depth * trees, cfg.max_depth * trees
+
+
+def mesh_fit(fit, kind: str, cfg, trees: int):
+    """One virtual-mesh fit with the tree kernels' launches counted and
+    held against the fit plan's, and no plain tree version run; returns
+    (model, (histogram, best_splits) launches, wall)."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops import histogram as H
+
+    counts, restore = plain_calls(("histogram_reference",
+                                   "best_splits_reference"))
+    try:
+        H.node_feature_bin_histogram_multi.launches = 0
+        H.best_splits.launches = 0
+        t0 = time.perf_counter()
+        model = fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (H.node_feature_bin_histogram_multi.launches,
+                    H.best_splits.launches)
+        if any(counts.values()):
+            raise AssertionError(f"plain tree versions ran on the card: "
+                                 f"{counts}")
+    finally:
+        restore()
+    want = fit_plan_launches(cfg, trees, MESH_SHARDS)
+    if launches != want:
+        raise AssertionError(f"virtual-mesh {kind}: (histogram, best_splits) "
+                             f"launches {launches} != plan {want}")
+    return model, launches, wall
+
+
+def mesh_training_phase(dev, Xtr, ytr, out: Path, card: str) -> dict:
+    """Phase 7i: the training CLI at its defaults with ``--mesh`` over the
+    local devices (dt's metrics equal the recorded run's; lr's confusion
+    and accuracy too, AUC within CLI_AUC_TOL; rf's and xgb's printed: a
+    mesh forest draws over the padded row count, as the reference's mesh
+    path does). Then fits on a virtual mesh of MESH_SHARDS shards on
+    cuda:0, each launching the histogram shards x levels x trees times and
+    ``best_splits`` levels x trees, no plain version run: dt at the CLI
+    shape against the card's single-device fit (equal: the gini histogram
+    is exact); xgb on the reference's own mesh-test data
+    (``tests/test_trees.py``: 301 x 6, depth 4, 5 rounds) against the
+    single-device fit within its 1e-4 in p; xgb at the CLI shape against
+    the card's single-device fit within the same 1e-4 and against the same
+    mesh fit on the CPU (trees equal, p within 1e-4)."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models import train_trees as tt
+    from fraud_detection_tpu_torch.models.trees import predict_proba
+    from fraud_detection_tpu_torch.parallel import make_mesh
+    from fraud_detection_tpu_torch.parallel.mesh import local_devices
+
+    metrics = out / "mesh_metrics.json"
+    t0 = time.perf_counter()
+    run_train_cli(["--device", str(dev), "--mesh", "--metrics-out",
+                   str(metrics)])
+    cli_wall = time.perf_counter() - t0
+    report = json.loads(metrics.read_text())
+    ref = json.loads((ROOT / "reports" / "metrics.json").read_text())
+    if report["meta"]["mesh"] != {"data": len(local_devices(
+            torch.device(dev).type)), "feature": 1}:
+        raise AssertionError(f"train --mesh: mesh {report['meta']['mesh']}")
+    if report["metrics"]["dt"] != ref["metrics"]["dt"]:
+        raise AssertionError("train --mesh: dt metrics differ from the "
+                             "recorded run")
+    for split in ("Validation", "Test"):
+        got, want = report["metrics"]["lr"][split], ref["metrics"]["lr"][split]
+        if (got["confusion"] != want["confusion"]
+                or got["accuracy"] != want["accuracy"]
+                or abs(got["auc"] - want["auc"]) > CLI_AUC_TOL):
+            raise AssertionError(f"train --mesh lr {split}: {got} vs {want}")
+    print(f"[mesh-train] train --mesh over {report['meta']['mesh']}: dt "
+          "metrics equal the recorded run; lr confusion and accuracy equal, "
+          "AUC within 0.01; test accuracy rf "
+          f"{report['metrics']['rf']['Test']['accuracy']:.4f} (recorded "
+          f"{ref['metrics']['rf']['Test']['accuracy']:.4f}; a mesh forest "
+          f"draws over the padded rows), xgb "
+          f"{report['metrics']['xgb']['Test']['accuracy']:.4f} (recorded "
+          f"{ref['metrics']['xgb']['Test']['accuracy']:.4f}); fit walls "
+          f"{report['meta']['train_seconds']} s, CLI {cli_wall:.1f} s ({card})")
+    mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+    launches, walls = {}, {}
+    dcfg = tt.TreeTrainConfig(max_depth=DEPTH, n_bins=NBINS)
+    t0 = time.perf_counter()
+    d1 = tt.fit_decision_tree(Xtr, ytr, config=dcfg, device=dev)
+    torch.cuda.synchronize()
+    walls["dt_single"] = time.perf_counter() - t0
+    d2, launches["dt"], walls["dt_mesh"] = mesh_fit(
+        lambda: tt.fit_decision_tree(Xtr, ytr, config=dcfg, mesh=mesh),
+        "dt", dcfg, 1)
+    if not torch.equal(d1.feature, d2.feature) or not torch.allclose(
+            d1.threshold, d2.threshold) or not torch.allclose(
+            d1.leaf, d2.leaf, rtol=1e-5):
+        raise AssertionError("virtual-mesh dt differs from the card fit")
+    # the reference's mesh test data and tolerance
+    rng = np.random.default_rng(7)
+    Xs = rng.normal(size=(301, 6)).astype(np.float32)
+    ys = (Xs[:, 1] - Xs[:, 4] > 0).astype(np.int64)
+    scfg = tt.TreeTrainConfig(max_depth=4, criterion="xgb")
+    s1 = tt.fit_gradient_boosting(Xs, ys, n_rounds=5, config=scfg, device=dev)
+    s2, launches["xgb_ref_data"], _ = mesh_fit(
+        lambda: tt.fit_gradient_boosting(Xs, ys, n_rounds=5, config=scfg,
+                                         mesh=mesh), "xgb", scfg, 5)
+    xs = torch.from_numpy(Xs).to(dev)
+    dp_ref = float((predict_proba(s1, xs) - predict_proba(s2, xs)).abs().max())
+    if dp_ref > 1e-4:
+        raise AssertionError(f"virtual-mesh xgb |dp| {dp_ref} > 1e-4 on the "
+                             "reference's mesh-test data")
+    xcfg = tt.TreeTrainConfig(max_depth=DEPTH, n_bins=NBINS, criterion="xgb")
+    t0 = time.perf_counter()
+    g1 = tt.fit_gradient_boosting(Xtr, ytr, n_rounds=MESH_XGB_ROUNDS,
+                                  config=xcfg, device=dev)
+    torch.cuda.synchronize()
+    walls["xgb_single"] = time.perf_counter() - t0
+    g2, launches["xgb"], walls["xgb_mesh"] = mesh_fit(
+        lambda: tt.fit_gradient_boosting(Xtr, ytr, n_rounds=MESH_XGB_ROUNDS,
+                                         config=xcfg, mesh=mesh),
+        "xgb", xcfg, MESH_XGB_ROUNDS)
+    t0 = time.perf_counter()
+    g3 = tt.fit_gradient_boosting(
+        Xtr, ytr, n_rounds=MESH_XGB_ROUNDS, config=xcfg,
+        mesh=make_mesh(devices=["cpu"] * MESH_SHARDS))
+    walls["xgb_mesh_cpu"] = time.perf_counter() - t0
+    xc = torch.from_numpy(Xtr)
+    dp_cpu = float((predict_proba(g2, xc.to(dev)).cpu()
+                    - predict_proba(g3, xc)).abs().max())
+    if (not torch.equal(g2.feature.cpu(), g3.feature)
+            or not torch.equal(g2.left.cpu(), g3.left) or dp_cpu > 1e-4):
+        raise AssertionError(f"virtual-mesh xgb: card and CPU fits differ "
+                             f"(|dp| {dp_cpu})")
+    dp_single = float((predict_proba(g1, xc.to(dev))
+                       - predict_proba(g2, xc.to(dev))).abs().max())
+    if dp_single > 1e-4:
+        raise AssertionError(f"virtual-mesh xgb{MESH_XGB_ROUNDS} at the CLI "
+                             f"shape: |dp| {dp_single} > 1e-4 from the "
+                             "single-device card fit")
+    first = next((i for i in range(MESH_XGB_ROUNDS) if not torch.equal(
+        g1.feature[i], g2.feature[i])), None)
+    print(f"[mesh-train] virtual mesh {MESH_SHARDS} x {dev}: dt at the CLI "
+          f"shape {Xtr.shape} equal to the card fit (features, thresholds, "
+          f"leaves rtol 1e-5); xgb5 on the reference's mesh-test data (301 x "
+          f"6) within {dp_ref:.3g} of the card fit (<= 1e-4); "
+          f"xgb{MESH_XGB_ROUNDS} at the CLI shape: card == CPU mesh fit "
+          f"(trees equal, |dp| {dp_cpu:.3g}), within {dp_single:.3g} of "
+          f"the single-device fit (<= 1e-4; first tree apart: {first}); "
+          f"(histogram, "
+          f"best_splits) launches {launches} = the plan's; no plain version "
+          f"ran on the card; walls {walls} s ({card})")
+    return {"cli": {"mesh": report["meta"]["mesh"],
+                    "train_seconds": report["meta"]["train_seconds"],
+                    "wall_s": cli_wall,
+                    "test_accuracy": {k: v["Test"]["accuracy"]
+                                      for k, v in report["metrics"].items()}},
+            "virtual": {"shards": MESH_SHARDS, "xgb_rounds": MESH_XGB_ROUNDS,
+                        "launches": launches, "xgb_ref_data_max_abs_dp": dp_ref,
+                        "xgb_card_vs_cpu_max_abs_dp": dp_cpu,
+                        "xgb_vs_single_max_abs_dp": dp_single,
+                        "xgb_first_tree_apart": first, "walls_s": walls}}
+
+
+_MP_CHILD = r'''
+import sys
+import torch
+from fraud_detection_tpu_torch.parallel.mesh import (
+    data_sum, global_batch_from_local, initialize_distributed,
+    make_hybrid_mesh)
+
+assert initialize_distributed(backend="nccl", timeout_s=60) is True
+rank = torch.distributed.get_rank()
+mesh = make_hybrid_mesh(devices=[f"cuda:{rank}"])
+x = torch.full((4, 3), float(rank))
+g = global_batch_from_local(x, mesh)
+total = float(data_sum([s.sum() for s in g.shards], mesh))
+rows = g.gather()[:, 0].tolist()
+print("RESULT", rank, mesh.shape, total, tuple(g.shape), rows, flush=True)
+torch.distributed.destroy_process_group()
+'''
+
+
+def multiprocess_phase(card: str) -> dict:
+    """Phase 7j: with two or more cards, a 2-process NCCL rendezvous over
+    localhost (one card a process): ``make_hybrid_mesh`` and
+    ``global_batch_from_local`` give the 8-row global batch and the
+    data-axis sum crosses the processes. With one card there is nothing to
+    run it on, and the line says so."""
+    import socket
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[multiprocess] not run: {n} card on this machine, and the "
+              "NCCL rendezvous needs one card a process (the CPU tests run "
+              "the 2-process gloo cases)")
+        return {"run": False, "cards": n}
+    import os
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MP_CHILD], cwd=ROOT, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(r),
+                 LOCAL_RANK=str(r))) for r in range(2)]
+    lines = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            if p.returncode != 0:
+                raise AssertionError(f"NCCL rendezvous: exit {p.returncode}\n"
+                                     f"{err[-2000:]}")
+            lines.append([ln for ln in out.splitlines()
+                          if ln.startswith("RESULT")][0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for ln in lines:
+        if not ("'data': 2" in ln and " 12.0 " in ln and "(8, 3)" in ln
+                and "[0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 1.0]" in ln):
+            raise AssertionError(f"NCCL rendezvous: {ln}")
+    print(f"[multiprocess] NCCL rendezvous of 2 processes ({card}): {lines}")
+    return {"run": True, "cards": n, "lines": lines}
+
+
 def llm_phases(dev, seed: int, card: str, work: Path) -> dict:
     """Phases 10-13f: the Gemma-2B-architecture model loaded from a
     synthetic HF checkpoint at bf16 and at int8 (``load_gemma``), prefill,
@@ -4783,6 +5362,18 @@ def main(argv=None) -> int:
     # inside lifecycle_run)
     lifecycle_out = lifecycle(dev, ckpt_dir / "xgb", ckpt_dir,
                               args.seed + 61, card)
+    # -- 7g-7j. Kafka, mesh serving, data-parallel training, processes -------
+    # (featurize_packed counts reset and read around each --kafka run, the
+    # virtual-mesh predict and engine run and the serve --mesh run; the
+    # tree-kernel counts around each virtual-mesh fit)
+    t16 = time.perf_counter()
+    kafka_out = kafka_phase(dev, ckpt_dir / "lr", card, args.seed)
+    mesh_out = mesh_serving_phase(dev, ckpt_dir / "lr", feat, lr_gpu, texts,
+                                  card, args.seed)
+    mesh_train = mesh_training_phase(dev, Xtr, ytr, ckpt_dir, card)
+    multiprocess = multiprocess_phase(card)
+    phase16_wall = time.perf_counter() - t16
+    print(f"[mesh] phases 7g-7j wall {phase16_wall:.1f} s ({card})")
 
     # -- 8. times -------------------------------------------------------------
     def packed_call():
@@ -5171,6 +5762,13 @@ def main(argv=None) -> int:
         "trace_kernels": fb_kernels,
         "gameday_launches": {k: v["featurize_packed_launches"]
                              for k, v in gameday_out["runs"].items()},
+        "kafka_launches": kafka_out["runs"]["featurize_device"][
+            "featurize_packed_launches"],
+        "mesh_launches": {"virtual_predict": mesh_out["launches"],
+                          "virtual_chunks": mesh_out["chunks"],
+                          "virtual_engine": mesh_out["engine_launches"],
+                          "virtual_engine_chunks": mesh_out["engine_chunks"],
+                          "shards": MESH_SHARDS},
         "card": card,
     }, {
         "name": "featurize_scan",
@@ -5212,6 +5810,7 @@ def main(argv=None) -> int:
         "learn_refresh": learn_refresh("histogram"),
         "gameday_drift_shift": gameday_out["runs"]["drift_shift"][
             "tree_launches"],
+        "mesh_launches": mesh_train["virtual"]["launches"],
         "card": card,
     }, {
         "name": "best_splits",
@@ -5234,6 +5833,7 @@ def main(argv=None) -> int:
         "learn_refresh": learn_refresh("best_splits"),
         "gameday_drift_shift": gameday_out["runs"]["drift_shift"][
             "tree_launches"],
+        "mesh_launches": mesh_train["virtual"]["launches"],
         "card": card,
     }, {
         "name": "flash_attention",
@@ -5338,6 +5938,9 @@ def main(argv=None) -> int:
         "resume": resume, "count_featurizer": count,
         "lifecycle": lifecycle_out, "supervised": supervised,
         "fleet": fleet_out, "gameday": gameday_out,
+        "kafka": kafka_out, "mesh_serving": mesh_out,
+        "mesh_training": mesh_train, "multiprocess": multiprocess,
+        "phase_7g_7j_wall_s": phase16_wall,
         "tree_kernels_ms_per_cli_fit": per_fit,
         "llm": llm_out}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,10 @@ unless ``--device cpu``).
     python -m fraud_detection_tpu_torch.app.serve --model ./fraud_model \\
         --demo 5000 --batch-size 1024
 
+    # real Kafka (the reference deployment's variables: KAFKA_BOOTSTRAP_SERVERS,
+    # KAFKA_INPUT_TOPIC, KAFKA_CONSUMER_GROUP, KAFKA_SECURITY_PROTOCOL, ...)
+    python -m fraud_detection_tpu_torch.app.serve --model ./fraud_model --kafka
+
     # three partition-owning workers behind the lease coordinator
     python -m fraud_detection_tpu_torch.app.serve --model synthetic \\
         --demo 8192 --fleet 3 --partitions 4
@@ -39,11 +43,15 @@ coordinator succession, ``--autoscale`` between ``--min-workers`` and
 seeded traffic live instead of the uniform ``--demo`` preload and gates on
 its SLOs (exit 4 on a violation); ``--trace-record FILE`` dumps the run as
 a replayable recording (``scenarios/``). Every worker scores on the one shared pipeline, so on
-the card N threads dispatch onto it at once. By default the host featurizes
+the card N threads dispatch onto it at once. ``--mesh`` shards every
+micro-batch over all local devices' data axis (``parallel/serving.py``;
+one device falls back to the plain pipeline). ``--kafka`` consumes from
+and produces to Kafka through ``stream/kafka.py`` (confluent_kafka, the
+``KAFKA_*`` variables) instead of the in-process demo broker. By default the host featurizes
 with the native C++ featurizer and the engine takes the raw-JSON path with
 C++ frame assembly; ``--featurize-device`` ships raw bytes to the CUDA featurize
-kernel instead. The flags of the reference CLI that the port does not offer
-yet exit with the ROADMAP queue item that holds them.
+kernel instead. ``--model spark:<dir>`` exits naming the ROADMAP queue item
+that holds it.
 """
 
 from __future__ import annotations
@@ -56,13 +64,6 @@ import threading
 import time
 
 from fraud_detection_tpu_torch.app import unported
-
-# Reference flags the port does not offer yet: (flag, takes a value,
-# ROADMAP.md Queue 1 item that holds its module).
-_UNPORTED = (
-    ("--kafka", False, "5.5"),
-    ("--mesh", False, "5.6"),
-)
 
 
 def start_health_writer(path, interval, current_engines, fault_plan=None):
@@ -367,6 +368,8 @@ def main(argv=None) -> int:
                     help="SLO target for per-row enqueue->produce p99")
     ap.add_argument("--max-rate", type=float, default=None,
                     help="token-bucket admission limit, rows/s")
+    ap.add_argument("--kafka", action="store_true",
+                    help="use real Kafka via confluent_kafka + KAFKA_* env vars")
     ap.add_argument("--demo", type=int, metavar="N", default=0,
                     help="feed N synthetic messages through an in-process "
                          "broker and exit")
@@ -575,18 +578,16 @@ def main(argv=None) -> int:
     ap.add_argument("--chaos-seed", type=int, default=0,
                     help="fault-plan seed (--chaos; same seed = same "
                          "fault schedule)")
-    for flag, takes_value, item in _UNPORTED:
-        ap.add_argument(flag, default=None,
-                        **({"metavar": "X"} if takes_value
-                           else {"action": "store_const", "const": True}),
-                        help=f"not ported yet (ROADMAP Queue 1 item {item})")
+    ap.add_argument("--mesh", action="store_true",
+                    help="mesh data-parallel scoring (parallel/serving.py "
+                         "MeshServingPipeline): shard every micro-batch "
+                         "across all local devices' data axis — one worker "
+                         "drives the whole mesh; one device falls back to "
+                         "the plain pipeline")
     args = ap.parse_args(argv)
 
     if args.kafka and args.demo:
         raise SystemExit("--kafka and --demo are mutually exclusive")
-    for flag, _, item in _UNPORTED:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise unported(flag, item)
     if (args.model is None) == (args.registry is None):
         raise SystemExit("choose exactly one of --model or --registry")
     if args.registry is None and (args.model_version is not None or args.watch
@@ -702,6 +703,9 @@ def main(argv=None) -> int:
             raise SystemExit("--max-messages cannot be split across a "
                              "fleet; workers drain until the group's "
                              "committed lag clears")
+    if args.mesh and args.registry is not None:
+        raise SystemExit("--mesh is not supported with --registry yet "
+                         "(hot-swap candidates would load single-device)")
     if args.fleet_health_file is not None and args.fleet == 0:
         raise SystemExit("--fleet-health-file needs --fleet N")
     if args.fleet_candidates < 1:
@@ -810,8 +814,6 @@ def main(argv=None) -> int:
         args.trace = True
     scenario = None
     if args.scenario is not None:
-        # The reference also refuses here when --kafka replaces --demo; the
-        # port refuses --kafka itself first (Queue 1 item 5.5, above).
         if not args.demo:
             raise SystemExit("--scenario needs --demo N (traffic is fed "
                              "into the in-process broker; N is ignored — "
@@ -843,12 +845,16 @@ def main(argv=None) -> int:
         # Chaos without supervision dies on the first injected fault by
         # design; enough restarts for the demo plan's budget.
         args.supervise = 25
-    if args.demo <= 0:
+    if not args.kafka and args.demo <= 0:
         raise SystemExit("choose --kafka or --demo N (no broker specified)")
 
     from fraud_detection_tpu_torch.stream import (InProcessBroker,
                                                   StreamingClassifier)
+    from fraud_detection_tpu_torch.stream.kafka import kafka_available
     from fraud_detection_tpu_torch.utils.tracing import device_trace
+
+    if args.kafka and not kafka_available():
+        raise SystemExit("confluent_kafka is not installed; cannot use --kafka")
 
     explain_hook, breaker, explain_service = _explain_lane(args)
     registry = shadow = None
@@ -876,6 +882,18 @@ def main(argv=None) -> int:
                               featurize_width=args.featurize_width,
                               device=args.device)
         model_desc = args.model
+    if args.mesh:
+        # Shard micro-batches over every local device's data axis
+        # (parallel/serving.py). --batch-size stays the GLOBAL micro-batch;
+        # each device scores its 1/dp share. One device builds the plain
+        # pipeline, so --mesh is safe to leave on everywhere.
+        from fraud_detection_tpu_torch.parallel.serving import (
+            MeshServingPipeline, local_device_count)
+
+        dp = local_device_count(pipe.device.type)
+        pipe = MeshServingPipeline.from_pipeline(
+            pipe, per_chip_batch=max(1, args.batch_size // max(1, dp)))
+        model_desc = f"{model_desc} (mesh x{pipe.data_parallel or 1})"
     model_desc = (f"{model_desc} "
                   f"(featurize={pipe.device_stats.featurize_path})")
 
@@ -902,9 +920,19 @@ def main(argv=None) -> int:
 
     from fraud_detection_tpu_torch.data import generate_corpus
 
-    broker = InProcessBroker(num_partitions=args.partitions)
+    broker = None
     scenario_events = scenario_feeder = None
-    if scenario is not None:
+    if args.kafka:
+        from fraud_detection_tpu_torch.stream.kafka import (KafkaConsumer,
+                                                            KafkaProducer)
+
+        def make_clients():
+            return KafkaConsumer([args.input_topic]), KafkaProducer()
+
+        make_producer = KafkaProducer
+        max_messages, idle = args.max_messages, None
+    elif scenario is not None:
+        broker = InProcessBroker(num_partitions=args.partitions)
         # Scenario traffic: the seeded timeline feeds the broker LIVE from
         # the scenario-feeder thread while the engine serves — shaped
         # curves and campaign waves instead of a uniform preload. Chaos
@@ -926,6 +954,7 @@ def main(argv=None) -> int:
         idle = max(1.0, 2.0 * args.scenario_time_scale
                    * max(gaps, default=0.0))
     else:
+        broker = InProcessBroker(num_partitions=args.partitions)
         feeder = broker.producer()
         corpus = generate_corpus(n=min(args.demo, 2000), seed=123)
         for i in range(args.demo):
@@ -939,9 +968,12 @@ def main(argv=None) -> int:
     dlq_topic = ((args.dlq_topic or f"{args.output_topic}-dlq")
                  if args.dlq else None)
 
-    def make_clients():
-        return (broker.consumer([args.input_topic], "serve-demo"),
-                broker.producer())
+    if broker is not None:
+        def make_clients():
+            return (broker.consumer([args.input_topic], "serve-demo"),
+                    broker.producer())
+
+        make_producer = broker.producer
 
     fault_plan = None
     if args.chaos:
@@ -967,8 +999,14 @@ def main(argv=None) -> int:
 
         feedback_topic = (args.learn_feedback_topic
                           or f"{args.input_topic}-feedback")
+        if args.kafka:
+            from fraud_detection_tpu_torch.stream.kafka import KafkaConsumer
+
+            feedback_consumer = KafkaConsumer([feedback_topic])
+        else:
+            feedback_consumer = broker.consumer([feedback_topic], "learn")
         learn_loop = LearnLoop(
-            feedback_consumer=broker.consumer([feedback_topic], "learn"),
+            feedback_consumer=feedback_consumer,
             registry=registry, hotswap=pipe, shadow=shadow,
             config=LearnConfig(
                 window=args.learn_window,
@@ -1191,7 +1229,7 @@ def main(argv=None) -> int:
             scheduler=scheduler, async_dispatch=args.async_dispatch,
             shadow=shadow, learn=learn_loop, explain_async=args.explain_async,
             annotations_topic=args.annotations_topic,
-            annotations_producer=(broker.producer() if args.explain_async
+            annotations_producer=(make_producer() if args.explain_async
                                   else None),
             breaker=breaker, explain_service=explain_service,
             rowtrace=rowtrace_for(worker), sentinel=sentinel_for(worker))
@@ -1330,8 +1368,9 @@ def main(argv=None) -> int:
                 print(f"scenario {scenario.name!r} FAILED its SLO gates "
                       f"(exit 4): {failed}", file=sys.stderr, flush=True)
         print(json.dumps(out))
-        print(f"classified messages on {args.output_topic}: "
-              f"{broker.topic_size(args.output_topic)}")
+        if broker is not None:
+            print(f"classified messages on {args.output_topic}: "
+                  f"{broker.topic_size(args.output_topic)}")
         return lane_faults()
 
     from fraud_detection_tpu_torch.obs.export import start_profile_window
@@ -1371,12 +1410,16 @@ def main(argv=None) -> int:
         # thread, so an engine built after the operator's Ctrl-C is stopped
         # before it runs.
         shutdown = threading.Event()
-        # Every worker's engine is built BEFORE any consumes: group members
-        # join at consumer construction, so the group settles at its final
-        # generation first (staggered joins would let worker 0 drain the
-        # topic and then have its commit fenced by the late joiners'
-        # rebalance — duplicates a settled group never produces).
-        prebuilt = [make_engine(worker=i) for i in range(args.workers)]
+        # On the demo broker every worker's engine is built BEFORE any
+        # consumes: group members join at consumer construction, so the
+        # group settles at its final generation first (staggered joins
+        # would let worker 0 drain the topic and then have its commit
+        # fenced by the late joiners' rebalance — duplicates a settled
+        # group never produces). --kafka builds each lazily INSIDE its
+        # supervisor: a client that fails to construct must stay a
+        # retryable incarnation, and must not abort its siblings.
+        prebuilt = [make_engine(worker=i) if broker is not None else None
+                    for i in range(args.workers)]
 
         def run_worker(i: int) -> None:
             def make():

@@ -13,9 +13,11 @@ registry:
     python -m fraud_detection_tpu_torch.app.train --data synthetic --n 1600 \\
         --models dt,rf,xgb,lr --save dt=fraud_model_dt --num-features 10000
 
-The reference flags the port does not offer yet (``--mesh``, ``--plots``,
-``--save model=spark:dir``) exit naming the ROADMAP queue item that holds
-them.
+``--mesh`` trains every model data-parallel over all local devices
+(``parallel/mesh.py``: rows sharded, per-shard histograms and gradients
+summed over the data axis). The reference flags the port does not offer
+yet (``--plots``, ``--save model=spark:dir``) exit naming the ROADMAP queue
+item that holds them.
 """
 
 from __future__ import annotations
@@ -112,7 +114,7 @@ def main(argv=None) -> int:
                          "registry (atomic, content-hashed, with this run's "
                          "metrics in the manifest)")
     ap.add_argument("--mesh", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 4)")
+                    help="train data-parallel over all available devices")
     ap.add_argument("--json", action="store_true", help="emit metrics as JSON")
     ap.add_argument("--metrics-out", metavar="FILE", default=None,
                     help="write the full metric report (all models x splits "
@@ -134,9 +136,6 @@ def main(argv=None) -> int:
                     help="torch device to train and score on (default cuda)")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise unported("--mesh (data-parallel training over "
-                       "torch.distributed)", 4)
     if args.plots:
         raise unported("--plots (eval/report.py draws with matplotlib, "
                        "which the GPU machine lacks)", 4)
@@ -183,6 +182,13 @@ def main(argv=None) -> int:
     from fraud_detection_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        from fraud_detection_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(device_type=dev.type)
+        dev = mesh.home
+        print(f"mesh: {dict(mesh.shape)}")
     corpus = load_corpus(args)
     train, val, test = train_val_test_split(corpus, seed=args.seed)
     print(f"Training samples: {len(train)}\nValidation samples: {len(val)}"
@@ -208,11 +214,12 @@ def main(argv=None) -> int:
     for name in chosen:
         t0 = time.perf_counter()
         if name == "dt":
-            model = fit_decision_tree(Xtr, ytr, config=cfg, device=dev)
+            model = fit_decision_tree(Xtr, ytr, config=cfg, device=dev,
+                                      mesh=mesh)
         elif name == "rf":
             model = fit_random_forest(
                 Xtr, ytr, n_trees=args.n_trees, seed=args.seed, config=cfg,
-                tree_chunk=args.tree_chunk, device=dev,
+                tree_chunk=args.tree_chunk, device=dev, mesh=mesh,
                 checkpoint_dir=_ckpt_subdir(args, name),
                 checkpoint_every=args.checkpoint_every)
         elif name == "xgb":
@@ -220,11 +227,11 @@ def main(argv=None) -> int:
                 Xtr, ytr, n_rounds=args.n_rounds,
                 config=TreeTrainConfig(max_depth=args.max_depth,
                                        criterion="xgb"), device=dev,
-                checkpoint_dir=_ckpt_subdir(args, name),
+                mesh=mesh, checkpoint_dir=_ckpt_subdir(args, name),
                 checkpoint_every=args.checkpoint_every)
         else:
             model = fit_logistic_regression(Xtr, ytr.astype(np.float32),
-                                            device=dev)
+                                            device=dev, mesh=mesh)
         trained[name] = model
         timings[name] = round(time.perf_counter() - t0, 3)
         print(f"trained {name} in {timings[name]:.2f}s")
@@ -267,7 +274,7 @@ def main(argv=None) -> int:
             "splits": {"train": len(train), "val": len(val),
                        "test": len(test)},
             "device": str(dev),
-            "mesh": None,
+            "mesh": dict(mesh.shape) if mesh is not None else None,
             "train_seconds": timings,
         }
         if any(m in chosen for m in ("dt", "rf", "xgb")):

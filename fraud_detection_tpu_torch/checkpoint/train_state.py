@@ -57,6 +57,26 @@ def data_fingerprint(cfg_fields: Dict, edges: np.ndarray, n_rows: int,
     return fp
 
 
+def mesh_extra(mesh) -> Dict:
+    """Fingerprint fields for the device topology, merge-style:
+    ``extra.update(mesh_extra(mesh))``. {} off-mesh, so the key is absent
+    (not None) and older off-mesh snapshots still resume off-mesh; a
+    snapshot taken on a mesh and resumed off it (or the reverse) drifts by
+    that key. Both axis sizes and the device grid are kept: the data-axis
+    sum adds the shards in grid order, so the same shape over other devices
+    (or processes) would sum in another order and break bit-identical
+    resume. The grid names each device by type and index, and the
+    process's rank and count where a process group exists."""
+    if mesh is None:
+        return {}
+    out = {"shape": {str(k): int(v) for k, v in mesh.shape.items()},
+           "devices": [str(d) for d in mesh.devices.flat]}
+    if mesh.process_count > 1:
+        out["process"] = {"rank": mesh.process_index,
+                          "count": mesh.process_count}
+    return {"mesh": out}
+
+
 def save_train_state(path: str, kind: str, progress: int,
                      fingerprint: Dict, arrays: Dict[str, np.ndarray]) -> None:
     """Atomically write a snapshot: <path>.tmp is fully built then renamed

@@ -323,18 +323,25 @@ class ControlBus:
 
 
 class KafkaControlBus(ControlBus):
-    """Control lane over a real compacted Kafka topic — the cross-host
-    transport. It rides ``stream/kafka.py``, which the port does not have
-    yet (ROADMAP.md Queue 1 item 5.5), so construction raises, as the
-    reference's does without confluent_kafka, and the caller stays on the
-    in-process bus."""
+    """Control lane over a compacted Kafka topic — the cross-host
+    transport, a producer and consumer pair of ``stream/kafka.py``.
+    Import-gated on confluent_kafka: without it construction raises and the
+    caller stays on the in-process bus. Create the topic with
+    ``cleanup.policy=compact``: records are keyed ``kind:sender``
+    (:meth:`ControlRecord.key`), so the broker's compaction keeps what
+    :meth:`ControlBus._compact_locked` keeps."""
 
     def __init__(self, config=None, *, topic: str = "__fleet_control"):
-        raise RuntimeError(
-            "KafkaControlBus rides stream/kafka.py, which is not ported to "
-            "fraud_detection_tpu_torch yet (ROADMAP.md Queue 1 item 5.5); "
-            "use the in-process ControlBus (or a broker consumer/producer "
-            "pair) instead")
+        from fraud_detection_tpu_torch.stream import kafka as _kafka
+
+        if not _kafka.kafka_available():
+            raise RuntimeError(
+                "KafkaControlBus requires confluent_kafka; use the "
+                "in-process ControlBus (or broker consumer/producer "
+                "pair) instead")
+        producer = _kafka.KafkaProducer(config)
+        consumer = _kafka.KafkaConsumer([topic], config)
+        super().__init__(producer, consumer, topic=topic)
 
 
 class TermGate:

@@ -15,6 +15,16 @@ Two featurize legs feed the same scoring entries:
 Dispatch never synchronises with the device: results are copied back
 asynchronously into pinned host memory and ``PendingPrediction.resolve``
 waits for them.
+
+With a ``mesh`` (``parallel/mesh.py``; ``parallel/serving.py`` packages it
+for the serving lane) every chunk is row-sharded over the mesh's data axis:
+each shard is uploaded to its own device, featurized there (under device
+featurize, one ``featurize_packed`` launch a shard) and scored by that
+device's replica of the model, and the shards' results come back in row
+order, the padding rows dropped at resolve — the reference's
+``_device_rows``/``_device_packed``/``_dispatch_bytes`` placed by
+``shard_rows``. Scoring has no cross-row reduction, so the shards' labels
+and probabilities equal the single-device pipeline's.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from fraud_detection_tpu_torch.models import linear as linear_mod
 from fraud_detection_tpu_torch.models import trees as trees_mod
 from fraud_detection_tpu_torch.models.linear import LogisticRegression
 from fraud_detection_tpu_torch.models.trees import TreeEnsemble
+from fraud_detection_tpu_torch.parallel.mesh import DATA_AXIS, pad_to_multiple
 from fraud_detection_tpu_torch.utils.device import resolve_device
 
 
@@ -72,7 +83,7 @@ class DeviceStats:
                  "featurize_path", "feat_bytes_in", "feat_rows",
                  "truncated_rows", "_lock")
 
-    def __init__(self, int8: bool = False):
+    def __init__(self, int8: bool = False, mesh_devices: int = 0):
         self.uploads = 0        # host->device copies
         self.upload_bytes = 0
         self.chunks = 0         # micro-batch chunks dispatched
@@ -83,7 +94,10 @@ class DeviceStats:
         self.pinned_bytes = 0   # model-side bytes made device-resident
         self.pins = 0           # pin_device() calls
         self.int8 = int8
-        self.mesh_devices = 0   # single-device path (no mesh in this port)
+        # chips on the mesh's data axis (0 = the single-device path); every
+        # distinct padded row count dispatched is kept, so health shows the
+        # per-chip rungs the scheduler's prewarm warmed before traffic
+        self.mesh_devices = mesh_devices
         self._rungs: set = set()
         # "host" = Python encode on the host, "cuda" = the scan kernel,
         # "torch" = its plain torch version on the CPU.
@@ -114,10 +128,13 @@ class DeviceStats:
             self.pins += 1
 
     def per_chip_rungs(self) -> list:
+        """Distinct padded row counts dispatched, per chip of the data axis
+        (the global rungs on the single-device path)."""
+        dp = max(1, self.mesh_devices)
         # under the lock: a set that another thread adds to while this
         # iterates raises "Set changed size during iteration"
         with self._lock:
-            return sorted(self._rungs)
+            return sorted({-(-r // dp) for r in self._rungs})
 
     def snapshot(self) -> dict:
         chunks = self.chunks
@@ -162,6 +179,46 @@ class _HostCopy:
         return self._host.numpy()
 
 
+class _ShardCopies:
+    """A mesh chunk's per-shard host copies, read back in row order."""
+
+    __slots__ = ("_parts",)
+
+    def __init__(self, parts: List[_HostCopy]):
+        self._parts = parts
+
+    def numpy(self) -> np.ndarray:
+        return np.concatenate([p.numpy() for p in self._parts])
+
+
+class _Replica:
+    """One device's copy of the scoring state: the model (IDF folded for
+    LR), the trees' IDF, the int8 codes and scales, the featurize stop
+    table."""
+
+    __slots__ = ("device", "model", "fused", "tree_idf", "q8", "stop")
+
+    def __init__(self, device, model, fused, tree_idf, q8, stop):
+        self.device, self.model, self.fused = device, model, fused
+        self.tree_idf, self.q8, self.stop = tree_idf, q8, stop
+
+    def to(self, device) -> "_Replica":
+        move = lambda t: None if t is None else t.to(device)
+        return _Replica(device, self.model.to(device),
+                        None if self.fused is None else self.fused.to(device),
+                        move(self.tree_idf),
+                        None if self.q8 is None else tuple(move(t) for t in self.q8),
+                        move(self.stop))
+
+    def tensors(self) -> List[torch.Tensor]:
+        src = self.fused if self.fused is not None else self.model
+        out = [v for v in vars(src).values() if isinstance(v, torch.Tensor)]
+        for t in (self.tree_idf, self.stop, *(self.q8 or ())):
+            if t is not None:
+                out.append(t)
+        return out
+
+
 class PendingPrediction:
     """Unresolved device results from ``ServingPipeline.predict_async``:
     per-chunk (host copy, valid row count). Only p(class=1) crosses back
@@ -189,7 +246,9 @@ class PendingPrediction:
 
 class ServingPipeline:
     """Featurizer + classifier bound together behind ``predict(texts)``,
-    on ``device`` (``cuda`` unless the caller passes ``device="cpu"``)."""
+    on ``device`` (``cuda`` unless the caller passes ``device="cpu"``), or
+    row-sharded over ``mesh``'s data devices (``device`` is then the
+    mesh's first device)."""
 
     def __init__(self, featurizer: HashingTfIdfFeaturizer,
                  model: "LogisticRegression | TreeEnsemble",
@@ -197,13 +256,18 @@ class ServingPipeline:
                  int8: bool = False, featurize_device: bool = False,
                  featurize_width: Optional[int] = None,
                  featurize_tokens: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if featurizer.num_features > np.iinfo(np.int16).max:
             raise ValueError(
                 f"num_features={featurizer.num_features}: the packed (B, 2, L) "
                 "int16 staging layout holds bucket ids below 32768 (wider "
                 "feature spaces are not ported yet)")
-        self.device = resolve_device(device)
+        if mesh is not None and mesh.process_count > 1:
+            raise ValueError(
+                "a serving mesh spans this process's devices only: run one "
+                "engine per process over its own partitions")
+        self.mesh = mesh
+        self.device = mesh.home if mesh is not None else resolve_device(device)
         self.featurizer = featurizer
         self.batch_size = batch_size
         # Padding-bucket ladder: when set (ascending rungs), a partial chunk
@@ -229,7 +293,9 @@ class ServingPipeline:
                     "tree ensembles serve fp32 (their traversal compares "
                     "thresholds, not dot products)")
             self._q8 = linear_mod.quantize_weights(self._fused_model)
-        self.device_stats = DeviceStats(int8=self.int8)
+        self.device_stats = DeviceStats(
+            int8=self.int8,
+            mesh_devices=0 if mesh is None else mesh.shape[DATA_AXIS])
         self._dev_feat = None
         if featurize_device:
             from fraud_detection_tpu_torch.featurize.device import DeviceFeaturizer
@@ -242,6 +308,19 @@ class ServingPipeline:
                    if featurize_tokens is not None else {}),
                 device=self.device)
             self.device_stats.featurize_path = self._dev_feat.path
+        # one replica of the scoring state per distinct mesh device, made
+        # here (never lazily: N engine threads dispatch onto this pipeline)
+        self._replicas = None
+        if mesh is not None:
+            home = _Replica(self.device, self.model, self._fused_model,
+                            self._tree_idf, self._q8,
+                            None if self._dev_feat is None
+                            else self._dev_feat.stop_table())
+            by_dev = {self.device: home}
+            for d in mesh.data_devices:
+                if d not in by_dev:
+                    by_dev[d] = home.to(d)
+            self._replicas = [by_dev[d] for d in mesh.data_devices]
         self._pinned = False
         self._pin_lock = threading.Lock()
 
@@ -335,6 +414,13 @@ class ServingPipeline:
                     tensors.extend(self._q8)
                 if self._dev_feat is not None:
                     tensors.append(self._dev_feat.stop_table())
+                if self._replicas is not None:
+                    # every mesh device's copy, each once
+                    seen = {r.device for r in self._replicas[:1]}
+                    for r in self._replicas:
+                        if r.device not in seen:
+                            seen.add(r.device)
+                            tensors.extend(r.tensors())
                 ds.record_pin(int(sum(t.numel() * t.element_size()
                                       for t in tensors)))
                 self._pinned = True
@@ -343,43 +429,81 @@ class ServingPipeline:
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device, non_blocking=True)
 
-    def _score(self, packed: torch.Tensor, tree_binary: bool) -> _HostCopy:
-        """Score a packed (B, 2, L) device buffer and start the copy back."""
-        if self._fused_model is None:
-            ids, counts = linear_mod.unpack_rows(packed)
-            proba = trees_mod.predict_proba_encoded(self.model, ids, counts,
-                                                    self._tree_idf)
-            p = proba[:, 1] if tree_binary else proba
-        elif self._q8 is not None:
-            p = linear_mod.prob_packed_q8(self._q8[0], self._q8[1],
-                                          self._fused_model.intercept, packed)
+    def _score(self, packed: torch.Tensor, tree_binary: bool,
+               replica: Optional[_Replica] = None) -> _HostCopy:
+        """Score a packed (B, 2, L) device buffer and start the copy back;
+        ``replica`` is the mesh device's copy of the model that ``packed``
+        lives beside (None: the pipeline's own)."""
+        if replica is None:
+            model, fused, tree_idf, q8 = (self.model, self._fused_model,
+                                          self._tree_idf, self._q8)
         else:
-            p = linear_mod.prob_packed(self._fused_model, packed)
+            model, fused, tree_idf, q8 = (replica.model, replica.fused,
+                                          replica.tree_idf, replica.q8)
+        if fused is None:
+            ids, counts = linear_mod.unpack_rows(packed)
+            proba = trees_mod.predict_proba_encoded(model, ids, counts,
+                                                    tree_idf)
+            p = proba[:, 1] if tree_binary else proba
+        elif q8 is not None:
+            p = linear_mod.prob_packed_q8(q8[0], q8[1], fused.intercept,
+                                          packed)
+        else:
+            p = linear_mod.prob_packed(fused, packed)
         return _HostCopy(p)
 
-    def _dispatch_encoded(self, enc: EncodedBatch,
-                          tree_binary: bool) -> _HostCopy:
-        """Host-encoded chunk: ONE packed host->device copy."""
+    def _shards(self, staged: np.ndarray) -> List[np.ndarray]:
+        """A chunk's host rows cut into one shard per data device, padded
+        with zero rows to a data-axis multiple (``shard_rows``'s rule)."""
+        dp = len(self._replicas)
+        rows = pad_to_multiple(staged.shape[0], dp)
+        if rows != staged.shape[0]:
+            staged = np.concatenate([staged, np.zeros(
+                (rows - staged.shape[0], *staged.shape[1:]), staged.dtype)])
+        return np.split(staged, dp)
+
+    def _dispatch_encoded(self, enc: EncodedBatch, tree_binary: bool):
+        """Host-encoded chunk: ONE packed host->device copy (one a shard
+        under a mesh)."""
         packed = _pack_encoded(enc)
-        self.device_stats.record_chunk(packed.nbytes, transfers=1,
+        if self._replicas is None:
+            self.device_stats.record_chunk(packed.nbytes, transfers=1,
+                                           rows=packed.shape[0])
+            return self._score(self._upload(packed), tree_binary)
+        self.device_stats.record_chunk(packed.nbytes,
+                                       transfers=len(self._replicas),
                                        rows=packed.shape[0])
-        return self._score(self._upload(packed), tree_binary)
+        parts = []
+        for shard, r in zip(self._shards(packed), self._replicas):
+            dev_shard = torch.from_numpy(shard).to(r.device, non_blocking=True)
+            parts.append(self._score(dev_shard, tree_binary, r))
+        return _ShardCopies(parts)
 
     def _dispatch_bytes(self, texts: Sequence[str], rows: int,
-                        tree_binary: bool) -> _HostCopy:
+                        tree_binary: bool):
         """Device-featurized chunk: pack raw UTF-8 bytes (the host's entire
         featurize leg — a memcpy), copy the ONE staging tensor, and launch
-        featurize + scoring."""
+        featurize + scoring; under a mesh, a staging shard, a featurize
+        launch and a scoring pass per data device."""
         from fraud_detection_tpu_torch.ops.featurize_kernel import featurize_bytes
 
         dev = self._dev_feat
         staged, truncated = dev.pack(texts, batch_size=rows)
         ds = self.device_stats
         ds.record_featurize(staged.nbytes, len(texts), truncated)
-        ds.record_chunk(staged.nbytes, transfers=1, rows=rows)
-        packed, _ = featurize_bytes(self._upload(staged), dev.stop_table(),
-                                    spec=dev.spec)
-        return self._score(packed, tree_binary)
+        if self._replicas is None:
+            ds.record_chunk(staged.nbytes, transfers=1, rows=rows)
+            packed, _ = featurize_bytes(self._upload(staged), dev.stop_table(),
+                                        spec=dev.spec)
+            return self._score(packed, tree_binary)
+        ds.record_chunk(staged.nbytes, transfers=len(self._replicas),
+                        rows=rows)
+        parts = []
+        for shard, r in zip(self._shards(staged), self._replicas):
+            dev_shard = torch.from_numpy(shard).to(r.device, non_blocking=True)
+            packed, _ = featurize_bytes(dev_shard, r.stop, spec=dev.spec)
+            parts.append(self._score(packed, tree_binary, r))
+        return _ShardCopies(parts)
 
     def _pending(self, parts) -> PendingPrediction:
         if self._fused_model is not None:

@@ -26,6 +26,14 @@ read per function evaluation (value, slope along the direction, gradient
 norm) and one per iteration (the initial slope). ``FitInfo`` counts both.
 
 Matrix products run in full f32: the fit turns TF32 off for its duration.
+
+Distribution: with a ``mesh`` (``parallel/mesh.py``) the rows, labels and a
+validity mask are padded to a data-axis multiple (padded rows carry mask
+0) and sharded; each shard computes its masked log-loss sum and its GEMV
+products (X_s w for the logits, X_s^T dz for the gradient) on its own
+device, and the data-axis helper ``data_sum`` adds them (across processes
+too) before the masked mean — the reference's psum, Spark's
+treeAggregate.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from fraud_detection_tpu_torch.models.linear import LogisticRegression
+from fraud_detection_tpu_torch.parallel import mesh as mesh_lib
 from fraud_detection_tpu_torch.utils.device import resolve_device
 
 _f32 = np.float32
@@ -83,24 +92,47 @@ def _loss_fn(params: Tuple[torch.Tensor, torch.Tensor], X: torch.Tensor,
 
 class _Objective:
     """Loss and analytic gradient over the flat parameters ``[w; b]``: one
-    pass over X for the logits, one for the gradient."""
+    pass over X for the logits, one for the gradient.
 
-    def __init__(self, X: torch.Tensor, y: torch.Tensor, l2: float):
-        self.X, self.y, self.l2 = X, y, float(l2)
-        self.mask = torch.ones_like(y)
+    ``X``, ``y`` and ``mask`` (default all ones) are tensors, or over a
+    ``mesh`` lists of its row shards: each shard's masked loss sum,
+    ``X_s^T dz_s`` and ``sum(dz_s)`` on its device, one ``data_sum`` of the
+    three per evaluation, then the mean on the mesh's first device (where
+    the parameters live). dz is divided by the masked row count before the
+    GEMV, so a single device rounds as a plain fit does."""
+
+    def __init__(self, X, y, l2: float, mask=None, mesh=None):
+        shards = lambda a: a if isinstance(a, list) else [a]
+        self.Xs, self.ys = shards(X), shards(y)
+        self.masks = ([torch.ones_like(t) for t in self.ys] if mask is None
+                      else shards(mask))
+        self.l2, self.mesh = float(l2), mesh
+        self.n = torch.clamp(self._sum([m.sum()[None] for m in self.masks])[0],
+                             min=1.0)
         self.evaluations = 0
+
+    def _sum(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        return parts[0] if self.mesh is None else mesh_lib.data_sum(parts,
+                                                                    self.mesh)
 
     def __call__(self, theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         self.evaluations += 1
-        w, b = theta[:-1], theta[-1]
-        logits = self.X @ w + b
-        value = (_mean_logloss(logits, self.y, self.mask)
-                 + 0.5 * self.l2 * torch.sum(w * w))
-        # d/dz of -y log s(z) - (1-y) log s(-z), as autodiff forms it
-        dz = (-self.y * torch.sigmoid(-logits)
-              + (1.0 - self.y) * torch.sigmoid(logits)) * self.mask
-        dz = dz / torch.clamp(torch.sum(self.mask), min=1.0)
-        grad = torch.cat([self.X.t() @ dz + self.l2 * w, dz.sum()[None]])
+        thetas = ([theta] if self.mesh is None
+                  else mesh_lib.replicate(theta, self.mesh))
+        parts = []
+        for X, y, m, th in zip(self.Xs, self.ys, self.masks, thetas):
+            logits = X @ th[:-1] + th[-1]
+            per_row = -y * F.logsigmoid(logits) - (1.0 - y) * F.logsigmoid(-logits)
+            # d/dz of -y log s(z) - (1-y) log s(-z), as autodiff forms it
+            dz = (-y * torch.sigmoid(-logits)
+                  + (1.0 - y) * torch.sigmoid(logits)) * m
+            dz = dz / self.n.to(dz.device)
+            parts.append(torch.cat([X.t() @ dz, dz.sum()[None],
+                                    torch.sum(per_row * m)[None]]))
+        tot = self._sum(parts)
+        w = theta[:-1]
+        value = tot[-1] / self.n + 0.5 * self.l2 * torch.sum(w * w)
+        grad = torch.cat([tot[:-2] + self.l2 * w, tot[-2:-1]])
         return value, grad
 
 
@@ -321,28 +353,42 @@ class LBFGS:
 
 
 def fit_logistic_regression(
-    X, y, *, max_iter: int = 100, tol: float = 1e-6, reg_param: float = 0.0,
-    threshold: float = 0.5, return_info: bool = False, device="cuda",
+    X, y, *, mesh=None, max_iter: int = 100, tol: float = 1e-6,
+    reg_param: float = 0.0, threshold: float = 0.5,
+    return_info: bool = False, device="cuda",
 ) -> Union[LogisticRegression, Tuple[LogisticRegression, FitInfo]]:
     """Fit binary LR on a dense (N, F) feature matrix (numpy, or a tensor)
-    with labels (N,) in {0, 1}, on ``device``. Returns a
-    ``LogisticRegression`` there (float32); with ``return_info=True`` also
-    a ``FitInfo``."""
-    dev = resolve_device(device)
+    with labels (N,) in {0, 1}, on ``device``, or data-parallel over
+    ``mesh`` (rows padded to a data-axis multiple and sharded, padded rows
+    masked out). Returns a ``LogisticRegression`` on ``device`` (the mesh's
+    first device) in float32; with ``return_info=True`` also a
+    ``FitInfo``."""
+    dev = mesh.home if mesh is not None else resolve_device(device)
 
     def f32(a) -> torch.Tensor:
         if not isinstance(a, torch.Tensor):
             a = torch.as_tensor(np.asarray(a, np.float32))
         return a.to(dev, torch.float32)
 
-    X, y = f32(X), f32(y)
+    if mesh is not None:
+        X = X if isinstance(X, torch.Tensor) else np.asarray(X, np.float32)
+        y = y if isinstance(y, torch.Tensor) else np.asarray(y, np.float32)
+    else:
+        X, y = f32(X), f32(y)
     if X.ndim != 2 or tuple(y.shape) != (X.shape[0],):
         raise ValueError(f"bad shapes X{tuple(X.shape)} y{tuple(y.shape)}")
     tol32 = _f32(tol)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        objective = _Objective(X, y, reg_param)
+        if mesh is None:
+            objective = _Objective(X, y, reg_param)
+        else:
+            f32s = lambda a: [t.to(torch.float32)
+                              for t in mesh_lib.shard_rows(a, mesh).shards]
+            objective = _Objective(
+                f32s(X), f32s(y), reg_param,
+                mask=f32s(np.ones(X.shape[0], np.float32)), mesh=mesh)
         opt = LBFGS(objective, torch.zeros(X.shape[1] + 1, dtype=torch.float32,
                                            device=dev))
         it = 0

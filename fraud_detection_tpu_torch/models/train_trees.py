@@ -46,6 +46,16 @@ its bf16 one-hot column pull in ``_route_rows`` are exact gathers or plain
 f32 elementwise sums here, not matrix products, so TF32 never enters and
 no dense one-hot transient is built. Inputs need no tile padding (CUDA has
 no lane tiling).
+
+**Data parallelism.** With a ``mesh`` (``parallel/mesh.py``) the rows are
+padded to a data-axis multiple (the padding rows weigh 0) and sharded, one
+shard a data device. Each level, every shard's histogram is built on its
+own device by the histogram kernel, the data-axis helper ``data_sum`` adds
+them on the mesh's first device (and across processes), the split is
+chosen once on that sum (``best_splits`` for DT and boosting), and every
+shard routes its own rows — the distributed gradient-histogram allreduce
+(XGBoost's Rabit). A forest's bootstrap draw then runs over the padded row
+count, as the reference's mesh path draws it.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from fraud_detection_tpu_torch import convert
 from fraud_detection_tpu_torch.models.trees import TreeEnsemble, predict_margin
 from fraud_detection_tpu_torch.ops.histogram import (
     best_splits, node_feature_bin_histogram, node_feature_bin_histogram_multi)
+from fraud_detection_tpu_torch.parallel import mesh as mesh_lib
 from fraud_detection_tpu_torch.utils import threefry
 from fraud_detection_tpu_torch.utils.device import resolve_device
 
@@ -190,25 +201,31 @@ def _bin_sum(hist_f: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _child_totals(hist: torch.Tensor, totals: torch.Tensor,
-                  best_f: torch.Tensor, best_b: torch.Tensor,
-                  do_split: torch.Tensor) -> torch.Tensor:
+def _child_totals(hist: torch.Tensor, best_f: torch.Tensor,
+                  best_b: torch.Tensor, do_split: torch.Tensor) -> torch.Tensor:
     """Next level's per-node totals from this level's histogram: the left
     child's stats are the parent's chosen feature's bins summed up to the
-    chosen bin (in bin order, as ``best_splits`` forms its left side), the
-    right child's the complement; children of parents that did not split get
-    zeros. Heap order interleaves (left, right) per parent.
+    chosen bin, the right child's its bins past it (each in bin order, as
+    ``best_splits`` forms its left side); children of parents that did not
+    split get zeros. Heap order interleaves (left, right) per parent.
 
-    hist (T, L, F, NB, K); totals (T, L, K); best_f/best_b/do_split (T, L)
-    -> (T, 2L, K)."""
+    Each child sums only its own rows, so its total carries the rounding of
+    its own magnitude. ``parent - left`` would carry the parent's: at depth
+    the f32 cancellation error dwarfs a small node's statistics, and a split
+    chosen there follows that error (exact for gini's integer counts, where
+    the two forms agree bit for bit).
+
+    hist (T, L, F, NB, K); best_f/best_b/do_split (T, L) -> (T, 2L, K)."""
     t, width, _, nb, k = hist.shape
     idx_f = best_f.long()[:, :, None, None, None].expand(t, width, 1, nb, k)
     hist_f = torch.gather(hist, 2, idx_f)[:, :, 0]                  # (T,L,NB,K)
     left = torch.zeros_like(hist_f[:, :, 0])
+    right = torch.zeros_like(left)
     for b in range(nb):
-        left = left + torch.where((b <= best_b)[:, :, None], hist_f[:, :, b],
-                                  torch.zeros_like(left))
-    right = totals - left
+        goes_left = (b <= best_b)[:, :, None]
+        zero = torch.zeros_like(left)
+        left = left + torch.where(goes_left, hist_f[:, :, b], zero)
+        right = right + torch.where(goes_left, zero, hist_f[:, :, b])
     pair = torch.stack([left, right], dim=2) * do_split[:, :, None, None]
     return pair.reshape(t, 2 * width, k)
 
@@ -309,32 +326,46 @@ def _record_level(arrays, offset: int, width: int, best_f, best_b, do_split):
     right[:, sl] = torch.where(do_split, 2 * pos + 2, -1)
 
 
-def _build_tree(bins: torch.Tensor, stats: torch.Tensor,
-                row_weights: torch.Tensor, cfg: TreeTrainConfig):
+def _shards(x) -> list:
+    """A tree's row input as a list of shards (a tensor is one shard)."""
+    return x if isinstance(x, list) else [x]
+
+
+def _reduce(tensors: list, mesh) -> torch.Tensor:
+    """The shards' sum: the one shard itself off a mesh, else the mesh's
+    data-axis reduction (``data_sum``)."""
+    return tensors[0] if mesh is None else mesh_lib.data_sum(tensors, mesh)
+
+
+def _build_tree(bins, stats, row_weights, cfg: TreeTrainConfig, mesh=None):
     """Grow one tree with the histogram and split-gain kernels (DT and each
     boosting round).
 
     bins (N, F) uint8 or int32; stats (N, K) per-row statistics (class
     one-hots for gini, grad/hess/count for xgb); row_weights (N,) activity
-    weights, multiplied into the stats. Gini statistics take the exact integer
-    histogram. Node totals are derived, never scanned: level 0's from
-    feature 0's bins, deeper levels' and the leaves' from the parent's bins
-    at its chosen split (``_child_totals``). The JAX kernel path derives
-    them so for gini; deriving them for xgb too keeps every f32 sum of a
-    fit in one fixed order, so the card and the CPU build the same trees.
+    weights, multiplied into the stats — or, over a ``mesh``, lists of the
+    data shards of each. Gini statistics take the exact integer histogram.
+    Node totals are derived, never scanned: level 0's from feature 0's
+    bins, deeper levels' and the leaves' from the parent's bins at its
+    chosen split (``_child_totals``). The JAX kernel path derives them so
+    for gini; deriving them for xgb too keeps every f32 sum of a fit in one
+    fixed order, so the card and the CPU build the same trees.
 
-    Returns flat (M,) feature / split bin / left / right, (M, K) node stats,
-    and each row's final heap position (N,)."""
-    n = bins.shape[0]
-    k = stats.shape[-1]
+    Returns flat (M,) feature / split bin / left / right, (M, K) node stats
+    (on the first shard's device), and each row's final heap position (N,)
+    (a list of shards for a list input)."""
+    single = not isinstance(bins, list)
+    bins, stats, row_weights = _shards(bins), _shards(stats), _shards(row_weights)
+    k = stats[0].shape[-1]
     nb, depth = cfg.n_bins, cfg.max_depth
-    dev = bins.device
+    dev = bins[0].device
     arrays = _empty_tree_arrays(1, 2 ** (depth + 1) - 1, k, dev)
     node_stats = arrays[4]
 
-    stats = stats * row_weights[:, None]
-    node = torch.zeros((n,), dtype=torch.int64, device=dev)
-    active = row_weights > 0
+    stats = [st * w[:, None] for st, w in zip(stats, row_weights)]
+    node = [torch.zeros((b.shape[0],), dtype=torch.int64, device=b.device)
+            for b in bins]
+    active = [w > 0 for w in row_weights]
     exact = cfg.criterion == "gini"
     carried = None      # this level's totals, derived at l-1
 
@@ -343,12 +374,16 @@ def _build_tree(bins: torch.Tensor, stats: torch.Tensor,
         if level == depth and carried is not None:
             node_stats[0, offset : offset + width] = carried
             break
-        local = node - offset
-        seg_valid = active & (local >= 0) & (local < width)
-        seg_node = torch.where(seg_valid, local, width).to(torch.int32)
-        hist = node_feature_bin_histogram(
-            bins, seg_node.contiguous(), stats, n_nodes=width, n_bins=nb,
-            exact_int8=exact)                                   # (L, F, NB, K)
+        local = [nd - offset for nd in node]
+        seg_valid = [a & (lc >= 0) & (lc < width)
+                     for a, lc in zip(active, local)]
+        hists = []
+        for b, lc, sv, st in zip(bins, local, seg_valid, stats):
+            seg_node = torch.where(sv, lc, width).to(torch.int32)
+            hists.append(node_feature_bin_histogram(
+                b, seg_node.contiguous(), st, n_nodes=width, n_bins=nb,
+                exact_int8=exact))                              # (L, F, NB, K)
+        hist = _reduce(hists, mesh)
         totals = _bin_sum(hist[:, 0]) if carried is None else carried
         node_stats[0, offset : offset + width] = totals
         if level == depth:
@@ -360,40 +395,47 @@ def _build_tree(bins: torch.Tensor, stats: torch.Tensor,
         do_split = best_gain > cfg.min_info_gain
         _record_level(arrays, offset, width, best_f[None], best_b[None],
                       do_split[None])
-        carried = _child_totals(hist[None], totals[None], best_f[None],
-                                best_b[None], do_split[None])[0]
-        node1, active1 = _route_rows(
-            bins, local[None], seg_valid[None], node[None], best_f[None],
-            best_b[None], do_split[None], width)
-        node, active = node1[0], active1[0]
+        carried = _child_totals(hist[None], best_f[None], best_b[None],
+                                do_split[None])[0]
+        for i, b in enumerate(bins):
+            d = b.device
+            node1, active1 = _route_rows(
+                b, local[i][None], seg_valid[i][None], node[i][None],
+                best_f[None].to(d), best_b[None].to(d), do_split[None].to(d),
+                width)
+            node[i], active[i] = node1[0], active1[0]
 
     # ``node`` is each active row's final leaf position (weight-0 rows stay
     # at the root): the boosting round reuses it instead of re-traversing.
-    return tuple(a[0] for a in arrays) + (node,)
+    return tuple(a[0] for a in arrays) + (node[0] if single else node,)
 
 
-def _build_forest_chunk(bins: torch.Tensor, stats: torch.Tensor,
-                        row_weights: torch.Tensor,
+def _build_forest_chunk(bins, stats, row_weights,
                         masks: Optional[Sequence[torch.Tensor]],
-                        cfg: TreeTrainConfig):
+                        cfg: TreeTrainConfig, mesh=None):
     """A chunk of T independent trees built together: every per-row and
     per-node array carries a leading tree axis, and each level's histogram
     is ONE ``node_feature_bin_histogram_multi`` call for the whole chunk
-    (the exact integer path for gini: one-hot class stats x Poisson
-    weights). Totals are derived as in ``_build_tree``.
+    (one a shard over a ``mesh``; the exact integer path for gini: one-hot
+    class stats x Poisson weights). Totals are derived as in
+    ``_build_tree``.
 
-    row_weights (T, N) bootstrap weights; masks[level] (T, 2**level, F) bool
-    feature subsets, or None for all features. Returns (T, M) feature /
-    split bin / left / right and (T, M, K) node stats."""
-    t, n = row_weights.shape
-    k = stats.shape[-1]
+    row_weights (T, N) bootstrap weights (bins, stats and row_weights may
+    be lists of data shards, the weights' shards split on N); masks[level]
+    (T, 2**level, F) bool feature subsets, or None for all features.
+    Returns (T, M) feature / split bin / left / right and (T, M, K) node
+    stats."""
+    bins, stats, row_weights = _shards(bins), _shards(stats), _shards(row_weights)
+    t = row_weights[0].shape[0]
+    k = stats[0].shape[-1]
     nb, depth = cfg.n_bins, cfg.max_depth
-    dev = bins.device
+    dev = bins[0].device
     arrays = _empty_tree_arrays(t, 2 ** (depth + 1) - 1, k, dev)
     node_stats = arrays[4]
 
-    node = torch.zeros((t, n), dtype=torch.int64, device=dev)
-    active = row_weights > 0
+    node = [torch.zeros((t, b.shape[0]), dtype=torch.int64, device=b.device)
+            for b in bins]
+    active = [w > 0 for w in row_weights]
     exact = cfg.criterion == "gini"
     carried = None
     for level in range(depth + 1):
@@ -401,12 +443,17 @@ def _build_forest_chunk(bins: torch.Tensor, stats: torch.Tensor,
         if level == depth and carried is not None:
             node_stats[:, offset : offset + width] = carried
             break
-        local = node - offset                                    # (T, N)
-        seg_valid = active & (local >= 0) & (local < width)
-        locals_masked = torch.where(seg_valid, local, width).to(torch.int32)
-        hist = node_feature_bin_histogram_multi(
-            bins, locals_masked.contiguous(), row_weights, stats,
-            n_nodes=width, n_bins=nb, exact_int8=exact)
+        local = [nd - offset for nd in node]                     # (T, N)
+        seg_valid = [a & (lc >= 0) & (lc < width)
+                     for a, lc in zip(active, local)]
+        hists = []
+        for b, lc, sv, w, st in zip(bins, local, seg_valid, row_weights,
+                                    stats):
+            locals_masked = torch.where(sv, lc, width).to(torch.int32)
+            hists.append(node_feature_bin_histogram_multi(
+                b, locals_masked.contiguous(), w, st,
+                n_nodes=width, n_bins=nb, exact_int8=exact))
+        hist = _reduce(hists, mesh)
         totals = _bin_sum(hist[:, :, 0]) if carried is None else carried
         node_stats[:, offset : offset + width] = totals
         if level == depth:
@@ -416,9 +463,12 @@ def _build_forest_chunk(bins: torch.Tensor, stats: torch.Tensor,
         best_f, best_b, best_gain = _select_splits(hist, totals, mask, cfg)
         do_split = best_gain > cfg.min_info_gain
         _record_level(arrays, offset, width, best_f, best_b, do_split)
-        carried = _child_totals(hist, totals, best_f, best_b, do_split)
-        node, active = _route_rows(bins, local, seg_valid, node, best_f,
-                                   best_b, do_split, width)
+        carried = _child_totals(hist, best_f, best_b, do_split)
+        for i, b in enumerate(bins):
+            d = b.device
+            node[i], active[i] = _route_rows(
+                b, local[i], seg_valid[i], node[i], best_f.to(d),
+                best_b.to(d), do_split.to(d), width)
     return arrays
 
 
@@ -449,15 +499,17 @@ def _bootstrap_rows(n: int) -> int:
 
 def draw_forest_chunk(seed: int, start: int, tree_chunk: int, n: int, f: int,
                       max_depth: int, feature_subset: bool = True,
-                      device="cpu"):
+                      device="cpu", bootstrap_rows: Optional[int] = None):
     """Bootstrap weights (T, N) f32 and per-level feature masks
     [(T, 2**level, F) bool for level < max_depth] (or None) of the chunk
     that starts at tree ``start``: the JAX package's draws for it, made on
-    ``device``."""
+    ``device``. The weight stream runs over ``bootstrap_rows`` rows (default
+    N padded to the reference's row tile; a mesh fit passes its padded row
+    count, as the reference's mesh path draws)."""
     key = threefry.fold_in(threefry.prng_key(seed, device), start)
     wkey, mkey = threefry.split(key)
-    weights = _poisson1(threefry.uniform(wkey, (tree_chunk,
-                                                _bootstrap_rows(n))))
+    rows = _bootstrap_rows(n) if bootstrap_rows is None else bootstrap_rows
+    weights = _poisson1(threefry.uniform(wkey, (tree_chunk, rows)))
     weights = weights[:, :n].contiguous()      # the histogram kernel's layout
     if not feature_subset:
         return weights, None
@@ -493,8 +545,23 @@ def resolve_tree_chunk(cfg: TreeTrainConfig, num_classes: int = 2) -> int:
     return max(1, 512 // (num_classes * 2 ** cfg.max_depth))
 
 
+def resolve_config(config: Optional[TreeTrainConfig], mesh,
+                   **defaults) -> TreeTrainConfig:
+    """Trainer-entry config resolution: ``config``, else the defaults.
+
+    The reference forces ``use_pallas=False`` here under a mesh, because
+    ``pallas_call`` has no SPMD partitioning rule: its distributed design is
+    a per-shard segment-sum followed by the psum XLA inserts. The port's
+    config has no ``use_pallas`` field and no such limit: under a mesh the
+    histogram kernel still runs, once per shard on that shard's device, and
+    ``best_splits`` once on the summed histogram (``_build_tree``), so the
+    config is returned as it is."""
+    return config or TreeTrainConfig(**defaults)
+
+
 def _prepare_inputs(X, y, num_classes: int, cfg: TreeTrainConfig,
-                    edges: Optional[np.ndarray], dev: torch.device):
+                    edges: Optional[np.ndarray], dev: torch.device,
+                    mesh=None):
     """Shared prep: binning, per-row class stats, activity weights.
 
     ``X`` is float features (numpy, or a tensor) binned here on ``dev``, or
@@ -502,7 +569,14 @@ def _prepare_inputs(X, y, num_classes: int, cfg: TreeTrainConfig,
     the matching ``edges``. The bins are cast once to uint8 when
     ``n_bins <= 256`` (the histogram kernel reads a quarter of the bytes),
     else kept int32. Returns (edges, bins (N, F), y f32, class one-hot stats
-    (N, C) f32, weights (N,) ones, N)."""
+    (N, C) f32, weights (N,) ones, N).
+
+    With a ``mesh`` the rows are padded to a data-axis multiple and
+    sharded: bins, y, stats and weights come back as lists of this
+    process's shards, each binned on its own device, and the padding rows
+    weigh 0, so no histogram sees them."""
+    if mesh is not None:
+        return _prepare_sharded(X, y, num_classes, cfg, edges, mesh)
     if not hasattr(X, "shape"):
         X = np.asarray(X, np.float32)
     is_tensor = isinstance(X, torch.Tensor)
@@ -539,17 +613,61 @@ def _prepare_inputs(X, y, num_classes: int, cfg: TreeTrainConfig,
     return edges, bins.contiguous(), yd, stats, weights, n
 
 
+def _prepare_sharded(X, y, num_classes: int, cfg: TreeTrainConfig,
+                     edges: Optional[np.ndarray], mesh):
+    """``_prepare_inputs`` over a mesh: quantiles on the host from the real
+    rows, then one shard of bins, y, one-hot stats and weights per data
+    device."""
+    if not hasattr(X, "shape"):
+        X = np.asarray(X, np.float32)
+    X = X.cpu().numpy() if isinstance(X, torch.Tensor) else np.asarray(X)
+    prebinned = np.issubdtype(X.dtype, np.integer)
+    if prebinned and edges is None:
+        raise ValueError(
+            "integer X means pre-binned input (bin_rows_host), which requires "
+            "the matching edges= — thresholds cannot be recovered from bins")
+    n = X.shape[0]
+    if prebinned:
+        lo, hi = int(X.min()), int(X.max())
+        if lo < 0 or hi >= cfg.n_bins:
+            raise ValueError(
+                f"pre-binned X has ids in [{lo}, {hi}] but n_bins={cfg.n_bins}; "
+                "integer X must contain bin_rows_host output, not raw features")
+    else:
+        X = np.asarray(X, np.float32)
+    if edges is None:
+        edges = quantile_bin_edges(X, cfg.n_bins)
+    edges = np.asarray(edges, np.float32)
+    xs = mesh_lib.shard_rows(np.ascontiguousarray(X), mesh).shards
+    ys = mesh_lib.shard_rows(np.asarray(y, np.float32), mesh).shards
+    ws = mesh_lib.shard_rows(np.ones(n, np.float32), mesh).shards
+    edge_t = mesh_lib.replicate(torch.from_numpy(edges), mesh)
+    bin_dtype = torch.uint8 if cfg.n_bins <= 256 else torch.int32
+    bins, stats = [], []
+    for x, yd, e in zip(xs, ys, edge_t):
+        b = x if prebinned else apply_bins(x, e)
+        bins.append(b.to(bin_dtype).contiguous())
+        stats.append((yd.to(torch.int64)[:, None] == torch.arange(
+            num_classes, device=yd.device)[None, :]).to(torch.float32))
+    return edges, bins, ys, stats, ws, n
+
+
+def _fit_device(device, mesh) -> torch.device:
+    """A fit's device: the mesh's first device, else ``device``."""
+    return mesh.home if mesh is not None else resolve_device(device)
+
+
 def fit_decision_tree(X, y, *, num_classes: int = 2,
                       config: Optional[TreeTrainConfig] = None,
-                      edges: Optional[np.ndarray] = None,
+                      edges: Optional[np.ndarray] = None, mesh=None,
                       device="cuda") -> TreeEnsemble:
     """Gini decision tree (Spark DecisionTreeClassifier semantics, maxBins
-    binning), trained on ``device``."""
-    dev = resolve_device(device)
-    cfg = config or TreeTrainConfig()
+    binning), trained on ``device``, or data-parallel over ``mesh``."""
+    dev = _fit_device(device, mesh)
+    cfg = resolve_config(config, mesh)
     edges, bins, _, stats, weights, _ = _prepare_inputs(
-        X, y, num_classes, cfg, edges, dev)
-    out = _build_tree(bins, stats, weights, cfg)[:5]
+        X, y, num_classes, cfg, edges, dev, mesh)
+    out = _build_tree(bins, stats, weights, cfg, mesh)[:5]
     return _assemble(*(a[None] for a in out), edges=edges,
                      tree_weights=np.ones(1), kind="decision_tree", cfg=cfg,
                      device=dev)
@@ -559,7 +677,7 @@ def fit_random_forest(X, y, *, n_trees: int = 100, num_classes: int = 2,
                       seed: int = 42, config: Optional[TreeTrainConfig] = None,
                       tree_chunk: Optional[int] = None,
                       feature_subset: bool = True,
-                      edges: Optional[np.ndarray] = None,
+                      edges: Optional[np.ndarray] = None, mesh=None,
                       checkpoint_dir: Optional[str] = None,
                       checkpoint_every: int = 10,
                       device="cuda") -> TreeEnsemble:
@@ -578,14 +696,18 @@ def fit_random_forest(X, y, *, n_trees: int = 100, num_classes: int = 2,
     snapped down to the chunk grid: a chunk's draws are a function of (seed,
     chunk start) alone, so a resumed forest equals an uninterrupted one.
     The chunk size and the bootstrap padding shape the draws, so both are
-    part of the snapshot's fingerprint."""
-    dev = resolve_device(device)
-    cfg = config or TreeTrainConfig()
+    part of the snapshot's fingerprint, as is the mesh (``mesh_extra``).
+    Over a ``mesh`` the weights are drawn over the padded row count and the
+    padding rows' weights zeroed, the reference's mesh draw."""
+    dev = _fit_device(device, mesh)
+    cfg = resolve_config(config, mesh)
     if tree_chunk is None:
         tree_chunk = resolve_tree_chunk(cfg, num_classes)
-    edges, bins, _, stats, _, n = _prepare_inputs(
-        X, y, num_classes, cfg, edges, dev)
-    f = bins.shape[1]
+    edges, bins, _, stats, base_w, n = _prepare_inputs(
+        X, y, num_classes, cfg, edges, dev, mesh)
+    f = edges.shape[0]
+    boot_rows = (_bootstrap_rows(n) if mesh is None
+                 else mesh_lib.pad_to_multiple(n, mesh.shape[mesh_lib.DATA_AXIS]))
     parts: List[Tuple[torch.Tensor, ...]] = []
     trees_done = 0
     if checkpoint_dir is not None:
@@ -599,8 +721,9 @@ def fit_random_forest(X, y, *, n_trees: int = 100, num_classes: int = 2,
             extra={"seed": seed, "tree_chunk": tree_chunk,
                    "feature_subset": feature_subset,
                    "num_classes": num_classes,
-                   "bootstrap_rows": _bootstrap_rows(n),
-                   "bootstrap_sampler": "threefry-poisson1-icdf"})
+                   "bootstrap_rows": boot_rows,
+                   "bootstrap_sampler": "threefry-poisson1-icdf",
+                   **ts.mesh_extra(mesh)})
         snap = ts.load_for(checkpoint_dir, "random_forest", fingerprint)
         if snap is not None:
             progress, arrays = snap
@@ -614,9 +737,19 @@ def fit_random_forest(X, y, *, n_trees: int = 100, num_classes: int = 2,
     last_saved = trees_done
     for start in range(trees_done, n_trees, tree_chunk):
         need = min(tree_chunk, n_trees - start)
-        weights, masks = draw_forest_chunk(seed, start, tree_chunk, n, f,
-                                           cfg.max_depth, feature_subset, dev)
-        out = _build_forest_chunk(bins, stats, weights, masks, cfg)
+        if mesh is None:
+            weights, masks = draw_forest_chunk(seed, start, tree_chunk, n, f,
+                                               cfg.max_depth, feature_subset,
+                                               dev)
+        else:
+            weights, masks = draw_forest_chunk(seed, start, tree_chunk,
+                                               boot_rows, f, cfg.max_depth,
+                                               feature_subset, dev, boot_rows)
+            # shard the (T, N) draw by rows; padding rows' base weight is 0
+            weights = [(w.t() * b[None, :]).contiguous() for w, b in zip(
+                mesh_lib.shard_rows(weights.t().contiguous(), mesh).shards,
+                base_w)]
+        out = _build_forest_chunk(bins, stats, weights, masks, cfg, mesh)
         parts.append(tuple(a[:need] for a in out))
         done = start + need
         # each save rewrites the whole forest, so only on the cadence and at
@@ -636,7 +769,7 @@ def fit_random_forest(X, y, *, n_trees: int = 100, num_classes: int = 2,
 def fit_gradient_boosting(X, y, *, n_rounds: int = 100,
                           config: Optional[TreeTrainConfig] = None,
                           edges: Optional[np.ndarray] = None,
-                          base_score: Optional[float] = None,
+                          base_score: Optional[float] = None, mesh=None,
                           checkpoint_dir: Optional[str] = None,
                           checkpoint_every: int = 10,
                           device="cuda") -> TreeEnsemble:
@@ -648,9 +781,12 @@ def fit_gradient_boosting(X, y, *, n_rounds: int = 100,
     end (``checkpoint/train_state.py``); a resume replays the margin from
     the saved trees in round order (the same f32 additions), so the
     ensemble equals an uninterrupted run's. A snapshot taken under another
-    setup refuses to load; a longer run's snapshot is cut to ``n_rounds``."""
-    dev = resolve_device(device)
-    cfg = config or TreeTrainConfig(criterion="xgb")
+    setup (another mesh included) refuses to load; a longer run's snapshot
+    is cut to ``n_rounds``. Over a ``mesh`` each round's histograms are
+    built per shard and summed over the data axis, the reference's
+    distributed histogram reduction (Rabit's allreduce)."""
+    dev = _fit_device(device, mesh)
+    cfg = resolve_config(config, mesh, criterion="xgb")
     if cfg.criterion != "xgb":
         cfg = replace(cfg, criterion="xgb")
     if base_score is None:
@@ -658,8 +794,12 @@ def fit_gradient_boosting(X, y, *, n_rounds: int = 100,
         # few features instead of defaulting to 0.
         prior = float(np.clip(np.mean(np.asarray(y, np.float64)), 1e-6, 1 - 1e-6))
         base_score = float(np.log(prior / (1.0 - prior)))
-    edges, bins, yf, _, weights, n = _prepare_inputs(X, y, 2, cfg, edges, dev)
-    margin = torch.full((n,), base_score, dtype=torch.float32, device=dev)
+    edges, bins, yf, _, weights, n = _prepare_inputs(X, y, 2, cfg, edges, dev,
+                                                     mesh)
+    margin = [torch.full((b.shape[0],), base_score, dtype=torch.float32,
+                         device=b.device) for b in _shards(bins)]
+    if mesh is None:
+        margin = margin[0]
     rounds = []
     if checkpoint_dir is not None:
         from fraud_detection_tpu_torch.checkpoint import train_state as ts
@@ -669,19 +809,23 @@ def fit_gradient_boosting(X, y, *, n_rounds: int = 100,
                 f"checkpoint_every must be >= 1, got {checkpoint_every}")
         fingerprint = ts.data_fingerprint(
             cfg.__dict__, edges, n, y=np.asarray(y),
-            extra={"base_score": base_score})
+            extra={"base_score": base_score, **ts.mesh_extra(mesh)})
         snap = ts.load_for(checkpoint_dir, "gradient_boosting", fingerprint)
         if snap is not None:
             progress, arrays = snap
             for r in range(min(progress, n_rounds)):
                 f_, b_, l_, r_, v_ = (torch.from_numpy(arrays[k][r]).to(dev)
                                       for k in _BOOST_ARRAYS)
-                row_leaf = _row_leaves(bins, f_, b_, l_, r_, cfg.max_depth)
+                row_leaf = ([_row_leaves(b, f_.to(b.device), b_.to(b.device),
+                                         l_.to(b.device), r_.to(b.device),
+                                         cfg.max_depth) for b in bins]
+                            if mesh is not None else
+                            _row_leaves(bins, f_, b_, l_, r_, cfg.max_depth))
                 margin = _update_margin(margin, row_leaf, v_)
                 rounds.append((f_, b_, l_, r_, v_))
     for r in range(len(rounds), n_rounds):
         f_, b_, l_, r_, values, row_leaf = _boost_round(margin, bins, yf,
-                                                        weights, cfg)
+                                                        weights, cfg, mesh)
         margin = _update_margin(margin, row_leaf, values)
         rounds.append((f_, b_, l_, r_, values))
         if checkpoint_dir is not None and (
@@ -697,20 +841,30 @@ def fit_gradient_boosting(X, y, *, n_rounds: int = 100,
                      kind="xgboost", cfg=cfg, bias=base_score, device=dev)
 
 
-def _update_margin(margin: torch.Tensor, row_node: torch.Tensor,
-                   values: torch.Tensor) -> torch.Tensor:
+def _update_margin(margin, row_node, values: torch.Tensor):
+    """Each row's margin plus its leaf's value (per shard for lists)."""
+    if isinstance(margin, list):
+        return [m + values.to(m.device)[rn] for m, rn in zip(margin, row_node)]
     return margin + values[row_node]
 
 
-def _boost_round(margin, bins, yf, weights, cfg: TreeTrainConfig):
+def _boost_round(margin, bins, yf, weights, cfg: TreeTrainConfig, mesh=None):
     """One boosting round: gradients, tree build, leaf values. The builder's
-    final routing state is each row's leaf position."""
-    # sigmoid in f64, rounded once: the card's and the CPU's f32 sigmoids
-    # differ in the last bit, which would seed diverging trees
-    p = torch.sigmoid(margin.double()).float()
-    g, h = p - yf, p * (1.0 - p)
-    stats = torch.stack([g, h, torch.ones_like(g)], dim=1)
-    f_, b_, l_, r_, s_, row_leaf = _build_tree(bins, stats, weights, cfg)
+    final routing state is each row's leaf position. ``margin``, ``bins``,
+    ``yf`` and ``weights`` are tensors, or lists of a mesh's shards."""
+    def grad_stats(m, y):
+        # sigmoid in f64, rounded once: the card's and the CPU's f32
+        # sigmoids differ in the last bit, which would seed diverging trees
+        p = torch.sigmoid(m.double()).float()
+        g, h = p - y, p * (1.0 - p)
+        return torch.stack([g, h, torch.ones_like(g)], dim=1)
+
+    if isinstance(margin, list):
+        stats = [grad_stats(m, y) for m, y in zip(margin, yf)]
+    else:
+        stats = grad_stats(margin, yf)
+    f_, b_, l_, r_, s_, row_leaf = _build_tree(bins, stats, weights, cfg,
+                                               mesh)
     values = -s_[:, 0] / (s_[:, 1] + cfg.reg_lambda) * cfg.learning_rate
     return f_, b_, l_, r_, values, row_leaf
 

@@ -32,6 +32,7 @@ from functools import lru_cache
 import torch
 
 from fraud_detection_tpu_torch.ops._build import KernelError, count_launch
+from fraud_detection_tpu_torch.utils.device import cache_per_card, device_context
 
 #: Masked scores: exp(s - m) of one underflows to exactly 0 (no inf - inf).
 NEG = -1e30
@@ -154,10 +155,11 @@ def _flash_simt(q, k, v):
 
 def _launch(q, k, v, out) -> None:
     b, t, h, d = q.shape
-    rc = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h,
-        k.shape[2], d, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with device_context(q.device):
+        rc = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h,
+            k.shape[2], d, _DTYPES[q.dtype], 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise KernelError(f"flash attention kernel launch failed: cudaError {rc}")
 
@@ -220,16 +222,17 @@ def _flash_sm90(q, k, v):
 
 def _launch_sm90(q, k, v, out) -> None:
     b, t, h, d = q.shape
-    rc = _lib_sm90().flash_attention_sm90_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h,
-        k.shape[2], d, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with device_context(q.device):
+        rc = _lib_sm90().flash_attention_sm90_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h,
+            k.shape[2], d, 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise KernelError(f"sm90 flash attention kernel launch failed: "
                            f"cudaError {rc}")
 
 
-@lru_cache(maxsize=None)
+@cache_per_card
 def kernel_self_test(device) -> bool:
     """Build both kernels and launch them on ``device`` (a CUDA device) over
     tiny inputs whose answers are reckoned on the host. SIMT: f32 at T=70
@@ -239,7 +242,7 @@ def kernel_self_test(device) -> bool:
     integers, exactly. sm90: bf16 at d=64, T=70, H=2 over one K/V head,
     within ``SM90_SELF_TEST_TOL`` of the plain version in float64 on the
     same bf16 values, and the q = 0 case at d=64, exactly. Raises on any
-    mismatch; cached per device."""
+    mismatch; cached per card."""
     dev = torch.device(device)
     t, d = 70, 40
     q = [[[[math.sin(0.37 * i + 0.11 * c + h) for c in range(d)]

@@ -38,6 +38,7 @@ from fraud_detection_tpu_torch.featurize.hashing import (
     SPARK_HASHING_TF_SEED, murmur3_x86_32, murmur3_x86_32_legacy_tail,
     spark_hash_bucket)
 from fraud_detection_tpu_torch.ops._build import KernelError, count_launch
+from fraud_detection_tpu_torch.utils.device import cache_per_card, device_context
 
 # Character classes produced by byte_classes: 1..26 = 'a'..'z', the rest
 # as named below. Everything stripped by clean_text is NOP.
@@ -207,9 +208,10 @@ def _tokenize_hash_cuda(classes: torch.Tensor, legacy: bool):
         return h, w0, w1, tl, emp
     fn = _scan_lib().featurize_scan
     stream = torch.cuda.current_stream(classes.device).cuda_stream
-    _check_rc(fn(classes.data_ptr(), h.data_ptr(), w0.data_ptr(),
-                 w1.data_ptr(), tl.data_ptr(), emp.data_ptr(), rows, cols,
-                 int(legacy), stream), "featurize_scan")
+    with device_context(classes.device):
+        _check_rc(fn(classes.data_ptr(), h.data_ptr(), w0.data_ptr(),
+                     w1.data_ptr(), tl.data_ptr(), emp.data_ptr(), rows, cols,
+                     int(legacy), stream), "featurize_scan")
     count_launch(tokenize_hash)
     return h, w0, w1, tl, emp
 
@@ -505,11 +507,12 @@ def _featurize_packed_cuda(staged: torch.Tensor, stop_table: torch.Tensor,
         return packed, n_unique
     fn = _scan_lib().featurize_packed
     stream = torch.cuda.current_stream(staged.device).cuda_stream
-    _check_rc(fn(staged.data_ptr(), stop_table.data_ptr(), size,
-                 packed.data_ptr(), n_unique.data_ptr(), rows, width,
-                 spec.num_features, spec.n_slots, int(spec.binary),
-                 int(spec.legacy), spec.empty_bucket, int(spec.empty_is_stop),
-                 stream), "featurize_packed")
+    with device_context(staged.device):
+        _check_rc(fn(staged.data_ptr(), stop_table.data_ptr(), size,
+                     packed.data_ptr(), n_unique.data_ptr(), rows, width,
+                     spec.num_features, spec.n_slots, int(spec.binary),
+                     int(spec.legacy), spec.empty_bucket,
+                     int(spec.empty_is_stop), stream), "featurize_packed")
     count_launch(featurize_bytes)
     return packed, n_unique
 
@@ -592,12 +595,12 @@ def _self_test_rows(dev):
     return torch.from_numpy(staged).to(dev)
 
 
-@lru_cache(maxsize=None)
+@cache_per_card
 def kernel_self_test(device) -> bool:
     """Build the featurize kernel and launch both of its entries on
     ``device`` over tiny inputs whose answers are reckoned on the host
     (``expected_scan``, ``expected_packed``), in both hash modes and with
-    ``binary`` off and on; raises on any mismatch. Cached per device."""
+    ``binary`` off and on; raises on any mismatch. Cached per card."""
     dev = torch.device(device)
     staged = _self_test_rows(dev)
     texts = list(_SELF_TEST_TEXTS) + [None]          # None: a padding row

@@ -49,6 +49,7 @@ from typing import Tuple
 import torch
 
 from fraud_detection_tpu_torch.ops._build import KernelError, count_launch
+from fraud_detection_tpu_torch.utils.device import cache_per_card, device_context
 from fraud_detection_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("ops.histogram")
@@ -320,13 +321,14 @@ def _histogram_launch(bins, locals_, weights, stats, out, n_nodes, n_bins,
                            dtype=torch.int32 if exact else torch.float32,
                            device=bins.device) if plan.chunks > 1 else None)
     stream = torch.cuda.current_stream(bins.device).cuda_stream
-    rc = _hist_lib().histogram_launch(
-        bins.data_ptr(), bins.element_size(), locals_.data_ptr(),
-        weights.data_ptr(), stats.data_ptr(), out.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        n, f, t, n_nodes, n_bins, k, plan.trees, plan.nodes, plan.warps,
-        plan.subs, _smem_budget(copies, n_bins, k), max_tile_rows,
-        plan.chunks, int(exact), stream)
+    with device_context(bins.device):
+        rc = _hist_lib().histogram_launch(
+            bins.data_ptr(), bins.element_size(), locals_.data_ptr(),
+            weights.data_ptr(), stats.data_ptr(), out.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            n, f, t, n_nodes, n_bins, k, plan.trees, plan.nodes, plan.warps,
+            plan.subs, _smem_budget(copies, n_bins, k), max_tile_rows,
+            plan.chunks, int(exact), stream)
     if rc != 0:
         raise KernelError(f"histogram kernel launch failed: cudaError {rc}")
 
@@ -499,11 +501,12 @@ def _best_splits_cuda(hist, totals, criterion, reg_lambda, min_child_weight,
     if L == 0:
         return best_f, best_b, best_gain
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _gain_lib().best_splits_launch(
-        hist.data_ptr(), totals.data_ptr(), slab_gain.data_ptr(),
-        slab_pos.data_ptr(), best_f.data_ptr(), best_b.data_ptr(),
-        best_gain.data_ptr(), L, F, NB, K, int(criterion == "xgb"),
-        float(reg_lambda), float(min_child_weight), stream)
+    with device_context(dev):
+        rc = _gain_lib().best_splits_launch(
+            hist.data_ptr(), totals.data_ptr(), slab_gain.data_ptr(),
+            slab_pos.data_ptr(), best_f.data_ptr(), best_b.data_ptr(),
+            best_gain.data_ptr(), L, F, NB, K, int(criterion == "xgb"),
+            float(reg_lambda), float(min_child_weight), stream)
     if rc != 0:
         raise KernelError(f"best_splits kernel launch failed: cudaError {rc}")
     count_launch(best_splits)
@@ -564,7 +567,7 @@ def self_test_histogram_inputs():
     return bins, locals_, weights, stats, n_nodes, nb
 
 
-@lru_cache(maxsize=None)
+@cache_per_card
 def kernel_self_test(device) -> bool:
     """Build both kernels and launch them on ``device`` (a CUDA device) over
     tiny inputs whose answers are reckoned on the host with Python loops:
@@ -573,7 +576,7 @@ def kernel_self_test(device) -> bool:
     exact path); and best_splits on a
     gini node with a unique best split, an all-invalid node that must return
     (0, 0, -inf), an xgb node (L=1), and a 40-feature node whose best lies
-    in its second slab. Raises on any mismatch; cached per device."""
+    in its second slab. Raises on any mismatch; cached per card."""
     dev = torch.device(device)
     bins, locals_, weights, stats, n_nodes, nb = self_test_histogram_inputs()
     n, f, t = len(bins), len(bins[0]), len(locals_)

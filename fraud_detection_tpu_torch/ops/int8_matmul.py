@@ -44,6 +44,7 @@ import torch
 
 from fraud_detection_tpu_torch.ops._build import KernelError, count_launch
 from fraud_detection_tpu_torch.ops.attention import _packed
+from fraud_detection_tpu_torch.utils.device import cache_per_card, device_context
 
 LAYOUTS = ("kn", "nk")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -240,14 +241,17 @@ def _launch(x, q, scale, out, layout: str, across: bool | None = None,
             if part is None or part.numel() < need:
                 part = _SCRATCH[key] = torch.empty(
                     need, dtype=torch.float32, device=x.device)
-            rc = _lib().w8_matmul_launch(*args, part.data_ptr(), *shape, stream)
+            with device_context(x.device):
+                rc = _lib().w8_matmul_launch(*args, part.data_ptr(), *shape,
+                                             stream)
     else:
-        rc = _lib().w8_matmul_launch(*args, None, *shape, stream)
+        with device_context(x.device):
+            rc = _lib().w8_matmul_launch(*args, None, *shape, stream)
     if rc != 0:
         raise KernelError(f"w8_matmul kernel launch failed: cudaError {rc}")
 
 
-@lru_cache(maxsize=None)
+@cache_per_card
 def kernel_self_test(device) -> bool:
     """Build the kernel and launch it on ``device`` (a CUDA device) over
     inputs whose answers are exact: x and q in {-1, 0, 1}, K = 176 (six
@@ -257,7 +261,7 @@ def kernel_self_test(device) -> bool:
     cp.async), 42 (f32 kn staged byte by byte) and 48 (bf16 kn by TMA),
     scales powers of two. Both layouts, both dtypes, the splits in separate
     blocks and in one, against the product in float64, exactly.
-    Raises on any mismatch; cached per device."""
+    Raises on any mismatch; cached per card."""
     dev = torch.device(device)
     k = 176
     for n in (40, 42, 48):

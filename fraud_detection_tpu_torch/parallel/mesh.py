@@ -1,0 +1,365 @@
+"""Device meshes and row sharding in torch terms — twin of
+``fraud_detection_tpu/parallel/mesh.py``.
+
+The reference names two axes on a ``jax.sharding.Mesh``:
+
+  axis "data"    — rows (dialogues): data parallelism for training and for
+                   streaming micro-batches; gradient and histogram
+                   reductions are sums over this axis (the Rabit-allreduce
+                   analogue);
+  axis "feature" — the TF-IDF feature dimension.
+
+Here a :class:`Mesh` is a (data, feature) grid of this process's
+``torch.device`` s with those axis names and a ``shape``, and — when a
+``torch.distributed`` process group spans several processes — the global
+axis sizes, this process's rank and the group. One process holds one
+replica of a model per device of its grid; a row shard lives on the
+device of its data index (the first column of the grid). What JAX's
+partitioner does for a sharded array is done by hand:
+
+* :func:`shard_rows` pads rows to a data-axis multiple with zero rows and
+  places each shard on its device (:class:`ShardedRows`);
+* :func:`data_sum` is the port's ``psum``: it adds the local shards' tensors
+  on the mesh's first device in a fixed device order, then ``all_reduce`` s
+  the sum across processes when a group exists. Linear and tree training
+  reduce through it; serving needs no reduction (rows score alone) and
+  reads its shards' results back in row order.
+
+A grid may name one device several times (``make_mesh(devices=
+[torch.device("cpu")] * 8)``, ``["cuda:0"] * 4``): the shards then run one
+after another on that device. This is the port's stand-in for XLA's
+``--xla_force_host_platform_device_count=8`` virtual CPU devices, and lets
+the shard logic run where one device exists. The CLIs never build such a
+grid: they take every local device, as the reference does.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from fraud_detection_tpu_torch.utils.device import resolve_device
+
+DATA_AXIS = "data"
+FEATURE_AXIS = "feature"
+
+
+class Mesh:
+    """A (data, feature) grid of this process's devices.
+
+    ``devices`` is the local (data, feature) object array of
+    ``torch.device``; ``shape`` maps each axis name to its GLOBAL size (the
+    data axis spans ``process_count`` processes of equal grids, process-
+    major, as ``jax.devices()`` orders a multi-process mesh)."""
+
+    axis_names = (DATA_AXIS, FEATURE_AXIS)
+
+    def __init__(self, devices: np.ndarray, *, process_count: int = 1,
+                 process_index: int = 0, group=None):
+        if devices.ndim != 2 or devices.size == 0:
+            raise ValueError(f"mesh grid must be a non-empty (data, feature) "
+                             f"array, got shape {devices.shape}")
+        self.devices = devices
+        self.process_count = int(process_count)
+        self.process_index = int(process_index)
+        self.group = group
+
+    @property
+    def shape(self) -> dict:
+        dp, fp = self.devices.shape
+        return {DATA_AXIS: dp * self.process_count, FEATURE_AXIS: fp}
+
+    @property
+    def local_data_parallel(self) -> int:
+        return self.devices.shape[0]
+
+    @property
+    def data_devices(self) -> List[torch.device]:
+        """The device of each local data index, in data order."""
+        return [self.devices[i, 0] for i in range(self.devices.shape[0])]
+
+    @property
+    def home(self) -> torch.device:
+        """Where reductions land: the first local data device."""
+        return self.devices[0, 0]
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, devices="
+                f"{[str(d) for d in self.devices.flat]}, "
+                f"process {self.process_index}/{self.process_count})")
+
+
+class Sharding(NamedTuple):
+    """A placement: the mesh and one axis name (or None) per array
+    dimension, the reference's ``NamedSharding(mesh, PartitionSpec(...))``."""
+
+    mesh: Mesh
+    spec: Tuple[Optional[str], ...]
+
+
+def local_devices(device_type: str = "cuda") -> List[torch.device]:
+    """Every device of ``device_type`` this process may use: the visible
+    CUDA devices (under a multi-process group with ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` set, this process's share of them), or the CPU.
+    CUDA asked for and absent raises."""
+    dev = resolve_device(device_type)
+    if dev.type != "cuda":
+        return [torch.device(dev.type)]
+    ids = list(range(torch.cuda.device_count()))
+    if (_group_size() > 1 and "LOCAL_RANK" in os.environ
+            and "LOCAL_WORLD_SIZE" in os.environ):
+        lr, lw = int(os.environ["LOCAL_RANK"]), int(os.environ["LOCAL_WORLD_SIZE"])
+        ids = [i for i in ids if i % lw == lr]
+    return [torch.device("cuda", i) for i in ids]
+
+
+def _group_size() -> int:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _grid(devs: Sequence[torch.device], data_parallel: Optional[int],
+          feature_parallel: int) -> np.ndarray:
+    n = len(devs)
+    if data_parallel is None:
+        if n % feature_parallel:
+            raise ValueError(f"{n} devices not divisible by "
+                             f"feature_parallel={feature_parallel}")
+        data_parallel = n // feature_parallel
+    if data_parallel * feature_parallel != n:
+        raise ValueError(f"data_parallel({data_parallel}) * "
+                         f"feature_parallel({feature_parallel}) != {n}")
+    grid = np.empty((data_parallel, feature_parallel), dtype=object)
+    for i, d in enumerate(devs):
+        grid[i // feature_parallel, i % feature_parallel] = d
+    return grid
+
+
+def _as_devices(devices) -> List[torch.device]:
+    return [resolve_device(d) for d in devices]
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              data_parallel: Optional[int] = None,
+              feature_parallel: int = 1,
+              devices: Optional[Sequence] = None, *,
+              device_type: str = "cuda") -> Mesh:
+    """A (data, feature) mesh over ``devices`` (default: every local device
+    of ``device_type``), all on the data axis unless ``feature_parallel``
+    says otherwise — the layout for this workload, where models are small
+    and rows plentiful. Under a multi-process group the default mesh spans
+    every process (each contributes its local grid)."""
+    devs = (_as_devices(devices) if devices is not None
+            else local_devices(device_type))
+    if n_devices is not None:
+        devs = devs[:n_devices]
+    grid = _grid(devs, data_parallel, feature_parallel)
+    if devices is None and _group_size() > 1:
+        dist = torch.distributed
+        return Mesh(grid, process_count=dist.get_world_size(),
+                    process_index=dist.get_rank(), group=dist.group.WORLD)
+    return Mesh(grid)
+
+
+def batch_sharding(mesh: Mesh) -> Sharding:
+    """Rows sharded over the data axis, features replicated."""
+    return Sharding(mesh, (DATA_AXIS, None))
+
+
+def feature_sharding(mesh: Mesh) -> Sharding:
+    """The feature dimension of a (B, F) array sharded."""
+    return Sharding(mesh, (None, FEATURE_AXIS))
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+def pad_to_multiple(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+@dataclass
+class ShardedRows:
+    """A row-sharded array: this process's shards, each on its data
+    device, in data order; ``shape`` is the GLOBAL (padded) shape."""
+
+    shards: List[torch.Tensor]
+    shape: Tuple[int, ...]
+    mesh: Mesh
+
+    def gather(self) -> torch.Tensor:
+        """The whole array on the mesh's first device (every process's
+        shards, in row order)."""
+        local = torch.cat([s.to(self.mesh.home) for s in self.shards])
+        if self.mesh.process_count == 1:
+            return local
+        parts = [torch.empty_like(local) for _ in range(self.mesh.process_count)]
+        torch.distributed.all_gather(parts, local, group=self.mesh.group)
+        return torch.cat(parts)
+
+
+def _split_local(x: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
+    """This process's data-axis shards of the global rows ``x`` (rows a
+    multiple of the global data size), each copied to its device."""
+    dp = mesh.shape[DATA_AXIS]
+    per = x.shape[0] // dp
+    first = mesh.process_index * mesh.local_data_parallel
+    return [x[(first + i) * per:(first + i + 1) * per].to(d, non_blocking=True)
+            for i, d in enumerate(mesh.data_devices)]
+
+
+def shard_rows(x, mesh: Mesh) -> ShardedRows:
+    """Pad rows to a data-axis multiple and place one shard per data device.
+
+    Padding rows are zeros; callers carry an explicit validity mask (or
+    weight 0) where padded rows must not count (losses, histograms)."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    dp = mesh.shape[DATA_AXIS]
+    padded = pad_to_multiple(t.shape[0], dp)
+    if padded != t.shape[0]:
+        t = torch.cat([t, t.new_zeros((padded - t.shape[0], *t.shape[1:]))])
+    return ShardedRows(_split_local(t, mesh), tuple(t.shape), mesh)
+
+
+def data_sum(tensors: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
+    """The data-axis reduction (the reference's ``psum`` over "data"): the
+    local shards' tensors added on the mesh's first device in data order
+    (((s0 + s1) + s2) + ...), then summed across processes with
+    ``all_reduce`` when the mesh spans a process group. Every process gets
+    the same sum."""
+    home = mesh.home
+    total = tensors[0].to(home)
+    for t in tensors[1:]:
+        total = total + t.to(home)
+    if mesh.process_count > 1:
+        total = total.contiguous()
+        torch.distributed.all_reduce(total, group=mesh.group)
+    return total
+
+
+def replicate(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
+    """``t`` on every local data device (one copy per distinct device)."""
+    copies = {}
+    return [copies.setdefault(d, t.to(d)) for d in mesh.data_devices]
+
+
+# ---------------------------------------------------------------------------
+# Multi-process support (torch.distributed)
+# ---------------------------------------------------------------------------
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None, *,
+                           backend: Optional[str] = None,
+                           timeout_s: float = 120.0) -> bool:
+    """Multi-process bootstrap over ``torch.distributed``: ``gloo`` on the
+    CPU, ``nccl`` on the card.
+
+    Reads the environment ``torchrun`` sets when arguments are omitted:
+    ``MASTER_ADDR``:``MASTER_PORT`` stands for the reference's
+    ``JAX_COORDINATOR_ADDRESS``, ``WORLD_SIZE`` for ``JAX_NUM_PROCESSES``
+    and ``RANK`` for ``JAX_PROCESS_ID``. A no-op returning False when the
+    job is single-process (no address, or one process), so single-process
+    paths never pay for it. torch has no rank auto-detection, so a
+    multi-process job without a rank raises."""
+    if coordinator_address is None and "MASTER_ADDR" in os.environ:
+        coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
+                               f"{os.environ.get('MASTER_PORT', '29500')}")
+    if num_processes is None and "WORLD_SIZE" in os.environ:
+        num_processes = int(os.environ["WORLD_SIZE"])
+    if process_id is None and "RANK" in os.environ:
+        process_id = int(os.environ["RANK"])
+    if coordinator_address is None or num_processes is None \
+            or num_processes <= 1:
+        return False
+    if process_id is None:
+        raise ValueError("a multi-process job needs its rank (RANK or "
+                         "process_id)")
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        local_rank = int(os.environ.get("LOCAL_RANK", process_id))
+        torch.cuda.set_device(local_rank % max(1, torch.cuda.device_count()))
+    torch.distributed.init_process_group(
+        backend, init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id,
+        timeout=timedelta(seconds=timeout_s))
+    return True
+
+
+def _granules(n_local: int) -> List[Tuple[str, int]]:
+    """(host, local device count) of every rank, in rank order."""
+    mine = (socket.gethostname(), n_local)
+    if _group_size() == 1:
+        return [mine]
+    out: list = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(out, mine)
+    return out
+
+
+def make_hybrid_mesh(feature_parallel: int = 1, *,
+                     devices: Optional[Sequence] = None,
+                     device_type: str = "cuda") -> Mesh:
+    """A (data, feature) mesh over every process's devices, laid out for the
+    links between them: the data axis spans the slowest link (its sums are
+    one small histogram or gradient a step), and the feature axis stays
+    inside a granule, a host whose devices share its fast links.
+
+    Granules are hosts, not processes: several processes on one host are
+    one granule and make the plain global mesh. Sizing the cross-process
+    axis by the process count is the mistake the reference's 2-process test
+    caught; here it would refuse a feature axis that fits a host. Several
+    granules must hold equal device counts. ``devices`` names this
+    process's devices (default: every local device of ``device_type``)."""
+    devs = (_as_devices(devices) if devices is not None
+            else local_devices(device_type))
+    ranks = _granules(len(devs))
+    hosts: dict = {}
+    for host, n in ranks:
+        hosts[host] = hosts.get(host, 0) + n
+    if len({n for _, n in ranks}) != 1:
+        raise ValueError(f"uneven per-process device counts: "
+                         f"{sorted({n for _, n in ranks})}")
+    if len(hosts) > 1 and len(set(hosts.values())) != 1:
+        raise ValueError(f"uneven device granules: {sorted(set(hosts.values()))}")
+    per_granule = next(iter(hosts.values()))
+    if per_granule % feature_parallel or len(devs) % feature_parallel:
+        raise ValueError(
+            f"{per_granule} per-granule devices not divisible by "
+            f"feature_parallel={feature_parallel}")
+    grid = _grid(devs, None, feature_parallel)
+    if len(ranks) == 1:
+        return Mesh(grid)
+    dist = torch.distributed
+    return Mesh(grid, process_count=dist.get_world_size(),
+                process_index=dist.get_rank(), group=dist.group.WORLD)
+
+
+def global_batch_from_local(x_local, mesh: Mesh) -> ShardedRows:
+    """Per-process rows -> the global row set, sharded over the data axis.
+
+    Each process feeds only the rows it loaded (e.g. from its own Kafka
+    partitions); the result is the concatenated global batch in process
+    order, this process's part split over its data devices. Local row
+    counts must be equal across processes and divide by the local data
+    axis (pad with zero rows and a validity mask as in ``shard_rows``)."""
+    t = (x_local if isinstance(x_local, torch.Tensor)
+         else torch.from_numpy(np.asarray(x_local)))
+    local_dp = mesh.local_data_parallel
+    if t.shape[0] % local_dp:
+        raise ValueError(f"{t.shape[0]} local rows do not divide over "
+                         f"{local_dp} local data devices")
+    per = t.shape[0] // local_dp
+    shards = [t[i * per:(i + 1) * per].to(d, non_blocking=True)
+              for i, d in enumerate(mesh.data_devices)]
+    return ShardedRows(shards, (t.shape[0] * mesh.process_count,
+                                *t.shape[1:]), mesh)

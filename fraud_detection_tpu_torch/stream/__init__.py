@@ -13,3 +13,4 @@ from fraud_detection_tpu_torch.stream.engine import (  # noqa: F401
     StreamingClassifier,
     StreamStats,
 )
+from fraud_detection_tpu_torch.stream.kafka import kafka_available  # noqa: F401

@@ -844,8 +844,8 @@ class StreamingClassifier:
     def _device_block(self) -> dict:
         """The ``device`` block of ``health()``: dispatch depth and the
         lane's counters (the live lane's, or the last run's), host->device
-        copies per micro-batch, what is resident on the device, and which
-        featurize path ran."""
+        copies per micro-batch, what is resident on the device, the mesh,
+        and which featurize path ran."""
         lane = self._lane
         ls = lane.stats() if lane is not None else (self._lane_stats or {})
         snap = self.pipeline.device_stats.snapshot()
@@ -863,6 +863,11 @@ class StreamingClassifier:
             "pinned_bytes": snap["pinned_bytes"],
             "model_pins": snap["model_pins"],
             "int8": snap["int8"],
+            # mesh data-parallel scoring: devices on the data axis (0 = the
+            # single-device path) and the per-device rungs dispatched, the
+            # scheduler's prewarm included
+            "mesh_devices": snap["mesh_devices"],
+            "per_chip_rungs": snap["per_chip_rungs"],
             "featurize_path": snap["featurize_path"],
             "bytes_in_per_row": snap["bytes_in_per_row"],
             "truncated_rows": snap["truncated_rows"],

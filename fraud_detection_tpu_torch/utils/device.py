@@ -3,6 +3,8 @@ streams of the background lanes that share a card with the serving engine."""
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from contextlib import contextmanager
 from typing import Optional
 
@@ -19,6 +21,29 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain torch versions")
     return dev
+
+
+def device_key(device) -> torch.device:
+    """``device`` with its card named: a bare ``"cuda"`` becomes the current
+    card's ``cuda:i``, so a per-card cache holds one entry a card whichever
+    way a caller spells it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def cache_per_card(fn):
+    """``fn(device)`` cached once a card, keyed by ``device_key``: "cuda"
+    and "cuda:0" share one entry, so a kernel's self-test launches (and
+    counts) once a card, never again inside a caller's launch-count window.
+    ``.cached`` is the cache; ``.__wrapped__`` is ``fn`` uncached."""
+    @functools.wraps(fn)
+    def call(device):
+        return call.cached(device_key(device))
+
+    call.cached = functools.lru_cache(maxsize=None)(fn)
+    return call
 
 
 def lane_stream(device, streams: dict) -> Optional["torch.cuda.Stream"]:
@@ -67,3 +92,13 @@ def is_device_fault(exc: BaseException) -> bool:
     return (isinstance(exc, (KernelError, torch.cuda.OutOfMemoryError))
             or (accel is not None and isinstance(exc, accel))
             or (isinstance(exc, RuntimeError) and "CUDA error" in str(exc)))
+
+
+def device_context(device):
+    """Make ``device`` the current CUDA device for the block; nothing for the
+    CPU. A hand-written kernel's C entry launches on the current device, so
+    every ``ops/`` wrapper launches under its tensors' device (a mesh's
+    shards live on several cards)."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -19,6 +19,9 @@ class LogfmtFormatter(logging.Formatter):
         ts = time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime(record.created))
         base = (f"ts={ts}.{int(record.msecs):03d}Z level={record.levelname.lower()} "
                 f"logger={record.name} msg={_quote(record.getMessage())}")
+        extra = getattr(record, "kv", None)
+        if extra:
+            base += "".join(f" {k}={_quote(v)}" for k, v in extra.items())
         if record.exc_info:
             base += f" exc={_quote(self.formatException(record.exc_info))}"
         return base
@@ -51,3 +54,8 @@ def get_logger(name: str = _ROOT) -> logging.Logger:
     if not name.startswith(_ROOT):
         name = f"{_ROOT}.{name}"
     return logging.getLogger(name)
+
+
+def kv(**fields) -> dict:
+    """Structured-fields adapter: ``log.info("scored", extra=kv(batch=32))``."""
+    return {"kv": fields}

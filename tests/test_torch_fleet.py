@@ -16,8 +16,8 @@ kept, global-watermark shedding, the health file and a graceful stop (the
 serve CLI's ``--fleet`` is in ``tests/test_torch_serve_cli.py``). Drains run
 real threads, so they assert only what
 a loaded run still guarantees (exact accounting, a death happened); every
-join is bounded. ``tests/test_fleet.py``'s mesh cases wait for ROADMAP Queue
-1 item 5.6.
+join is bounded. ``tests/test_fleet.py``'s mesh cases are mirrored in
+``tests/test_torch_mesh.py``.
 """
 
 import dataclasses
@@ -590,5 +590,7 @@ def test_lease_and_public_names_equal_jax():
     assert tfleet.__all__ == jfleet.__all__
     assert [f.name for f in dataclasses.fields(tfleet.Lease)] == \
         [f.name for f in dataclasses.fields(jfleet.Lease)]
-    with pytest.raises(RuntimeError, match="Queue 1 item 5.5"):
+    with pytest.raises(RuntimeError, match="requires confluent_kafka"):
         tfleet.KafkaControlBus()
+    with pytest.raises(RuntimeError, match="requires confluent_kafka"):
+        jfleet.KafkaControlBus()

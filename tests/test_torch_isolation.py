@@ -64,7 +64,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "scenarios.slo", "scenarios.labels", "scenarios.record",
                  "scenarios.replay", "scenarios.gameday", "analysis",
                  "analysis.core", "analysis.entrypoints",
-                 "analysis.conformance"):
+                 "analysis.conformance", "stream.kafka", "parallel",
+                 "parallel.mesh", "parallel.serving"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

@@ -14,9 +14,11 @@
 * **property** — any interleaving of admit/grow/release/death preserves
   the identity (a seeded sweep and Hypothesis).
 
-Not ported, so not here: ``test_campaign_explain_paged_gameday_passes``
-and ``test_gameday_validation_rejects_bad_paged_configs``
-(``scenarios/gameday``, ROADMAP Queue 1 item 5.4).
+``test_campaign_explain_paged_gameday_passes`` and
+``test_gameday_validation_rejects_bad_paged_configs`` (``scenarios/gameday``)
+are mirrored in ``tests/test_torch_gameday_lanes.py``
+(``test_slot_lane_game_days_cover_every_flagged_row``, campaign_explain_paged)
+and ``tests/test_torch_scenarios.py`` (``test_gameday_refusals_equal_jax``).
 """
 
 import json

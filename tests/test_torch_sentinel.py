@@ -13,11 +13,15 @@ accounting across a supervised chaos chain, ``/healthz``, and the serve
 CLI's alerting. Every clock here is injected or virtual; no test waits on a
 real deadline.
 
-Cases of ``tests/test_sentinel.py`` that wait for other items:
-``test_warp_and_paced_runs_fire_identical_incident_sequences``,
-``test_detects_within_slo_gate``, ``test_gameday_flash_crowd_detects_shed_burn``
-and ``test_gameday_control_arm_zero_incidents`` need ``scenarios/`` (Queue 1
-item 5.4); the virtual-time driver they rest on is held equal here.
+Cases of ``tests/test_sentinel.py`` that rest on ``scenarios/``:
+``test_warp_and_paced_runs_fire_identical_incident_sequences`` is mirrored
+here over the port's ``ScenarioClock``; ``test_detects_within_slo_gate`` is
+``tests/test_torch_scenarios.py``'s ``test_evaluate_verdicts_equal_jax`` and
+``test_slo_refusals_equal_jax``; ``test_gameday_flash_crowd_detects_shed_burn``
+and ``test_gameday_control_arm_zero_incidents`` are
+``tests/test_torch_gameday_single.py``'s
+``test_flash_crowd_sheds_and_detects_the_burn`` and
+``test_diurnal_hotkey_control_arm_zero_incidents``.
 """
 
 import dataclasses
@@ -212,6 +216,43 @@ def test_evaluate_timeline_equals_jax():
 
     got = run(tsentinel)
     assert got == run(jsentinel) and len(got) == 2
+
+
+def _scripted_run(clocks, mod, time_scale: float):
+    """``tests/test_sentinel.py``'s scripted run over a ``ScenarioClock``:
+    the burn starts at virtual t=5 and stops at t=12, rules evaluated every
+    0.5 virtual seconds; returns the transitions and the snapshot."""
+    clock = clocks.ScenarioClock(7, time_scale=time_scale)
+    real_now = clock.now
+
+    def source():
+        t = real_now()
+        return {"total": int(t * 100),
+                "bad": int(max(0.0, min(t, 12.0) - 5.0) * 30)}
+
+    s = mod.Sentinel(source, [burn_rule(limit=0.1, fast=1.0, slow=3.0,
+                                        resolve_s=1.0, mod=mod)])
+    clock.start()
+    trs = mod.evaluate_timeline(s, clock, until_s=20.0, interval_s=0.5)
+    return [(tr["event"], tr["rule"], tr.get("fired_at"),
+             tr.get("resolved_at")) for tr in trs], s.snapshot()
+
+
+def test_warp_and_paced_runs_fire_identical_incident_sequences():
+    """A warp run (time_scale 0) and a paced one evaluate the rules at the
+    same virtual times and fire the same incident sequence, in the port as
+    in the JAX package (exact: virtual times are arithmetic on the clock's
+    cursor)."""
+    from fraud_detection_tpu import scenarios as jscen
+    from fraud_detection_tpu_torch import scenarios as tscen
+
+    warp, warp_snap = _scripted_run(tscen, tsentinel, 0.0)
+    paced, paced_snap = _scripted_run(tscen, tsentinel, 0.005)
+    assert warp == paced
+    assert warp                                  # it actually fired
+    assert warp_snap["fired"] == paced_snap["fired"] == 1
+    assert warp_snap["resolved"] == paced_snap["resolved"] == 1
+    assert warp == _scripted_run(jscen, jsentinel, 0.0)[0]
 
 
 def test_virtual_cadence_never_stalls():

@@ -409,16 +409,6 @@ def test_scale_out_refusals_equal_jax(ckpt, argv):
     assert str(te.value) == str(je.value)
 
 
-@pytest.mark.parametrize("flag,takes_value,item", tserve._UNPORTED)
-def test_unported_flag_refuses_cleanly(ckpt, flag, takes_value, item):
-    argv = ["--device", "cpu", "--model", ckpt, flag]
-    if takes_value:
-        argv.append("1")
-    with pytest.raises(SystemExit, match=f"{flag} is not ported .*Queue 1 "
-                                         f"item {item}"):
-        tserve.main(argv)
-
-
 def _flags(main, monkeypatch):
     """The option strings ``main``'s parser defines."""
     import argparse
@@ -727,11 +717,12 @@ def test_scenario_refusals_equal_jax(ckpt, argv):
 
 
 def test_scenario_with_kafka_refuses_naming_its_item(ckpt):
-    """The reference refuses --scenario with --kafka ("needs --demo"); the
-    port refuses --kafka itself first, naming its queue item."""
-    with pytest.raises(SystemExit, match="--scenario needs --demo"):
+    """Both packages refuse --scenario with --kafka with the same message:
+    the scenario feeds the in-process broker, so it needs --demo."""
+    with pytest.raises(SystemExit, match="--scenario needs --demo") as je:
         jserve.main(["--model", ckpt, "--kafka", "--scenario",
                      "flash_crowd"])
-    with pytest.raises(SystemExit, match=r"--kafka is not ported .*item 5\.5"):
+    with pytest.raises(SystemExit, match="--scenario needs --demo") as te:
         tserve.main(["--device", "cpu", "--model", ckpt, "--kafka",
                      "--scenario", "flash_crowd"])
+    assert str(te.value) == str(je.value)

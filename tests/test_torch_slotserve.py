@@ -23,10 +23,11 @@ The model is the JAX test's (d 64, 2 layers, 4 heads, d_ff 128, max_seq
   seeded broker chaos every flagged row is explained or accounted;
 * **end to end** — the serve CLI with ``--explain-slots``.
 
-Not ported, so not here (each waits for its ROADMAP Queue 1 item):
 ``test_campaign_explain_gameday_passes`` and
-``test_gameday_validation_rejects_bad_configs`` (``scenarios/gameday``, item
-5.4).
+``test_gameday_validation_rejects_bad_configs`` (``scenarios/gameday``) are
+mirrored in ``tests/test_torch_gameday_lanes.py``
+(``test_slot_lane_game_days_cover_every_flagged_row``, campaign_explain) and
+``tests/test_torch_scenarios.py`` (``test_gameday_refusals_equal_jax``).
 """
 
 import json

@@ -12,9 +12,10 @@ round trips, dedup and loss accounting, lamport-ordered replay, compaction,
 the term fence, crash failover after ``role_ttl``, graceful abdication,
 consecutive failovers, the zombie incumbent that demotes without
 publishing, and a real fleet whose coordinator crashes mid-drain with every
-key classified exactly once. The reference's model-checker, game-day and
-bench cases have no counterpart in the port yet (ROADMAP Queue 1 items 8
-and 5.4).
+key classified exactly once. The reference's game-day cases are mirrored
+in ``tests/test_torch_gameday_fleet.py`` (coordinator_kill, its clean arm,
+and the conformance audit of both journals); its model-checker and bench
+cases have no counterpart in the port yet (ROADMAP Queue 1 items 8 and 2).
 """
 
 import json

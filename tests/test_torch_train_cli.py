@@ -223,8 +223,15 @@ def test_loader_and_metrics_match_jax():
 
 
 def test_cli_offers_only_this_slice(tmp_path):
-    with pytest.raises(SystemExit, match=r"--mesh .*Queue 1 item 4"):
-        ptrain.main(["--device", "cpu", "--mesh"])
+    # --mesh runs (over the CPU's one device here: the plain layout) and
+    # reports its mesh; tests/test_torch_mesh.py holds the mesh fits
+    # against the JAX package's
+    report = tmp_path / "mesh.json"
+    assert ptrain.main(["--device", "cpu", "--mesh", "--n", "100",
+                        "--num-features", "64", "--models", "dt,lr",
+                        "--metrics-out", str(report)]) == 0
+    assert json.loads(report.read_text())["meta"]["mesh"] == {"data": 1,
+                                                            "feature": 1}
     with pytest.raises(SystemExit, match=r"--plots .*matplotlib.*Queue 1 item 4"):
         ptrain.main(["--device", "cpu", "--models", "dt",
                      "--plots", str(tmp_path)])

@@ -219,10 +219,36 @@ def test_gini_gain_rounds_as_the_reference():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_child_totals_sum_each_childs_own_bins():
+    """f32 child totals add each child's own bins: a small right child
+    beside a large left one keeps its own rounding (``parent - left`` would
+    carry the parent's, an error far above the child's statistics)."""
+    rng = np.random.default_rng(4)
+    t, width, f, nb, k = 1, 2, 3, 8, 3
+    hist = (rng.random((t, width, f, nb, k)) * 1e-2).astype(np.float32)
+    hist[..., 0, :] = rng.random((t, width, f, k)).astype(np.float32) * 1e3
+    best_f = np.array([[2, 1]], np.int32)
+    best_b = np.array([[0, 3]], np.int32)
+    do_split = np.ones((t, width), bool)
+    got = pt._child_totals(*(torch.from_numpy(a) for a in (
+        hist, best_f, best_b, do_split))).numpy()
+    for l in range(width):
+        h = hist[0, l, best_f[0, l]].astype(np.float64)
+        b = best_b[0, l]
+        for child, want in ((2 * l, h[: b + 1].sum(0)),
+                            (2 * l + 1, h[b + 1:].sum(0))):
+            np.testing.assert_allclose(got[0, child], want, rtol=1e-6)
+
+
 def test_level_helpers_match_jax():
     rng = np.random.default_rng(3)
     t, width, f, nb, k, n = 2, 4, 9, 8, 2, 50
-    hist = rng.integers(0, 5, (t, width, f, nb, k)).astype(np.float32)
+    # a histogram of rows: every feature's bins partition its node's rows
+    rows, hist = 40, np.zeros((t, width, f, nb, k), np.float32)
+    for ti in range(t):
+        np.add.at(hist[ti], (rng.integers(0, width, (rows, 1)),
+                             np.arange(f)[None, :], rng.integers(0, nb, (rows, f)),
+                             rng.integers(0, k, (rows, 1))), 1.0)
     totals = hist[:, :, 0].sum(axis=2)
     best_f = rng.integers(0, f, (t, width)).astype(np.int32)
     best_b = rng.integers(0, nb - 1, (t, width)).astype(np.int32)
@@ -230,7 +256,7 @@ def test_level_helpers_match_jax():
     want = np.asarray(jt._child_totals(*(jnp.asarray(a) for a in (
         hist, totals, best_f, best_b, do_split))))
     got = pt._child_totals(*(torch.from_numpy(a) for a in (
-        hist, totals, best_f, best_b, do_split)))
+        hist, best_f, best_b, do_split)))
     np.testing.assert_array_equal(got.numpy(), want)
 
     bins = rng.integers(0, nb, (n, f)).astype(np.int32)
