@@ -155,7 +155,8 @@ Phases (any failure raises and the script exits non-zero):
    ``predict`` labels; ``--publish lr=<root>`` then
    ``ModelRegistry(root).verify(1)`` and ``.load(1, device="cuda")``
    serves the dense ``predict`` labels, its manifest carrying the report's
-   metrics;
+   metrics; the same run saves lr natively too and exports lr, rf and xgb
+   with ``--save m=spark:<dir>`` (phase 7k serves them);
 7b. the serve CLI on that dt checkpoint, host featurize and
    ``--featurize-device``, with phase 5b's gates;
 7c. resume: the CLI's rf and xgb interrupted at 30 trees / rounds
@@ -224,6 +225,25 @@ Phases (any failure raises and the script exits non-zero):
 7j. with two or more cards, a 2-process NCCL rendezvous (global batch and
    data-axis sum across the processes); with one card, a line saying it
    was not run and why;
+7k. Spark artifacts (``checkpoint/spark_artifact.py``, ``spark_writer.py``
+   on the port's parquet codec, ``checkpoint/parquet.py``): phase 7's
+   Spark exports read back (read and write walls, host clock, and the
+   sizes on disk), each served by ``from_spark_artifact`` on the card with
+   the native checkpoint's labels and |dp| <= 1e-6 (xgb exported as GBT:
+   1e-5) on 2,048 texts; ``serve --model spark:<dir>`` with phase 5b's
+   gates for each, host featurize and ``--featurize-device`` (launches =
+   chunks), the Spark LR in turns with the native LR on host featurize;
+   the committed fixture ``tests/data/torch_spark_fixture`` (bytes pyarrow
+   wrote, in Spark's column types): the JAX package's recorded labels and
+   |dp| <= 1e-6, on host featurize and under device featurize (launches =
+   chunks); a HashingTF(262,144) + IDF + LR artifact written by the port:
+   card against CPU on host featurize (labels equal, |dp| <= 1e-6, two
+   uploads a chunk), ``serve`` on it, and ``--featurize-device`` refused
+   with the reference's message; the front end: ``build_agent`` over
+   ``FRAUD_MODEL_PATH=spark:<lr dir>`` with the canned backend on the card
+   and ``start_monitor`` over its 500 demo messages: every tapped label
+   equals ``pipeline.predict`` on its text, no ``featurize_packed``
+   launch, the monitor thread stopped;
 8. timings (CUDA events, median of >= 10 after warm-up) of each kernel, its
    plain version and its library call where one exists (both featurize
    entries in turns with their profiler device time, beside the first scan
@@ -342,7 +362,8 @@ training: phase 7, the CLI, and phase 7c, the resume; the learn lane's
 refresh: phase 7f's lifecycle run; ``featurize_packed`` again around each
 ``--kafka`` run, the virtual-mesh predict, its engine run and ``serve
 --mesh``, and the tree kernels around each virtual-mesh fit (phases
-7g-7i); the LLM prefill: one T=2048 forward in phase
+7g-7i); ``featurize_packed`` around each phase 7k serve run, fixture
+predict and the front end's monitor run; the LLM prefill: one T=2048 forward in phase
 10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
 flash kernel and, at int8, for ``w8_matmul``'s SIMT route; one int8 decode
 step and phase 12's int8 generation, for ``w8_matmul``) and read just after
@@ -1092,7 +1113,9 @@ def run_train_cli(argv) -> dict:
 
 def train_cli(dev, test_texts, out: Path) -> dict:
     """The training CLI on the card at its defaults (dt, rf 100 trees, xgb
-    100 rounds, lr), saving dt, rf and xgb and publishing lr to a registry.
+    100 rounds, lr), saving dt, rf, xgb and lr as native checkpoints, lr, rf
+    and xgb as Spark ``PipelineModel`` directories (``--save
+    m=spark:<dir>``, phase 7k serves them) and publishing lr to a registry.
     dt's and rf's metrics must equal the JAX package's recorded run
     (reports/metrics.json, same corpus, split, exact gini and, for rf, the
     same threefry draws); lr's accuracy and confusion must equal it on both
@@ -1111,8 +1134,12 @@ def train_cli(dev, test_texts, out: Path) -> dict:
 
     metrics, registry = out / "metrics.json", out / "registry"
     shutil.rmtree(registry, ignore_errors=True)
+    shutil.rmtree(out / "spark", ignore_errors=True)
     run_train_cli(["--device", str(dev), "--save", f"dt={out / 'dt'}",
                    "--save", f"rf={out / 'rf'}", "--save", f"xgb={out / 'xgb'}",
+                   "--save", f"lr={out / 'lr_cli'}",
+                   *(a for m in SPARK_MODELS
+                     for a in ("--save", f"{m}=spark:{out / 'spark' / m}")),
                    "--publish", f"lr={registry}", "--metrics-out", str(metrics)])
     report = json.loads(metrics.read_text())
     ref = json.loads((ROOT / "reports" / "metrics.json").read_text())
@@ -4979,6 +5006,235 @@ def multiprocess_phase(card: str) -> dict:
     return {"run": True, "cards": n, "lines": lines}
 
 
+SPARK_MODELS = ("lr", "rf", "xgb")   # phase 7k: the CLI's Spark exports
+SPARK_FIXTURE = ROOT / "tests" / "data" / "torch_spark_fixture"
+SPARK_WIDE = 262_144                 # Spark HashingTF's default numFeatures
+SPARK_TEXTS = 2048                   # phase 7k: texts of each in-process check
+SPARK_MONITOR = 500                  # the front end's demo feed (start_monitor)
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def featurize_shape(texts):
+    """(width, tokens) that hold every text whole under device featurize:
+    the byte width rounded up to 64, the token slots to 16."""
+    width = -(-max(len(t.encode()) for t in texts) // 64) * 64
+    tokens = -(-max(sum(c.isspace() for c in t) + 1 for t in texts) // 16) * 16
+    return width, tokens
+
+
+def spark_phase(dev, out: Path, card: str, seed: int) -> dict:
+    """Phase 7k: Spark artifacts on the card. Phase 7's CLI exported its lr,
+    rf100 and xgb100 fits as Spark ``PipelineModel`` directories beside
+    their native checkpoints. Each is read with the port's parquet codec
+    (read wall, host clock) and written again from the native checkpoint
+    (write wall); ``from_spark_artifact`` on the card gives the native
+    pipeline's labels on 2,048 texts with |dp| <= 1e-6 (xgb exported as
+    GBT: 1e-5, the reference's bound); ``serve --model spark:<dir>`` runs
+    with phase 5b's gates on host featurize and ``--featurize-device``
+    (launches = chunks; 0 on host), the Spark LR in turns with the native
+    LR on host featurize (native, spark, spark, native). Then the committed
+    fixture (bytes pyarrow wrote, in Spark's column types): the JAX
+    package's recorded labels and |dp| <= 1e-6 on host featurize and under
+    device featurize (launches = chunks). A HashingTF(262,144) + IDF + LR
+    artifact written by the port serves on host featurize, card against
+    CPU (labels equal, |dp| <= 1e-6), and through the serve CLI, whose
+    ``--featurize-device`` refuses it with the reference's message. Last,
+    the front end: ``build_agent`` over ``FRAUD_MODEL_PATH=spark:<lr dir>``
+    with the canned backend on the card and ``start_monitor`` over its 500
+    demo messages: every tapped frame's label equals ``pipeline.predict``
+    on its text, and the monitor thread stops."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.app.ui import (MonitorState, build_agent,
+                                                  start_monitor)
+    from fraud_detection_tpu_torch.checkpoint import (load_spark_pipeline,
+                                                      save_spark_pipeline)
+    from fraud_detection_tpu_torch.checkpoint.native import load_checkpoint
+    from fraud_detection_tpu_torch.data import generate_corpus
+    from fraud_detection_tpu_torch.featurize.device import (
+        DeviceFeaturizeUnavailable)
+    from fraud_detection_tpu_torch.featurize.tfidf import (
+        HashingTfIdfFeaturizer)
+    from fraud_detection_tpu_torch.models.linear import LogisticRegression
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+    from fraud_detection_tpu_torch.utils import AppConfig
+
+    t_phase = time.perf_counter()
+    texts = [d.text for d in generate_corpus(n=SPARK_TEXTS, seed=seed + 71)]
+    spark, res = out / "spark", {"artifacts": {}, "serve": {}}
+    native_dirs = {"lr": out / "lr_cli", "rf": out / "rf", "xgb": out / "xgb"}
+    for name in SPARK_MODELS:
+        t0 = time.perf_counter()
+        art = load_spark_pipeline(str(spark / name))
+        read_s = time.perf_counter() - t0
+        feat, model = load_checkpoint(str(native_dirs[name]), device="cpu")
+        t0 = time.perf_counter()
+        save_spark_pipeline(str(spark / f"{name}_rewritten"), feat, model)
+        write_s = time.perf_counter() - t0
+        ours = ServingPipeline.from_spark_artifact(art, batch_size=BATCH,
+                                                   device=dev).predict(texts)
+        native = ServingPipeline.from_checkpoint(
+            str(native_dirs[name]), device=dev, batch_size=BATCH).predict(texts)
+        tol = 1e-5 if name == "xgb" else 1e-6
+        dp = float(np.abs(ours.probabilities - native.probabilities).max())
+        if not np.array_equal(ours.labels, native.labels) or dp > tol:
+            raise AssertionError(f"spark {name}: labels differ from the native "
+                                 f"checkpoint's or |dp| {dp} > {tol}")
+        res["artifacts"][name] = dict(
+            bytes=dir_bytes(spark / name), read_s=read_s, write_s=write_s,
+            max_abs_dp=dp, positives=int(ours.labels.sum()),
+            kind=type(art.stages[-1]).__name__)
+        print(f"[spark] {name}: {res['artifacts'][name]['bytes']} bytes on "
+              f"disk, parquet read {read_s:.4f} s, write {write_s:.4f} s (host "
+              f"clock); served on {dev} == native checkpoint on "
+              f"{len(texts)} texts (labels equal, max |dp| {dp:.3g} <= {tol})")
+    # the Spark LR in turns with the native LR, host featurize
+    turns = []
+    for which in ("native", "spark", "spark", "native"):
+        spec = (str(native_dirs["lr"]) if which == "native"
+                else f"spark:{spark / 'lr'}")
+        r = check_serve_runs(spec, SERVE_DEMO, dev, card, {which: []})
+        turns.append((which, r[which]["msgs_per_sec"]))
+    res["lr_turns"] = turns
+    res["serve"].update(check_serve_runs(
+        f"spark:{spark / 'lr'}", SERVE_DEMO, dev, card,
+        {"spark_lr_featurize_device": ["--featurize-device"]}))
+    for name in ("rf", "xgb"):
+        res["serve"].update(check_serve_runs(
+            f"spark:{spark / name}", SERVE_DEMO, dev, card,
+            {f"spark_{name}_host": [],
+             f"spark_{name}_featurize_device": ["--featurize-device"]}))
+    print(f"[spark] serve --model spark: msgs/s, LR in turns with the native "
+          f"LR (host featurize): {turns}; " + ", ".join(
+              f"{k} {v['msgs_per_sec']} ({v['featurize_packed_launches']} "
+              f"launches / {v['chunks']} chunks)"
+              for k, v in res["serve"].items()) + f" ({card})")
+
+    # the committed fixture: bytes pyarrow wrote
+    exp = json.loads((SPARK_FIXTURE / "expected.json").read_text())
+    ftexts = [d.text for d in generate_corpus(**exp["corpus"])]
+    t0 = time.perf_counter()
+    art = load_spark_pipeline(str(SPARK_FIXTURE))
+    fixture_read_s = time.perf_counter() - t0
+    width, tokens = featurize_shape(ftexts)
+    fixture = {"read_s": fixture_read_s, "bytes": dir_bytes(SPARK_FIXTURE)}
+    for mode, kw in (("host", {}), ("featurize_device", dict(
+            featurize_device=True, featurize_width=width,
+            featurize_tokens=tokens))):
+        pipe = ServingPipeline.from_spark_artifact(art, batch_size=BATCH,
+                                                   device=dev, **kw)
+        fk.featurize_bytes.launches = 0
+        got = pipe.predict(ftexts)
+        launches = fk.featurize_bytes.launches
+        dp = float(np.abs(got.probabilities
+                          - np.asarray(exp["probabilities"])).max())
+        if not np.array_equal(got.labels, exp["labels"]) or dp > 1e-6:
+            raise AssertionError(f"fixture {mode}: labels differ from the "
+                                 f"recorded JAX labels or |dp| {dp} > 1e-6")
+        want = pipe.device_stats.chunks if kw else 0
+        if launches != want or (kw and (launches < 1 or
+                                        pipe.device_stats.truncated_rows)):
+            raise AssertionError(f"fixture {mode}: featurize_packed launched "
+                                 f"{launches}x over {pipe.device_stats.chunks}"
+                                 " chunks")
+        fixture[mode] = dict(max_abs_dp=dp, launches=launches,
+                             chunks=pipe.device_stats.chunks)
+    print(f"[spark] fixture ({fixture['bytes']} bytes, read "
+          f"{fixture_read_s:.4f} s): {len(ftexts)} labels equal the recorded "
+          f"JAX labels; host featurize max |dp| "
+          f"{fixture['host']['max_abs_dp']:.3g}, device featurize (W={width}, "
+          f"L={tokens}) {fixture['featurize_device']['max_abs_dp']:.3g} with "
+          f"featurize_packed launches {fixture['featurize_device']['launches']}"
+          f" = chunks {fixture['featurize_device']['chunks']}")
+    res["fixture"] = fixture
+
+    # a wide HashingTF space, written by the port
+    rng = np.random.default_rng(seed + 72)
+    wfeat = HashingTfIdfFeaturizer(num_features=SPARK_WIDE)
+    wfeat.fit_idf(texts)
+    wmodel = LogisticRegression.from_arrays(
+        rng.normal(0.0, 0.25, SPARK_WIDE), -1.0, device="cpu")
+    wdir = spark / "wide"
+    t0 = time.perf_counter()
+    save_spark_pipeline(str(wdir), wfeat, wmodel)
+    wide_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wart = load_spark_pipeline(str(wdir))
+    wide_read_s = time.perf_counter() - t0
+    on_card = ServingPipeline.from_spark_artifact(wart, batch_size=BATCH,
+                                                  device=dev)
+    a = on_card.predict(texts)
+    b = ServingPipeline.from_spark_artifact(wart, batch_size=BATCH,
+                                            device="cpu").predict(texts)
+    dp = float(np.abs(a.probabilities - b.probabilities).max())
+    if not np.array_equal(a.labels, b.labels) or dp > 1e-6:
+        raise AssertionError(f"wide: card and CPU labels differ or |dp| {dp}")
+    if on_card.device_stats.snapshot()["uploads_per_chunk"] != 2.0:
+        raise AssertionError(f"wide: {on_card.device_stats.snapshot()}")
+    res["serve"].update(check_serve_runs(f"spark:{wdir}", SERVE_DEMO, dev,
+                                         card, {"spark_wide_host": []}))
+    try:
+        serve_cli(["--device", str(dev), "--model", f"spark:{wdir}", "--demo",
+                   "8", "--featurize-device"], card)
+    except DeviceFeaturizeUnavailable as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("--featurize-device served a 262,144-feature space")
+    if "exceeds the int16 packed staging layout" not in refusal:
+        raise AssertionError(f"wide --featurize-device: {refusal}")
+    res["wide"] = dict(bytes=dir_bytes(wdir), read_s=wide_read_s,
+                       write_s=wide_write_s, max_abs_dp=dp,
+                       positives=int(a.labels.sum()), refusal=refusal)
+    print(f"[spark] HashingTF({SPARK_WIDE}) + IDF + LR: "
+          f"{res['wide']['bytes']} bytes, write {wide_write_s:.4f} s, read "
+          f"{wide_read_s:.4f} s; {len(texts)} labels equal card/CPU (two "
+          f"uploads a chunk), max |dp| {dp:.3g}; serve --featurize-device "
+          f"refuses: {refusal}")
+
+    # the front end over the Spark LR
+    cfg = AppConfig.from_env({"FRAUD_MODEL_PATH": f"spark:{spark / 'lr'}",
+                              "FRAUD_BATCH_SIZE": str(BATCH),
+                              "FRAUD_MAX_WAIT": "0.01"})
+    agent = build_agent(cfg, "Offline (no LLM)", "", 0.0, device=dev)
+    state = MonitorState(maxlen=SPARK_MONITOR)
+    fk.featurize_bytes.launches = 0
+    t0 = time.perf_counter()
+    start_monitor(state, agent, cfg, demo=True)
+    deadline = time.time() + 120
+    while (time.time() < deadline
+           and state.engine.stats.processed < SPARK_MONITOR):
+        time.sleep(0.05)
+    state.engine.stop()
+    state.thread.join(timeout=30)
+    monitor_s = time.perf_counter() - t0
+    frames = state.snapshot(SPARK_MONITOR)
+    if state.thread.is_alive() or len(frames) != SPARK_MONITOR:
+        raise AssertionError(f"monitor: {len(frames)} frames, thread alive "
+                             f"{state.thread.is_alive()}")
+    want = agent.pipeline.predict([f["original_text"] for f in frames]).labels
+    if [f["prediction"] for f in frames] != want.tolist():
+        raise AssertionError("monitor frames' labels != pipeline.predict")
+    if (agent.pipeline.device.type != torch.device(dev).type
+            or fk.featurize_bytes.launches):
+        raise AssertionError(f"front end on {agent.pipeline.device}, "
+                             f"{fk.featurize_bytes.launches} featurize "
+                             "launches on host featurize")
+    res["front_end"] = dict(frames=len(frames), wall_s=monitor_s,
+                            featurize_packed_launches=fk.featurize_bytes.launches)
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[spark] front end: build_agent(FRAUD_MODEL_PATH=spark:<lr>, "
+          f"canned) on {agent.pipeline.device}, start_monitor over "
+          f"{len(frames)} demo messages in {monitor_s:.2f} s: every label "
+          "equals pipeline.predict, monitor thread stopped")
+    print(f"[spark] phase 7k wall {res['phase_wall_s']:.1f} s ({card})")
+    return res
+
+
 def llm_phases(dev, seed: int, card: str, work: Path) -> dict:
     """Phases 10-13f: the Gemma-2B-architecture model loaded from a
     synthetic HF checkpoint at bf16 and at int8 (``load_gemma``), prefill,
@@ -5374,6 +5630,10 @@ def main(argv=None) -> int:
     multiprocess = multiprocess_phase(card)
     phase16_wall = time.perf_counter() - t16
     print(f"[mesh] phases 7g-7j wall {phase16_wall:.1f} s ({card})")
+    # -- 7k. Spark artifacts in and out, the wide space, the front end -------
+    # (featurize_packed counts reset and read around each serve CLI run and
+    # each fixture predict, inside spark_phase)
+    spark_out = spark_phase(dev, ckpt_dir, card, args.seed)
 
     # -- 8. times -------------------------------------------------------------
     def packed_call():
@@ -5769,6 +6029,12 @@ def main(argv=None) -> int:
                           "virtual_engine": mesh_out["engine_launches"],
                           "virtual_engine_chunks": mesh_out["engine_chunks"],
                           "shards": MESH_SHARDS},
+        "spark_launches": {
+            **{k: v["featurize_packed_launches"]
+               for k, v in spark_out["serve"].items()},
+            "fixture_featurize_device":
+                spark_out["fixture"]["featurize_device"]["launches"],
+            "front_end": spark_out["front_end"]["featurize_packed_launches"]},
         "card": card,
     }, {
         "name": "featurize_scan",
@@ -5802,6 +6068,9 @@ def main(argv=None) -> int:
         "bound_by": main_h["bound_by"],
         "library_ms": main_h["library_ms"],
         "shape": main_h["shape"],
+        "main_path": "phase 7: the training CLI's dt, rf100 and xgb100 "
+                     "fits (rf and xgb also exported with --save "
+                     "m=spark:<dir>, served in phase 7k)",
         "bins": "uint8",
         "int32_bins": main_h["int32"],
         "other_shapes": {k: v for k, v in tree_times.items()
@@ -5827,6 +6096,9 @@ def main(argv=None) -> int:
         "bound_by": main_g["bound_by"],
         "library_ms": None,
         "shape": main_g["shape"],
+        "main_path": "phase 7: the training CLI's dt, rf100 and xgb100 "
+                     "fits (rf and xgb also exported with --save "
+                     "m=spark:<dir>, served in phase 7k)",
         "other_shapes": {k: v for k, v in gain_times.items()
                          if k != "cli_xgb"},
         "cli_level_widths": width_times,
@@ -5940,7 +6212,7 @@ def main(argv=None) -> int:
         "fleet": fleet_out, "gameday": gameday_out,
         "kafka": kafka_out, "mesh_serving": mesh_out,
         "mesh_training": mesh_train, "multiprocess": multiprocess,
-        "phase_7g_7j_wall_s": phase16_wall,
+        "phase_7g_7j_wall_s": phase16_wall, "spark": spark_out,
         "tree_kernels_ms_per_cli_fit": per_fit,
         "llm": llm_out}))
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,10 @@ unless ``--device cpu``).
         --demo 8192 --fleet 3 --partitions 4
 
 ``--model`` is a native checkpoint directory (``checkpoint/native.py``,
-written by either package), or ``synthetic``: a logistic regression
-trained at startup on the synthetic corpus. ``--registry`` serves a version
+written by either package), ``spark:<dir>``, a Spark ``PipelineModel``
+save directory (``checkpoint/spark_artifact.py``, read with the port's own
+parquet codec), or ``synthetic``: a logistic regression trained at startup
+on the synthetic corpus. ``--registry`` serves a version
 of a model registry instead (``registry/``): ``--watch`` hot-swaps newer
 versions in, ``--shadow`` stages them beside the active model for shadow
 scoring, ``--promote-policy`` promotes or rejects them, and ``--learn``
@@ -50,8 +52,7 @@ and produces to Kafka through ``stream/kafka.py`` (confluent_kafka, the
 ``KAFKA_*`` variables) instead of the in-process demo broker. By default the host featurizes
 with the native C++ featurizer and the engine takes the raw-JSON path with
 C++ frame assembly; ``--featurize-device`` ships raw bytes to the CUDA featurize
-kernel instead. ``--model spark:<dir>`` exits naming the ROADMAP queue item
-that holds it.
+kernel instead.
 """
 
 from __future__ import annotations
@@ -63,7 +64,6 @@ import sys
 import threading
 import time
 
-from fraud_detection_tpu_torch.app import unported
 
 
 def start_health_writer(path, interval, current_engines, fault_plan=None):
@@ -107,15 +107,20 @@ def start_health_writer(path, interval, current_engines, fault_plan=None):
 def build_pipeline(spec: str, batch_size: int, int8: bool = False,
                    featurize_device: bool = False, featurize_width=None,
                    device="cuda"):
-    """A serving pipeline over the checkpoint directory ``spec``, or over a
-    logistic regression trained at startup on the synthetic corpus
-    (``synthetic``)."""
+    """A serving pipeline over the checkpoint directory ``spec``, the Spark
+    ``PipelineModel`` directory of ``spark:<dir>``, or a logistic regression
+    trained at startup on the synthetic corpus (``synthetic``)."""
     from fraud_detection_tpu_torch.models.pipeline import (
         ServingPipeline, synthetic_demo_pipeline)
 
     if spec.startswith("spark:"):
-        raise unported("--model spark:<dir> (reading a Spark artifact needs "
-                       "pyarrow, absent on the GPU machine)", 6)
+        from fraud_detection_tpu_torch.checkpoint.spark_artifact import (
+            load_spark_pipeline)
+
+        return ServingPipeline.from_spark_artifact(
+            load_spark_pipeline(spec[len("spark:"):]), batch_size=batch_size,
+            device=device, int8=int8, featurize_device=featurize_device,
+            featurize_width=featurize_width)
     if spec == "synthetic":
         demo = synthetic_demo_pipeline(batch_size, device=device)
         return ServingPipeline(demo.featurizer, demo.model,
@@ -272,8 +277,9 @@ def _explain_lane(args):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default=None,
-                    help="native checkpoint dir (checkpoint/native.py), or "
-                         "'synthetic' (train a demo LR at startup)")
+                    help="native checkpoint dir (checkpoint/native.py) | "
+                         "spark:<artifact dir> | synthetic (train a demo LR "
+                         "at startup)")
     ap.add_argument("--registry", default=None, metavar="DIR",
                     help="serve from a model registry "
                          "(registry/registry.py layout) instead of a fixed "

@@ -7,23 +7,25 @@ tree, random forest, gradient boosting, logistic regression) on
 ``--device`` (the card unless ``--device cpu``), evaluate each on
 validation and test (accuracy / weighted P / R / F1 / AUC / confusion),
 print the report, and save a model as a native checkpoint that
-``ServingPipeline.from_checkpoint`` serves, or publish it to a model
-registry:
+``ServingPipeline.from_checkpoint`` serves (``--save model=spark:<dir>``:
+the Spark ``PipelineModel`` layout, ``checkpoint/spark_writer.py``), or
+publish it to a model registry:
 
     python -m fraud_detection_tpu_torch.app.train --data synthetic --n 1600 \\
         --models dt,rf,xgb,lr --save dt=fraud_model_dt --num-features 10000
 
 ``--mesh`` trains every model data-parallel over all local devices
 (``parallel/mesh.py``: rows sharded, per-shard histograms and gradients
-summed over the data axis). The reference flags the port does not offer
-yet (``--plots``, ``--save model=spark:dir``) exit naming the ROADMAP queue
-item that holds them.
+summed over the data axis). ``--plots DIR`` writes the metric-comparison,
+confusion-matrix and word-association figures (``eval/report.py``); it
+needs matplotlib.
 """
 
 from __future__ import annotations
 
 import argparse
 import csv as csv_mod
+import importlib.util
 import json
 import math
 import os
@@ -32,8 +34,6 @@ import time
 from typing import Dict, List, Tuple
 
 import numpy as np
-
-from fraud_detection_tpu_torch.app import unported
 
 MODELS = ("dt", "rf", "xgb", "lr")
 
@@ -107,7 +107,9 @@ def main(argv=None) -> int:
                          "8 at depth 5; part of a forest's draws, so pass the "
                          "original value when resuming)")
     ap.add_argument("--save", action="append", default=[],
-                    help="model=dir pairs, e.g. dt=./fraud_model_dt (repeatable)")
+                    help="model=dir pairs, e.g. dt=./fraud_model_dt (repeatable); "
+                         "model=spark:<dir> exports the Spark PipelineModel "
+                         "layout instead of the native format")
     ap.add_argument("--publish", action="append", default=[],
                     help="model=registry-root pairs (repeatable): publish "
                          "the trained model as the next version of a model "
@@ -120,7 +122,8 @@ def main(argv=None) -> int:
                     help="write the full metric report (all models x splits "
                          "+ run metadata) as JSON to FILE")
     ap.add_argument("--plots", metavar="DIR", default=None,
-                    help="not ported yet (ROADMAP Queue 1 item 4)")
+                    help="write metric-comparison + confusion-matrix PNGs "
+                         "here (needs matplotlib)")
     ap.add_argument("--associations", type=int, metavar="N", default=0,
                     help="word-association analysis over the top N features "
                          "per model (side-vocabulary inversion of hashed "
@@ -136,9 +139,10 @@ def main(argv=None) -> int:
                     help="torch device to train and score on (default cuda)")
     args = ap.parse_args(argv)
 
-    if args.plots:
-        raise unported("--plots (eval/report.py draws with matplotlib, "
-                       "which the GPU machine lacks)", 4)
+    if args.plots and importlib.util.find_spec("matplotlib") is None:
+        # checked before any training time is spent
+        raise SystemExit("--plots needs matplotlib, which is not installed "
+                         "(eval/report.py draws with it)")
     chosen = [m.strip() for m in args.models.split(",") if m.strip()]
     for name in chosen:
         if name not in MODELS:
@@ -147,13 +151,12 @@ def main(argv=None) -> int:
     save_pairs = []
     for pair in args.save:  # validate before any training time is spent
         name, _, out_dir = pair.partition("=")
-        if out_dir.startswith("spark:"):
-            raise unported("--save model=spark:<dir> (the Spark "
-                           "PipelineModel writer)", 6)
-        if not out_dir or name not in chosen:
+        target = (out_dir[len("spark:"):] if out_dir.startswith("spark:")
+                  else out_dir)
+        if not target or name not in chosen:
             raise SystemExit(
-                f"--save expects model=dir with the model in --models "
-                f"(got {pair!r}, models: {chosen})")
+                f"--save expects model=dir or model=spark:dir with the model "
+                f"in --models (got {pair!r}, models: {chosen})")
         save_pairs.append((name, out_dir))
     publish_pairs = []
     for pair in args.publish:
@@ -302,6 +305,17 @@ def main(argv=None) -> int:
             raise SystemExit(f"could not write {args.metrics_out}")
         print(f"metrics report -> {args.metrics_out}")
 
+    if args.plots:
+        from fraud_detection_tpu_torch.eval.report import (
+            plot_confusion_matrices, plot_metrics_comparison)
+
+        os.makedirs(args.plots, exist_ok=True)
+        p = plot_metrics_comparison(
+            all_reports, os.path.join(args.plots, "metrics_comparison.png"))
+        cms = plot_confusion_matrices(
+            all_reports, os.path.join(args.plots, "confusion_matrices"))
+        print(f"plots: {p} + {len(cms)} confusion-matrix figures")
+
     if args.associations:
         from fraud_detection_tpu_torch.eval.word_associations import (
             SideVocabulary, analyze_word_associations,
@@ -320,10 +334,26 @@ def main(argv=None) -> int:
                 print(f"  {a.word:<20} importance={a.importance:.4f} "
                       f"scam_ratio={a.scam_ratio:.3f} "
                       f"({a.scam_docs} scam / {a.non_scam_docs} non-scam)")
+            if args.plots:
+                from fraud_detection_tpu_torch.eval.report import (
+                    plot_word_associations)
+
+                plot_word_associations(
+                    assocs, os.path.join(args.plots,
+                                         f"word_associations_{name}.png"),
+                    model_name=name)
 
     for name, out_dir in save_pairs:
-        save_checkpoint(out_dir, feat, trained[name])
-        print(f"saved {name} -> {out_dir}")
+        if out_dir.startswith("spark:"):
+            from fraud_detection_tpu_torch.checkpoint.spark_writer import (
+                save_spark_pipeline)
+
+            save_spark_pipeline(out_dir[len("spark:"):], feat, trained[name])
+            print(f"saved {name} -> {out_dir[len('spark:'):]} (Spark "
+                  "PipelineModel layout)")
+        else:
+            save_checkpoint(out_dir, feat, trained[name])
+            print(f"saved {name} -> {out_dir}")
 
     for name, root in publish_pairs:
         from fraud_detection_tpu_torch.registry import ModelRegistry

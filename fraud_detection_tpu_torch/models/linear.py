@@ -71,12 +71,25 @@ def unpack_rows(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return ids, counts
 
 
-def prob_packed(model: LogisticRegression, packed: torch.Tensor) -> torch.Tensor:
-    """Packed staging buffer -> (B,) p(class=1); idf folded into the
-    weights. Padding slots carry count 0 and contribute nothing."""
-    ids, counts = unpack_rows(packed)
+def unpack_wide_rows(ids: torch.Tensor,
+                     counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-array layout of feature spaces past int16 (int32 ids, uint16
+    counts carried as int16 bits) -> (ids int64, counts float32)."""
+    return (ids.to(torch.int64),
+            (counts.to(torch.int32) & 0xFFFF).to(torch.float32))
+
+
+def prob_rows(model: LogisticRegression, ids: torch.Tensor,
+              counts: torch.Tensor) -> torch.Tensor:
+    """(B, L) int64 ids and float32 counts -> (B,) p(class=1); idf folded
+    into the weights. Padding slots carry count 0 and contribute nothing."""
     m = torch.sum(model.weights[ids] * counts, dim=-1) + model.intercept
     return torch.sigmoid(m)
+
+
+def prob_packed(model: LogisticRegression, packed: torch.Tensor) -> torch.Tensor:
+    """Packed staging buffer -> (B,) p(class=1)."""
+    return prob_rows(model, *unpack_rows(packed))
 
 
 # ---------------------------------------------------------------------------
@@ -103,10 +116,11 @@ def quantize_weights(model: LogisticRegression,
     return w_q, scales
 
 
-def prob_packed_q8(w_q: torch.Tensor, scales: torch.Tensor,
-                   intercept: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """int8 packed-buffer scoring (see ``quantize_weights``)."""
-    ids, counts = unpack_rows(packed)
+def prob_rows_q8(w_q: torch.Tensor, scales: torch.Tensor,
+                 intercept: torch.Tensor, ids: torch.Tensor,
+                 counts: torch.Tensor) -> torch.Tensor:
+    """int8 scoring (see ``quantize_weights``) of (B, L) int64 ids and
+    float32 counts."""
     block = w_q.shape[0] // scales.shape[0]
     per_term = (w_q[ids].to(torch.float32) * scales[ids // block] * counts)
     return torch.sigmoid(torch.sum(per_term, dim=-1) + intercept)

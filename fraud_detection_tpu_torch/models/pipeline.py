@@ -6,8 +6,10 @@ Two featurize legs feed the same scoring entries:
 * host (``featurize_device=False``, the default): the native C++ encoder
   (thread-pool sharded for large chunks; the pure-Python rows without the
   library) hashes a micro-batch into packed (B, 2, L) int16 ids/counts, one
-  host->device copy. ``predict_json_async`` starts from raw JSON message
-  bytes instead of texts (no ``json.loads``);
+  host->device copy; a feature space past int16 (num_features > 32767,
+  Spark's HashingTF default is 262,144) keeps two arrays instead, int32 ids
+  and uint16 counts, two copies. ``predict_json_async`` starts from raw
+  JSON message bytes instead of texts (no ``json.loads``);
 * device (``featurize_device=True``): the host packs raw UTF-8 bytes (a
   memcpy) into ONE (B, W+4) uint8 staging tensor per chunk and the device
   runs tokenize/hash (the CUDA scan kernel) + count/pack + scoring.
@@ -55,12 +57,16 @@ class PredictionBatch:
         return iter(zip(self.labels.tolist(), self.probabilities.tolist()))
 
 
-def _pack_encoded(enc) -> np.ndarray:
+def _pack_encoded(enc) -> Optional[np.ndarray]:
     """Stack an EncodedBatch into ONE (B, 2, L) int16 staging array (ids in
     plane 0, uint16 counts bit-cast into plane 1), so a micro-batch crosses
-    host->device as a single copy."""
-    ids = np.asarray(enc.ids, np.int16)
-    counts = np.asarray(enc.counts, np.uint16)
+    host->device as a single copy. None when the featurizer widened ids
+    past int16 (num_features > 32767): that configuration keeps the
+    two-array upload."""
+    ids = np.asarray(enc.ids)
+    counts = np.asarray(enc.counts)
+    if ids.dtype != np.int16 or counts.dtype != np.uint16:
+        return None
     return np.stack([ids, counts.view(np.int16)], axis=1)
 
 
@@ -257,11 +263,6 @@ class ServingPipeline:
                  featurize_width: Optional[int] = None,
                  featurize_tokens: Optional[int] = None,
                  device="cuda", mesh=None):
-        if featurizer.num_features > np.iinfo(np.int16).max:
-            raise ValueError(
-                f"num_features={featurizer.num_features}: the packed (B, 2, L) "
-                "int16 staging layout holds bucket ids below 32768 (wider "
-                "feature spaces are not ported yet)")
         if mesh is not None and mesh.process_count > 1:
             raise ValueError(
                 "a serving mesh spans this process's devices only: run one "
@@ -333,6 +334,65 @@ class ServingPipeline:
 
         featurizer, model = load_checkpoint(path, device=device)
         return cls(featurizer, model, device=device, **kwargs)
+
+    @classmethod
+    def from_spark_artifact(cls, artifact, batch_size: int = 256, mesh=None,
+                            device="cuda", **kwargs) -> "ServingPipeline":
+        """Serve a Spark ``PipelineModel`` (``checkpoint/spark_artifact.py``):
+        the hashing HashingTF + LogisticRegression shape and the training
+        script's CountVectorizer + tree shapes. ``kwargs`` (``int8``,
+        ``featurize_device``, ...) go to the constructor."""
+        from fraud_detection_tpu_torch.checkpoint.spark_artifact import (
+            RegexTokenizerStage)
+        from fraud_detection_tpu_torch.featurize.text import StopWordFilter
+        from fraud_detection_tpu_torch.featurize.tfidf import (
+            VocabTfIdfFeaturizer)
+
+        for s in artifact.stages:
+            if isinstance(s, RegexTokenizerStage):
+                raise NotImplementedError(
+                    "artifact uses RegexTokenizer; only plain Tokenizer "
+                    f"semantics are implemented (pattern={s.pattern!r}, "
+                    f"gaps={s.gaps})")
+        dev = mesh.home if mesh is not None else resolve_device(device)
+        htf = artifact.hashing_tf
+        cv = artifact.count_vectorizer
+        idf_stage = artifact.idf
+        lr = artifact.logistic_regression
+        tree = artifact.tree_ensemble
+        sw = artifact.stopwords
+        stop = (StopWordFilter(sw.stopwords, sw.case_sensitive) if sw
+                else StopWordFilter())
+        idf = None if idf_stage is None else idf_stage.idf.astype(np.float32)
+        if htf is not None:
+            featurizer: HashingTfIdfFeaturizer = HashingTfIdfFeaturizer(
+                num_features=htf.num_features, idf=idf, binary_tf=htf.binary,
+                stop_filter=stop, remove_stopwords=sw is not None)
+        elif cv is not None:
+            featurizer = VocabTfIdfFeaturizer(
+                vocabulary=cv.vocabulary, min_tf=cv.min_tf, idf=idf,
+                binary_tf=cv.binary, stop_filter=stop,
+                remove_stopwords=sw is not None)
+        else:
+            raise ValueError(
+                "artifact has no HashingTF or CountVectorizerModel stage "
+                f"(got {[type(s).__name__ for s in artifact.stages]})")
+        if idf_stage is not None:
+            featurizer.doc_freq = idf_stage.doc_freq
+            featurizer.num_docs = idf_stage.num_docs
+        if lr is not None:
+            model: "LogisticRegression | TreeEnsemble" = (
+                LogisticRegression.from_arrays(lr.coefficients, lr.intercept,
+                                               threshold=lr.threshold,
+                                               device=dev))
+        elif tree is not None:
+            model = trees_mod.from_spark_stage(tree, device=dev)
+        else:
+            raise ValueError(
+                "artifact has no LogisticRegression or tree classifier stage "
+                f"(got {[type(s).__name__ for s in artifact.stages]})")
+        return cls(featurizer, model, fold_idf=True, batch_size=batch_size,
+                   mesh=mesh, device=dev, **kwargs)
 
     def _pad_rows(self, n: int) -> int:
         """Row-padding target for an n-row chunk: the smallest ladder rung
@@ -429,27 +489,29 @@ class ServingPipeline:
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device, non_blocking=True)
 
-    def _score(self, packed: torch.Tensor, tree_binary: bool,
+    def _score(self, rows: Tuple[torch.Tensor, torch.Tensor],
+               tree_binary: bool,
                replica: Optional[_Replica] = None) -> _HostCopy:
-        """Score a packed (B, 2, L) device buffer and start the copy back;
-        ``replica`` is the mesh device's copy of the model that ``packed``
-        lives beside (None: the pipeline's own)."""
+        """Score device rows (ids int64, counts float32; unpacked from the
+        packed buffer or the two-array layout) and start the copy back;
+        ``replica`` is the mesh device's copy of the model that the rows
+        live beside (None: the pipeline's own)."""
         if replica is None:
             model, fused, tree_idf, q8 = (self.model, self._fused_model,
                                           self._tree_idf, self._q8)
         else:
             model, fused, tree_idf, q8 = (replica.model, replica.fused,
                                           replica.tree_idf, replica.q8)
+        ids, counts = rows
         if fused is None:
-            ids, counts = linear_mod.unpack_rows(packed)
             proba = trees_mod.predict_proba_encoded(model, ids, counts,
                                                     tree_idf)
             p = proba[:, 1] if tree_binary else proba
         elif q8 is not None:
-            p = linear_mod.prob_packed_q8(q8[0], q8[1], fused.intercept,
-                                          packed)
+            p = linear_mod.prob_rows_q8(q8[0], q8[1], fused.intercept, ids,
+                                        counts)
         else:
-            p = linear_mod.prob_packed(fused, packed)
+            p = linear_mod.prob_rows(fused, ids, counts)
         return _HostCopy(p)
 
     def _shards(self, staged: np.ndarray) -> List[np.ndarray]:
@@ -464,19 +526,31 @@ class ServingPipeline:
 
     def _dispatch_encoded(self, enc: EncodedBatch, tree_binary: bool):
         """Host-encoded chunk: ONE packed host->device copy (one a shard
-        under a mesh)."""
+        under a mesh), or, past int16 ids, two: the int32 ids and the
+        uint16 counts (as int16 bits)."""
         packed = _pack_encoded(enc)
+        if packed is None:
+            arrays = (np.asarray(enc.ids, np.int32),
+                      np.asarray(enc.counts, np.uint16).view(np.int16))
+            unpack = linear_mod.unpack_wide_rows
+        else:
+            arrays = (packed,)
+            unpack = linear_mod.unpack_rows
+        nbytes = sum(a.nbytes for a in arrays)
+        rows = arrays[0].shape[0]
         if self._replicas is None:
-            self.device_stats.record_chunk(packed.nbytes, transfers=1,
-                                           rows=packed.shape[0])
-            return self._score(self._upload(packed), tree_binary)
-        self.device_stats.record_chunk(packed.nbytes,
-                                       transfers=len(self._replicas),
-                                       rows=packed.shape[0])
+            self.device_stats.record_chunk(nbytes, transfers=len(arrays),
+                                           rows=rows)
+            return self._score(unpack(*(self._upload(a) for a in arrays)),
+                               tree_binary)
+        self.device_stats.record_chunk(
+            nbytes, transfers=len(arrays) * len(self._replicas), rows=rows)
         parts = []
-        for shard, r in zip(self._shards(packed), self._replicas):
-            dev_shard = torch.from_numpy(shard).to(r.device, non_blocking=True)
-            parts.append(self._score(dev_shard, tree_binary, r))
+        shards = [self._shards(a) for a in arrays]
+        for i, r in enumerate(self._replicas):
+            dev_arrays = [torch.from_numpy(s[i]).to(r.device, non_blocking=True)
+                          for s in shards]
+            parts.append(self._score(unpack(*dev_arrays), tree_binary, r))
         return _ShardCopies(parts)
 
     def _dispatch_bytes(self, texts: Sequence[str], rows: int,
@@ -495,14 +569,15 @@ class ServingPipeline:
             ds.record_chunk(staged.nbytes, transfers=1, rows=rows)
             packed, _ = featurize_bytes(self._upload(staged), dev.stop_table(),
                                         spec=dev.spec)
-            return self._score(packed, tree_binary)
+            return self._score(linear_mod.unpack_rows(packed), tree_binary)
         ds.record_chunk(staged.nbytes, transfers=len(self._replicas),
                         rows=rows)
         parts = []
         for shard, r in zip(self._shards(staged), self._replicas):
             dev_shard = torch.from_numpy(shard).to(r.device, non_blocking=True)
             packed, _ = featurize_bytes(dev_shard, r.stop, spec=dev.spec)
-            parts.append(self._score(packed, tree_binary, r))
+            parts.append(self._score(linear_mod.unpack_rows(packed),
+                                     tree_binary, r))
         return _ShardCopies(parts)
 
     def _pending(self, parts) -> PendingPrediction:

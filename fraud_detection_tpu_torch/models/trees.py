@@ -1,6 +1,6 @@
 """Tree ensembles as flat tensors with vectorized traversal — twin of
-``fraud_detection_tpu/models/trees.py`` (dense rows and the encoded
-serving path).
+``fraud_detection_tpu/models/trees.py`` (dense rows, the encoded serving
+path, and the decoding of Spark tree stages).
 
 Every ensemble is a struct of arrays
 
@@ -22,9 +22,16 @@ weighted leaf scores.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Tuple
+from typing import TYPE_CHECKING, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from fraud_detection_tpu_torch.utils.device import resolve_device
+
+if TYPE_CHECKING:
+    from fraud_detection_tpu_torch.checkpoint.spark_artifact import (
+        TreeEnsembleStage, TreeNode)
 
 
 @dataclass
@@ -44,12 +51,82 @@ class TreeEnsemble:
     def num_trees(self) -> int:
         return self.feature.shape[0]
 
+    @property
+    def num_outputs(self) -> int:
+        return self.leaf.shape[-1]
+
     def to(self, device) -> "TreeEnsemble":
         return replace(self, feature=self.feature.to(device),
                        threshold=self.threshold.to(device),
                        left=self.left.to(device), right=self.right.to(device),
                        leaf=self.leaf.to(device),
                        tree_weights=self.tree_weights.to(device))
+
+
+def from_spark_stage(stage: "TreeEnsembleStage",
+                     max_depth: Optional[int] = None,
+                     device="cuda") -> TreeEnsemble:
+    """Decode a loaded Spark tree stage into the flat-array ensemble on
+    ``device``.
+
+    Spark stores nodes in preorder with explicit child ids; leaf payload for
+    classifiers is the impurityStats class-count vector (normalized at
+    predict time), for GBT regression trees the scalar prediction.
+    """
+    dev = resolve_device(device)
+    trees = stage.trees
+    m = max(len(t) for t in trees)
+    num_classes = max(stage.num_classes, 2)
+    is_gbt = stage.kind == "gbt"
+    c = 1 if is_gbt else num_classes
+
+    feature = np.full((len(trees), m), -1, np.int32)
+    threshold = np.zeros((len(trees), m), np.float32)
+    left = np.full((len(trees), m), -1, np.int32)
+    right = np.full((len(trees), m), -1, np.int32)
+    leaf = np.zeros((len(trees), m, c), np.float32)
+    depth = 0
+
+    for t, nodes in enumerate(trees):
+        id_map = {n.id: i for i, n in enumerate(nodes)}
+        for n in nodes:
+            i = id_map[n.id]
+            if n.left >= 0:
+                feature[t, i] = n.split_feature
+                threshold[t, i] = n.split_threshold
+                left[t, i] = id_map[n.left]
+                right[t, i] = id_map[n.right]
+            if is_gbt:
+                leaf[t, i, 0] = n.prediction
+            elif n.impurity_stats.size:
+                leaf[t, i, : n.impurity_stats.size] = n.impurity_stats
+            else:  # stats absent: one-hot the predicted class
+                leaf[t, i, int(n.prediction)] = 1.0
+        depth = max(depth, _tree_depth(nodes, id_map))
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    return TreeEnsemble(
+        feature=put(feature), threshold=put(threshold), left=put(left),
+        right=put(right), leaf=put(leaf),
+        tree_weights=put(np.asarray(stage.tree_weights, np.float32)),
+        kind=stage.kind,
+        max_depth=max_depth if max_depth is not None else max(depth, 1),
+    )
+
+
+def _tree_depth(nodes: Sequence["TreeNode"], id_map) -> int:
+    depth = {0: 0}
+    out = 0
+    for n in sorted(nodes, key=lambda n: n.id):
+        i = id_map[n.id]
+        d = depth.get(i, 0)
+        out = max(out, d)
+        if n.left >= 0:
+            depth[id_map[n.left]] = d + 1
+            depth[id_map[n.right]] = d + 1
+    return out
 
 
 def _leaf_indices(x: torch.Tensor, feature: torch.Tensor,
@@ -168,3 +245,25 @@ def predict_margin(ensemble: TreeEnsemble, x: torch.Tensor) -> torch.Tensor:
     for t in range(payload.shape[1]):
         acc = acc + payload[:, t]
     return ensemble.bias + acc
+
+
+def feature_importances(ensemble_stage: "TreeEnsembleStage",
+                        num_features: int) -> np.ndarray:
+    """Spark-style gain-weighted feature importances (normalized to sum 1).
+
+    Per tree, each internal node contributes gain * rawCount to its split
+    feature; per-tree vectors are normalized, then averaged over trees and
+    re-normalized (treeModel.featureImportances)."""
+    total = np.zeros(num_features, np.float64)
+    for nodes in ensemble_stage.trees:
+        imp = np.zeros(num_features, np.float64)
+        counts = {n.id: (n.impurity_stats.sum() if n.impurity_stats.size else 0.0)
+                  for n in nodes}
+        for n in nodes:
+            if n.left >= 0 and n.split_feature >= 0 and n.gain > 0:
+                imp[n.split_feature] += n.gain * max(counts.get(n.id, 0.0), 1.0)
+        s = imp.sum()
+        if s > 0:
+            total += imp / s
+    s = total.sum()
+    return total / s if s > 0 else total

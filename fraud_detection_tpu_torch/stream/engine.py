@@ -878,9 +878,17 @@ class StreamingClassifier:
         msgs = inflight.msgs
         bt = inflight.trace
         t_del = time.perf_counter() if bt is not None else 0.0
-        self.producer.produce_batch(self.output_topic, wires)
-        if inflight.dead:
-            self.producer.produce_batch(self.dlq_topic, inflight.dead)
+        produce_batch = getattr(self.producer, "produce_batch", None)
+        if produce_batch is not None:
+            produce_batch(self.output_topic, wires)
+            if inflight.dead:
+                produce_batch(self.dlq_topic, inflight.dead)
+        else:
+            # a producer with only ``produce`` (the front end's tap)
+            for wire, key in wires:
+                self.producer.produce(self.output_topic, wire, key=key)
+            for wire, key in inflight.dead or ():
+                self.producer.produce(self.dlq_topic, wire, key=key)
 
         # Produce-then-commit: commit ONLY if the producer fully drained;
         # a skipped commit must also STOP the loop, or a later batch's

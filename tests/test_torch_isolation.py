@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of
 ``fraud_detection_tpu_torch`` (and ``chip_smoke``) loads neither jax, nor
-optax, nor any module of the JAX package, and without a CUDA device its entry points
+optax, nor pyarrow, nor any module of the JAX package; reading and writing
+Spark artifacts loads no pyarrow; and without a CUDA device its entry points
 refuse to run unless the caller asks for the CPU."""
 
 import json
@@ -26,6 +27,7 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "optax" or m.startswith("optax.")
+             or m == "pyarrow" or m.startswith("pyarrow.")
              or m == "fraud_detection_tpu" or m.startswith("fraud_detection_tpu."))
 print(json.dumps({"modules": names, "bad": bad}))
 """
@@ -65,9 +67,37 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "scenarios.replay", "scenarios.gameday", "analysis",
                  "analysis.core", "analysis.entrypoints",
                  "analysis.conformance", "stream.kafka", "parallel",
-                 "parallel.mesh", "parallel.serving"):
+                 "parallel.mesh", "parallel.serving", "checkpoint.parquet",
+                 "checkpoint.spark_artifact", "checkpoint.spark_writer",
+                 "eval.report", "app.ui", "app.ui_helpers", "app.chat"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
+
+
+_SPARK_ROUND_TRIP = """
+import json, sys
+from fraud_detection_tpu_torch.checkpoint import (load_spark_pipeline,
+                                                  save_spark_pipeline)
+from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+art = load_spark_pipeline(sys.argv[1])
+pipe = ServingPipeline.from_spark_artifact(art, device="cpu")
+save_spark_pipeline(sys.argv[2], pipe.featurizer, pipe.model)
+again = load_spark_pipeline(sys.argv[2])
+print(json.dumps({"stages": len(again.stages),
+                  "pyarrow": sorted(m for m in sys.modules
+                                    if m.split(".")[0] == "pyarrow")}))
+"""
+
+
+def test_spark_artifacts_load_no_pyarrow(tmp_path):
+    """The Spark modules read the committed fixture (pyarrow's bytes) and
+    write and re-read an artifact with the port's own parquet codec."""
+    fixture = ROOT / "tests" / "data" / "torch_spark_fixture"
+    proc = _run(["-c", _SPARK_ROUND_TRIP, str(fixture), str(tmp_path / "out")],
+                ROOT)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"stages": 5, "pyarrow": []}
 
 
 def test_no_cuda_means_no_silent_cpu_serving():

@@ -139,12 +139,24 @@ def test_pad_ladder_and_pin_device(lr_pipe, texts):
 
 
 def test_pipeline_refuses_feature_space_past_int16(lr_pipe):
+    # Past int16 the host-featurize pipeline serves through the two-array
+    # layout (int32 ids, uint16 counts), as the JAX pipeline does; only
+    # device featurize refuses, naming the int16 staging layout.
+    # tests/test_torch_spark_artifact.py holds it against the JAX pipeline.
+    from fraud_detection_tpu_torch.featurize.device import (
+        DeviceFeaturizeUnavailable)
     from fraud_detection_tpu_torch.featurize.tfidf import HashingTfIdfFeaturizer
 
-    model = port_model(lr_pipe.model)
-    with pytest.raises(ValueError, match="int16"):
-        ServingPipeline(HashingTfIdfFeaturizer(num_features=40000), model,
-                        device="cpu")
+    feat = HashingTfIdfFeaturizer(num_features=40000)
+    model = tlinear.LogisticRegression.from_arrays(
+        np.linspace(-1.0, 1.0, 40000), 0.1, device="cpu")
+    pipe = ServingPipeline(feat, model, device="cpu")
+    got = pipe.predict(["urgent prize winner", "see you at the dentist"])
+    assert feat.encode(["urgent prize winner"]).ids.dtype == np.int32
+    assert got.labels.shape == (2,)
+    assert pipe.device_stats.snapshot()["uploads_per_chunk"] == 2.0
+    with pytest.raises(DeviceFeaturizeUnavailable, match="int16"):
+        ServingPipeline(feat, model, device="cpu", featurize_device=True)
 
 
 def test_prob_packed_unpacks_uint16_counts():

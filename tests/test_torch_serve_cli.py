@@ -187,7 +187,13 @@ def test_synthetic_model_names_the_missing_trainer(capsys):
                         "--demo", "5"]) == 0
     assert capsys.readouterr().out.strip().splitlines()[-1] == \
         "classified messages on dialogues-classified: 5"
-    with pytest.raises(SystemExit, match=r"pyarrow.*Queue 1 item 6"):
+    # a Spark artifact serves (the committed fixture: bytes pyarrow wrote)
+    fixture = pathlib.Path(__file__).resolve().parent / "data" / "torch_spark_fixture"
+    assert tserve.main(["--device", "cpu", "--model", f"spark:{fixture}",
+                        "--demo", "5"]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1] == \
+        "classified messages on dialogues-classified: 5"
+    with pytest.raises(FileNotFoundError):
         tserve.main(["--device", "cpu", "--model", "spark:x", "--demo", "5"])
     with pytest.raises(SystemExit,
                        match=r"checkpoint dir '/nowhere' not found"):

@@ -232,12 +232,26 @@ def test_cli_offers_only_this_slice(tmp_path):
                         "--metrics-out", str(report)]) == 0
     assert json.loads(report.read_text())["meta"]["mesh"] == {"data": 1,
                                                             "feature": 1}
-    with pytest.raises(SystemExit, match=r"--plots .*matplotlib.*Queue 1 item 4"):
-        ptrain.main(["--device", "cpu", "--models", "dt",
-                     "--plots", str(tmp_path)])
-    with pytest.raises(SystemExit, match=r"spark:<dir> .*Queue 1 item 6"):
+    # --plots draws the reference's figures (tests/test_torch_report.py
+    # holds them against the JAX package's); --save model=spark:<dir>
+    # writes a Spark PipelineModel that the JAX package's reader loads
+    plots = tmp_path / "plots"
+    assert ptrain.main(["--device", "cpu", "--n", "100", "--num-features",
+                        "64", "--models", "dt", "--plots", str(plots)]) == 0
+    assert sorted(p.name for p in plots.iterdir()) == [
+        "confusion_matrices_dt.png", "metrics_comparison.png"]
+    spark = tmp_path / "spark_rf"
+    assert ptrain.main(["--device", "cpu", "--n", "100", "--num-features",
+                        "64", "--models", "rf", "--n-trees", "4",
+                        "--save", f"rf=spark:{spark}"]) == 0
+    from fraud_detection_tpu.checkpoint import load_spark_pipeline
+
+    art = load_spark_pipeline(str(spark))
+    assert art.tree_ensemble.kind == "random_forest"
+    assert len(art.tree_ensemble.trees) == 4
+    with pytest.raises(SystemExit, match="model=spark:dir"):
         ptrain.main(["--device", "cpu", "--models", "rf",
-                     "--save", f"rf=spark:{tmp_path}"])
+                     "--save", "rf=spark:"])
     with pytest.raises(SystemExit):
         ptrain.main(["--device", "cpu", "--models", "dt",
                      "--save", f"rf={tmp_path}"])
