@@ -296,6 +296,19 @@ Phases (any failure raises and the script exits non-zero):
    turns (bf16, int8, int8, bf16): tokens/s, explanations/s, peak device
    memory over the model, the int8 run's ``w8_matmul`` launches (a positive
    multiple of 127);
+12b. tensor parallelism at full width: ``w8_matmul`` at the 4-way
+   shard shapes and flash at the head group's shape (1, 2048, 2, 256)
+   against their plain versions; phase 10's model and its int8 copy split
+   over a 4-way virtual model axis of cuda:0 (``shard_params``); a T=2048
+   prefill at bf16 and int8 against one device's last logits (within 5%
+   of their max), flash 72 launches (layers x shards, all sm90) and
+   ``w8_matmul`` 397 (18 x 22 + the head) at int8; greedy tokens of 4
+   prompts x 16 equal one device's, or part only at a near tie (the two
+   tokens' logits at most twice the TP logit difference apart); TP prefill
+   time against one device's in turns;
+12c. sequence parallelism at full width: ``forward(seq_mesh=)`` over a
+   4-way virtual "seq" axis, ring and Ulysses, T=2048, against the plain
+   forward's last logits (within 5%), no flash launch; times;
 13. the streaming engine with ``explain_batch_fn`` over the on-device
    model (1,024 messages, ~5% scam, the CLI's dt as classifier, batch
    512, 48 new tokens): keys exact, ``analysis`` on exactly the flagged
@@ -347,6 +360,17 @@ Phases (any failure raises and the script exits non-zero):
    ``torch.matmul`` on a bf16 copy of the weight (the yardstick, never
    called by the port for int8), its plain version and its bound, and a
    decode step's sum over its 127 products; the f32 route at M=8;
+14b. the LLM trainer (``models/train_llm.py``), in a process of its
+   own with ``torch.use_deterministic_algorithms(True)``: at full Gemma-2B
+   width, 18 layers, bf16, B=8, T=128, a step's time, tokens/s, peak memory
+   and a profiler breakdown, losses finite and the last below the first;
+   at 2 layers, ``fit_language_model`` cut after 2 of 4 steps and resumed
+   equals the uninterrupted fit array for array (params and optimizer
+   state: the two snapshots); a 2-layer f32 fit (Gemma's quirks at D 512)
+   on the card against the CPU, losses within 1e-4;
+14c. mesh fine-tuning: 2-layer full-width f32 fits on virtual (data 2,
+   model 2) and (data 2, seq 2) meshes of cuda:0, losses within 3e-4 of
+   the one-device fit;
 15. a ``{"kernels": [...]}`` line (eight entries: featurize_packed, the
    stream entry, histogram, best_splits, both flash routes, both
    ``w8_matmul`` routes), then the last line
@@ -366,8 +390,10 @@ refresh: phase 7f's lifecycle run; ``featurize_packed`` again around each
 predict and the front end's monitor run; the LLM prefill: one T=2048 forward in phase
 10, for the sm90 flash kernel; the f32 forward of phase 11, for the SIMT
 flash kernel and, at int8, for ``w8_matmul``'s SIMT route; one int8 decode
-step and phase 12's int8 generation, for ``w8_matmul``) and read just after
-it. The flash counts are reset before phase 5e and must read 0 after it
+step and phase 12's int8 generation, for ``w8_matmul``; each of phase
+12b's TP prefills and its int8 TP generation, for flash and
+``w8_matmul``; each of phase 12c's SP forwards, for flash) and read just
+after it. The flash counts are reset before phase 5e and must read 0 after it
 (the game days launch no flash kernel, as in the reference), and again
 before phase 13b and must read 0 after phase 13f: the slot lane runs no
 kernel of the table (its prefill is ``causal_attention(use_flash=False)``
@@ -463,6 +489,7 @@ LC_MSGS, LC_DRIFT, LC_DRIFT_EVERY, LC_BATCH = 4096, 256, 16, 512
 LC_POLICY = ("min_batches=1,min_rows=16,max_disagreement=1.0,max_psi=50.0,"
              "max_flag_rate_delta=1.0")
 LC_FLAG_MIN, LC_P_TOL, LC_LEGIT_MAX = 0.9, 1e-4, 0.1
+LC_TWIN_ROWS = 1024   # the two-class window's rows refreshed on both sides
 LC_RATE_MSGS, LC_SHADOW_ROWS = 32768, 8192
 # bench.py's generation prompts (mk_prompts(8)).
 GEN_PROMPTS = [f"Analyze this dialogue for scam risk (case {i}): the caller "
@@ -931,9 +958,11 @@ def best_splits_bound(hist):
 
 
 def train_card_vs_cpu(Xtr, ytr, Xte, dev) -> dict:
-    """dt, a 16-tree rf and a 16-round xgb at full width on the card and on
+    """dt, an 8-tree rf and an 8-round xgb at full width on the card and on
     the CPU: dt and rf equal tree for tree (feature, threshold, children,
-    leaf stats), xgb test-set max |dp| <= 1e-4. Returns host walls."""
+    leaf stats), xgb test-set max |dp| <= 1e-4. Returns host walls. (16
+    trees and rounds until the LLM trainer's phases needed the time: the
+    CPU side took 34 s of the script's 1,200.)"""
     import dataclasses
 
     import torch
@@ -945,11 +974,11 @@ def train_card_vs_cpu(Xtr, ytr, Xte, dev) -> dict:
     cfg = tt.TreeTrainConfig(max_depth=DEPTH, n_bins=NBINS)
     fits = {
         "dt": lambda d: tt.fit_decision_tree(Xtr, ytr, config=cfg, device=d),
-        "rf16": lambda d: tt.fit_random_forest(Xtr, ytr, n_trees=16,
-                                               seed=CLI_SEED, config=cfg,
-                                               device=d),
-        "xgb16": lambda d: tt.fit_gradient_boosting(
-            Xtr, ytr, n_rounds=16,
+        "rf8": lambda d: tt.fit_random_forest(Xtr, ytr, n_trees=8,
+                                              seed=CLI_SEED, config=cfg,
+                                              device=d),
+        "xgb8": lambda d: tt.fit_gradient_boosting(
+            Xtr, ytr, n_rounds=8,
             config=dataclasses.replace(cfg, criterion="xgb"), device=d),
     }
     h0, b0 = H.node_feature_bin_histogram_multi.launches, H.best_splits.launches
@@ -961,12 +990,12 @@ def train_card_vs_cpu(Xtr, ytr, Xte, dev) -> dict:
         t0 = time.perf_counter()
         cpu = fit("cpu")
         cpu_s = time.perf_counter() - t0
-        if name == "xgb16":
+        if name == "xgb8":
             pg = tm.predict(card, torch.from_numpy(Xte).to(dev))[1].cpu()
             pc = tm.predict(cpu, torch.from_numpy(Xte))[1]
             dp = float((pg - pc).abs().max())
             if dp > 1e-4:
-                raise AssertionError(f"xgb16: card vs cpu test max |dp| {dp}")
+                raise AssertionError(f"xgb8: card vs cpu test max |dp| {dp}")
             same = f"test max |dp| {dp:.3g}"
         else:
             for field in ("feature", "threshold", "left", "right", "leaf"):
@@ -4172,12 +4201,14 @@ def refresh_card_vs_cpu(lc: dict, dev) -> dict:
     """Two windows through ``refresh_gradient_boosting`` on the card and on
     the CPU, from v1: the lane's own (the drift rows, at the smallest
     rung), whose card refresh must equal the published v2's trees, and the
-    two-class window (all LC_MSGS scored rows with their ground truth, at
-    LearnConfig's max_train_rows rung), whose refreshed model may flag at
-    most LC_LEGIT_MAX of the window's legit rows. On each, the new trees'
-    feature / split (threshold) / children are equal and p on the window is
-    within LC_P_TOL. Also the two-class card refresh's wall (median of 3)
-    and device idle share."""
+    two-class window's last LC_TWIN_ROWS rows (scored rows with their ground
+    truth). On each, the new trees' feature / split (threshold) / children
+    are equal and p on the window is within LC_P_TOL. The whole two-class
+    window (all LC_MSGS rows, at LearnConfig's max_train_rows rung) is
+    refreshed on the card, and that model may flag at most LC_LEGIT_MAX of
+    the window's legit rows. Also that refresh's wall (median of 3) and
+    device idle share. (The CPU twin took the whole window until the LLM
+    trainer's phases needed the time: 50.8 s of the script's 1,200.)"""
     import numpy as np
     import torch
 
@@ -4194,7 +4225,7 @@ def refresh_card_vs_cpu(lc: dict, dev) -> dict:
     cap = LearnConfig().max_train_rows
 
     def card_vs_cpu(name, rows):
-        X, y = LearnLoop._densify(rows[-cap:], v1.featurizer)
+        X, y = LearnLoop._densify(rows[-LC_TWIN_ROWS:], v1.featurizer)
         got = {}
         for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
             t0 = time.perf_counter()
@@ -4235,11 +4266,16 @@ def refresh_card_vs_cpu(lc: dict, dev) -> dict:
     print(f"[lifecycle] v2's trees equal the card refresh of the lane's window "
           f"(leaf max |diff| {drift['v2_leaf_max_abs_diff']:.3g})")
 
-    two, X2, y2, (model2, _, p2, _), _ = card_vs_cpu("two-class",
-                                                     lc["two_class_window"])
-    if two["rung"] != cap:
-        raise AssertionError(f"two-class window at rung {two['rung']}, "
-                             f"want {cap}")
+    two, _, _, _, _ = card_vs_cpu("two-class", lc["two_class_window"])
+    X2, y2 = LearnLoop._densify(lc["two_class_window"][-cap:], v1.featurizer)
+    model2, info2 = refresh_gradient_boosting(v1.model.to(dev), X2, y2,
+                                              n_rounds=rounds, device=dev)
+    p2 = tm.predict_proba(model2, torch.from_numpy(X2).to(dev))[:, 1]
+    p2 = p2.cpu().numpy()
+    two["window_rows"] = X2.shape[0]
+    if info2["padded_rows"] != cap:
+        raise AssertionError(f"two-class window at rung "
+                             f"{info2['padded_rows']}, want {cap}")
     legit = y2 == 0
     p_v1 = tm.predict_proba(v1.model, torch.from_numpy(X2).to(dev))[:, 1]
     two.update(
@@ -5235,6 +5271,539 @@ def spark_phase(dev, out: Path, card: str, seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the explanation LLM across devices and its fine-tuning
+# ---------------------------------------------------------------------------
+
+TP_SHARDS = 4          # phases 12b-12c, 14c: the virtual mesh's devices on cuda:0
+TP_GEN_TOKENS = 16     # phase 12b: greedy tokens a prompt, bf16 and int8
+# phase 12b: TP and SP last logits against the single-device forward, as
+# phase 10 holds flash against the chunked path (bf16 through 18 layers)
+TP_LOGIT_FRAC = 0.05
+# the per-shard weight shapes of a 4-way Gemma-2B model axis (K, N, kn):
+# wq, wo, w_gate / w_up, w_down (wk / wv stay whole: one K/V head)
+W8_TP_SHAPES = {"wq/4": (2048, 512), "wo/4": (512, 2048),
+                "w_gate,w_up/4": (2048, 4096), "w_down/4": (4096, 2048)}
+TRAIN_B, TRAIN_T = 8, 128   # phase 14b: the reference trainer's defaults
+TRAIN_TIMED = 3             # phase 14b: timed steps after one warm step
+TRAIN_STEPS, TRAIN_CUT = 4, 2   # phase 14b: the resume gate's run and cut
+MESH_TRAIN_STEPS = 3        # phase 14c: steps of each mesh fit
+# phase 14b's card-vs-CPU fit: Gemma-2B's quirks (MQA, head dim != D/H,
+# GeGLU, sqrt(D) embedding scale) at 2 layers and a narrow width, f32: the
+# CPU draws the threefry init at ~2.3M weights a second, so a full-width
+# twin would take minutes there
+TRAIN_TWIN = dict(GEMMA_2B, vocab_size=258, d_model=512, n_heads=8,
+                  n_kv_heads=1, head_dim_override=64, d_ff=2048, n_layers=2,
+                  embed_scale=math.sqrt(512), max_seq=256)
+TRAIN_CPU_RTOL = 1e-4   # card vs CPU f32 losses (the JAX-trajectory test's rtol)
+MESH_LOSS_TOL = 3e-4    # mesh fits vs one device (the reference's dp x sp bound)
+
+
+def tp_mesh(axis: str, dev, devices=None):
+    """A 1-D mesh named ``axis`` over ``devices``, by default the virtual
+    one: TP_SHARDS entries of ``dev``."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.parallel.mesh import Mesh
+
+    if devices is None:
+        dev = torch.device(dev)
+        one = torch.device("cuda", 0) if dev.type == "cuda" and \
+            dev.index is None else dev
+        devices = [one] * TP_SHARDS
+    return Mesh(np.array(devices, dtype=object), (axis,))
+
+
+def last_logits_close(label: str, got, want) -> dict:
+    """Raise unless ``got`` is finite and within TP_LOGIT_FRAC of max
+    |want| everywhere; returns the figures."""
+    import torch
+
+    dmax = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not (bool(torch.isfinite(got).all()) and dmax <= TP_LOGIT_FRAC * scale):
+        raise AssertionError(f"{label}: last logits max |d| {dmax} beyond "
+                             f"{TP_LOGIT_FRAC} of max |logit| {scale}")
+    return dict(dlogit=dmax, logit_scale=scale,
+                argmax_agrees=int(got.argmax()) == int(want.argmax()))
+
+
+def w8_forward_launches(params) -> int:
+    """``w8_matmul`` launches of one forward on int8 ``params``: a launch a
+    weight part (every Sharded leaf's part, every whole matrix once) a
+    layer, and one for an int8 head."""
+    from fraud_detection_tpu_torch.models.llm import Q8, Sharded
+
+    per_layer = 0
+    for leaf in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        w = getattr(params.layers[0], leaf)
+        per_layer += len(w.parts) if isinstance(w, Sharded) else int(
+            isinstance(w, Q8))
+    head = params.embed if params.cfg.tie_embeddings else params.lm_head
+    return per_layer * params.cfg.n_layers + int(isinstance(head, Q8))
+
+
+def tie_gate(label: str, single, model, prompt, got, want, dev) -> dict:
+    """A tensor-parallel greedy row that parts from the single-device row:
+    raises unless, at the first step where they part, the single-device
+    logits of the two chosen tokens are at most twice the TP-vs-one-device
+    logit difference apart (both models' last logits over the prompt and
+    the common tokens): a near tie that the partial sums' rounding may
+    flip, not a wrong model."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import forward
+
+    step = int((got != want).nonzero()[0][0])
+    ids = torch.tensor([list(prompt) + list(want[:step])], device=dev)
+    with torch.inference_mode():
+        ls = forward(single.params, ids, single.cfg,
+                     logits_last_only=True)[0][0, 0]
+        lt = forward(model.params, ids, model.cfg,
+                     logits_last_only=True)[0][0, 0]
+    gap = float((ls[int(want[step])] - ls[int(got[step])]).abs())
+    dlogit = float((lt - ls).abs().max())
+    if not gap <= 2 * dlogit:
+        raise AssertionError(f"{label}: parts from one device at step {step} "
+                             f"({int(got[step])} vs {int(want[step])}), whose "
+                             f"logits are {gap} apart, beyond twice the TP "
+                             f"logit difference {dlogit}")
+    return dict(step=step, gap=gap, dlogit=dlogit,
+                tokens=[int(got[step]), int(want[step])])
+
+
+def tp_serving(lm, lm8, dev, seed: int, card: str, devices=None) -> dict:
+    """Phase 12b: the 18-layer model tensor-parallel over a 4-way virtual
+    model axis (quantize then shard at int8). Per-shard w8_matmul shapes
+    and flash's head-group shape held against their plain versions; the
+    split checked part by part; a T=2048 prefill (bf16, then int8) against
+    the single-device model's last logits, with the flash and w8_matmul
+    launches reset before and read after each (flash: layers x shards, all
+    on sm90; w8_matmul: ``w8_forward_launches``); greedy tokens at bf16 and
+    int8 equal the single-device model's, or part from them only at a near
+    tie (``tie_gate``); the int8 generation's w8_matmul launches a multiple
+    of a forward's; TP prefill time against one device's, in turns.
+    ``devices``: the model axis' devices (default the virtual mesh)."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import (
+        MODEL_AXIS, LanguageModel, Sharded, forward, shard_params)
+    from fraud_detection_tpu_torch.ops import attention as A
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
+
+    cfg = lm.cfg
+    w8_err = {}
+    for i, (name, (k, n)) in enumerate(W8_TP_SHAPES.items()):
+        q, scale = w8_weight(k, n, "kn", dev, seed + 100 + i)
+        for m in (8, 2048):
+            g = torch.Generator(device=dev).manual_seed(seed + 110 + m)
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            w8_err[f"{name} M={m}"] = check_w8(f"{name} M={m}", x, q, scale,
+                                               "kn")
+    print(f"[check] w8_matmul at the 4-way shard shapes {W8_TP_SHAPES}, "
+          f"M = 8 and 2048, bf16: kernel vs plain max |diff| "
+          f"{max(w8_err.values()):.3g}, launches bit-equal")
+    group = (1, 2048, cfg.n_heads // len(devices or [0] * TP_SHARDS),
+             cfg.head_dim)
+    flash_err = check_flash("TP head group", *flash_inputs(
+        group, cfg.kv_heads, torch.bfloat16, dev, seed + 120),
+        FLASH_BF16_ATOL, route="sm90")
+
+    mesh = tp_mesh(MODEL_AXIS, dev, devices)
+    shards = mesh.shape[MODEL_AXIS]
+    t0 = time.perf_counter()
+    tp = LanguageModel(cfg, shard_params(lm.params, cfg, mesh),
+                       tokenizer=lm.tokenizer)
+    tp8 = LanguageModel(cfg, shard_params(lm8.params, cfg, mesh),
+                        tokenizer=lm8.tokenizer)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    layout = {}
+    for name in ("l0.wq", "l0.wo", "l0.w_gate", "l0.w_down"):
+        leaf = tp.params.param(name)
+        if not isinstance(leaf, Sharded) or len(leaf.parts) != shards:
+            raise AssertionError(f"TP {name}: not split in {shards}")
+        layout[name] = [tuple(p.shape) for p in leaf.parts][0]
+    if isinstance(tp.params.param("l0.wk"), Sharded):
+        raise AssertionError("TP: Gemma-2B's one K/V head must stay whole")
+    g = torch.Generator(device=dev).manual_seed(seed + 121)
+    toks = torch.randint(0, cfg.vocab_size, (1, 2048), generator=g, device=dev)
+
+    def launches():
+        A.flash_attention.launches = 0
+        A.flash_attention_sm90.launches = A.flash_attention_simt.launches = 0
+        W.w8_matmul.launches = W.w8_matmul.simt_launches = 0
+
+    out = {"shard_s": shard_s, "layout": {k: list(v) for k, v in layout.items()},
+           "w8_tp_max_abs_err": max(w8_err.values()),
+           "flash_group_max_abs_err": flash_err}
+    for label, single, model in (("bf16", lm, tp), ("int8", lm8, tp8)):
+        with torch.inference_mode():
+            want = forward(single.params, toks, cfg,
+                           logits_last_only=True)[0][0, 0]
+            launches()
+            got = forward(model.params, toks, cfg,
+                          logits_last_only=True)[0][0, 0]
+            torch.cuda.synchronize()
+        counts = dict(flash=A.flash_attention.launches,
+                      sm90=A.flash_attention_sm90.launches,
+                      w8=W.w8_matmul.launches)
+        want_w8 = w8_forward_launches(model.params) if label == "int8" else 0
+        want_flash = cfg.n_layers * shards
+        if counts != dict(flash=want_flash, sm90=want_flash, w8=want_w8):
+            raise AssertionError(f"TP prefill {label}: launches {counts}, want "
+                                 f"flash {want_flash} on sm90, w8_matmul "
+                                 f"{want_w8}")
+        out[f"prefill_{label}"] = dict(
+            launches=counts, **last_logits_close(f"TP prefill {label}", got,
+                                                 want))
+        print(f"[tp] prefill T=2048 {label}, {cfg.n_layers} layers over "
+              f"{shards} model shards {sorted({str(d) for d in mesh.devices.flat})}: flash {counts['flash']} launches "
+              f"({counts['sm90']} sm90, = layers x shards), w8_matmul "
+              f"{counts['w8']} (= {want_w8}); last logits vs one device max "
+              f"|d| {out[f'prefill_{label}']['dlogit']:.4g} (max |logit| "
+              f"{out[f'prefill_{label}']['logit_scale']:.4g}, gate "
+              f"{TP_LOGIT_FRAC}), argmax "
+              f"{'agrees' if out[f'prefill_{label}']['argmax_agrees'] else 'differs'}")
+
+    enc = [lm.tokenizer.encode(p) for p in GEN_PROMPTS[:4]]
+    for label, single, model in (("bf16", lm, tp), ("int8", lm8, tp8)):
+        want = single.generate_tokens_batch(enc, max_new_tokens=TP_GEN_TOKENS)
+        launches()
+        got = model.generate_tokens_batch(enc, max_new_tokens=TP_GEN_TOKENS)
+        w8 = W.w8_matmul.launches
+        per = w8_forward_launches(model.params)
+        if label == "int8" and (not w8 or w8 % per):
+            raise AssertionError(f"TP int8 generation launched w8_matmul {w8}x,"
+                                 f" want a positive multiple of {per}")
+        equal = [bool((a == b).all()) for a, b in zip(got, want)]
+        ties = [dict(tie_gate(f"TP greedy {label} row {r}", single, model,
+                              enc[r], got[r], want[r], dev), row=r)
+                for r in range(len(enc)) if not equal[r]]
+        out[f"generate_{label}"] = dict(rows_equal=sum(equal), rows=len(enc),
+                                        w8_launches=w8, near_ties=ties)
+        print(f"[tp] greedy generation {label}, {len(enc)} prompts x "
+              f"{TP_GEN_TOKENS} tokens: {sum(equal)} of {len(enc)} rows equal "
+              f"to one device's" + "".join(
+                  f"; row {t['row']} parts at step {t['step']} on a near tie "
+                  f"(one device's logits of the two tokens {t['gap']:.4g} "
+                  f"apart, TP vs one device max |dlogit| there "
+                  f"{t['dlogit']:.4g})" for t in ties)
+              + f"; w8_matmul {w8} launches"
+              + (f" (= {w8 // per} forwards x {per})" if label == "int8"
+                 else ""))
+
+    def run(model):
+        return lambda: forward(model.params, toks, cfg, logits_last_only=True)
+
+    with torch.inference_mode():
+        turns = [cuda_ms(run(m), 5, 2) for m in (lm, tp, tp, lm)]
+    out["prefill_ms"] = dict(single=[turns[0], turns[3]], tp=[turns[1],
+                                                               turns[2]])
+    print(f"[time] {card}: prefill T=2048 bf16 in turns (one device, TP x"
+          f"{shards}, TP, one device): {turns[0]:.2f} / {turns[1]:.2f} / "
+          f"{turns[2]:.2f} / {turns[3]:.2f} ms; TP / one device "
+          f"{(turns[1] + turns[2]) / (turns[0] + turns[3]):.2f}x "
+          + ("(a virtual mesh: the shards run one after another on one card)"
+             if devices is None else f"(over {shards} cards)")
+          + f"; sharding both models {shard_s:.2f} s")
+    del tp, tp8
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_forward(lm, dev, seed: int, card: str, devices=None) -> dict:
+    """Phase 12c: ``forward(seq_mesh=)`` on the 18-layer bf16 model over a
+    4-way virtual "seq" axis, ring then Ulysses, at T=2048 against the plain
+    (flash) forward's last logits; neither runs the flash kernel (reset
+    before, read after each); times in turns."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import SEQ_AXIS, forward
+    from fraud_detection_tpu_torch.ops import attention as A
+
+    cfg = lm.cfg
+    mesh = tp_mesh(SEQ_AXIS, dev, devices)
+    g = torch.Generator(device=dev).manual_seed(seed + 130)
+    toks = torch.randint(0, cfg.vocab_size, (1, 2048), generator=g, device=dev)
+    out = {}
+    with torch.inference_mode():
+        want = forward(lm.params, toks, cfg, logits_last_only=True)[0][0, 0]
+        for impl in ("ring", "ulysses"):
+            A.flash_attention.launches = 0
+            got = forward(lm.params, toks, cfg, seq_mesh=mesh, sp_impl=impl,
+                          logits_last_only=True)[0][0, 0]
+            torch.cuda.synchronize()
+            if A.flash_attention.launches:
+                raise AssertionError(f"SP {impl} launched the flash kernel")
+            out[impl] = last_logits_close(f"SP {impl}", got, want)
+
+        def run(**kw):
+            return lambda: forward(lm.params, toks, cfg,
+                                   logits_last_only=True, **kw)
+
+        plain = cuda_ms(run(), 3, 1)
+        for impl in ("ring", "ulysses"):
+            out[impl]["ms"] = cuda_ms(run(seq_mesh=mesh, sp_impl=impl), 3, 1)
+        plain2 = cuda_ms(run(), 3, 0)
+    out["plain_ms"] = [plain, plain2]
+    for impl in ("ring", "ulysses"):
+        r = out[impl]
+        print(f"[sp] {impl} forward T=2048 over {mesh.shape[SEQ_AXIS]} seq "
+              f"blocks on {sorted({str(d) for d in mesh.devices.flat})} "
+              f"({cfg.n_layers} layers, bf16): last logits vs the plain "
+              f"forward max |d| {r['dlogit']:.4g} (max |logit| "
+              f"{r['logit_scale']:.4g}, gate {TP_LOGIT_FRAC}), argmax "
+              f"{'agrees' if r['argmax_agrees'] else 'differs'}, 0 flash "
+              f"launches; {r['ms']:.2f} ms against the plain forward's "
+              f"{plain:.2f} / {plain2:.2f} ms ({card})")
+    return out
+
+
+def llm_train_phase(card: str) -> dict:
+    """Phases 14b-14c in a process of their own (``llm_train_child``), with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before it starts CUDA and
+    ``torch.use_deterministic_algorithms(True)`` on, so a nondeterministic
+    op in the trainer raises and names itself; its result comes back in a
+    file. Under its own time limit; it is killed at the end either way."""
+    import os
+
+    import torch
+
+    torch.cuda.empty_cache()
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_train_", suffix=".json")
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.llm_train_child(sys.argv[1]))", path],
+            cwd=ROOT, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT),
+                     CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+        if proc.returncode != 0:
+            raise AssertionError(f"the LLM trainer's phases exited "
+                                 f"{proc.returncode}")
+        with open(path) as fh:
+            out = json.load(fh)
+    finally:
+        os.unlink(path)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[train-llm] phases 14b-14c wall {out['wall_s']:.1f} s ({card})")
+    return out
+
+
+def mesh_fits(texts, dev, devices, card: str) -> dict:
+    """Phase 14c: 2-layer full-width f32 fits of MESH_TRAIN_STEPS steps on
+    (data 2, model 2) and (data 2, seq 2) meshes over ``devices`` (four,
+    row-major) against the one-device fit on ``dev``: losses within
+    MESH_LOSS_TOL."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models import train_llm as TL
+    from fraud_detection_tpu_torch.models.llm import (
+        DATA_AXIS, MODEL_AXIS, SEQ_AXIS, TransformerConfig)
+    from fraud_detection_tpu_torch.parallel.mesh import Mesh
+
+    cfg32 = TransformerConfig(**{**GEMMA_2B, "n_layers": 2,
+                                 "dtype": torch.float32})
+    mcfg = TL.LLMTrainConfig(steps=MESH_TRAIN_STEPS, batch_size=TRAIN_B,
+                             seq_len=TRAIN_T, learning_rate=1e-3,
+                             warmup_steps=0, seed=3)
+    grid = np.array(devices, dtype=object).reshape(2, 2)
+    fits = {}
+    for label, mesh in (("one device", None),
+                        ("data x model", Mesh(grid, (DATA_AXIS, MODEL_AXIS))),
+                        ("data x seq", Mesh(grid, (DATA_AXIS, SEQ_AXIS)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, fl = TL.fit_language_model(texts, cfg32, mcfg, mesh=mesh,
+                                      device=dev)
+        fits[label] = dict(losses=fl, wall_s=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    base = fits["one device"]["losses"]
+    for label in ("data x model", "data x seq"):
+        fl = fits[label]["losses"]
+        fits[label]["max_abs_diff"] = max(abs(a - b) for a, b in zip(fl, base))
+        if not all(abs(a - b) <= MESH_LOSS_TOL * (1 + abs(b))
+                   for a, b in zip(fl, base)):
+            raise AssertionError(f"mesh fit {label} losses {fl} vs one "
+                                 f"device {base}")
+    where = sorted({str(d) for d in devices})
+    print(f"[train-llm] mesh fine-tuning, 2 layers, full width, f32, "
+          f"{MESH_TRAIN_STEPS} steps on 2 x 2 meshes over {where}: "
+          + "; ".join(f"{k} losses {[round(x, 5) for x in v['losses']]}"
+                      + (f" (max |d| vs one device {v['max_abs_diff']:.3g})"
+                         if "max_abs_diff" in v else "")
+                      + f", {v['wall_s']:.1f} s" for k, v in fits.items())
+          + f"; gate {MESH_LOSS_TOL} ({card})")
+    return fits
+
+def llm_train_child(result_path: str, device: str = "cuda") -> int:
+    """The body of phases 14b-14c (see ``llm_train_phase``).
+
+    14b: ``models/train_llm.py`` at full Gemma-2B width, bf16, B=8, T=128:
+    the 18-layer model's step time, tokens/s and peak memory over
+    TRAIN_TIMED steps after a warm one, losses finite and the last below the
+    first; at 2 layers, ``fit_language_model`` interrupted after TRAIN_CUT of
+    TRAIN_STEPS steps and resumed equals the uninterrupted fit array for
+    array, params and optimizer state (the two snapshots); a 2-layer f32
+    fit of TRAIN_TWIN on the card against the same fit on the CPU (losses
+    within TRAIN_CPU_RTOL).
+    14c: 2-layer full-width f32 fits on the virtual (data 2, model 2) and
+    (data 2, seq 2) meshes of cuda:0 against the one-device fit (losses
+    within MESH_LOSS_TOL)."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.data import generate_corpus
+    from fraud_detection_tpu_torch.models import train_llm as TL
+    from fraud_detection_tpu_torch.models.llm import (DATA_AXIS,
+                                                      TransformerConfig)
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    card = card_line()
+    texts = [d.text for d in generate_corpus(n=64, seed=5)]
+    out = {}
+
+    # -- 14b. full width, 18 layers: the step's time and memory --------------
+    cfg = TransformerConfig(**{**GEMMA_2B, "dtype": torch.bfloat16})
+    tcfg = TL.LLMTrainConfig(steps=1 + TRAIN_TIMED, batch_size=TRAIN_B,
+                             seq_len=TRAIN_T, warmup_steps=0, seed=0)
+    stream = TL.pack_corpus(texts, cfg)
+    rows = TL._rows(None, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    master = TL._init_master(cfg, tcfg, None, rows)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt = TL.make_optimizer(tcfg)
+    state = opt.init({k: TL._parts(v) for k, v in master.items()})
+    losses, times = [], []
+    for step in range(tcfg.steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = TL._train_step(master, state,
+                                     TL.batch_for_step(stream, step, tcfg),
+                                     cfg, tcfg, opt, rows)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for v in master.values() for p in TL._parts(v))
+    box = {"state": state, "step": tcfg.steps}
+
+    def one_step():
+        box["state"], _ = TL._train_step(
+            master, box["state"], TL.batch_for_step(stream, box["step"], tcfg),
+            cfg, tcfg, opt, rows)
+        box["step"] += 1
+
+    breakdown = device_breakdown(one_step, reps=1, tries=2)
+    del master, state, box
+    torch.cuda.empty_cache()
+    step_s = statistics.median(times[1:])
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"full-width fine-tune losses {losses}")
+    busy_ms = sum(us for _, us, _ in breakdown) / 1e3
+    out["timed"] = dict(step_s=step_s, step_times_s=times, losses=losses,
+                        tokens_per_s=TRAIN_B * TRAIN_T / step_s,
+                        peak_bytes=peak, params=n_params, init_s=init_s,
+                        flop_per_step=6 * n_params * TRAIN_B * TRAIN_T,
+                        busy_ms=busy_ms, top_kernels=breakdown[:12])
+    print(f"[train-llm] {card}: Gemma-2B width, {cfg.n_layers} layers, bf16, "
+          f"{n_params / 1e9:.3f}e9 params, B={TRAIN_B} T={TRAIN_T}: step "
+          f"{step_s * 1e3:.1f} ms (median of {TRAIN_TIMED} after a warm step; "
+          f"all {[round(t * 1e3, 1) for t in times]} ms), "
+          f"{TRAIN_B * TRAIN_T / step_s:.0f} tokens/s, peak memory "
+          f"{peak / 1e9:.2f} GB, init draw {init_s:.2f} s; losses "
+          f"{[round(x, 4) for x in losses]} (finite, last below first)")
+    print(f"[trace] {card}: a full-width step's device busy {busy_ms:.1f} ms "
+          f"against {step_s * 1e3:.1f} ms of wall; by kernel:")
+    for name, us, n in breakdown[:12]:
+        print(f"[trace]   {us:10.1f} us  x{n:.0f}  {name[:90]}")
+
+    # -- 14b. resume at 2 layers: equal to the uninterrupted fit -------------
+    cfg2 = TransformerConfig(**{**GEMMA_2B, "n_layers": 2,
+                                "dtype": torch.bfloat16})
+    rcfg = TL.LLMTrainConfig(steps=TRAIN_STEPS, batch_size=TRAIN_B,
+                             seq_len=TRAIN_T, learning_rate=1e-3,
+                             warmup_steps=0, decay_steps=TRAIN_STEPS, seed=1)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ft_"))
+    try:
+        t0 = time.perf_counter()
+        full, full_losses = TL.fit_language_model(
+            texts, cfg2, rcfg, checkpoint_dir=str(work / "full"),
+            checkpoint_every=TRAIN_STEPS, device=dev)
+        TL.fit_language_model(
+            texts, cfg2, dataclasses.replace(rcfg, steps=TRAIN_CUT),
+            checkpoint_dir=str(work / "cut"), checkpoint_every=TRAIN_CUT,
+            device=dev)
+        resumed, tail = TL.fit_language_model(
+            texts, cfg2, rcfg, checkpoint_dir=str(work / "cut"),
+            checkpoint_every=TRAIN_CUT, device=dev)
+        resume_s = time.perf_counter() - t0
+        if len(tail) != TRAIN_STEPS - TRAIN_CUT or \
+                tail != full_losses[TRAIN_CUT:]:
+            raise AssertionError(f"resumed losses {tail} != the "
+                                 f"uninterrupted run's {full_losses}")
+        for name in full.params.param_names():
+            if not torch.equal(full.params.param(name),
+                               resumed.params.param(name)):
+                raise AssertionError(f"resume: {name} differs")
+        del full, resumed
+        with np.load(work / "full" / "arrays.npz") as a, \
+                np.load(work / "cut" / "arrays.npz") as b:
+            if sorted(a.files) != sorted(b.files):
+                raise AssertionError("resume: snapshot names differ")
+            for k in a.files:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"resume: snapshot {k} differs")
+            n_arrays = len(a.files)
+        snap_bytes = sum(f.stat().st_size for f in (work / "full").iterdir())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["resume"] = dict(losses=full_losses, arrays=n_arrays,
+                         snapshot_bytes=snap_bytes, wall_s=resume_s)
+    print(f"[train-llm] resume at 2 layers, full width, bf16: cut at "
+          f"{TRAIN_CUT} of {TRAIN_STEPS} steps and resumed: params and "
+          f"optimizer state equal the uninterrupted fit's, {n_arrays} arrays "
+          f"of a {snap_bytes / 1e9:.2f} GB snapshot; losses "
+          f"{[round(x, 4) for x in full_losses]}; three fits {resume_s:.1f} s "
+          "(deterministic algorithms on)")
+
+    # -- 14b. card against CPU, f32 ------------------------------------------
+    twin = TransformerConfig(**TRAIN_TWIN)
+    tw = TL.LLMTrainConfig(steps=TRAIN_STEPS, batch_size=TRAIN_B,
+                           seq_len=TRAIN_T, learning_rate=1e-3,
+                           warmup_steps=1, seed=2)
+    walls = {}
+    got = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        got[side] = TL.fit_language_model(texts, twin, tw, device=d)[1]
+        walls[side] = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["card"], got["cpu"]))
+    if not rel <= TRAIN_CPU_RTOL:
+        raise AssertionError(f"f32 fit card vs CPU losses {got}")
+    out["card_vs_cpu"] = dict(losses=got, max_rel=rel, walls_s=walls)
+    print(f"[train-llm] f32 fit (Gemma quirks, D {twin.d_model}, 2 layers) "
+          f"card vs CPU: losses max relative diff {rel:.3g} (<= "
+          f"{TRAIN_CPU_RTOL}); walls card {walls['card']:.2f} s, CPU "
+          f"{walls['cpu']:.2f} s")
+
+    # -- 14c. mesh fine-tuning on a virtual 2 x 2 mesh of cuda:0 ------------
+    out["mesh"] = mesh_fits(texts, dev, [tp_mesh(DATA_AXIS, dev).home] * 4,
+                            card)
+    with open(result_path, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
 def llm_phases(dev, seed: int, card: str, work: Path) -> dict:
     """Phases 10-13f: the Gemma-2B-architecture model loaded from a
     synthetic HF checkpoint at bf16 and at int8 (``load_gemma``), prefill,
@@ -5269,6 +5838,12 @@ def llm_phases(dev, seed: int, card: str, work: Path) -> dict:
                              f"{gen8_launches}x ({W.w8_matmul.simt_launches} "
                              "SIMT), want a positive multiple of 127 on mma")
 
+    # -- 12b-12c. tensor and sequence parallelism at full width -------------
+    # (flash and w8_matmul counts reset and read around each TP prefill and
+    # the int8 TP generation, the flash count around each SP forward)
+    tp = tp_serving(lm, lm8, dev, seed + 44, card)
+    sp = sp_forward(lm, dev, seed + 45, card)
+
     # -- 13. the engine with explanations ------------------------------------
     expl, expl_pipe, expl_items, flagged_rows = explained_stream(
         lm, dev, ROOT / "build" / "chip_smoke" / "dt", card)
@@ -5295,6 +5870,7 @@ def llm_phases(dev, seed: int, card: str, work: Path) -> dict:
     return {"load": loads, "int8": int8, "prefill": pre, "card_vs_cpu": cvc,
             "card_vs_cpu_int8": cvc8, "generate": gen,
             "generate_turns": turns, "int8_generate_launches": gen8_launches,
+            "tp_serving": tp, "sp_forward": sp,
             "explained_stream": expl, "slot_card_vs_cpu": slot_cvc,
             "slot_lane": slots, "slot_lane_int8": slots8,
             "explained_stream_async": async_stream,
@@ -5305,6 +5881,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    start = time.perf_counter()
 
     import torch
 
@@ -5859,8 +6436,8 @@ def main(argv=None) -> int:
     print(f"[time] {card}: fit walls at the CLI shape (1120 x 10000, host "
           f"clock): train CLI dt {cli_walls['dt']} s, rf100 {cli_walls['rf']} "
           f"s, xgb100 {cli_walls['xgb']} s; phase 6 dt "
-          f"{train_walls['dt']:.3f} s, rf16 {train_walls['rf16']:.3f} s, "
-          f"xgb16 {train_walls['xgb16']:.3f} s")
+          f"{train_walls['dt']:.3f} s, rf8 {train_walls['rf8']:.3f} s, "
+          f"xgb8 {train_walls['xgb8']:.3f} s")
     y_bh = y_b.cpu().numpy()
     edges_b = np.tile(np.linspace(0.0, 1.0, NBINS - 1, dtype=np.float32),
                       (BENCH_FEATURES, 1))
@@ -5990,6 +6567,9 @@ def main(argv=None) -> int:
 
     w8 = w8_times(dev, args.seed + 90, card)
 
+    # -- 14b-14c. the LLM trainer, in a process of its own -------------------
+    train_llm = llm_train_phase(card)
+
     # -- 15. result lines ----------------------------------------------------
     def learn_refresh(kernel):
         """The tree kernels' second main path: phase 7f's learn refresh."""
@@ -6004,6 +6584,8 @@ def main(argv=None) -> int:
     # the tree kernels' main shape: the CLI's xgb level (500 of each
     # kernel's launches on the main path)
     main_h, main_g = tree_times["cli_xgb"], gain_times["cli_xgb"]
+    print(f"[wall] chip_smoke.py {time.perf_counter() - start:.1f} s from its "
+          f"start to the result lines ({card})")
     print(json.dumps({"kernels": [{
         "name": "featurize_packed",
         "route": "cuda",
@@ -6214,7 +6796,7 @@ def main(argv=None) -> int:
         "mesh_training": mesh_train, "multiprocess": multiprocess,
         "phase_7g_7j_wall_s": phase16_wall, "spark": spark_out,
         "tree_kernels_ms_per_cli_fit": per_fit,
-        "llm": llm_out}))
+        "llm": llm_out, "llm_train": train_llm}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

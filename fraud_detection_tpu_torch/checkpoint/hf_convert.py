@@ -23,8 +23,8 @@ whose logits are the checkpoint's. Nothing is fetched.
 The converted-layout caches (``converted.fraud_tpu_cache``, and
 ``converted_q8.fraud_tpu_cache`` for int8 loads) are the JAX package's
 format: the same names, meta, fingerprint and converter version, so a cache
-either package writes loads in the other. Tensor parallelism (``mesh=``) is
-not ported.
+either package writes loads in the other. ``mesh=`` places the loaded
+weights tensor-parallel (``models/llm.py`` ``shard_params``).
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ import torch
 from fraud_detection_tpu_torch.models.llm import (LanguageModel, Q8,
                                                   Transformer,
                                                   TransformerConfig,
-                                                  quantize_params_host)
+                                                  quantize_params_host,
+                                                  shard_params)
 from fraud_detection_tpu_torch.utils.device import resolve_device
 
 # safetensors dtype tag -> (torch dtype, numpy dtype of the same bytes)
@@ -438,12 +439,10 @@ def load_hf_checkpoint(ckpt_dir: str, *, max_seq: int = 4096,
     ``tokenizer``: None loads the directory's tokenizer (``transformers``,
     local files) and raises ValueError if it cannot; ``"byte"`` takes the
     byte-level tokenizer explicitly; anything else is used as given.
-    ``mesh`` (tensor parallelism) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "load_hf_checkpoint(mesh=...): tensor parallelism is not ported "
-            "to fraud_detection_tpu_torch yet (ROADMAP.md Queue 1 item 7.3)")
-    dev = resolve_device(device)
+    ``mesh``: the weights go up to the mesh's first device (``device`` is
+    not read) and are placed on its "model" axis in the Megatron layout
+    (``models/llm.py`` ``shard_params``; int8 leaves shard componentwise)."""
+    dev = mesh.home if mesh is not None else resolve_device(device)
     info = load_info if load_info is not None else {}
     with open(os.path.join(ckpt_dir, "config.json")) as f:
         cfg = config_from_hf(json.load(f), max_seq=max_seq, dtype=dtype)
@@ -491,6 +490,8 @@ def load_hf_checkpoint(ckpt_dir: str, *, max_seq: int = 4096,
 
     model = Transformer.from_leaves(cfg, {k: to_device(v)
                                           for k, v in params.items()})
+    if mesh is not None:
+        model = shard_params(model, cfg, mesh)
     if tokenizer == "byte":
         tokenizer = None  # the byte-level tokenizer, asked for explicitly
     elif tokenizer is None:

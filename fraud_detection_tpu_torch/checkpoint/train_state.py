@@ -62,10 +62,11 @@ def mesh_extra(mesh) -> Dict:
     ``extra.update(mesh_extra(mesh))``. {} off-mesh, so the key is absent
     (not None) and older off-mesh snapshots still resume off-mesh; a
     snapshot taken on a mesh and resumed off it (or the reverse) drifts by
-    that key. Both axis sizes and the device grid are kept: the data-axis
-    sum adds the shards in grid order, so the same shape over other devices
-    (or processes) would sum in another order and break bit-identical
-    resume. The grid names each device by type and index, and the
+    that key. The axis names with their sizes (``shape``: a (data, model)
+    mesh and a (data, seq) one of one size differ) and the device grid are
+    kept: the data-axis sum adds the shards in grid order, so the same
+    shape over other devices (or processes) would sum in another order and
+    break bit-identical resume. The grid names each device by type and index, and the
     process's rank and count where a process group exists."""
     if mesh is None:
         return {}

@@ -8,8 +8,9 @@ models expect. ``from_model`` binds it to this package's decoder
 (``models/llm.py``), whose batched decode explains a whole flagged
 micro-batch at once, and ``from_hf_checkpoint`` to a Hugging Face
 checkpoint directory loaded by ``checkpoint/hf_convert.py`` (optionally
-weight-only int8). ``make_stream_explain_hook`` turns a backend into the
-streaming engine's ``explain_batch_fn``.
+weight-only int8, tensor-parallel over a mesh).
+``make_stream_explain_hook`` turns a backend into the streaming engine's
+``explain_batch_fn``.
 """
 
 from __future__ import annotations
@@ -67,8 +68,9 @@ class OnPodBackend(_GenerateMixin):
         return [self.generate_fn(p, temperature, max_tokens) for p in framed]
 
     @classmethod
-    def from_model(cls, lm) -> "OnPodBackend":
-        """Bind to a models/llm.py ``LanguageModel``."""
+    def from_model(cls, lm, *, mesh=None) -> "OnPodBackend":
+        """Bind to a models/llm.py ``LanguageModel`` (optionally sharded:
+        its weights are already placed, so ``mesh`` is not read)."""
         def generate_fn(prompt: str, temperature: float, max_tokens: int) -> str:
             return lm.generate_text(prompt, temperature=temperature,
                                     max_new_tokens=max_tokens)
@@ -88,14 +90,15 @@ class OnPodBackend(_GenerateMixin):
         in place of the reference's hosted DeepSeek call
         (``checkpoint/hf_convert.py`` ``load_hf_checkpoint``). ``int8=True``
         loads it weight-only int8 (quantized on the host before the upload;
-        the same weights as an after-load ``quantize_params``). ``mesh``
-        (tensor parallelism) is not ported."""
+        the same weights as an after-load ``quantize_params``). ``mesh``:
+        the weights tensor-parallel over its "model" axis (``device`` is not
+        read); composes with ``int8``, whose leaves shard componentwise."""
         from fraud_detection_tpu_torch.checkpoint.hf_convert import (
             load_hf_checkpoint)
 
         return cls.from_model(load_hf_checkpoint(
             ckpt_dir, max_seq=max_seq, mesh=mesh, tokenizer=tokenizer,
-            int8=int8, device=device))
+            int8=int8, device=device), mesh=mesh)
 
 
 def make_stream_explain_hook(backend, *, temperature: float = 0.0,

@@ -29,8 +29,22 @@ Weight-only int8 (``quantize_params``, ``LanguageModel.quantized``, and
 every weight product goes through ``_mm`` or the head's ``_logits_head``,
 which hand an int8 weight to ``ops/int8_matmul.py`` (the hand-written W8A16
 kernel on the card, reading the weight at int8 width), so every program
-above takes int8 weights with no code of its own. Tensor and sequence
-parallelism are not ported.
+above takes int8 weights with no code of its own.
+
+Tensor parallelism (``param_shardings``, ``shard_params``, the Megatron
+layout over a mesh's "model" axis): a split weight is a ``Sharded`` leaf,
+one slice per model-axis device. ``_qkv`` and ``_layer_out``, which every
+program builds its layers from, run the column-parallel products (wq, wk/wv
+when the K/V heads divide the axis, w_gate, w_up) on each slice's device
+and add the row-parallel partials (wo, w_down) in model-axis order on the
+residual's device, ``all_reduce``-d across processes where the mesh spans
+several. Full-sequence attention runs per head group on its device (the
+flash kernel there, at the group's width); the KV-cache programs gather a
+layer's q/k/v onto the first device, where their caches live. Sequence
+parallelism (``ring_attention``, ``ulysses_attention``, ``forward(...,
+seq_mesh=)``): the sequence is split over a mesh's "seq" axis; a ring
+rotation is a ``.to()`` of the next device (differentiable, so training
+backpropagates through it) or, between processes, a send/recv.
 """
 
 from __future__ import annotations
@@ -48,8 +62,13 @@ from torch.utils.checkpoint import checkpoint
 
 from fraud_detection_tpu_torch.ops.attention import flash_attention
 from fraud_detection_tpu_torch.ops.int8_matmul import w8_matmul
+from fraud_detection_tpu_torch.parallel.mesh import Mesh, Sharding
 from fraud_detection_tpu_torch.utils import threefry
 from fraud_detection_tpu_torch.utils.device import resolve_device
+
+MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
+DATA_AXIS = "data"   # batch axis of 2-D (data, seq) / (data, model) meshes
 
 
 @dataclass(frozen=True)
@@ -111,6 +130,48 @@ class Q8(nn.Module):
         self.register_buffer("scale", scale)
 
 
+class Sharded:
+    """A weight split over a mesh's "model" axis (``shard_params``):
+    ``parts[i]``, a tensor or a ``Q8``, is this process's i-th model index's
+    slice of the weight along ``dim``, on that index's device. Where the
+    mesh's first axis is the model axis and spans processes, each process
+    holds its own indices' parts and ``mesh.group`` is the group the
+    row-parallel sums all-reduce over."""
+
+    def __init__(self, parts, dim: int, mesh: Mesh):
+        self.parts = list(parts)
+        self.dim = dim
+        self.mesh = mesh
+
+    @property
+    def devices(self) -> list:
+        return [_leaf_device(p) for p in self.parts]
+
+    def gather(self):
+        """The whole weight (a tensor or a ``Q8``) on the first part's
+        device: the parts in model-axis order, every process's."""
+        if isinstance(self.parts[0], Q8):
+            scales = [p.scale for p in self.parts]
+            split = scales[0].shape[self.dim] != 1
+            return Q8(self._cat([p.q for p in self.parts]),
+                      self._cat(scales) if split else scales[0])
+        return self._cat(self.parts)
+
+    def _cat(self, parts) -> torch.Tensor:
+        home = parts[0].device
+        local = torch.cat([p.detach().to(home) for p in parts], dim=self.dim)
+        if self.mesh.process_count == 1:
+            return local
+        got = [torch.empty_like(local) for _ in range(self.mesh.process_count)]
+        torch.distributed.all_gather(got, local.contiguous(),
+                                     group=self.mesh.group)
+        return torch.cat(got, dim=self.dim)
+
+
+def _leaf_device(leaf) -> torch.device:
+    return leaf.q.device if isinstance(leaf, Q8) else leaf.device
+
+
 class DecoderLayer(nn.Module):
     """One layer's weights: wq (D, H, d), wk/wv (D, Hkv, d), wo (H, d, D),
     w_gate/w_up (D, F), w_down (F, D), ln1/ln2 (D,); a matrix may be a
@@ -140,12 +201,16 @@ class Transformer(nn.Module):
         self.ln_f = _weight((cfg.d_model,), cfg, device)
 
     @classmethod
-    def from_leaves(cls, cfg: TransformerConfig, leaves) -> "Transformer":
-        """A model holding ``leaves`` ({name: tensor | Q8}, every name of
-        ``param_names``) as they are: nothing is copied or cast."""
+    def from_leaves(cls, cfg: TransformerConfig, leaves, *,
+                    wrap: bool = True) -> "Transformer":
+        """A model holding ``leaves`` ({name: tensor | Q8 | Sharded}, every
+        name of ``param_names``) as they are: nothing is copied or cast.
+        ``wrap=False`` keeps tensors as they are instead of frozen
+        ``nn.Parameter`` s, so a trainer's forward differentiates through
+        them to the tensors they were made from."""
         model = cls(cfg, device="meta")
         for name in model.param_names():
-            model.set_param(name, leaves[name])
+            model.set_param(name, leaves[name], wrap=wrap)
         return model
 
     def param_names(self) -> list:
@@ -164,17 +229,48 @@ class Transformer(nn.Module):
         owner, leaf = self._owner(name)
         return getattr(owner, leaf)
 
-    def set_param(self, name: str, value) -> None:
+    def set_param(self, name: str, value, *, wrap: bool = True) -> None:
         owner, leaf = self._owner(name)
-        if leaf in owner._parameters:
+        if leaf in owner._parameters or leaf in owner._modules:
             delattr(owner, leaf)   # a Parameter's slot takes no module
-        if not isinstance(value, Q8):
+        if wrap and isinstance(value, torch.Tensor):
             value = nn.Parameter(value, requires_grad=False)
         setattr(owner, leaf, value)
 
     @property
     def device(self) -> torch.device:
         return self.ln_f.device
+
+
+def init_params_threefry(cfg: TransformerConfig, seed: int,
+                         device="cuda") -> Transformer:
+    """The JAX package's ``init_params(PRNGKey(seed), cfg)``: the keys of
+    ``split(PRNGKey(seed), 7 L + 2)`` (embed 0, lm_head the last, layer l's
+    seven matrices 1 + 7 l ...), each matrix a float32 ``normal`` draw
+    (``utils/threefry.py``) times 1/sqrt(D), rounded to ``cfg.dtype``; norm
+    gains 1. Equal to JAX's weights to float32 rounding (torch's erfinv)."""
+    dev = resolve_device(device)
+    keys = threefry.split(threefry.prng_key(seed, dev), cfg.n_layers * 7 + 2)
+    scale = torch.full((), 1.0 / math.sqrt(cfg.d_model), dtype=torch.float32,
+                       device=dev)
+    order = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    model = Transformer(cfg, device="meta")
+    leaves = {}
+    for name in model.param_names():
+        shape = tuple(model.param(name).shape)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("ln1", "ln2", "ln_f"):
+            leaves[name] = torch.ones(shape, dtype=cfg.dtype, device=dev)
+            continue
+        if leaf == "embed":
+            key = keys[0]
+        elif leaf == "lm_head":
+            key = keys[-1]
+        else:
+            layer = int(name.split(".")[0][1:])
+            key = keys[1 + layer * 7 + order.index(leaf)]
+        leaves[name] = (threefry.normal(key, shape) * scale).to(cfg.dtype)
+    return Transformer.from_leaves(cfg, leaves)
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator, *,
@@ -219,7 +315,12 @@ def _quant_axes(name: str, include_embed: bool):
     return _QUANT_REDUCE_AXES.get(suffix)
 
 
-def _quantize(w: torch.Tensor, axes) -> Q8:
+def _absmax(w: torch.Tensor, axes) -> torch.Tensor:
+    return w.float().abs().amax(dim=axes, keepdim=True)
+
+
+def _quantize(w: torch.Tensor, axes, absmax: Optional[torch.Tensor] = None
+              ) -> Q8:
     """The JAX package's quantizer: f32 math, keepdims absmax over the input
     axes, scale max(absmax, 1e-8) / 127, round half to even, clip to +-127.
     Each f32 quotient is taken in float64 and rounded to f32 once, which is
@@ -228,7 +329,8 @@ def _quantize(w: torch.Tensor, axes) -> Q8:
     reciprocal instead, one ulp off now and then. So the card, the CPU and
     numpy give the same bits."""
     wf = w.float()
-    absmax = wf.abs().amax(dim=axes, keepdim=True)
+    if absmax is None:
+        absmax = _absmax(wf, axes)
     denom = torch.full((), 127.0, dtype=torch.float64, device=w.device)
     scale = (torch.clamp_min(absmax, 1e-8).double() / denom).float()
     q = torch.round((wf.double() / scale.double()).float())
@@ -245,9 +347,33 @@ def quantize_params(params: Transformer, *,
     for name in params.param_names():
         w = params.param(name)
         axes = _quant_axes(name, include_embed)
-        leaves[name] = (w if axes is None or isinstance(w, Q8)
-                        else _quantize(w.detach(), axes))
+        if isinstance(w, Sharded):
+            leaves[name] = w if axes is None else _quantize_sharded(w, axes)
+        else:
+            leaves[name] = (w if axes is None or isinstance(w, Q8)
+                            else _quantize(w.detach(), axes))
     return Transformer.from_leaves(params.cfg, leaves)
+
+
+def _quantize_sharded(w: Sharded, axes) -> Sharded:
+    """A split weight quantized shard by shard, to the bits of quantizing
+    it whole: where the split dim is an input dim (wo, w_down) the absmax
+    is the max of every shard's, across processes too, and each shard
+    takes the whole scale; elsewhere each shard's scale is its slice."""
+    if any(isinstance(p, Q8) for p in w.parts):
+        return w
+    parts = [p.detach() for p in w.parts]
+    if w.dim not in axes:
+        return Sharded([_quantize(p, axes) for p in parts], w.dim, w.mesh)
+    home = parts[0].device
+    total = _absmax(parts[0], axes)
+    for p in parts[1:]:
+        total = torch.maximum(total, _absmax(p, axes).to(home))
+    if w.mesh.process_count > 1:
+        torch.distributed.all_reduce(total, torch.distributed.ReduceOp.MAX,
+                                     group=w.mesh.group)
+    return Sharded([_quantize(p, axes, total.to(p.device)) for p in parts],
+                   w.dim, w.mesh)
 
 
 def quantize_params_host(params: Dict[str, torch.Tensor], *,
@@ -284,6 +410,113 @@ def _mm(x: torch.Tensor, w) -> torch.Tensor:
                       w.scale.reshape(-1), "kn")
         return y.reshape(*x.shape[:-1], y.shape[-1])
     return x @ w.reshape(k, -1)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the Megatron layout over a mesh's "model" axis
+# ---------------------------------------------------------------------------
+
+def param_shardings(cfg: TransformerConfig, mesh: Mesh) -> Dict[str, Sharding]:
+    """The Megatron layout as one ``Sharding`` a parameter: wq split over
+    heads, wk/wv too when the K/V heads divide the model axis (else
+    replicated, as MQA's one head is), wo and w_down row-parallel (their
+    input dim split), w_gate and w_up column-parallel; embed, lm_head and
+    the norms replicated (spec ``()``)."""
+    rep = Sharding(mesh, ())
+    kv = (Sharding(mesh, (None, MODEL_AXIS, None))
+          if cfg.kv_heads % mesh.shape[MODEL_AXIS] == 0 else rep)
+    out = {"embed": rep, "ln_f": rep}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = rep
+    for l in range(cfg.n_layers):
+        out.update({f"l{l}.wq": Sharding(mesh, (None, MODEL_AXIS, None)),
+                    f"l{l}.wk": kv, f"l{l}.wv": kv,
+                    f"l{l}.wo": Sharding(mesh, (MODEL_AXIS, None, None)),
+                    f"l{l}.w_gate": Sharding(mesh, (None, MODEL_AXIS)),
+                    f"l{l}.w_up": Sharding(mesh, (None, MODEL_AXIS)),
+                    f"l{l}.w_down": Sharding(mesh, (MODEL_AXIS, None)),
+                    f"l{l}.ln1": rep, f"l{l}.ln2": rep})
+    return out
+
+
+def _scale_sharding(weight_sh: Sharding, scale_shape) -> Sharding:
+    """A ``Q8`` scale's placement: the weight's spec on the dims the scale
+    keeps. Scales are singleton along the weight's input dims, so only its
+    output dims can be split: wq's (1, H, d) scale is split over heads,
+    wo's (1, 1, D) replicated."""
+    spec = list(weight_sh.spec) + [None] * (len(scale_shape) - len(weight_sh.spec))
+    return Sharding(weight_sh.mesh, tuple(
+        None if scale_shape[i] == 1 else spec[i]
+        for i in range(len(scale_shape))))
+
+
+def _model_offset(mesh: Mesh) -> int:
+    """This process's first global index on the model axis."""
+    if mesh.process_count > 1 and mesh.axis_names[0] == MODEL_AXIS:
+        return mesh.process_index * mesh.local_size(MODEL_AXIS)
+    return 0
+
+
+def _shard_slice(t: torch.Tensor, dim: int, index: int, n: int,
+                 dev) -> torch.Tensor:
+    size = t.shape[dim] // n
+    return t.detach().narrow(dim, index * size, size).to(dev, copy=True)
+
+
+def shard_params(params: Transformer, cfg: TransformerConfig,
+                 mesh: Mesh) -> Transformer:
+    """``params`` (full precision or int8) placed on ``mesh`` in the
+    Megatron layout (``param_shardings``): each split weight a ``Sharded``
+    leaf holding one fresh 1/n slice per device of the model axis (this
+    process's devices where the axis spans processes), every replicated one
+    on the mesh's first device. A ``Q8`` shards componentwise: ``q`` takes
+    the weight's split, the scale its output dims' (``_scale_sharding``), so
+    quantizing then sharding and sharding then quantizing give the same
+    leaves."""
+    n = mesh.shape[MODEL_AXIS]
+    if cfg.n_heads % n or cfg.d_ff % n:
+        raise ValueError(f"the model axis ({n}) must divide n_heads "
+                         f"({cfg.n_heads}) and d_ff ({cfg.d_ff})")
+    devs = mesh.axis_devices(MODEL_AXIS)
+    first = _model_offset(mesh)
+    sh = param_shardings(cfg, mesh)
+    leaves = {}
+    for name in params.param_names():
+        v = params.param(name)
+        if isinstance(v, Sharded):
+            raise ValueError(f"{name} is already sharded")
+        spec = sh[name].spec
+        if MODEL_AXIS not in spec:
+            leaves[name] = (Q8(v.q.to(mesh.home), v.scale.to(mesh.home))
+                            if isinstance(v, Q8) else v.detach().to(mesh.home))
+            continue
+        dim = spec.index(MODEL_AXIS)
+        parts = []
+        for i, dev in enumerate(devs):
+            if isinstance(v, Q8):
+                split = MODEL_AXIS in _scale_sharding(sh[name],
+                                                      v.scale.shape).spec
+                parts.append(Q8(_shard_slice(v.q, dim, first + i, n, dev),
+                                _shard_slice(v.scale, dim, first + i, n, dev)
+                                if split else v.scale.to(dev, copy=True)))
+            else:
+                parts.append(_shard_slice(v, dim, first + i, n, dev))
+        leaves[name] = Sharded(parts, dim, mesh)
+    return Transformer.from_leaves(cfg, leaves)
+
+
+def _model_sum(partials, home: torch.device, mesh: Mesh,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The row-parallel sum: the partials added in float32 on ``home`` in
+    model-axis order, all-reduced over the mesh's group where it spans
+    processes, and rounded once to ``dtype``."""
+    total = partials[0].to(home).float()
+    for t in partials[1:]:
+        total = total + t.to(home).float()
+    if mesh.process_count > 1:
+        total = total.contiguous().clone()
+        torch.distributed.all_reduce(total, group=mesh.group)
+    return total.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -360,20 +593,22 @@ def _online_softmax_update(qf, k_part, v_part, q_pos, k_pos, m, l, acc,
 
 
 def _chunked_key_pass(qf, q_pos, k_pad, v_pad, *, chunk: int, n_chunks: int,
-                      valid_len: int, far: int, carry, scale: float):
+                      valid_len: int, far: int, carry, scale: float,
+                      base_pos: int = 0, remat: bool = True):
     """Online-softmax accumulation over the first ``n_chunks`` key chunks
-    of a padded block; keys at or past ``valid_len`` get the ``far``
-    position the causal test rejects. With autograd on, each chunk's
-    probabilities are recomputed in backward instead of saved, so backward
-    memory stays bounded too."""
+    of a padded block whose keys sit at global positions ``base_pos + j``;
+    keys at or past ``valid_len`` get the ``far`` position the causal test
+    rejects. With ``remat`` and autograd on, each chunk's probabilities are
+    recomputed in backward instead of saved, so backward memory stays
+    bounded too."""
     m, l, acc = carry
     for c in range(n_chunks):
         k_c = k_pad[:, c * chunk:(c + 1) * chunk]
         v_c = v_pad[:, c * chunk:(c + 1) * chunk]
         j = c * chunk + torch.arange(chunk, device=k_pad.device)
-        k_pos = torch.where(j < valid_len, j, far)
+        k_pos = torch.where(j < valid_len, base_pos + j, far)
         args = (qf, k_c, v_c, q_pos, k_pos, m, l, acc, scale)
-        if torch.is_grad_enabled():
+        if remat and torch.is_grad_enabled():
             m, l, acc = checkpoint(_online_softmax_update, *args,
                                    use_reentrant=False)
         else:
@@ -413,8 +648,13 @@ def chunked_causal_attention(q, k, v, q_chunk: int = 512,
 
 def _expand_kv_heads(t: torch.Tensor, rep: int) -> torch.Tensor:
     """GQA/MQA kv -> full query-head width (each kv head repeated ``rep``
-    times in place, ``jnp.repeat`` semantics)."""
-    return t if rep == 1 else t.repeat_interleave(rep, dim=2)
+    times in place, ``jnp.repeat`` semantics). A broadcast and a reshape,
+    not ``repeat_interleave``: its backward is a sum over the repeats, not
+    an indexed add, so it is deterministic on the card."""
+    if rep == 1:
+        return t
+    B, S, H, d = t.shape
+    return t[:, :, :, None, :].expand(B, S, H, rep, d).reshape(B, S, H * rep, d)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -460,8 +700,216 @@ def causal_attention(q, k, v, use_flash: Optional[bool] = None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# sequence parallelism: ring and Ulysses attention over a mesh's "seq" axis
+# ---------------------------------------------------------------------------
+
+# Peak-memory knob of a ring step: scores materialize (B, H, T_loc, chunk)
+# instead of (B, H, T_loc, T_loc).
+_RING_KEY_CHUNK = 2048
+
+
+def _seq_rows(mesh: Mesh, axis_name: str, batch_axis: Optional[str], B: int):
+    """(batch slice, devices along ``axis_name``) per local batch row: one
+    row over the whole batch, or one per ``batch_axis`` index."""
+    if batch_axis is None:
+        return [(slice(0, B), mesh.axis_devices(axis_name))]
+    if mesh.process_count > 1 and mesh.axis_names[0] == batch_axis:
+        raise ValueError("a batch axis across processes is not supported; "
+                         "give each process its own batch")
+    nb = mesh.shape[batch_axis]
+    if B % nb:
+        raise ValueError(f"batch {B} not divisible by the '{batch_axis}' "
+                         f"axis size ({nb})")
+    per = B // nb
+    return [(slice(r * per, (r + 1) * per),
+             mesh.take(batch_axis, r).axis_devices(axis_name))
+            for r in range(nb)]
+
+
+def _seq_first(mesh: Mesh, axis_name: str) -> int:
+    """This process's first global block on the sequence axis."""
+    if mesh.process_count > 1 and mesh.axis_names[0] == axis_name:
+        return mesh.process_index * mesh.local_size(axis_name)
+    return 0
+
+
+def _gather_seq(blocks, home: torch.device, mesh: Mesh,
+                axis_name: str) -> torch.Tensor:
+    """Sequence blocks (B, T_loc, H, d) concatenated on ``home`` in global
+    order, every process's where the axis spans several."""
+    local = torch.cat([b.to(home) for b in blocks], dim=1)
+    if mesh.process_count == 1 or mesh.axis_names[0] != axis_name:
+        return local
+    got = [torch.empty_like(local) for _ in range(mesh.process_count)]
+    torch.distributed.all_gather(got, local.contiguous(), group=mesh.group)
+    return torch.cat(got, dim=1)
+
+
+def _ring_rotate(blocks: list, devs: list, mesh: Mesh,
+                 axis_name: str) -> list:
+    """One rotation: the block of global index i moves to index i + 1. In
+    one process a ``.to()`` of the next device (differentiable; the same
+    tensor where both are one device: nothing writes a block in place); the
+    block leaving this process goes to the next one by send/recv."""
+    out = [None] + [b.to(d) for b, d in zip(blocks[:-1], devs[1:])]
+    if mesh.process_count > 1 and mesh.axis_names[0] == axis_name:
+        dist = torch.distributed
+        rank, count = mesh.process_index, mesh.process_count
+        recv = torch.empty_like(blocks[-1], device=devs[0])
+        # one group of both: NCCL runs a lone send only once its peer's
+        # matching receive is posted, which would wait behind the peer's send
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, blocks[-1].contiguous(),
+                           (rank + 1) % count, mesh.group),
+                dist.P2POp(dist.irecv, recv, (rank - 1) % count, mesh.group)]):
+            req.wait()
+        out[0] = recv
+    else:
+        out[0] = blocks[-1].to(devs[0])
+    return out
+
+
+def _ring_row(q_blk, k_blk, v_blk, devs, *, n: int, first: int, mesh: Mesh,
+              axis_name: str, scale: float, key_chunk: int) -> list:
+    """Exact causal attention of one batch row's sequence blocks (this
+    process's, global indices ``first + j`` of ``n``) with K/V rotating
+    around the ring: n steps of online softmax per block, keys in
+    ``key_chunk`` slices (ceil division; overhang keys take the ``far``
+    sentinel). K/V ride the ring at their narrow GQA width and expand on
+    arrival. Returns each block's output (B, T_loc, H, d) on its device."""
+    B, T, H, d = q_blk[0].shape
+    rep = H // k_blk[0].shape[2]
+    chunk = min(T, key_chunk)
+    n_chunks = -(-T // chunk)
+    pad = n_chunks * chunk - T
+    far = n * T + 1
+    qf = [q.float() for q in q_blk]
+    state = [(torch.full((B, H, T), float("-inf"), device=dev),
+              torch.zeros((B, H, T), device=dev),
+              torch.zeros((B, H, T, d), device=dev)) for dev in devs]
+    kb, vb = list(k_blk), list(v_blk)
+    for s in range(n):
+        for j, dev in enumerate(devs):
+            idx = first + j
+            src = (idx - s) % n
+            q_pos = idx * T + torch.arange(T, device=dev)
+            k_full = _expand_kv_heads(kb[j], rep)
+            v_full = _expand_kv_heads(vb[j], rep)
+            if n_chunks == 1:
+                k_pos = src * T + torch.arange(T, device=dev)
+                state[j] = _online_softmax_update(qf[j], k_full, v_full, q_pos,
+                                                  k_pos, *state[j], scale)
+            else:
+                state[j] = _chunked_key_pass(
+                    qf[j], q_pos, F.pad(k_full, (0, 0, 0, 0, 0, pad)),
+                    F.pad(v_full, (0, 0, 0, 0, 0, pad)), chunk=chunk,
+                    n_chunks=n_chunks, valid_len=T, far=far, carry=state[j],
+                    scale=scale, base_pos=src * T, remat=False)
+        if s + 1 < n:
+            kb = _ring_rotate(kb, devs, mesh, axis_name)
+            vb = _ring_rotate(vb, devs, mesh, axis_name)
+    return [(acc / torch.clamp_min(l, 1e-30)[..., None]).transpose(1, 2)
+            .to(q_blk[0].dtype) for _, l, acc in state]
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mesh: Mesh, axis_name: str = SEQ_AXIS,
+                   key_chunk: int = _RING_KEY_CHUNK,
+                   batch_axis: Optional[str] = None) -> torch.Tensor:
+    """Exact causal attention with the sequence split over ``axis_name``.
+
+    q (B, T, H, d), k/v at their narrow GQA width (B, T, Hkv, d), whole on
+    one device; T must divide by the axis size. Device r of the axis owns
+    positions [r T/n, (r + 1) T/n); K/V blocks rotate the ring (narrow),
+    ``key_chunk`` bounds a step's score memory. ``batch_axis``: on a
+    (data, seq) mesh, the batch split over that axis too, a ring per data
+    row. Across processes each computes its own blocks and the outputs are
+    all-gathered. Returns (B, T, H, d) on q's device."""
+    if key_chunk < 1:
+        raise ValueError(f"key_chunk must be >= 1, got {key_chunk}")
+    n = mesh.shape[axis_name]
+    B, T, H, d = q.shape
+    if T % n:
+        raise ValueError(f"ring_attention needs T ({T}) divisible by the "
+                         f"'{axis_name}' axis size ({n})")
+    t_loc = T // n
+    first = _seq_first(mesh, axis_name)
+    scale = 1.0 / math.sqrt(d)
+    rows = []
+    for bs, devs in _seq_rows(mesh, axis_name, batch_axis, B):
+        blocks = [[t[bs, (first + j) * t_loc:(first + j + 1) * t_loc].to(dev)
+                   for j, dev in enumerate(devs)] for t in (q, k, v)]
+        outs = _ring_row(*blocks, devs, n=n, first=first, mesh=mesh,
+                         axis_name=axis_name, scale=scale, key_chunk=key_chunk)
+        rows.append(_gather_seq(outs, q.device, mesh, axis_name))
+    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
+
+
+def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mesh: Mesh, axis_name: str = SEQ_AXIS,
+                      batch_axis: Optional[str] = None) -> torch.Tensor:
+    """All-to-all sequence parallelism (the Ulysses layout), the second
+    strategy beside ``ring_attention``: each device's sequence block is
+    re-split by heads (the first all-to-all, done by hand: device i takes
+    head group i of every block), each device runs full causal attention
+    for its H/n heads over the whole sequence, and the second all-to-all
+    returns each block its positions for every head. q/k/v (B, T, H, d);
+    narrow GQA k/v expand at entry (the re-split cuts the head axis); T and
+    H must divide by the axis size. Within one process only. Returns (B,
+    T, H, d) on q's device."""
+    n = mesh.shape[axis_name]
+    B, T, H, d = q.shape
+    k = _expand_kv_heads(k, H // k.shape[2])
+    v = _expand_kv_heads(v, H // v.shape[2])
+    if T % n or H % n:
+        raise ValueError(
+            f"ulysses_attention needs T ({T}) and H ({H}) divisible by the "
+            f"'{axis_name}' axis size ({n}); use ring_attention otherwise")
+    if mesh.process_count > 1:
+        raise ValueError("ulysses_attention runs within one process; use "
+                         "ring_attention across processes")
+    tl, hl = T // n, H // n
+    rows = []
+    for bs, devs in _seq_rows(mesh, axis_name, batch_axis, B):
+        heads = []
+        for t in (q, k, v):
+            blocks = [t[bs, j * tl:(j + 1) * tl].to(dev)
+                      for j, dev in enumerate(devs)]
+            heads.append([torch.cat([b[:, :, i * hl:(i + 1) * hl].to(dev)
+                                     for b in blocks], dim=1)
+                          for i, dev in enumerate(devs)])
+        attn = [_attend(qh, kh, vh, torch.ones((T, T), dtype=torch.bool,
+                                               device=dev).tril())
+                for qh, kh, vh, dev in zip(*heads, devs)]
+        outs = [torch.cat([a[:, j * tl:(j + 1) * tl].to(dev) for a in attn],
+                          dim=2) for j, dev in enumerate(devs)]
+        rows.append(torch.cat([o.to(q.device) for o in outs], dim=1))
+    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+
+class _EmbedRows(torch.autograd.Function):
+    """``w[tokens]`` whose backward is a one-hot product: a sum in a fixed
+    order, where an indexed gather's backward adds with atomics on the card
+    (so a resumed fine-tune would not repeat the uninterrupted one)."""
+
+    @staticmethod
+    def forward(ctx, w, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = w.shape[0]
+        return w[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        flat = tokens.reshape(-1)
+        onehot = torch.zeros((flat.numel(), ctx.rows), dtype=g.dtype,
+                             device=g.device).scatter_(1, flat[:, None], 1.0)
+        return onehot.T @ g.reshape(flat.numel(), -1), None
+
 
 def _embed(params: Transformer, tokens: torch.Tensor,
            cfg: TransformerConfig) -> torch.Tensor:
@@ -474,6 +922,8 @@ def _embed(params: Transformer, tokens: torch.Tensor,
     if isinstance(emb, Q8):
         # only the gathered rows are dequantized (``_embed_rows``)
         x = (emb.q[tokens].float() * emb.scale[tokens]).to(cfg.dtype)
+    elif emb.requires_grad and torch.is_grad_enabled():
+        x = _EmbedRows.apply(emb, tokens).to(cfg.dtype)
     else:
         x = emb[tokens].to(cfg.dtype)
     if cfg.embed_scale != 1.0:
@@ -487,10 +937,60 @@ def _activation(cfg: TransformerConfig):
                                                            approximate="tanh")
 
 
+def _qkv_groups(layer: DecoderLayer, x: torch.Tensor, cos, sin,
+                cfg: TransformerConfig) -> list:
+    """Tensor parallelism's column-parallel products: for each model-axis
+    device of this process, its head group's q (B, T, H/n, d) and k, v at
+    the group's K/V width (H_kv/n split, or all H_kv where the K/V weights
+    are replicated: then computed once on x's device and copied), RoPE
+    applied, on that device."""
+    B, T, _ = x.shape
+    wq = layer.wq
+    n = wq.mesh.shape[MODEL_AXIS]
+    H, Hkv, d = cfg.n_heads // n, cfg.kv_heads, cfg.head_dim
+    h = rms_norm(x, layer.ln1, cfg.rms_eps)
+    split_kv = isinstance(layer.wk, Sharded)
+    if not split_kv:
+        k_rep = _apply_rope(_mm(h, layer.wk).view(B, T, Hkv, d), cos, sin)
+        v_rep = _mm(h, layer.wv).view(B, T, Hkv, d)
+    groups = []
+    for i, dev in enumerate(wq.devices):
+        h_i, cos_i, sin_i = h.to(dev), cos.to(dev), sin.to(dev)
+        q = _apply_rope(_mm(h_i, wq.parts[i]).view(B, T, H, d), cos_i, sin_i)
+        if split_kv:
+            k = _apply_rope(_mm(h_i, layer.wk.parts[i]).view(B, T, Hkv // n, d),
+                            cos_i, sin_i)
+            v = _mm(h_i, layer.wv.parts[i]).view(B, T, Hkv // n, d)
+        else:
+            k, v = k_rep.to(dev), v_rep.to(dev)
+        groups.append((q, k, v))
+    return groups
+
+
+def _gather_heads(parts, home: torch.device, mesh: Mesh) -> torch.Tensor:
+    """Head groups (B, T, h, d) concatenated on ``home`` in model-axis
+    order, every process's where the mesh spans several."""
+    local = torch.cat([t.to(home) for t in parts], dim=2)
+    if mesh.process_count == 1:
+        return local
+    got = [torch.empty_like(local) for _ in range(mesh.process_count)]
+    torch.distributed.all_gather(got, local.contiguous(), group=mesh.group)
+    return torch.cat(got, dim=2)
+
+
 def _qkv(layer: DecoderLayer, x: torch.Tensor, cos, sin,
          cfg: TransformerConfig):
-    """One layer's q (B, T, H, d) and k, v (B, T, Hkv, d), RoPE applied."""
+    """One layer's q (B, T, H, d) and k, v (B, T, Hkv, d), RoPE applied, on
+    x's device (under tensor parallelism, the head groups gathered there)."""
     B, T, _ = x.shape
+    if isinstance(layer.wq, Sharded):
+        groups = _qkv_groups(layer, x, cos, sin, cfg)
+        mesh = layer.wq.mesh
+        q = _gather_heads([g[0] for g in groups], x.device, mesh)
+        if not isinstance(layer.wk, Sharded):
+            return q, groups[0][1].to(x.device), groups[0][2].to(x.device)
+        return (q, _gather_heads([g[1] for g in groups], x.device, mesh),
+                _gather_heads([g[2] for g in groups], x.device, mesh))
     H, Hkv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     h = rms_norm(x, layer.ln1, cfg.rms_eps)
     q = _mm(h, layer.wq).view(B, T, H, d)
@@ -499,14 +999,35 @@ def _qkv(layer: DecoderLayer, x: torch.Tensor, cos, sin,
     return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
 
 
-def _layer_out(layer: DecoderLayer, x: torch.Tensor, attn: torch.Tensor,
+def _layer_out(layer: DecoderLayer, x: torch.Tensor, attn,
                cfg: TransformerConfig, act) -> torch.Tensor:
-    """The attention output projection and the gated MLP, both residual."""
+    """The attention output projection and the gated MLP, both residual.
+    Under tensor parallelism ``attn`` is the head groups on their devices
+    (or all heads on x's device, split here), wo and w_down are
+    row-parallel and their partials add on x's device (``_model_sum``)."""
     B, T, _ = x.shape
-    x = x + _mm(attn.reshape(B, T, cfg.n_heads * cfg.head_dim), layer.wo)
+    wo = layer.wo
+    if not isinstance(wo, Sharded):
+        x = x + _mm(attn.reshape(B, T, cfg.n_heads * cfg.head_dim), wo)
+        h2 = rms_norm(x, layer.ln2, cfg.rms_eps)
+        return x + _mm(act(_mm(h2, layer.w_gate)) * _mm(h2, layer.w_up),
+                       layer.w_down)
+    home, devs = x.device, wo.devices
+    if not isinstance(attn, list):
+        hs = cfg.n_heads // wo.mesh.shape[MODEL_AXIS]
+        first = _model_offset(wo.mesh)
+        attn = [attn[:, :, (first + i) * hs:(first + i + 1) * hs].to(dev)
+                for i, dev in enumerate(devs)]
+    x = x + _model_sum([_mm(a.reshape(B, T, -1), w)
+                        for a, w in zip(attn, wo.parts)], home, wo.mesh, x.dtype)
     h2 = rms_norm(x, layer.ln2, cfg.rms_eps)
-    return x + _mm(act(_mm(h2, layer.w_gate)) * _mm(h2, layer.w_up),
-                   layer.w_down)
+    partials = []
+    for i, dev in enumerate(layer.w_gate.devices):
+        h_i = h2.to(dev)
+        partials.append(_mm(act(_mm(h_i, layer.w_gate.parts[i]))
+                            * _mm(h_i, layer.w_up.parts[i]),
+                            layer.w_down.parts[i]))
+    return x + _model_sum(partials, home, layer.w_down.mesh, x.dtype)
 
 
 def _logits_head(x: torch.Tensor, params: Transformer,
@@ -528,19 +1049,32 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
             kv_cache: Optional[Dict[str, torch.Tensor]] = None,
             cache_len: int = 0,
             valid_from: Optional[torch.Tensor] = None,
+            seq_mesh: Optional[Mesh] = None,
+            sp_impl: str = "ring",
             use_flash: Optional[bool] = None,
-            logits_last_only: bool = False
+            logits_last_only: bool = False,
+            remat: bool = False
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """f32 logits (B, T, V) for tokens (B, T), or (B, 1, V) with
     ``logits_last_only``.
 
     Full-sequence mode (``kv_cache`` None): causal attention dispatched by
-    length (``causal_attention``). KV-cache mode: this call's k/v are
-    written into ``kv_cache`` at ``cache_len`` IN PLACE (the returned cache
-    is the same dict) and queries attend every cache slot at or below their
-    own; ``valid_from`` (B,) masks each row's left-pad slots, keeping each
-    query's own slot visible so a pad query never softmaxes an empty row."""
+    length (``causal_attention``), per head group on its device when the
+    params are sharded (``shard_params``). Sequence-parallel mode
+    (``seq_mesh``): exact attention with T split over the mesh's "seq" axis,
+    ``sp_impl`` "ring" (``ring_attention``) or "ulysses"; on a mesh with a
+    "data" axis the batch is split over it too. KV-cache mode: this call's
+    k/v are written into ``kv_cache`` at ``cache_len`` IN PLACE (the
+    returned cache is the same dict) and queries attend every cache slot at
+    or below their own; ``valid_from`` (B,) masks each row's left-pad slots,
+    keeping each query's own slot visible so a pad query never softmaxes an
+    empty row. ``remat``: with autograd on, each layer's activations are
+    recomputed in backward (``torch.utils.checkpoint``) instead of kept."""
     B, T = tokens.shape
+    sharded = isinstance(params.layers[0].wq, Sharded)
+    if seq_mesh is not None and (kv_cache is not None or sharded):
+        raise ValueError("seq_mesh takes full-sequence mode on unsharded "
+                         "params (no kv_cache, no tensor parallelism)")
     dev = tokens.device
     if positions is None:
         positions = torch.arange(T, device=dev).expand(B, T)
@@ -559,7 +1093,11 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
                       & (s_idx[None, None, :] >= valid_from[:, None, None]))
                      | own[None])                                # (B, T, S)
 
-    for l, layer in enumerate(params.layers):
+    def layer_fn(l: int, layer: DecoderLayer, x: torch.Tensor):
+        if kv_cache is None and sharded:
+            attn = [causal_attention(q, k, v, use_flash)
+                    for q, k, v in _qkv_groups(layer, x, cos, sin, cfg)]
+            return _layer_out(layer, x, attn, cfg, act)
         q, k, v = _qkv(layer, x, cos, sin, cfg)
         if kv_cache is not None:
             ck, cv = kv_cache[f"l{l}.k"], kv_cache[f"l{l}.v"]
@@ -567,9 +1105,18 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
             cv[:, cache_len:cache_len + T] = v
             attn = _attend(q, _expand_kv_heads(ck, rep),
                            _expand_kv_heads(cv, rep), valid)
+        elif seq_mesh is not None:
+            b_axis = DATA_AXIS if DATA_AXIS in seq_mesh.axis_names else None
+            sp = ulysses_attention if sp_impl == "ulysses" else ring_attention
+            attn = sp(q, k, v, seq_mesh, batch_axis=b_axis)
         else:
             attn = causal_attention(q, k, v, use_flash)
-        x = _layer_out(layer, x, attn, cfg, act)
+        return _layer_out(layer, x, attn, cfg, act)
+
+    ckpt = remat and kv_cache is None and torch.is_grad_enabled()
+    for l, layer in enumerate(params.layers):
+        x = (checkpoint(layer_fn, l, layer, x, use_reentrant=False) if ckpt
+             else layer_fn(l, layer, x))
 
     x = rms_norm(x, params.ln_f, cfg.rms_eps)
     if logits_last_only:
@@ -1011,14 +1558,18 @@ class LanguageModel:
 
     @classmethod
     def init_random(cls, cfg: Optional[TransformerConfig] = None, seed: int = 0,
-                    device="cuda", std: Optional[float] = None
-                    ) -> "LanguageModel":
-        """Random weights drawn on ``device`` from ``seed`` (see
-        ``init_params``)."""
+                    device="cuda", std: Optional[float] = None,
+                    mesh: Optional[Mesh] = None) -> "LanguageModel":
+        """Random weights drawn on ``device`` (the mesh's first device when
+        ``mesh`` is given) from ``seed`` (see ``init_params``), placed on
+        ``mesh``'s model axis by ``shard_params`` when given."""
         cfg = cfg or TransformerConfig()
-        dev = resolve_device(device)
+        dev = mesh.home if mesh is not None else resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return cls(cfg, init_params(cfg, gen, std=std))
+        params = init_params(cfg, gen, std=std)
+        if mesh is not None:
+            params = shard_params(params, cfg, mesh)
+        return cls(cfg, params)
 
     def quantized(self, *, include_embed: bool = True) -> "LanguageModel":
         """Weight-only int8 copy (see ``quantize_params``): the same API and

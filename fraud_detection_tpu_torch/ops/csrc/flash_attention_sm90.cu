@@ -306,10 +306,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
            int n_heads, int n_kv, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   auto kern = flash_fwd_sm90<D>;
-  static int ready = -1;   // per instance: shared memory opted in, register budget checked
-  if (ready < 0) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         C::kSmem);
+  int card = 0;
+  cudaError_t e = current_card(&card);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // per instance and card: shared memory opted in, register budget checked
+  static bool ready[kMaxCards] = {};
+  if (!ready[card]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     cudaFuncAttributes attr;
     e = cudaFuncGetAttributes(&attr, kern);
@@ -318,7 +321,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
     // with fewer than the rebalanced total would stall the consumers' setmaxnreg.inc.
     if (attr.numRegs * kThreads < kProducerRegs * 128 + kConsumerRegs * 256)
       return static_cast<int>(cudaErrorInvalidConfiguration);
-    ready = 1;
+    ready[card] = true;
   }
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);

@@ -528,12 +528,14 @@ int launch_wgmma(const void* x, const void* q, const float* scale, void* out, fl
                  int n, int k, int tile, int split_len, int splits, int across, cudaStream_t s) {
   using C = Cfg<L, TN, SPLIT>;
   auto kern = w8_wgmma<L, TN, SPLIT>;
-  static bool opted_in = false;   // per instance; setting it twice is harmless
-  if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         C::kSmem);
+  int card = 0;
+  cudaError_t e = current_card(&card);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static bool opted_in[kMaxCards] = {};   // per instance and card; setting it twice is harmless
+  if (!opted_in[card]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in = true;
+    opted_in[card] = true;
   }
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);

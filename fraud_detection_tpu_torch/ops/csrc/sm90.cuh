@@ -282,6 +282,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ---- host: per-card state -------------------------------------------------------------------
+
+// An opt-in to more than 48 KB of dynamic shared memory (cudaFuncSetAttribute) is a setting of
+// the current card's instance of a kernel, so a launcher keeps one flag a card, indexed by
+// current_card.
+constexpr int kMaxCards = 64;
+
+// The current card's index in *card; the CUDA error, or cudaErrorInvalidDevice past kMaxCards.
+inline cudaError_t current_card(int* card) {
+  cudaError_t e = cudaGetDevice(card);
+  if (e == cudaSuccess && (*card < 0 || *card >= kMaxCards)) e = cudaErrorInvalidDevice;
+  return e;
+}
+
 // ---- host: tensor maps ----------------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

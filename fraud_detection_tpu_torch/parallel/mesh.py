@@ -9,10 +9,13 @@ The reference names two axes on a ``jax.sharding.Mesh``:
                    analogue);
   axis "feature" — the TF-IDF feature dimension.
 
-Here a :class:`Mesh` is a (data, feature) grid of this process's
-``torch.device`` s with those axis names and a ``shape``, and — when a
-``torch.distributed`` process group spans several processes — the global
-axis sizes, this process's rank and the group. One process holds one
+Here a :class:`Mesh` is a grid of this process's ``torch.device`` s with
+one name per axis — (data, feature) by default; the explanation LLM's
+meshes name ("data", "model"), ("data", "seq"), ("model",), ("seq",) or
+("data",), as ``models/llm.py`` and ``models/train_llm.py`` read them — and
+a ``shape``, and — when a ``torch.distributed`` process group spans
+several processes — the global axis sizes (the first axis spans the
+processes), this process's rank and the group. One process holds one
 replica of a model per device of its grid; a row shard lives on the
 device of its data index (the first column of the grid). What JAX's
 partitioner does for a sharded array is done by hand:
@@ -51,43 +54,81 @@ FEATURE_AXIS = "feature"
 
 
 class Mesh:
-    """A (data, feature) grid of this process's devices.
+    """A grid of this process's devices with one name per axis.
 
-    ``devices`` is the local (data, feature) object array of
-    ``torch.device``; ``shape`` maps each axis name to its GLOBAL size (the
-    data axis spans ``process_count`` processes of equal grids, process-
-    major, as ``jax.devices()`` orders a multi-process mesh)."""
+    ``devices`` is the local object array of ``torch.device`` (device-likes
+    such as ``"cpu"`` are resolved), one array dimension per name of
+    ``axis_names`` (default ``("data", "feature")``); ``shape`` maps each
+    axis name to its GLOBAL size (the first axis spans ``process_count``
+    processes of equal grids, process-major, as ``jax.devices()`` orders a
+    multi-process mesh)."""
 
-    axis_names = (DATA_AXIS, FEATURE_AXIS)
-
-    def __init__(self, devices: np.ndarray, *, process_count: int = 1,
-                 process_index: int = 0, group=None):
-        if devices.ndim != 2 or devices.size == 0:
-            raise ValueError(f"mesh grid must be a non-empty (data, feature) "
-                             f"array, got shape {devices.shape}")
-        self.devices = devices
+    def __init__(self, devices, axis_names: Sequence[str] = (DATA_AXIS,
+                                                            FEATURE_AXIS),
+                 *, process_count: int = 1, process_index: int = 0,
+                 group=None):
+        names = tuple(axis_names)
+        grid = np.asarray(devices, dtype=object)
+        if grid.ndim != len(names) or grid.size == 0 or \
+                len(set(names)) != len(names):
+            raise ValueError(f"mesh grid must be a non-empty array with one "
+                             f"dimension per axis name {names}, got shape "
+                             f"{grid.shape}")
+        resolved = np.empty(grid.shape, dtype=object)
+        for idx, d in np.ndenumerate(grid):
+            resolved[idx] = d if isinstance(d, torch.device) \
+                else resolve_device(d)
+        self.devices = resolved
+        self.axis_names = names
         self.process_count = int(process_count)
         self.process_index = int(process_index)
         self.group = group
 
     @property
     def shape(self) -> dict:
-        dp, fp = self.devices.shape
-        return {DATA_AXIS: dp * self.process_count, FEATURE_AXIS: fp}
+        return {name: n * (self.process_count if i == 0 else 1)
+                for i, (name, n) in enumerate(zip(self.axis_names,
+                                                  self.devices.shape))}
+
+    def local_size(self, axis: str) -> int:
+        """The axis' size in this process's grid (1 where it is absent)."""
+        if axis not in self.axis_names:
+            return 1
+        return self.devices.shape[self.axis_names.index(axis)]
+
+    def axis_devices(self, axis: str) -> List[torch.device]:
+        """The devices along ``axis`` at index 0 of every other axis, in
+        axis order ([home] where the axis is absent)."""
+        if axis not in self.axis_names:
+            return [self.home]
+        i = self.axis_names.index(axis)
+        idx = [0] * self.devices.ndim
+        out = []
+        for j in range(self.devices.shape[i]):
+            idx[i] = j
+            out.append(self.devices[tuple(idx)])
+        return out
+
+    def take(self, axis: str, index: int) -> "Mesh":
+        """The sub-mesh at local ``index`` of ``axis`` (the other axes, this
+        process only): a data row of a (data, model) or (data, seq) mesh."""
+        i = self.axis_names.index(axis)
+        names = self.axis_names[:i] + self.axis_names[i + 1:]
+        return Mesh(np.take(self.devices, index, axis=i), names)
 
     @property
     def local_data_parallel(self) -> int:
-        return self.devices.shape[0]
+        return self.local_size(DATA_AXIS)
 
     @property
     def data_devices(self) -> List[torch.device]:
         """The device of each local data index, in data order."""
-        return [self.devices[i, 0] for i in range(self.devices.shape[0])]
+        return self.axis_devices(DATA_AXIS)
 
     @property
     def home(self) -> torch.device:
-        """Where reductions land: the first local data device."""
-        return self.devices[0, 0]
+        """Where reductions land: the first local device."""
+        return self.devices.flat[0]
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, devices="

@@ -4,8 +4,9 @@ Reproduces ``jax.random`` of jax 0.9.0 with its defaults: the threefry2x32
 implementation, ``jax_threefry_partitionable=True`` (keys split and bits
 drawn from a 64-bit counter per element) and ``jax_enable_x64=False`` (a
 seed keeps its low 32 bits). The port draws the forests' bootstrap weights
-and feature masks and the decoder's sampling noise from these streams, so a
-seed gives the JAX package's draws. The card has no jax to ask, so the
+and feature masks, the decoder's sampling noise and the LLM trainer's
+initial weights from these streams, so a seed gives the JAX package's
+draws. The card has no jax to ask, so the
 tests hold these functions against ``jax.random`` on the CPU: bit for bit,
 except ``gumbel``, whose two float32 logs round as torch's do, not as
 XLA's (within a float32 epsilon of max(1, |g|)).
@@ -88,6 +89,15 @@ def _counters(key: torch.Tensor, shape: tuple):
     return torch.zeros_like(lo), lo
 
 
+def _bits_range(key: torch.Tensor, start: int, count: int) -> torch.Tensor:
+    """``random_bits`` of one (2,) key over the flat elements [start,
+    start + count) of a draw: the counters (0, i) of those elements."""
+    lo = torch.arange(start, start + count, dtype=torch.int64,
+                      device=key.device)
+    b0, b1 = threefry2x32(key, torch.zeros_like(lo), lo)
+    return b0 ^ b1
+
+
 def _bits_pair(key: torch.Tensor, shape: tuple):
     k = key.reshape(key.shape[:-1] + (1,) * len(shape) + (2,))
     hi, lo = _counters(key, shape)
@@ -123,11 +133,15 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
     23 bits as the mantissa of a float in [1, 2), less 1, scaled, and held
     at or above ``minval``."""
-    bits = random_bits(key, shape)
+    return _uniform_bits(random_bits(key, shape), minval, maxval, key.device)
+
+
+def _uniform_bits(bits: torch.Tensor, minval: float, maxval: float,
+                  device) -> torch.Tensor:
     fbits = (bits >> (32 - _F32_NMANT)) | _F32_ONE_BITS
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
-    lo = _scalar(minval, torch.float32, key.device)
-    hi = _scalar(maxval, torch.float32, key.device)
+    lo = _scalar(minval, torch.float32, device)
+    hi = _scalar(maxval, torch.float32, device)
     # XLA fuses the scale and shift into one fused multiply-add; in float64
     # the product of two floats is exact, so one rounding of the sum
     # stands in for the FMA's
@@ -150,3 +164,27 @@ def gumbel(key: torch.Tensor, shape: Shape,
     if dtype != torch.float32:
         raise ValueError(f"gumbel draws float32, not {dtype}")
     return -torch.log(-torch.log(uniform(key, shape, _F32_TINY, 1.0)))
+
+
+# elements a ``normal`` draw computes at once (its int64 words take ~10x
+# their count in bytes)
+_NORMAL_CHUNK = 1 << 24
+
+
+def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` of one (2,) key: uniform
+    on [nextafter(-1, 0), 1), then sqrt(2) * erfinv, in float32. Drawn in
+    flat chunks of the element range, so a (256,000, 2,048) embedding never
+    holds its counters whole."""
+    shape = _shape(shape)
+    n = math.prod(shape)
+    if n >= 1 << 32:
+        raise ValueError(f"{n} elements: at most 2**32 - 1 per draw")
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    sqrt2 = _scalar(math.sqrt(2.0), torch.float32, key.device)
+    out = torch.empty(n, dtype=torch.float32, device=key.device)
+    for start in range(0, n, _NORMAL_CHUNK):
+        count = min(_NORMAL_CHUNK, n - start)
+        u = _uniform_bits(_bits_range(key, start, count), lo, 1.0, key.device)
+        out[start:start + count] = sqrt2 * torch.erfinv(u)
+    return out.reshape(shape)

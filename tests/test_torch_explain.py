@@ -258,8 +258,9 @@ def test_from_hf_checkpoint_int8(tmp_path):
     ``test_from_hf_checkpoint_int8``: an int8 load of a synthetic Llama
     checkpoint behind the backend API, its codes equal to the JAX load's;
     at f32 the backend's greedy analyses equal the JAX backend's (bf16 on
-    the CPU may round a near-tie apart); ``mesh=`` (tensor parallelism) is
-    refused naming its ROADMAP item."""
+    the CPU may round a near-tie apart); with ``mesh=`` (tensor parallelism)
+    the int8 codes split part for part and the analyses equal the JAX
+    backend's mesh load."""
     import os
     import sys
 
@@ -303,6 +304,24 @@ def test_from_hf_checkpoint_int8(tmp_path):
     prompts = ["why is this a scam?", "Caller: read me the code now."]
     assert (p32.generate_batch(prompts, max_tokens=6)
             == j32.generate_batch(prompts, max_tokens=6))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.3"):
-        OnPodBackend.from_hf_checkpoint(d, int8=True, tokenizer="byte",
-                                        device="cpu", mesh=object())
+    # tensor parallel over a 2-way model axis, int8 leaves split
+    # componentwise: the same codes part for part, the same analyses
+    from jax.sharding import Mesh as JMesh
+
+    from fraud_detection_tpu_torch.models.llm import Sharded
+    from fraud_detection_tpu_torch.parallel.mesh import Mesh
+
+    jmesh = JMesh(np.array(jax.devices()[:2]), ("model",))
+    pmesh = Mesh(np.array(["cpu"] * 2, object), ("model",))
+    jtp = jx.OnPodBackend.from_hf_checkpoint(d, int8=True, tokenizer="byte",
+                                             mesh=jmesh)
+    ptp = OnPodBackend.from_hf_checkpoint(d, int8=True, tokenizer="byte",
+                                          device="cpu", mesh=pmesh)
+    tp = load_hf_checkpoint(d, tokenizer="byte", int8=True, device="cpu",
+                            mesh=pmesh)
+    wq = tp.params.param("l0.wq")
+    assert isinstance(wq, Sharded) and isinstance(wq.parts[0], Q8)
+    np.testing.assert_array_equal(wq.gather().q.numpy(),
+                                  np.asarray(jlm.params["l0.wq"].q))
+    assert (ptp.generate_batch(prompts, max_tokens=6)
+            == jtp.generate_batch(prompts, max_tokens=6))

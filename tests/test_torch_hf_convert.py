@@ -239,9 +239,38 @@ def test_missing_tokenizer_refuses_silent_byte_fallback(tmp_path):
                                dtype=torch.float32, device="cpu")
 
 
-def test_mesh_refused_naming_its_queue_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.3"):
-        phf.load_hf_checkpoint(str(tmp_path), mesh=object(), device="cpu")
+@pytest.mark.parametrize("variant,n", [("llama_gqa", 2), ("gemma_mqa", 4)])
+def test_mesh_load_equals_jax(tmp_path, variant, n):
+    """``load_hf_checkpoint(mesh=)``: the loaded weights split over the
+    model axis (K/V split where the K/V heads divide it, else whole on the
+    first device) and the logits within the tensor-parallel forward's 3e-4
+    of the JAX package's mesh load and of the numpy HF forward's."""
+    import jax
+    from jax.sharding import Mesh as JMesh
+
+    from fraud_detection_tpu_torch.models.llm import Sharded
+    from fraud_detection_tpu_torch.parallel.mesh import Mesh
+
+    hf, st = state(variant, seed=9)
+    write_dir(tmp_path, hf, st)
+    kw = dict(max_seq=64, tokenizer="byte", use_cache=False)
+    plm = phf.load_hf_checkpoint(str(tmp_path), dtype=torch.float32,
+                                 mesh=Mesh(np.array(["cpu"] * n, object),
+                                           ("model",)), **kw)
+    jlm = jhf.load_hf_checkpoint(
+        str(tmp_path), dtype=jnp.float32,
+        mesh=JMesh(np.array(jax.devices()[:n]), ("model",)), **kw)
+    wq = plm.params.param("l0.wq")
+    assert isinstance(wq, Sharded) and len(wq.parts) == n
+    assert isinstance(plm.params.param("l0.wk"), Sharded) == (n == 2)
+    tokens = np.arange(10, dtype=np.int64)[None, :] % hf["vocab_size"]
+    got, _ = llm.forward(plm.params, torch.from_numpy(tokens), plm.cfg)
+    want, _ = jax.jit(lambda p, t: jllm.forward(p, t, jlm.cfg))(
+        jlm.params, jnp.asarray(tokens, jnp.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-4)
+    np.testing.assert_allclose(got.numpy(), hf_forward_numpy(st, hf, tokens),
+                               rtol=3e-4, atol=3e-4)
 
 
 def test_hf_tokenizer_adapter_truncates():

@@ -230,3 +230,109 @@ def test_two_process_tree_training_parity():
     single_acc = float((np.asarray(jpredict(jens, jnp.asarray(X))[0])
                         == y).mean())
     assert abs(float(results[0][3]) - single_acc) < 0.01
+
+
+_LLM_TP_CHILD = r'''
+import hashlib
+import torch
+torch.set_num_threads(1)
+import numpy as np
+from fraud_detection_tpu_torch.models.llm import (
+    MODEL_AXIS, TransformerConfig, forward, init_params_threefry, shard_params)
+from fraud_detection_tpu_torch.parallel.mesh import Mesh, initialize_distributed
+
+assert initialize_distributed(timeout_s=30)
+rank = torch.distributed.get_rank()
+cfg = TransformerConfig(d_model=32, n_heads=8, n_layers=2, d_ff=64, max_seq=64)
+params = init_params_threefry(cfg, 0, "cpu")
+mesh = Mesh(np.array(["cpu"] * 4, object), (MODEL_AXIS,), process_count=2,
+            process_index=rank, group=torch.distributed.group.WORLD)
+sp = shard_params(params, cfg, mesh)      # params split ACROSS PROCESSES
+parts = [tuple(p.shape) for p in sp.param("l0.w_up").parts]
+toks = torch.arange(16)[None, :] % 250
+with torch.inference_mode():
+    logits = forward(sp, toks, cfg)[0]
+digest = hashlib.sha256(logits.numpy().tobytes()).hexdigest()
+sample = " ".join("%.6f" % v for v in logits[0, -1, :5].tolist())
+print("RESULT", rank, len(parts), parts[0], digest, "|", sample, flush=True)
+torch.distributed.destroy_process_group()
+'''
+
+
+def test_two_process_llm_tensor_parallel_forward():
+    """The LLM's tensor parallelism across the PROCESS boundary: each of two
+    processes holds 4 of the 8 model-axis parts (disjoint halves), the
+    row-parallel sums all-reduce over gloo, and both see the SAME logits,
+    those of a one-process forward (the twin of
+    ``tests/test_mesh_multihost.py``'s two-process TP forward, held to the
+    TP forward's 3e-4 here instead of its 5e-3)."""
+    import jax
+    import jax.numpy as jnp
+
+    from fraud_detection_tpu.models import llm as jllm
+    from fraud_detection_tpu_torch.models import llm
+
+    results = _run_two_process(_LLM_TP_CHILD)
+    heads = [ln.split("|")[0].split() for ln in results]
+    assert heads[0][2:] == heads[1][2:], results   # same parts, same digest
+    assert heads[0][2] == "4" and "(32, 8)" in results[0]
+    cfg = llm.TransformerConfig(d_model=32, n_heads=8, n_layers=2, d_ff=64,
+                                max_seq=64)
+    toks = torch.arange(16)[None, :] % 250
+    want = llm.forward(llm.init_params_threefry(cfg, 0, "cpu"), toks,
+                       cfg)[0][0, -1, :5].numpy()
+    got = [float(x) for x in results[0].split("|")[1].split()]
+    np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4)
+    jcfg = jllm.TransformerConfig(d_model=32, n_heads=8, n_layers=2, d_ff=64,
+                                  max_seq=64)
+    jwant = jllm.forward(jllm.init_params(jax.random.PRNGKey(0), jcfg),
+                         jnp.asarray(toks.numpy(), jnp.int32), jcfg)[0]
+    np.testing.assert_allclose(got, np.asarray(jwant)[0, -1, :5], atol=5e-3)
+
+
+_LLM_SP_CHILD = r'''
+import torch
+torch.set_num_threads(1)
+import numpy as np
+from fraud_detection_tpu_torch.models.llm import (
+    SEQ_AXIS, TransformerConfig, forward, init_params_threefry)
+from fraud_detection_tpu_torch.parallel.mesh import Mesh, initialize_distributed
+
+assert initialize_distributed(timeout_s=30)
+rank = torch.distributed.get_rank()
+cfg = TransformerConfig(d_model=32, n_heads=2, n_layers=2, d_ff=64, max_seq=64)
+params = init_params_threefry(cfg, 0, "cpu")
+mesh = Mesh(np.array(["cpu"] * 4, object), (SEQ_AXIS,), process_count=2,
+            process_index=rank, group=torch.distributed.group.WORLD)
+toks = (torch.arange(32)[None, :] * 7) % 250
+with torch.inference_mode():
+    logits = forward(params, toks, cfg, seq_mesh=mesh)[0]
+start = rank * 16       # this process's blocks: positions [16 r, 16 r + 16)
+sample = " ".join("%.6f" % v for v in logits[0, start + 15, :5].tolist())
+print("RESULT", rank, start, 16, "|", sample, flush=True)
+torch.distributed.destroy_process_group()
+'''
+
+
+def test_two_process_llm_ring_attention_forward():
+    """Ring attention across the PROCESS boundary: the K/V block leaving a
+    process's last device goes to the next process by send/recv over gloo,
+    each process computes its half of the sequence, and every rank's
+    positions match a one-process forward (the twin of
+    ``tests/test_mesh_multihost.py``'s two-process ring forward)."""
+    from fraud_detection_tpu_torch.models import llm
+
+    got = {}
+    for line in _run_two_process(_LLM_SP_CHILD):
+        head, sample = line.split("|")
+        _, _, start, n_local = head.split()
+        got[int(start)] = (int(n_local), [float(x) for x in sample.split()])
+    assert sorted(got) == [0, 16] and all(n == 16 for n, _ in got.values())
+    cfg = llm.TransformerConfig(d_model=32, n_heads=2, n_layers=2, d_ff=64,
+                                max_seq=64)
+    toks = (torch.arange(32)[None, :] * 7) % 250
+    ref = llm.forward(llm.init_params_threefry(cfg, 0, "cpu"), toks,
+                      cfg)[0].numpy()
+    for start, (n_local, sample) in got.items():
+        np.testing.assert_allclose(sample, ref[0, start + n_local - 1, :5],
+                                   rtol=3e-4, atol=3e-4)
