@@ -309,6 +309,17 @@ Phases (any failure raises and the script exits non-zero):
 12c. sequence parallelism at full width: ``forward(seq_mesh=)`` over a
    4-way virtual "seq" axis, ring and Ulysses, T=2048, against the plain
    forward's last logits (within 5%), no flash launch; times;
+12d. head-sharded KV caches at the Llama-3-8B architecture (hidden 4,096,
+   32 heads, 8 K/V heads of 128, FFN 14,336, vocab 128,256, 32 layers,
+   untied; random N(0, 0.02) weights), bf16 then int8, over a 4-way virtual
+   model axis of cuda:0: every layer's k and v 4 parts of 2 K/V heads, each
+   1/4 of the cache's bytes, on its shard's device; a cached prefill at
+   T=512 against one device's last logits (within 5%); batched generation,
+   a slot window and a paged window (a shared prefix, copy-on-write
+   admits), 4 prompts x 16 tokens each, tokens equal one device's or
+   parting only at a near tie; 0 flash launches, ``w8_matmul`` a multiple
+   of a TP forward's 897 at int8 only; the decode step at B=8 with the
+   cache on the first device against per part;
 13. the streaming engine with ``explain_batch_fn`` over the on-device
    model (1,024 messages, ~5% scam, the CLI's dt as classifier, batch
    512, 48 new tokens): keys exact, ``analysis`` on exactly the flagged
@@ -325,8 +336,8 @@ Phases (any failure raises and the script exits non-zero):
    leaked; sampled rows at temperature 1.0 card vs CPU reported;
 13c. ``SlotServeService`` at full width (phase 10's model, 8 slots, 48 new
    tokens, max_len 512), contiguous, then paged (page 64, the shared
-   preamble, a 37-page pool), over phase 13's flagged rows and bench.py's
-   8 prompts: every request completed, ``admitted == completed + dropped``,
+   preamble, a 37-page pool), over the first SLOT_LANE_ROWS of phase 13's
+   flagged rows and bench.py's 8 prompts: every request completed, ``admitted == completed + dropped``,
    0 leaked pages, paged replies equal to contiguous; tokens/s,
    explanations/s, occupancy, latency, ``kv_bytes`` and the saving, and
    the peak device memory of each mode; one window's host syncs (sync
@@ -371,6 +382,12 @@ Phases (any failure raises and the script exits non-zero):
 14c. mesh fine-tuning: 2-layer full-width f32 fits on virtual (data 2,
    model 2) and (data 2, seq 2) meshes of cuda:0, losses within 3e-4 of
    the one-device fit;
+14d. with two cards or more, the same fits by two NCCL processes of one
+   card each over ("data",), ("model",) and ("seq",) (ring and Ulysses)
+   meshes across them, against this process's fit on the same cards
+   (losses within 3e-4, step times side by side); with one card the line
+   says it did not run (``scripts/llm_mesh_phases.py`` runs it on 2 and 4
+   cards);
 15. a ``{"kernels": [...]}`` line (eight entries: featurize_packed, the
    stream entry, histogram, best_splits, both flash routes, both
    ``w8_matmul`` routes), then the last line
@@ -392,7 +409,8 @@ predict and the front end's monitor run; the LLM prefill: one T=2048 forward in 
 flash kernel and, at int8, for ``w8_matmul``'s SIMT route; one int8 decode
 step and phase 12's int8 generation, for ``w8_matmul``; each of phase
 12b's TP prefills and its int8 TP generation, for flash and
-``w8_matmul``; each of phase 12c's SP forwards, for flash) and read just
+``w8_matmul``; each of phase 12c's SP forwards, for flash; each of phase
+12d's TP cache programs, for flash and ``w8_matmul``) and read just
 after it. The flash counts are reset before phase 5e and must read 0 after it
 (the game days launch no flash kernel, as in the reference), and again
 before phase 13b and must read 0 after phase 13f: the slot lane runs no
@@ -404,6 +422,7 @@ JAX or of ``fraud_detection_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -442,6 +461,10 @@ FUZZ_ALPHABET = list("abcXYZ  \t\n0!-'") + ["İ", "K", "ß", "é", "🚀"]
 
 WIDTH, TOKENS, BATCH, FEATURES = 2048, 256, 256, 10000
 SERVE_DEMO = 4096   # messages a serve CLI run classifies (--demo)
+# phase 13c: flagged rows each slot lane run explains (of phase 13's ~69):
+# enough for slot reuse and the paged pool's pressure; the four runs of
+# every row took ~82 s of the run's time limit
+SLOT_LANE_ROWS = 16
 KERNELS = ("featurize_scan", "histogram", "best_splits", "flash_attention",
            "flash_attention_sm90", "int8_matmul")
 ROOT = Path(__file__).resolve().parent
@@ -1882,8 +1905,9 @@ def slot_lane(lm, flagged_rows, card: str) -> dict:
     slots, 48 new tokens, prompt width 464 in 16-token buckets: max_len
     512), contiguous, then paged (page 64, the shared preamble, the pool
     capped at 37 pages: 5 for the preamble and 4 private pages for each of
-    the 8 slots). Each runs ``explain_rows`` over phase 13's flagged rows
-    and ``generate_batch`` over bench.py's 8 prompts. Gates: every request
+    the 8 slots). Each runs ``explain_rows`` over the first SLOT_LANE_ROWS
+    of phase 13's flagged rows and ``generate_batch`` over bench.py's 8
+    prompts. Gates: every request
     completed, ``admitted == completed + dropped``, 0 leaked pages, and the
     paged service's greedy texts equal the contiguous one's. Each mode's
     peak device memory above the model (pool, windows' transients) is
@@ -1894,7 +1918,8 @@ def slot_lane(lm, flagged_rows, card: str) -> dict:
 
     geo = dict(slots=8, max_new_tokens=48, prompt_width=464,
                prompt_bucket=16, decode_window=16, wait_timeout=600.0)
-    texts, labels, confs = (list(c) for c in zip(*flagged_rows))
+    texts, labels, confs = (list(c) for c in zip(*flagged_rows[
+        :SLOT_LANE_ROWS]))
     results, replies = {}, {}
     for mode, kw in (("contiguous", {}),
                      ("paged", dict(paged=True, kv_pages=37))):
@@ -5000,8 +5025,6 @@ def multiprocess_phase(card: str) -> dict:
     ``global_batch_from_local`` give the 8-row global batch and the
     data-axis sum crosses the processes. With one card there is nothing to
     run it on, and the line says so."""
-    import socket
-
     import torch
 
     n = torch.cuda.device_count()
@@ -5010,30 +5033,8 @@ def multiprocess_phase(card: str) -> dict:
               "NCCL rendezvous needs one card a process (the CPU tests run "
               "the 2-process gloo cases)")
         return {"run": False, "cards": n}
-    import os
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _MP_CHILD], cwd=ROOT, text=True,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        env=dict(os.environ, PYTHONPATH=str(ROOT), MASTER_ADDR="127.0.0.1",
-                 MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(r),
-                 LOCAL_RANK=str(r))) for r in range(2)]
-    lines = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=120)
-            if p.returncode != 0:
-                raise AssertionError(f"NCCL rendezvous: exit {p.returncode}\n"
-                                     f"{err[-2000:]}")
-            lines.append([ln for ln in out.splitlines()
-                          if ln.startswith("RESULT")][0])
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
+    lines = [[ln for ln in out.splitlines() if ln.startswith("RESULT")][0]
+             for out in run_two_ranks(_MP_CHILD, {}, 120)]
     for ln in lines:
         if not ("'data': 2" in ln and " 12.0 " in ln and "(8, 3)" in ln
                 and "[0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 1.0]" in ln):
@@ -5297,6 +5298,38 @@ TRAIN_TWIN = dict(GEMMA_2B, vocab_size=258, d_model=512, n_heads=8,
                   embed_scale=math.sqrt(512), max_seq=256)
 TRAIN_CPU_RTOL = 1e-4   # card vs CPU f32 losses (the JAX-trajectory test's rtol)
 MESH_LOSS_TOL = 3e-4    # mesh fits vs one device (the reference's dp x sp bound)
+# phase 12d: the Llama-3-8B architecture (the config.json of
+# meta-llama/Meta-Llama-3-8B): GQA with 8 K/V heads, so a 4-way model axis
+# splits them, 2 a part beside 8 query heads; random N(0, 0.02) weights
+LLAMA3_8B = dict(vocab_size=128_256, d_model=4096, n_layers=32, n_heads=32,
+                 n_kv_heads=8, d_ff=14_336, activation="silu",
+                 embed_scale=1.0, tie_embeddings=False, rms_eps=1e-5,
+                 rope_theta=500_000.0, max_seq=8192)
+KV_ROWS, KV_STEPS = 4, 16      # phase 12d: prompts, and tokens of each decode
+KV_PREFILL_T = 512             # phase 12d: the cached prefill's length
+KV_WIDTH, KV_PAGE = 128, 16    # phase 12d: the slot pools' prompt width, page
+KV_PREFIX = "<|system|>\nYou are a fraud analyst.\n"   # 37 tokens: a COW page
+# phase 12d's f32 check: the TP cached prefill against one device at
+# KV_F32_LAYERS (a depth cut: f32 weights and their TP copy at 32 layers
+# would take 64 GB), within KV_F32_FRAC of max |logit|. In bf16 at 32
+# layers of these random weights one device's own two exact paths (cached
+# and full-sequence forward) part by up to ~7% of max |logit| on an H100,
+# so there the TP logits are held within the larger of
+# TP_LOGIT_FRAC and twice that spread, and the per-part cache within
+# TP_LOGIT_FRAC of the whole-cache TP path
+KV_F32_LAYERS, KV_F32_FRAC = 8, 1e-4
+# phase 12d's w8_matmul products as (K, N, layout): those of a 4-way model
+# axis' part (wq, wk / wv, wo, w_gate / w_up, w_down), those of one device,
+# and the untied head (whole on the first device), at the decode step's
+# M = 8 and the cached prefill's M = KV_PREFILL_T
+W8_LLAMA_SHAPES = {"wq/4": (4096, 1024, "kn"), "wk,wv/4": (4096, 256, "kn"),
+                   "wo/4": (1024, 4096, "kn"),
+                   "w_gate,w_up/4": (4096, 3584, "kn"),
+                   "w_down/4": (3584, 4096, "kn"),
+                   "wq,wo": (4096, 4096, "kn"), "wk,wv": (4096, 1024, "kn"),
+                   "w_gate,w_up": (4096, 14_336, "kn"),
+                   "w_down": (14_336, 4096, "kn"),
+                   "head": (4096, 128_256, "nk")}
 
 
 def tp_mesh(axis: str, dev, devices=None):
@@ -5559,6 +5592,584 @@ def sp_forward(lm, dev, seed: int, card: str, devices=None) -> dict:
               f"launches; {r['ms']:.2f} ms against the plain forward's "
               f"{plain:.2f} / {plain2:.2f} ms ({card})")
     return out
+
+
+def kv_rows(dec, prompts) -> tuple:
+    """Each prompt admitted greedily into its own slot of ``dec``, then one
+    window of KV_STEPS: (the prompts' tokens, each row's first token
+    followed by its window)."""
+    import numpy as np
+
+    toks = [dec.encode_prompt(p)[0] for p in prompts]
+    firsts = [dec.prefill(s, t, 0.0, s) for s, t in enumerate(toks)]
+    n = len(prompts)
+    lens = np.asarray([len(t) for t in toks], np.int32)
+    for slot in range(n):
+        if not dec.grow_for_window(slot, int(lens[slot]), KV_STEPS):
+            raise AssertionError("phase 12d: the page pool is too small")
+    out = dec.step(np.asarray(firsts, np.int32), lens, np.ones(n, bool),
+                   np.full(n, KV_STEPS, np.int32), np.zeros(n, np.float32),
+                   0, KV_STEPS)[0]
+    return toks, [np.concatenate([[f], o]) for f, o in zip(firsts, out)]
+
+
+def kv_counts() -> dict:
+    from fraud_detection_tpu_torch.ops import attention as A
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
+
+    return dict(flash=A.flash_attention.launches, w8=W.w8_matmul.launches)
+
+
+def kv_reset() -> None:
+    from fraud_detection_tpu_torch.ops import attention as A
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
+
+    A.flash_attention.launches = 0
+    A.flash_attention_sm90.launches = A.flash_attention_simt.launches = 0
+    W.w8_matmul.launches = W.w8_matmul.simt_launches = 0
+
+
+def kv_decode_ms(model, cache, toks, reps: int = 5) -> float:
+    """One decode step's CUDA-event time at B = len(toks): ``toks`` prefilled
+    into ``cache``, then a one-token forward at the next position
+    (rewritten each repeat)."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import forward
+
+    B, T = toks.shape
+    with torch.inference_mode():
+        forward(model.params, toks, model.cfg, kv_cache=cache,
+                logits_last_only=True)
+        step = toks[:, -1:]
+        pos = torch.full((B, 1), T, device=toks.device)
+        return cuda_ms(lambda: forward(model.params, step, model.cfg,
+                                       positions=pos, kv_cache=cache,
+                                       cache_len=T), reps, 2)
+
+
+def kv_programs(lm) -> dict:
+    """Phase 12d's cache programs on ``lm``, KV_ROWS prompts x KV_STEPS
+    greedy tokens each: batched generation, a slot window and a paged
+    window (the shared prefix: copy-on-write admits); {name: (the prompts'
+    tokens, each row's tokens)}."""
+    from fraud_detection_tpu_torch.explain.slotserve.decode import (
+        PagedSlotDecoder, SlotDecoder)
+
+    enc = [lm.tokenizer.encode(p) for p in GEN_PROMPTS[:KV_ROWS]]
+    geo = dict(prompt_width=KV_WIDTH, max_new_tokens=KV_STEPS,
+               prompt_bucket=16)
+    return {"generate": (enc, list(lm.generate_tokens_batch(
+                enc, max_new_tokens=KV_STEPS))),
+            "slot window": kv_rows(SlotDecoder(lm, KV_ROWS, **geo),
+                                   GEN_PROMPTS[:KV_ROWS]),
+            "paged window": kv_rows(PagedSlotDecoder(
+                lm, KV_ROWS, page_size=KV_PAGE, prefix_text=KV_PREFIX, **geo),
+                [KV_PREFIX + p for p in GEN_PROMPTS[:KV_ROWS]])}
+
+
+def kv_compare(label: str, single, tp, want: dict, got: dict, dev) -> dict:
+    """Each program's rows on ``tp`` against ``single``'s: equal, or
+    parting only at a near tie (``tie_gate``)."""
+    import numpy as np
+
+    runs = {}
+    for name, (prompts, rows) in got.items():
+        ref = want[name][1]
+        equal = [bool(np.array_equal(a, b)) for a, b in zip(rows, ref)]
+        ties = [dict(tie_gate(f"{label} {name} row {r}", single, tp,
+                              prompts[r], np.asarray(rows[r]),
+                              np.asarray(ref[r]), dev), row=r)
+                for r in range(len(rows)) if not equal[r]]
+        runs[name] = dict(rows_equal=sum(equal), rows=len(rows),
+                          near_ties=ties)
+    return runs
+
+
+@contextlib.contextmanager
+def whole_caches():
+    """The cache programs with every cache whole on the first device and
+    each layer's q/k/v gathered there, the layout before head sharding,
+    kept here as phase 12d's baseline (the port refuses a whole cache
+    beside split K/V weights): ``init_cache`` and ``init_kv_pages`` with
+    their ``params`` not read, and ``_cache_groups`` taking every head's
+    q/k/v on the residual's device (``_qkv``)."""
+    from fraud_detection_tpu_torch.models import llm
+
+    saved = llm.init_cache, llm.init_kv_pages, llm._cache_groups
+    llm.init_cache = lambda cfg, b, s, device, params=None: saved[0](
+        cfg, b, s, device)
+    llm.init_kv_pages = lambda cfg, n, p, device, params=None: saved[1](
+        cfg, n, p, device)
+    llm._cache_groups = lambda layer, x, cos, sin, cfg, ck, cv: [
+        (*llm._qkv(layer, x, cos, sin, cfg), ck, cv)]
+    try:
+        yield
+    finally:
+        llm.init_cache, llm.init_kv_pages, llm._cache_groups = saved
+
+
+@contextlib.contextmanager
+def count_forwards():
+    """Yields {"n": the model forwards run inside}, counted at the logits
+    head that each forward, slot step and paged step ends with once."""
+    from fraud_detection_tpu_torch.models import llm
+
+    head, seen = llm._logits_head, {"n": 0}
+
+    def counted(*args, **kwargs):
+        seen["n"] += 1
+        return head(*args, **kwargs)
+
+    llm._logits_head = counted
+    try:
+        yield seen
+    finally:
+        llm._logits_head = head
+
+
+def kv_w8_shapes(dev, seed: int, card: str) -> dict:
+    """Phase 12d's w8_matmul products (``W8_LLAMA_SHAPES``) against their
+    plain versions (``check_w8``) at M = 8 and KV_PREFILL_T, bf16."""
+    import torch
+
+    errs = {}
+    for i, (name, (k, n, layout)) in enumerate(W8_LLAMA_SHAPES.items()):
+        q, scale = w8_weight(k, n, layout, dev, seed + i)
+        for m in (8, KV_PREFILL_T):
+            g = torch.Generator(device=dev).manual_seed(seed + 50 + m)
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            errs[f"{name} M={m}"] = check_w8(f"12d {name} M={m}", x, q, scale,
+                                             layout)
+        del q, scale
+    torch.cuda.empty_cache()
+    print(f"[check] w8_matmul at the Llama-3-8B shapes (4-way parts, one "
+          f"device, the untied head) {W8_LLAMA_SHAPES}, M = 8 and "
+          f"{KV_PREFILL_T}, bf16: kernel vs plain max |diff| "
+          f"{max(errs.values()):.3g} (each within {W8_BF16_STEPS} bf16 steps "
+          f"+ {W8_BF16_SUM_TOL:.3g} of sum |x q| scale), launches bit-equal "
+          f"({card})")
+    return errs
+
+
+def logits_within(label: str, got, want, tol: float) -> dict:
+    """Raise unless ``got`` is finite and within ``tol`` of ``want``."""
+    import torch
+
+    dmax = float((got - want).abs().max())
+    if not (bool(torch.isfinite(got).all()) and dmax <= tol):
+        raise AssertionError(f"{label}: last logits max |d| {dmax} beyond "
+                             f"{tol}")
+    return dict(dlogit_single=dmax, logit_scale=float(want.abs().max()),
+                tol=tol, argmax_agrees=int(got.argmax()) == int(want.argmax()))
+
+
+def kv_f32(dev, seed: int, devices=None) -> dict:
+    """Phase 12d's f32 check: Llama-3-8B width at KV_F32_LAYERS, f32, the
+    TP cached prefill on per-part caches against one device's, within
+    KV_F32_FRAC of max |logit|, and the three cache programs' tokens
+    against one device's (``kv_compare``)."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import (
+        MODEL_AXIS, LanguageModel, TransformerConfig, forward, init_cache,
+        init_params, shard_params)
+
+    cfg = TransformerConfig(**{**LLAMA3_8B, "n_layers": KV_F32_LAYERS,
+                               "dtype": torch.float32})
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    single = init_params(cfg, gen, std=0.02)
+    tp = shard_params(single, cfg, tp_mesh(MODEL_AXIS, dev, devices))
+    toks = torch.randint(0, cfg.vocab_size, (1, KV_PREFILL_T), generator=gen,
+                         device=dev)
+    S = KV_PREFILL_T + KV_STEPS
+    with torch.inference_mode():
+        want = forward(single, toks, cfg, kv_cache=init_cache(cfg, 1, S, dev),
+                       logits_last_only=True)[0][0, 0]
+        got = forward(tp, toks, cfg, kv_cache=init_cache(cfg, 1, S, dev, tp),
+                      logits_last_only=True)[0][0, 0]
+    out = logits_within("12d f32 cached prefill against one device", got,
+                        want, KV_F32_FRAC * float(want.abs().max()))
+    single, tp = LanguageModel(cfg, single), LanguageModel(cfg, tp)
+    out["runs"] = kv_compare("12d f32", single, tp, kv_programs(single),
+                             kv_programs(tp), dev)
+    del single, tp
+    torch.cuda.empty_cache()
+    return out
+
+
+def kv_gates(label: str, single, tp, dev, seed: int, card: str) -> dict:
+    """Phase 12d for one dtype: the head-sharded caches' layout and bytes;
+    a cached prefill's last logits on per-part caches against the whole
+    caches' (TP_LOGIT_FRAC) and one device's (the larger of TP_LOGIT_FRAC
+    and twice one device's own bf16 spread); the three cache programs
+    (``kv_programs``) on the tensor-parallel model against one device's
+    (``kv_compare``) and, row for row equal, against the same programs on
+    whole caches (``whole_caches``); their launches: flash none, and
+    w8_matmul at int8 exactly a forward's (``w8_forward_launches``) times
+    the forwards they ran (``count_forwards``), none at bf16; the TP decode
+    step with the cache on the first device against per part."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import (
+        MODEL_AXIS, Sharded, forward, init_cache, kv_bytes_by_device, kv_parts)
+
+    cfg = tp.cfg
+    wk = tp.params.param("l0.wk")
+    n = wk.mesh.shape[MODEL_AXIS]
+    S = KV_PREFILL_T + KV_STEPS
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, KV_PREFILL_T), generator=g,
+                         device=dev)
+    cache = init_cache(cfg, 1, S, dev, tp.params)
+    whole = (2 * cfg.n_layers * S * cfg.kv_heads * cfg.head_dim
+             * torch.finfo(cfg.dtype).bits // 8)
+    parts = [p for a in cache.values() for p in kv_parts(a)]
+    if not (all(isinstance(a, Sharded) and len(a.parts) == n
+                for a in cache.values())
+            and [p.device for p in kv_parts(cache["l0.k"])] == wk.devices
+            and all(p.shape[2] == cfg.kv_heads // n for p in parts)
+            and {p.numel() * p.element_size() * 2 * cfg.n_layers
+                 for p in parts} == {whole // n}):
+        raise AssertionError(f"12d {label}: cache parts {[tuple(p.shape) for p in parts[:n]]} "
+                             f"on {[str(p.device) for p in parts[:n]]}, not "
+                             f"1/{n} of {whole} bytes a part")
+    out = dict(part_bytes=whole // n, whole_bytes=whole,
+               bytes_by_device=kv_bytes_by_device(cache))
+    with torch.inference_mode():
+        want = forward(single.params, toks, cfg,
+                       kv_cache=init_cache(cfg, 1, S, dev),
+                       logits_last_only=True)[0][0, 0]
+        spread = float((forward(single.params, toks, cfg, use_flash=False,
+                                logits_last_only=True)[0][0, 0]
+                        - want).abs().max())
+        kv_reset()
+        got = forward(tp.params, toks, cfg, kv_cache=cache,
+                      logits_last_only=True)[0][0, 0]
+        with whole_caches():
+            gathered = forward(tp.params, toks, cfg,
+                               kv_cache=init_cache(cfg, 1, S, dev),
+                               logits_last_only=True)[0][0, 0]
+    torch.cuda.synchronize()
+    out["prefill"] = dict(last_logits_close(
+        f"12d {label} per-part cache against the whole", got, gathered),
+        **logits_within(f"12d {label} cached prefill against one device",
+                        got, want, max(TP_LOGIT_FRAC * float(
+                            want.abs().max()), 2 * spread)),
+        own_spread=spread)
+    del cache
+    want = kv_programs(single)
+    kv_reset()
+    with count_forwards() as forwards:
+        got = kv_programs(tp)
+    torch.cuda.synchronize()
+    counts = kv_counts()
+    per = w8_forward_launches(tp.params)
+    want_w8 = per * forwards["n"] if label == "int8" else 0
+    if counts["flash"] or counts["w8"] != want_w8:
+        raise AssertionError(f"12d {label}: launches {counts}, want flash 0 "
+                             f"and w8_matmul {want_w8} ({forwards['n']} TP "
+                             f"forwards x {per} at int8, 0 at bf16)")
+    counts["forwards"] = forwards["n"]
+    with whole_caches():
+        gathered = kv_programs(tp)
+    runs = kv_compare(f"12d {label}", single, tp, want, got, dev)
+    for name, (_, rows) in gathered.items():
+        if not all(np.array_equal(a, b) for a, b in zip(got[name][1], rows)):
+            raise AssertionError(f"12d {label} {name}: per-part caches' tokens "
+                                 "differ from the whole caches'")
+    out["launches"] = counts
+    out["runs"] = runs
+    with torch.inference_mode():
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        batch = torch.randint(0, cfg.vocab_size, (8, KV_PREFILL_T),
+                              generator=g, device=dev)
+        caches = {kind: init_cache(cfg, 8, S, dev, tp.params
+                                   if kind == "per part" else None)
+                  for kind in ("first device", "per part")}
+        turns = []
+        for kind in ("first device", "per part", "per part", "first device"):
+            with (whole_caches() if kind == "first device"
+                  else contextlib.nullcontext()):
+                turns.append((kind, kv_decode_ms(tp, caches[kind], batch)))
+        del caches
+    out["decode_step_ms"] = {kind: [ms for k, ms in turns if k == kind]
+                             for kind in ("first device", "per part")}
+    print(f"[kv] {label}: {cfg.n_layers} layers of Llama-3-8B width over "
+          f"{n} model shards {sorted({str(d) for d in wk.devices})}: each "
+          f"layer's k and v {n} parts of (..., {cfg.kv_heads // n}, "
+          f"{cfg.head_dim}), {whole // n} of the cache's {whole} bytes each "
+          f"(B=1, S={S}); cached prefill T={KV_PREFILL_T} last logits: per "
+          f"part vs the whole cache max |d| {out['prefill']['dlogit']:.4g} "
+          f"(gate {TP_LOGIT_FRAC} of max |logit|), vs one device "
+          f"{out['prefill']['dlogit_single']:.4g} (max |logit| "
+          f"{out['prefill']['logit_scale']:.4g}; gate "
+          f"{out['prefill']['tol']:.4g}: one device's own cached vs "
+          f"full-sequence spread {out['prefill']['own_spread']:.4g}); "
+          + "; ".join(f"{k} {v['rows_equal']} of {v['rows']} rows equal "
+                      f"one device's ({len(v['near_ties'])} near ties)"
+                      for k, v in runs.items())
+          + f", every row equal to the whole caches'; the three programs "
+          f"ran {forwards['n']} TP forwards and launched flash "
+          f"{counts['flash']}, w8_matmul {counts['w8']}"
+          + (f" (= {forwards['n']} x {per})" if label == "int8" else "")
+          + f"; decode step B=8 at S={S} in turns (cache on the first device, "
+          f"per part, per part, first device): " + " / ".join(
+              f"{ms:.2f}" for _, ms in turns) + f" ms ({card})")
+    return out
+
+
+def sharded_caches(dev, seed: int, card: str, devices=None,
+                   n_layers: int = LLAMA3_8B["n_layers"]) -> dict:
+    """Phase 12d: the Llama-3-8B architecture (bf16, random N(0, 0.02)
+    weights from ``seed``, ``n_layers`` deep), split over a 4-way model
+    axis (by default the virtual one of cuda:0; ``devices``: real cards)
+    at bf16, then quantized and split at int8 (``kv_gates`` for each): the
+    KV caches head-sharded, 2 K/V heads a part. First w8_matmul at every
+    Llama-3-8B weight shape against its plain version (``kv_w8_shapes``)
+    and the f32 check at KV_F32_LAYERS (``kv_f32``)."""
+    import torch
+
+    from fraud_detection_tpu_torch.models.llm import (
+        MODEL_AXIS, LanguageModel, TransformerConfig, init_params,
+        shard_params)
+
+    cfg = TransformerConfig(**{**LLAMA3_8B, "n_layers": n_layers,
+                               "dtype": torch.bfloat16})
+    t0 = time.perf_counter()
+    w8_err = kv_w8_shapes(dev, seed + 3, card)
+    f32 = kv_f32(dev, seed + 2, devices)
+    print(f"[kv] f32, {KV_F32_LAYERS} layers of Llama-3-8B width over 4 model "
+          f"shards: cached prefill T={KV_PREFILL_T} on per-part caches, last "
+          f"logits vs one device max |d| {f32['dlogit_single']:.4g} (max "
+          f"|logit| {f32['logit_scale']:.4g}, gate {KV_F32_FRAC} of it); "
+          + "; ".join(f"{k} {v['rows_equal']} of {v['rows']} rows equal one "
+                      f"device's ({len(v['near_ties'])} near ties)"
+                      for k, v in f32["runs"].items()) + f" ({card})")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    single = LanguageModel(cfg, init_params(cfg, gen, std=0.02))
+    mesh = tp_mesh(MODEL_AXIS, dev, devices)
+    out = {"layers": n_layers, "shards": mesh.shape[MODEL_AXIS], "f32": f32,
+           "w8_max_abs_err": w8_err}
+    for label in ("bf16", "int8"):
+        if label == "int8":
+            single = single.quantized()
+        tp = LanguageModel(cfg, shard_params(single.params, cfg, mesh),
+                           tokenizer=single.tokenizer)
+        out[label] = kv_gates(label, single, tp, dev, seed + 1, card)
+        del tp
+        torch.cuda.empty_cache()
+    del single
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[kv] phase 12d: Llama-3-8B width at {n_layers} of 32 layers, "
+          f"bf16 and int8, {out['wall_s']:.1f} s ({card})")
+    return out
+
+
+# phase 14d: the fits each two-process layout runs, per cards a process:
+# (label, axis names, one process's grid, sp_impl); the first axis spans
+# the two processes
+FIT_MESHES = {1: (("data", ("data",), (1,), "ring"),
+                  ("model", ("model",), (1,), "ring"),
+                  ("seq ring", ("seq",), (1,), "ring"),
+                  ("seq ulysses", ("seq",), (1,), "ulysses")),
+              2: (("data x model", ("data", "model"), (1, 2), "ring"),
+                  ("data x seq", ("data", "seq"), (1, 2), "ring"),
+                  ("model", ("model",), (2,), "ring"))}
+FIT_TIMED = 3    # phase 14d: steps timed after the first
+
+_FIT_CHILD = r'''
+import json, os, sys, time
+import numpy as np
+import torch
+import chip_smoke as cs
+from fraud_detection_tpu_torch.parallel.mesh import Mesh, initialize_distributed
+
+assert initialize_distributed(timeout_s=120)
+rank = torch.distributed.get_rank()
+per = int(os.environ["FIT_CARDS"])
+devs = cs.fit_devices(os.environ["FIT_DEVICE"], rank * per, per)
+res = {}
+for label, names, grid, impl in cs.FIT_MESHES[per]:
+    mesh = Mesh(np.array(devs, object).reshape(grid), names, process_count=2,
+                process_index=rank, group=torch.distributed.group.WORLD)
+    res[label] = cs.timed_fit(mesh, devs[0], impl)
+if rank == 0:
+    with open(os.environ["FIT_OUT"], "w") as fh:
+        json.dump(res, fh)
+torch.distributed.destroy_process_group()
+'''
+
+
+def run_two_ranks(child: str, env: dict, timeout: float) -> list:
+    """Run ``child`` as two ``torch.distributed`` processes (rank r with
+    ``LOCAL_RANK`` from ``env``'s ``LOCAL_RANKS``, a rendezvous port on
+    localhost), both under one deadline, their output in files so neither
+    blocks on a full pipe while the other waits in a collective; kill what
+    is left and raise with both ranks' output tails unless both exit 0.
+    Returns each rank's output (stdout and stderr)."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    local = env.get("LOCAL_RANKS", "0,1").split(",")
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", child], cwd=ROOT, text=True,
+        stdout=logs[r], stderr=subprocess.STDOUT,
+        env=dict(os.environ, **env, PYTHONPATH=str(ROOT),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                 WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=local[r]))
+        for r in range(2)]
+    deadline = time.monotonic() + timeout
+    try:
+        while time.monotonic() < deadline and any(p.poll() is None
+                                                  for p in procs):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for fh in logs:
+        fh.seek(0)
+        texts.append(fh.read())
+        fh.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"two ranks exited {[p.returncode for p in procs]}"
+                             + "".join(f"\nrank {r}: {t[-3000:]}"
+                                       for r, t in enumerate(texts)))
+    return texts
+
+
+def fit_devices(kind: str, first: int, n: int) -> list:
+    """Cards ``first`` to ``first + n - 1``, or ``n`` CPU entries (a CPU
+    rehearsal of phase 14d under gloo)."""
+    import torch
+
+    if kind == "cuda":
+        return [torch.device("cuda", first + i) for i in range(n)]
+    return [torch.device("cpu")] * n
+
+
+def timed_fit(mesh, dev, sp_impl: str) -> dict:
+    """phase 14c's 2-layer full-width f32 fit on ``mesh`` (or on ``dev``):
+    the losses of 1 + FIT_TIMED steps and a step's milliseconds, the median
+    of the last FIT_TIMED steps' walls (each step synchronized; the first
+    holds NCCL's and the allocator's warm-up)."""
+    import torch
+
+    from fraud_detection_tpu_torch.data import generate_corpus
+    from fraud_detection_tpu_torch.models import train_llm as TL
+    from fraud_detection_tpu_torch.models.llm import TransformerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(**{**GEMMA_2B, "n_layers": 2,
+                               "dtype": torch.float32})
+    texts = [d.text for d in generate_corpus(n=64, seed=5)]
+    cuda = torch.device(dev).type == "cuda"
+    walls = []
+    step = TL._train_step
+
+    def timed(*args, **kw):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tcfg = TL.LLMTrainConfig(steps=1 + FIT_TIMED, batch_size=TRAIN_B,
+                             seq_len=TRAIN_T, learning_rate=1e-3,
+                             warmup_steps=0, seed=3)
+    TL._train_step = timed
+    try:
+        _, losses = TL.fit_language_model(texts, cfg, tcfg, mesh=mesh,
+                                          device=dev, sp_impl=sp_impl)
+    finally:
+        TL._train_step = step
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=statistics.median(walls[1:]),
+                step_walls_ms=walls)
+
+
+def two_process_fit_ranks(per: int, device_type: str = "cuda") -> dict:
+    """Phase 14d's fits of FIT_MESHES[per] by two NCCL processes of ``per``
+    cards each (``_FIT_CHILD``; ``device_type="cpu"`` rehearses them under
+    gloo): {label: the first rank's ``timed_fit``}."""
+    import os
+
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_fits_", suffix=".json")
+    os.close(fd)
+    try:
+        run_two_ranks(_FIT_CHILD, dict(FIT_CARDS=str(per), FIT_OUT=path,
+                                       FIT_DEVICE=device_type,
+                                       LOCAL_RANKS=f"0,{per}"), 600)
+        with open(path) as fh:
+            return json.load(fh)
+    finally:
+        os.unlink(path)
+
+
+def two_process_fits(per: int, card: str, device_type: str = "cuda",
+                     ranks=None) -> dict:
+    """Phase 14d over ``2 per`` cards: the two processes' fits
+    (``two_process_fit_ranks``, or ``ranks`` when they already ran) against
+    this process's fits on meshes of the same cards: losses within
+    MESH_LOSS_TOL, each one's step time beside the other's."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.parallel.mesh import Mesh
+
+    if ranks is None:
+        ranks = two_process_fit_ranks(per, device_type)
+    devs = fit_devices(device_type, 0, 2 * per)
+    out = {}
+    for label, names, grid, impl in FIT_MESHES[per]:
+        full = (2 * grid[0],) + tuple(grid[1:])
+        one = timed_fit(Mesh(np.array(devs, object).reshape(full), names),
+                        devs[0], impl)
+        two = ranks[label]
+        if not all(abs(a - b) <= MESH_LOSS_TOL * (1 + abs(b))
+                   for a, b in zip(two["losses"], one["losses"])):
+            raise AssertionError(f"two-process fit {label}: losses "
+                                 f"{two['losses']} vs one process "
+                                 f"{one['losses']}")
+        out[label] = dict(two_process=two, one_process=one)
+        print(f"[train-llm] 2 NCCL processes x {per} card(s), {label} "
+              f"{dict(zip(names, full))}"
+              + (f" ({impl})" if "seq" in names else "")
+              + f", 2 layers, full width, f32: losses "
+              f"{[round(x, 5) for x in two['losses']]} vs one process on the "
+              f"same cards {[round(x, 5) for x in one['losses']]} (gate "
+              f"{MESH_LOSS_TOL}); step {two['step_ms']:.1f} ms vs "
+              f"{one['step_ms']:.1f} ms ({card})")
+    return out
+
+
+def two_process_fits_phase(card: str) -> dict:
+    """Phase 14d: with two cards or more, ``two_process_fits`` at one card a
+    process; with one card there is no second card for NCCL's second rank,
+    and the line says so (``scripts/llm_mesh_phases.py`` runs both
+    layouts, and the CPU tests the gloo ones)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[train-llm] phase 14d not run: {n} card on this machine, and "
+              "NCCL takes one card a process (scripts/llm_mesh_phases.py runs "
+              "the two-process fits on 2 and 4 cards, "
+              "tests/test_torch_llm_multiprocess.py the gloo ones)")
+        return {"run": False, "cards": n}
+    return {"run": True, "cards": n, "fits": two_process_fits(1, card)}
 
 
 def llm_train_phase(card: str) -> dict:
@@ -5843,6 +6454,9 @@ def llm_phases(dev, seed: int, card: str, work: Path) -> dict:
     # the int8 TP generation, the flash count around each SP forward)
     tp = tp_serving(lm, lm8, dev, seed + 44, card)
     sp = sp_forward(lm, dev, seed + 45, card)
+    # -- 12d. head-sharded KV caches at Llama-3-8B width ---------------------
+    # (flash and w8_matmul counts reset and read around each TP run)
+    kv = sharded_caches(dev, seed + 46, card)
 
     # -- 13. the engine with explanations ------------------------------------
     expl, expl_pipe, expl_items, flagged_rows = explained_stream(
@@ -5870,7 +6484,7 @@ def llm_phases(dev, seed: int, card: str, work: Path) -> dict:
     return {"load": loads, "int8": int8, "prefill": pre, "card_vs_cpu": cvc,
             "card_vs_cpu_int8": cvc8, "generate": gen,
             "generate_turns": turns, "int8_generate_launches": gen8_launches,
-            "tp_serving": tp, "sp_forward": sp,
+            "tp_serving": tp, "sp_forward": sp, "sharded_caches": kv,
             "explained_stream": expl, "slot_card_vs_cpu": slot_cvc,
             "slot_lane": slots, "slot_lane_int8": slots8,
             "explained_stream_async": async_stream,
@@ -6569,6 +7183,8 @@ def main(argv=None) -> int:
 
     # -- 14b-14c. the LLM trainer, in a process of its own -------------------
     train_llm = llm_train_phase(card)
+    # -- 14d. two-process fits (with two cards or more) ----------------------
+    train_llm["two_process"] = two_process_fits_phase(card)
 
     # -- 15. result lines ----------------------------------------------------
     def learn_refresh(kernel):

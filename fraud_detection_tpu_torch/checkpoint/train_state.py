@@ -9,7 +9,9 @@ a snapshot written by either package reads in the other's
     <dir>/arrays.npz      accumulated per-round/per-tree arrays
 
 A resumed fit builds the SAME ensemble an uninterrupted one builds
-(tests/test_torch_train_state.py asserts array equality). Writes are atomic
+(tests/test_torch_train_state.py asserts array equality). A fit whose mesh
+spans processes writes one snapshot, from its first process
+(``save_train_state_once``), which every process resumes from. Writes are atomic
 (write to <dir>.tmp, then rename) so a crash mid-save leaves the previous
 snapshot intact, never a torn one. The fingerprint binds a snapshot to its
 exact training setup (the port's config fields, data shape, bin-edge and
@@ -66,15 +68,22 @@ def mesh_extra(mesh) -> Dict:
     mesh and a (data, seq) one of one size differ) and the device grid are
     kept: the data-axis sum adds the shards in grid order, so the same
     shape over other devices (or processes) would sum in another order and
-    break bit-identical resume. The grid names each device by type and index, and the
-    process's rank and count where a process group exists."""
+    break bit-identical resume. The grid names each device by type and
+    index. Where the mesh spans processes the grid is every process's, in
+    rank order, beside the process count: the same fields on every process,
+    so the one snapshot they share resumes on each and a snapshot of
+    another process layout is refused by all (every process calls this)."""
     if mesh is None:
         return {}
     out = {"shape": {str(k): int(v) for k, v in mesh.shape.items()},
            "devices": [str(d) for d in mesh.devices.flat]}
     if mesh.process_count > 1:
-        out["process"] = {"rank": mesh.process_index,
-                          "count": mesh.process_count}
+        import torch.distributed as dist
+
+        grids: list = [None] * mesh.process_count
+        dist.all_gather_object(grids, out["devices"], group=mesh.group)
+        out["devices"] = [d for g in grids for d in g]
+        out["process"] = {"count": mesh.process_count}
     return {"mesh": out}
 
 
@@ -108,6 +117,22 @@ def save_train_state(path: str, kind: str, progress: int,
         shutil.rmtree(old)
     else:
         os.rename(tmp, path)
+
+
+def save_train_state_once(mesh, path: str, kind: str, progress: int,
+                          fingerprint: Dict,
+                          arrays: Dict[str, np.ndarray]) -> None:
+    """``save_train_state`` by the first process of ``mesh`` (every process
+    holds the same arrays and calls this); the others wait until it is
+    written, so none reads or moves on before the snapshot exists."""
+    if mesh is None or mesh.process_count == 1:
+        save_train_state(path, kind, progress, fingerprint, arrays)
+        return
+    import torch.distributed as dist
+
+    if mesh.process_index == 0:
+        save_train_state(path, kind, progress, fingerprint, arrays)
+    dist.barrier(group=mesh.group)
 
 
 def load_train_state(path: str) -> Optional[Tuple[str, int, Dict, Dict[str, np.ndarray]]]:

@@ -2,7 +2,10 @@
 — twin of ``fraud_detection_tpu/explain/slotserve/decode.py``.
 
 One :class:`SlotDecoder` owns ONE persistent KV pool — ``(slots, S, Hkv,
-d)`` per layer, allocated once and updated in place — and the two programs
+d)`` per layer, allocated once and updated in place; under tensor
+parallelism with K/V heads the model axis divides, one ``(slots, S,
+Hkv/n, d)`` part per model-axis device (``llm.init_cache(params=)``) — and
+the two programs
 that touch it: ``slot_prefill`` (admit one prompt into a free slot at an
 iteration boundary) and ``slot_decode_window`` (advance every busy slot up
 to a window of tokens, one host read). Prompt lengths round up to
@@ -187,9 +190,10 @@ class SlotDecoder(_DecoderBase):
                  max_new_tokens: int = 128, prompt_bucket: int = 64):
         super().__init__(lm, slots, prompt_width, max_new_tokens,
                          prompt_bucket)
-        self.cache = llm.init_cache(self.cfg, slots, self.max_len, lm.device)
-        self.kv_bytes = int(sum(a.numel() * a.element_size()
-                                for a in self.cache.values()))
+        self.cache = llm.init_cache(self.cfg, slots, self.max_len, lm.device,
+                                    lm.params)
+        self.kv_bytes_per_device = llm.kv_bytes_by_device(self.cache)
+        self.kv_bytes = sum(self.kv_bytes_per_device.values())
         # Paged-pool stats surface (zero here: the whole region is a single
         # worst-case reservation). The service snapshot reads these
         # unconditionally so the health schema is mode-independent.
@@ -292,7 +296,8 @@ class PagedSlotDecoder(_DecoderBase):
                 f"total_pages {total} cannot hold even one worst-case row "
                 f"({self.n_view} pages of {page_size})")
         self.total_pages = total
-        self.pages = llm.init_kv_pages(self.cfg, total, page_size, lm.device)
+        self.pages = llm.init_kv_pages(self.cfg, total, page_size, lm.device,
+                                       lm.params)
         self.allocator = PageAllocator(total)
         self._tables = np.zeros((slots, self.n_view), np.int32)
         self._cover = [0] * slots        # table entries resident per slot
@@ -303,13 +308,14 @@ class PagedSlotDecoder(_DecoderBase):
         self.prefix_hits = 0
         self.cow_copies = 0
         self.leaked_pages = 0
-        # One page's bytes across every layer/tensor array; the pool's
-        # total; and the reservation the contiguous layout would have made
-        # for the same slot count (the headline saving).
-        per_pos = int(sum(a.element_size() * a.shape[2] * a.shape[3]
-                          for a in self.pages.values()))
+        # One page's bytes across every layer/tensor array and part; the
+        # pool's total (and per device); and the reservation the contiguous
+        # layout would have made for the same slot count (the headline
+        # saving).
+        self.kv_bytes_per_device = llm.kv_bytes_by_device(self.pages)
+        self.kv_bytes = sum(self.kv_bytes_per_device.values())
+        per_pos = self.kv_bytes // (total * page_size)
         self.page_bytes = per_pos * page_size
-        self.kv_bytes = self.page_bytes * total
         self.kv_bytes_saved_vs_contiguous = (
             per_pos * self.max_len * slots - self.kv_bytes)
         if prefix_text:
@@ -369,14 +375,17 @@ class PagedSlotDecoder(_DecoderBase):
         padded[0, :lp] = toks
         pids = [self.allocator.alloc() for _ in range(n_prefix)]
         with on_lane(self._stream):
-            tmp = llm.init_cache(self.cfg, 1, padded.shape[1], self.lm.device)
+            tmp = llm.init_cache(self.cfg, 1, padded.shape[1], self.lm.device,
+                                 self.lm.params)
             llm.slot_prefill(self.lm.params, padded, lp, self.cfg, tmp, 0,
                              0.0, 0)
             for j, pid in enumerate(pids):
                 lo = j * self.page_size
                 take = min(self.page_size, lp - lo)
                 for name, arr in self.pages.items():
-                    arr[pid, :take] = tmp[name][0, lo:lo + take]
+                    for part, src in zip(llm.kv_parts(arr),
+                                         llm.kv_parts(tmp[name])):
+                        part[pid, :take] = src[0, lo:lo + take]
         self._prefix_tokens = toks
         self._prefix_len = lp
         self._prefix_pids = pids

@@ -617,6 +617,8 @@ class SlotServeService:
             "decode_steps": decode_steps,
             "tokens_out": tokens_out,
             "kv_bytes": self._decoder.kv_bytes,
+            # {device: bytes}: a head-sharded pool's part on each device
+            "kv_bytes_per_device": dict(self._decoder.kv_bytes_per_device),
             # Paged-pool block (all-zero when the contiguous decoder runs —
             # the schema is mode-independent so pollers never branch).
             "kv_pages": self._decoder.kv_pages,

@@ -37,21 +37,33 @@ one slice per model-axis device. ``_qkv`` and ``_layer_out``, which every
 program builds its layers from, run the column-parallel products (wq, wk/wv
 when the K/V heads divide the axis, w_gate, w_up) on each slice's device
 and add the row-parallel partials (wo, w_down) in model-axis order on the
-residual's device, ``all_reduce``-d across processes where the mesh spans
-several. Full-sequence attention runs per head group on its device (the
-flash kernel there, at the group's width); the KV-cache programs gather a
-layer's q/k/v onto the first device, where their caches live. Sequence
-parallelism (``ring_attention``, ``ulysses_attention``, ``forward(...,
-seq_mesh=)``): the sequence is split over a mesh's "seq" axis; a ring
-rotation is a ``.to()`` of the next device (differentiable, so training
-backpropagates through it) or, between processes, a send/recv.
+residual's device, ``all_reduce``-d across processes where the model axis
+spans several. Full-sequence attention runs per head group on its device
+(the flash kernel there, at the group's width). The KV-cache programs
+(batched decode, the slot and paged programs) keep each layer's cache
+head-sharded beside wk/wv where the K/V heads divide the model axis: one
+(..., Hkv/n, d) part per model-axis device, written and attended by its
+head group there (``init_cache(params=)``, ``_cache_groups``); MQA and any
+Hkv the axis does not divide keep one cache on the first device, where
+each layer's q/k/v are gathered. Sequence parallelism (``ring_attention``,
+``ulysses_attention``, ``forward(..., seq_mesh=)``): the sequence is split
+over a mesh's "seq" axis (and the batch over "data"); a ring rotation is a
+``.to()`` of the next device (differentiable, so training backpropagates
+through it). Across processes, one per card as torchrun starts them, the
+model, sequence or batch axis spans them and the programs move tensors
+with ``parallel/mesh.py``'s collectives, each with its own backward:
+``sum_across`` (the row-parallel sum), ``grad_sum_across`` (a replicated
+input to each process's share of the work), ``gather_across``,
+``all_to_all_across`` (Ulysses' two re-splits) and ``ring_shift``; a
+forward chains them (``collective_order``) so that their backwards run in
+one order on every process.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from functools import partial
+from functools import partial, wraps
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -62,7 +74,9 @@ from torch.utils.checkpoint import checkpoint
 
 from fraud_detection_tpu_torch.ops.attention import flash_attention
 from fraud_detection_tpu_torch.ops.int8_matmul import w8_matmul
-from fraud_detection_tpu_torch.parallel.mesh import Mesh, Sharding
+from fraud_detection_tpu_torch.parallel.mesh import (
+    Mesh, Sharding, all_to_all_across, collective_order, gather_across,
+    grad_sum_across, ring_shift, spans, sum_across)
 from fraud_detection_tpu_torch.utils import threefry
 from fraud_detection_tpu_torch.utils.device import resolve_device
 
@@ -160,12 +174,9 @@ class Sharded:
     def _cat(self, parts) -> torch.Tensor:
         home = parts[0].device
         local = torch.cat([p.detach().to(home) for p in parts], dim=self.dim)
-        if self.mesh.process_count == 1:
+        if not spans(self.mesh, MODEL_AXIS):
             return local
-        got = [torch.empty_like(local) for _ in range(self.mesh.process_count)]
-        torch.distributed.all_gather(got, local.contiguous(),
-                                     group=self.mesh.group)
-        return torch.cat(got, dim=self.dim)
+        return gather_across(local, self.dim, self.mesh)
 
 
 def _leaf_device(leaf) -> torch.device:
@@ -369,7 +380,7 @@ def _quantize_sharded(w: Sharded, axes) -> Sharded:
     total = _absmax(parts[0], axes)
     for p in parts[1:]:
         total = torch.maximum(total, _absmax(p, axes).to(home))
-    if w.mesh.process_count > 1:
+    if spans(w.mesh, MODEL_AXIS):
         torch.distributed.all_reduce(total, torch.distributed.ReduceOp.MAX,
                                      group=w.mesh.group)
     return Sharded([_quantize(p, axes, total.to(p.device)) for p in parts],
@@ -452,7 +463,7 @@ def _scale_sharding(weight_sh: Sharding, scale_shape) -> Sharding:
 
 def _model_offset(mesh: Mesh) -> int:
     """This process's first global index on the model axis."""
-    if mesh.process_count > 1 and mesh.axis_names[0] == MODEL_AXIS:
+    if spans(mesh, MODEL_AXIS):
         return mesh.process_index * mesh.local_size(MODEL_AXIS)
     return 0
 
@@ -508,15 +519,22 @@ def shard_params(params: Transformer, cfg: TransformerConfig,
 def _model_sum(partials, home: torch.device, mesh: Mesh,
                dtype: torch.dtype) -> torch.Tensor:
     """The row-parallel sum: the partials added in float32 on ``home`` in
-    model-axis order, all-reduced over the mesh's group where it spans
-    processes, and rounded once to ``dtype``."""
+    model-axis order, all-reduced over the mesh's group where the model
+    axis spans processes (``sum_across``: the gradient passes through), and
+    rounded once to ``dtype``."""
     total = partials[0].to(home).float()
     for t in partials[1:]:
         total = total + t.to(home).float()
-    if mesh.process_count > 1:
-        total = total.contiguous().clone()
-        torch.distributed.all_reduce(total, group=mesh.group)
+    if spans(mesh, MODEL_AXIS):
+        total = sum_across(total, mesh)
     return total.to(dtype)
+
+
+def _model_input(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A replicated activation fed to this process's column-parallel parts:
+    where the model axis spans processes its gradient is summed over them
+    (``grad_sum_across``), each holding only its parts' share."""
+    return grad_sum_across(t, mesh) if spans(mesh, MODEL_AXIS) else t
 
 
 # ---------------------------------------------------------------------------
@@ -710,25 +728,46 @@ _RING_KEY_CHUNK = 2048
 
 def _seq_rows(mesh: Mesh, axis_name: str, batch_axis: Optional[str], B: int):
     """(batch slice, devices along ``axis_name``) per local batch row: one
-    row over the whole batch, or one per ``batch_axis`` index."""
+    row over the whole batch, or one per ``batch_axis`` index of this
+    process (its rows of the global batch where the axis spans
+    processes)."""
     if batch_axis is None:
         return [(slice(0, B), mesh.axis_devices(axis_name))]
-    if mesh.process_count > 1 and mesh.axis_names[0] == batch_axis:
-        raise ValueError("a batch axis across processes is not supported; "
-                         "give each process its own batch")
     nb = mesh.shape[batch_axis]
     if B % nb:
         raise ValueError(f"batch {B} not divisible by the '{batch_axis}' "
                          f"axis size ({nb})")
     per = B // nb
-    return [(slice(r * per, (r + 1) * per),
+    local = mesh.local_size(batch_axis)
+    first = mesh.process_index * local if spans(mesh, batch_axis) else 0
+    return [(slice((first + r) * per, (first + r + 1) * per),
              mesh.take(batch_axis, r).axis_devices(axis_name))
-            for r in range(nb)]
+            for r in range(local)]
+
+
+def _sp_inputs(mesh: Mesh, axis_name: str, batch_axis: Optional[str],
+               *ts) -> list:
+    """q/k/v, whole on every process, entering attention whose sequence or
+    batch axis spans the processes: each process's share of the work gives
+    a partial gradient, summed over them (``grad_sum_across``)."""
+    if spans(mesh, axis_name) or (batch_axis is not None
+                                  and spans(mesh, batch_axis)):
+        return [grad_sum_across(t, mesh) for t in ts]
+    return list(ts)
+
+
+def _sp_output(rows: list, mesh: Mesh, batch_axis: Optional[str]):
+    """The local batch rows' outputs as one (B, T, H, d), every process's
+    rows gathered in rank order where the batch axis spans processes."""
+    out = rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
+    if batch_axis is not None and spans(mesh, batch_axis):
+        out = gather_across(out, 0, mesh)
+    return out
 
 
 def _seq_first(mesh: Mesh, axis_name: str) -> int:
     """This process's first global block on the sequence axis."""
-    if mesh.process_count > 1 and mesh.axis_names[0] == axis_name:
+    if spans(mesh, axis_name):
         return mesh.process_index * mesh.local_size(axis_name)
     return 0
 
@@ -738,11 +777,9 @@ def _gather_seq(blocks, home: torch.device, mesh: Mesh,
     """Sequence blocks (B, T_loc, H, d) concatenated on ``home`` in global
     order, every process's where the axis spans several."""
     local = torch.cat([b.to(home) for b in blocks], dim=1)
-    if mesh.process_count == 1 or mesh.axis_names[0] != axis_name:
+    if not spans(mesh, axis_name):
         return local
-    got = [torch.empty_like(local) for _ in range(mesh.process_count)]
-    torch.distributed.all_gather(got, local.contiguous(), group=mesh.group)
-    return torch.cat(got, dim=1)
+    return gather_across(local, 1, mesh)
 
 
 def _ring_rotate(blocks: list, devs: list, mesh: Mesh,
@@ -750,20 +787,11 @@ def _ring_rotate(blocks: list, devs: list, mesh: Mesh,
     """One rotation: the block of global index i moves to index i + 1. In
     one process a ``.to()`` of the next device (differentiable; the same
     tensor where both are one device: nothing writes a block in place); the
-    block leaving this process goes to the next one by send/recv."""
+    block leaving this process goes to the next one by send/recv
+    (``ring_shift``, whose backward rotates the gradient back)."""
     out = [None] + [b.to(d) for b, d in zip(blocks[:-1], devs[1:])]
-    if mesh.process_count > 1 and mesh.axis_names[0] == axis_name:
-        dist = torch.distributed
-        rank, count = mesh.process_index, mesh.process_count
-        recv = torch.empty_like(blocks[-1], device=devs[0])
-        # one group of both: NCCL runs a lone send only once its peer's
-        # matching receive is posted, which would wait behind the peer's send
-        for req in dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, blocks[-1].contiguous(),
-                           (rank + 1) % count, mesh.group),
-                dist.P2POp(dist.irecv, recv, (rank - 1) % count, mesh.group)]):
-            req.wait()
-        out[0] = recv
+    if spans(mesh, axis_name):
+        out[0] = ring_shift(blocks[-1], devs[0], mesh)
     else:
         out[0] = blocks[-1].to(devs[0])
     return out
@@ -823,8 +851,10 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     positions [r T/n, (r + 1) T/n); K/V blocks rotate the ring (narrow),
     ``key_chunk`` bounds a step's score memory. ``batch_axis``: on a
     (data, seq) mesh, the batch split over that axis too, a ring per data
-    row. Across processes each computes its own blocks and the outputs are
-    all-gathered. Returns (B, T, H, d) on q's device."""
+    row. Across processes (the sequence or the batch axis spanning them)
+    each computes its own blocks or rows and the outputs are all-gathered;
+    gradients flow back through the gathers and the rotation. Returns (B,
+    T, H, d) on q's device."""
     if key_chunk < 1:
         raise ValueError(f"key_chunk must be >= 1, got {key_chunk}")
     n = mesh.shape[axis_name]
@@ -835,14 +865,15 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t_loc = T // n
     first = _seq_first(mesh, axis_name)
     scale = 1.0 / math.sqrt(d)
+    qkv = _sp_inputs(mesh, axis_name, batch_axis, q, k, v)
     rows = []
     for bs, devs in _seq_rows(mesh, axis_name, batch_axis, B):
         blocks = [[t[bs, (first + j) * t_loc:(first + j + 1) * t_loc].to(dev)
-                   for j, dev in enumerate(devs)] for t in (q, k, v)]
+                   for j, dev in enumerate(devs)] for t in qkv]
         outs = _ring_row(*blocks, devs, n=n, first=first, mesh=mesh,
                          axis_name=axis_name, scale=scale, key_chunk=key_chunk)
         rows.append(_gather_seq(outs, q.device, mesh, axis_name))
-    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
+    return _sp_output(rows, mesh, batch_axis)
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -855,8 +886,11 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for its H/n heads over the whole sequence, and the second all-to-all
     returns each block its positions for every head. q/k/v (B, T, H, d);
     narrow GQA k/v expand at entry (the re-split cuts the head axis); T and
-    H must divide by the axis size. Within one process only. Returns (B,
-    T, H, d) on q's device."""
+    H must divide by the axis size. Where the sequence axis spans
+    processes both re-splits are ``all_to_all_single`` between them
+    (``_ulysses_across``); where the batch axis does, each process takes
+    its rows and the outputs are all-gathered. Returns (B, T, H, d) on q's
+    device."""
     n = mesh.shape[axis_name]
     B, T, H, d = q.shape
     k = _expand_kv_heads(k, H // k.shape[2])
@@ -865,14 +899,16 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"ulysses_attention needs T ({T}) and H ({H}) divisible by the "
             f"'{axis_name}' axis size ({n}); use ring_attention otherwise")
-    if mesh.process_count > 1:
-        raise ValueError("ulysses_attention runs within one process; use "
-                         "ring_attention across processes")
     tl, hl = T // n, H // n
+    qkv = _sp_inputs(mesh, axis_name, batch_axis, q, k, v)
     rows = []
     for bs, devs in _seq_rows(mesh, axis_name, batch_axis, B):
+        if spans(mesh, axis_name):
+            rows.append(_ulysses_across([t[bs] for t in qkv], devs, mesh,
+                                        tl, hl).to(q.device))
+            continue
         heads = []
-        for t in (q, k, v):
+        for t in qkv:
             blocks = [t[bs, j * tl:(j + 1) * tl].to(dev)
                       for j, dev in enumerate(devs)]
             heads.append([torch.cat([b[:, :, i * hl:(i + 1) * hl].to(dev)
@@ -884,7 +920,36 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs = [torch.cat([a[:, j * tl:(j + 1) * tl].to(dev) for a in attn],
                           dim=2) for j, dev in enumerate(devs)]
         rows.append(torch.cat([o.to(q.device) for o in outs], dim=1))
-    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
+    return _sp_output(rows, mesh, batch_axis)
+
+
+def _ulysses_across(qkv: list, devs: list, mesh: Mesh, tl: int,
+                    hl: int) -> torch.Tensor:
+    """One batch row of Ulysses with the sequence axis over P processes of
+    L devices each: this process holds blocks [r L, (r + 1) L), a range of
+    L tl positions. The first all-to-all sends process p the head range of
+    its L devices from that range and receives this process's head range
+    from every range, so it holds the whole sequence for its H/P heads;
+    each of its devices attends its hl heads; the second all-to-all returns
+    each range its positions for every head, and the ranges are
+    all-gathered. Returns (B, T, H, d) on the first device."""
+    P, home = mesh.process_count, devs[0]
+    lo = mesh.process_index * len(devs) * tl
+    span = len(devs) * tl
+    heads = []
+    for t in qkv:
+        b, T, H, d = t.shape
+        part = t[:, lo:lo + span].to(home).reshape(b, span, P, H // P, d)
+        got = all_to_all_across(part.permute(2, 0, 1, 3, 4), mesh)
+        heads.append(got.permute(1, 0, 2, 3, 4).reshape(b, T, H // P, d))
+    attn = [_attend(*(h[:, :, i * hl:(i + 1) * hl].to(dev) for h in heads),
+                    torch.ones((T, T), dtype=torch.bool, device=dev).tril())
+            for i, dev in enumerate(devs)]
+    mine = torch.cat([a.to(home) for a in attn], dim=2)     # (b, T, H/P, d)
+    back = all_to_all_across(
+        mine.reshape(b, P, span, H // P, d).permute(1, 0, 2, 3, 4), mesh)
+    local = back.permute(1, 2, 0, 3, 4).reshape(b, span, H, d)
+    return gather_across(local, 1, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -937,22 +1002,41 @@ def _activation(cfg: TransformerConfig):
                                                            approximate="tanh")
 
 
+def _group_kv(t: torch.Tensor, q0: int, hq: int, rep: int) -> torch.Tensor:
+    """The K/V heads (B, T, h, d) that query heads [q0, q0 + hq) read, at
+    the narrowest width that keeps each query head's K/V head ``rep``
+    query heads wide: whole K/V groups, or the one head they all share
+    (MQA), else the heads expanded to the queries' width."""
+    if hq % rep == 0:
+        return t[:, :, q0 // rep:(q0 + hq) // rep]
+    if rep % hq == 0:
+        return t[:, :, q0 // rep:q0 // rep + 1]
+    return _expand_kv_heads(t, rep)[:, :, q0:q0 + hq]
+
+
 def _qkv_groups(layer: DecoderLayer, x: torch.Tensor, cos, sin,
-                cfg: TransformerConfig) -> list:
+                cfg: TransformerConfig):
     """Tensor parallelism's column-parallel products: for each model-axis
     device of this process, its head group's q (B, T, H/n, d) and k, v at
-    the group's K/V width (H_kv/n split, or all H_kv where the K/V weights
-    are replicated: then computed once on x's device and copied), RoPE
-    applied, on that device."""
+    the group's K/V width (H_kv/n split; where the K/V weights are
+    replicated, computed once on x's device and the group's K/V heads
+    copied: ``_group_kv``), RoPE applied, on that device; and the
+    replicated (k, v) (B, T, Hkv, d) on x's device (None where split).
+    Across processes the gradients of the replicated inputs, h and the
+    replicated k/v, are summed over them (``_model_input``)."""
     B, T, _ = x.shape
     wq = layer.wq
     n = wq.mesh.shape[MODEL_AXIS]
     H, Hkv, d = cfg.n_heads // n, cfg.kv_heads, cfg.head_dim
     h = rms_norm(x, layer.ln1, cfg.rms_eps)
     split_kv = isinstance(layer.wk, Sharded)
+    kv_rep = None
     if not split_kv:
-        k_rep = _apply_rope(_mm(h, layer.wk).view(B, T, Hkv, d), cos, sin)
-        v_rep = _mm(h, layer.wv).view(B, T, Hkv, d)
+        kv_rep = (_model_input(_apply_rope(_mm(h, layer.wk).view(B, T, Hkv, d),
+                                           cos, sin), wq.mesh),
+                  _model_input(_mm(h, layer.wv).view(B, T, Hkv, d), wq.mesh))
+    h = _model_input(h, wq.mesh)
+    first = _model_offset(wq.mesh)
     groups = []
     for i, dev in enumerate(wq.devices):
         h_i, cos_i, sin_i = h.to(dev), cos.to(dev), sin.to(dev)
@@ -962,20 +1046,19 @@ def _qkv_groups(layer: DecoderLayer, x: torch.Tensor, cos, sin,
                             cos_i, sin_i)
             v = _mm(h_i, layer.wv.parts[i]).view(B, T, Hkv // n, d)
         else:
-            k, v = k_rep.to(dev), v_rep.to(dev)
+            k, v = (_group_kv(t, (first + i) * H, H,
+                              cfg.n_heads // Hkv).to(dev) for t in kv_rep)
         groups.append((q, k, v))
-    return groups
+    return groups, kv_rep
 
 
 def _gather_heads(parts, home: torch.device, mesh: Mesh) -> torch.Tensor:
     """Head groups (B, T, h, d) concatenated on ``home`` in model-axis
-    order, every process's where the mesh spans several."""
+    order, every process's where the model axis spans several."""
     local = torch.cat([t.to(home) for t in parts], dim=2)
-    if mesh.process_count == 1:
+    if not spans(mesh, MODEL_AXIS):
         return local
-    got = [torch.empty_like(local) for _ in range(mesh.process_count)]
-    torch.distributed.all_gather(got, local.contiguous(), group=mesh.group)
-    return torch.cat(got, dim=2)
+    return gather_across(local, 2, mesh)
 
 
 def _qkv(layer: DecoderLayer, x: torch.Tensor, cos, sin,
@@ -984,11 +1067,11 @@ def _qkv(layer: DecoderLayer, x: torch.Tensor, cos, sin,
     x's device (under tensor parallelism, the head groups gathered there)."""
     B, T, _ = x.shape
     if isinstance(layer.wq, Sharded):
-        groups = _qkv_groups(layer, x, cos, sin, cfg)
+        groups, kv_rep = _qkv_groups(layer, x, cos, sin, cfg)
         mesh = layer.wq.mesh
         q = _gather_heads([g[0] for g in groups], x.device, mesh)
-        if not isinstance(layer.wk, Sharded):
-            return q, groups[0][1].to(x.device), groups[0][2].to(x.device)
+        if kv_rep is not None:
+            return (q, *kv_rep)
         return (q, _gather_heads([g[1] for g in groups], x.device, mesh),
                 _gather_heads([g[2] for g in groups], x.device, mesh))
     H, Hkv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -997,6 +1080,47 @@ def _qkv(layer: DecoderLayer, x: torch.Tensor, cos, sin,
     k = _mm(h, layer.wk).view(B, T, Hkv, d)
     v = _mm(h, layer.wv).view(B, T, Hkv, d)
     return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
+
+
+def kv_parts(arr) -> list:
+    """A cache array's tensors: a head-sharded cache's parts, or [arr]."""
+    return arr.parts if isinstance(arr, Sharded) else [arr]
+
+
+def _kv_devices(cache: Dict[str, object]) -> list:
+    return [p.device for p in kv_parts(next(iter(cache.values())))]
+
+
+def _each_device(devices, *ts) -> dict:
+    """{device: ``ts`` on it} for each distinct device of ``devices``: the
+    small index and mask tensors every cache part reads, copied once."""
+    return {d: tuple(t.to(d) for t in ts) for d in dict.fromkeys(devices)}
+
+
+def _cache_groups(layer: DecoderLayer, x: torch.Tensor, cos, sin,
+                  cfg: TransformerConfig, ck, cv) -> list:
+    """(q, k, v, cache k, cache v) of one layer per head group: one per part
+    of a head-sharded cache, on the part's device (``_qkv_groups``), else
+    one of every head on x's device (``_qkv``: under tensor parallelism the
+    head groups gathered there, where a replicated cache lives). A whole
+    cache beside K/V weights split over a model axis is refused: its cache
+    is head-sharded (``init_cache(params=)``)."""
+    if isinstance(ck, Sharded):
+        return [(q, k, v, pk, pv) for (q, k, v), pk, pv in
+                zip(_qkv_groups(layer, x, cos, sin, cfg)[0], ck.parts,
+                    cv.parts)]
+    if isinstance(layer.wk, Sharded):
+        raise ValueError("the K/V weights are split over a model axis, so "
+                         "the KV cache is head-sharded beside them: make it "
+                         "with init_cache(..., params=) or "
+                         "init_kv_pages(..., params=)")
+    return [(*_qkv(layer, x, cos, sin, cfg), ck, cv)]
+
+
+def _heads_out(outs: list, ck):
+    """Attention outputs for ``_layer_out``: the head groups on their
+    devices for a head-sharded cache, else the one output of every head."""
+    return outs if isinstance(ck, Sharded) else outs[0]
 
 
 def _layer_out(layer: DecoderLayer, x: torch.Tensor, attn,
@@ -1020,7 +1144,7 @@ def _layer_out(layer: DecoderLayer, x: torch.Tensor, attn,
                 for i, dev in enumerate(devs)]
     x = x + _model_sum([_mm(a.reshape(B, T, -1), w)
                         for a, w in zip(attn, wo.parts)], home, wo.mesh, x.dtype)
-    h2 = rms_norm(x, layer.ln2, cfg.rms_eps)
+    h2 = _model_input(rms_norm(x, layer.ln2, cfg.rms_eps), wo.mesh)
     partials = []
     for i, dev in enumerate(layer.w_gate.devices):
         h_i = h2.to(dev)
@@ -1044,6 +1168,18 @@ def _logits_head(x: torch.Tensor, params: Transformer,
     return (x @ head.T).float()
 
 
+def _in_collective_order(fn):
+    """``fn`` inside ``collective_order``: the collectives of one forward
+    (or of a caller's chain, where one is open) in one chain, so their
+    backwards run in one order on every process."""
+    @wraps(fn)
+    def chained(*args, **kwargs):
+        with collective_order():
+            return fn(*args, **kwargs)
+    return chained
+
+
+@_in_collective_order
 def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
             *, positions: Optional[torch.Tensor] = None,
             kv_cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -1063,13 +1199,19 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
     params are sharded (``shard_params``). Sequence-parallel mode
     (``seq_mesh``): exact attention with T split over the mesh's "seq" axis,
     ``sp_impl`` "ring" (``ring_attention``) or "ulysses"; on a mesh with a
-    "data" axis the batch is split over it too. KV-cache mode: this call's
-    k/v are written into ``kv_cache`` at ``cache_len`` IN PLACE (the
-    returned cache is the same dict) and queries attend every cache slot at
-    or below their own; ``valid_from`` (B,) masks each row's left-pad slots,
-    keeping each query's own slot visible so a pad query never softmaxes an
-    empty row. ``remat``: with autograd on, each layer's activations are
-    recomputed in backward (``torch.utils.checkpoint``) instead of kept."""
+    "data" axis the batch is split over it too (across processes where
+    that axis spans them; ``tokens`` is the global batch on every process).
+    KV-cache mode: this call's k/v are written into ``kv_cache`` at
+    ``cache_len`` IN PLACE (the returned cache is the same dict) and
+    queries attend every cache slot at or below their own; ``valid_from``
+    (B,) masks each row's left-pad slots, keeping each query's own slot
+    visible so a pad query never softmaxes an empty row. A head-sharded
+    cache (``init_cache(params=)`` under tensor parallelism) is written and
+    attended part by part, each head group on its device (it must be, where
+    the K/V weights are split); a whole cache takes every head's q/k/v on
+    the first device. ``remat``: with autograd
+    on, each layer's activations are recomputed in backward
+    (``torch.utils.checkpoint``) instead of kept."""
     B, T = tokens.shape
     sharded = isinstance(params.layers[0].wq, Sharded)
     if seq_mesh is not None and (kv_cache is not None or sharded):
@@ -1084,7 +1226,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
     # Every layer shares the RoPE tables and the cache mask: built once.
     cos, sin = _rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
     if kv_cache is not None:
-        s_idx = torch.arange(kv_cache["l0.k"].shape[1], device=dev)
+        s_idx = torch.arange(kv_parts(kv_cache["l0.k"])[0].shape[1],
+                             device=dev)
         t_idx = cache_len + torch.arange(T, device=dev)
         valid = s_idx[None, :] <= t_idx[:, None]                 # (T, S)
         if valid_from is not None:
@@ -1092,20 +1235,26 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
             valid = ((valid[None]
                       & (s_idx[None, None, :] >= valid_from[:, None, None]))
                      | own[None])                                # (B, T, S)
+        masks = _each_device(_kv_devices(kv_cache), valid)
 
     def layer_fn(l: int, layer: DecoderLayer, x: torch.Tensor):
         if kv_cache is None and sharded:
             attn = [causal_attention(q, k, v, use_flash)
-                    for q, k, v in _qkv_groups(layer, x, cos, sin, cfg)]
+                    for q, k, v in _qkv_groups(layer, x, cos, sin, cfg)[0]]
             return _layer_out(layer, x, attn, cfg, act)
-        q, k, v = _qkv(layer, x, cos, sin, cfg)
         if kv_cache is not None:
             ck, cv = kv_cache[f"l{l}.k"], kv_cache[f"l{l}.v"]
-            ck[:, cache_len:cache_len + T] = k
-            cv[:, cache_len:cache_len + T] = v
-            attn = _attend(q, _expand_kv_heads(ck, rep),
-                           _expand_kv_heads(cv, rep), valid)
-        elif seq_mesh is not None:
+            outs = []
+            for q, k, v, pk, pv in _cache_groups(layer, x, cos, sin, cfg, ck,
+                                                 cv):
+                pk[:, cache_len:cache_len + T] = k
+                pv[:, cache_len:cache_len + T] = v
+                outs.append(_attend(q, _expand_kv_heads(pk, rep),
+                                    _expand_kv_heads(pv, rep),
+                                    masks[pk.device][0]))
+            return _layer_out(layer, x, _heads_out(outs, ck), cfg, act)
+        q, k, v = _qkv(layer, x, cos, sin, cfg)
+        if seq_mesh is not None:
             b_axis = DATA_AXIS if DATA_AXIS in seq_mesh.axis_names else None
             sp = ulysses_attention if sp_impl == "ulysses" else ring_attention
             attn = sp(q, k, v, seq_mesh, batch_axis=b_axis)
@@ -1124,14 +1273,50 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
     return _logits_head(x, params, cfg), kv_cache
 
 
-def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
-               device) -> Dict[str, torch.Tensor]:
+def _kv_arrays(cfg: TransformerConfig, lead: Tuple[int, int], device,
+               params: Optional[Transformer]) -> Dict[str, object]:
+    """Zeroed (*lead, Hkv, d) k and v per layer: head-sharded where
+    ``params``' K/V weights are split over a model axis, else one tensor on
+    ``device``."""
+    wk = None if params is None else params.layers[0].wk
+    d = cfg.head_dim
+
+    def one():
+        if isinstance(wk, Sharded):
+            h = cfg.kv_heads // wk.mesh.shape[MODEL_AXIS]
+            return Sharded([torch.zeros((*lead, h, d), dtype=cfg.dtype,
+                                        device=dev) for dev in wk.devices],
+                           2, wk.mesh)
+        return torch.zeros((*lead, cfg.kv_heads, d), dtype=cfg.dtype,
+                           device=device)
+
+    return {f"l{l}.{t}": one() for l in range(cfg.n_layers)
+            for t in ("k", "v")}
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int, device,
+               params: Optional[Transformer] = None) -> Dict[str, object]:
     """Zeroed (batch, max_len, Hkv, d) k and v per layer; ``forward``
-    writes it in place."""
-    return {f"l{l}.{t}": torch.zeros((batch, max_len, cfg.kv_heads,
-                                      cfg.head_dim), dtype=cfg.dtype,
-                                     device=device)
-            for l in range(cfg.n_layers) for t in ("k", "v")}
+    writes it in place. Where ``params``' K/V weights are split over a
+    model axis (``shard_params``: the K/V heads divide it), each layer's k
+    and v are head-sharded as the reference keeps them beside wk/wv: a
+    ``Sharded`` of one (batch, max_len, Hkv/n, d) part per model-axis
+    device of this process, on that device. Else (MQA and any Hkv the axis
+    does not divide, or unsharded params) one tensor on ``device``. Without
+    ``params`` the cache is whole, which the programs refuse beside split
+    K/V weights."""
+    return _kv_arrays(cfg, (batch, max_len), device, params)
+
+
+def kv_bytes_by_device(cache: Dict[str, object]) -> Dict[str, int]:
+    """The bytes of a cache or page pool on each device, every part
+    counted."""
+    out: Dict[str, int] = {}
+    for arr in cache.values():
+        for p in kv_parts(arr):
+            out[str(p.device)] = (out.get(str(p.device), 0)
+                                  + p.numel() * p.element_size())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1164,7 +1349,8 @@ def slot_prefill(params: Transformer, tokens: np.ndarray, length: int,
     k/v land in cache rows [length, Tp): every later read masks to [0, len]
     and decode overwrites them in order, so they are never attended.
     Attention over the prompt is ``causal_attention(use_flash=False)``, the
-    reference's choice. Returns the first token, sampled from the logits at
+    reference's choice, per head group on its device where the cache is
+    head-sharded. Returns the first token, sampled from the logits at
     ``length - 1`` with ``PRNGKey(seed)`` as the step key."""
     dev = params.device
     toks = _to_device(np.asarray(tokens, np.int64), dev)
@@ -1174,13 +1360,16 @@ def slot_prefill(params: Transformer, tokens: np.ndarray, length: int,
     x = _embed(params, toks, cfg)
     act = _activation(cfg)
     for l, layer in enumerate(params.layers):
-        q, k, v = _qkv(layer, x, cos, sin, cfg)
-        kv_cache[f"l{l}.k"][slot, :T] = k[0]
-        kv_cache[f"l{l}.v"][slot, :T] = v[0]
-        # padded queries attend real+pad keys at or below their position —
-        # garbage-but-finite, and only position length-1 is read
-        attn = causal_attention(q, k, v, use_flash=False)
-        x = _layer_out(layer, x, attn, cfg, act)
+        ck, cv = kv_cache[f"l{l}.k"], kv_cache[f"l{l}.v"]
+        outs = []
+        for q, k, v, pk, pv in _cache_groups(layer, x, cos, sin, cfg, ck, cv):
+            pk[slot, :T] = k[0]
+            pv[slot, :T] = v[0]
+            # padded queries attend real+pad keys at or below their
+            # position — garbage-but-finite, and only position length-1 is
+            # read
+            outs.append(causal_attention(q, k, v, use_flash=False))
+        x = _layer_out(layer, x, _heads_out(outs, ck), cfg, act)
     x_last = rms_norm(x, params.ln_f, cfg.rms_eps)[0, length - 1:length]
     logits = _logits_head(x_last, params, cfg)                   # (1, V)
     return int(_sample_with_key(temperature, logits,
@@ -1199,19 +1388,22 @@ def _slot_step_math(params: Transformer, cfg: TransformerConfig,
     rows = torch.arange(B, device=dev)
     cos, sin = _rope_tables(lens[:, None], cfg.head_dim, cfg.rope_theta,
                             cfg.dtype)
-    S = kv_cache["l0.k"].shape[1]
+    S = kv_parts(kv_cache["l0.k"])[0].shape[1]
     valid = torch.arange(S, device=dev)[None, None, :] <= lens[:, None, None]
+    at = _each_device(_kv_devices(kv_cache), rows, lens, valid)
     rep = cfg.n_heads // cfg.kv_heads
     act = _activation(cfg)
     x = _embed(params, tokens[:, None], cfg)
     for l, layer in enumerate(params.layers):
-        q, k, v = _qkv(layer, x, cos, sin, cfg)
         ck, cv = kv_cache[f"l{l}.k"], kv_cache[f"l{l}.v"]
-        ck[rows, lens] = k[:, 0]
-        cv[rows, lens] = v[:, 0]
-        attn = _attend(q, _expand_kv_heads(ck, rep),
-                       _expand_kv_heads(cv, rep), valid)
-        x = _layer_out(layer, x, attn, cfg, act)
+        outs = []
+        for q, k, v, pk, pv in _cache_groups(layer, x, cos, sin, cfg, ck, cv):
+            r, n, m = at[pk.device]
+            pk[r, n] = k[:, 0]
+            pv[r, n] = v[:, 0]
+            outs.append(_attend(q, _expand_kv_heads(pk, rep),
+                                _expand_kv_heads(pv, rep), m))
+        x = _layer_out(layer, x, _heads_out(outs, ck), cfg, act)
     x = rms_norm(x, params.ln_f, cfg.rms_eps)[:, 0]
     return _sample_rows(temperature, _logits_head(x, params, cfg), step_key)
 
@@ -1309,39 +1501,50 @@ def slot_decode_window(params: Transformer, tokens: np.ndarray,
 
 
 def init_kv_pages(cfg: TransformerConfig, num_pages: int, page_size: int,
-                  device) -> Dict[str, torch.Tensor]:
+                  device, params: Optional[Transformer] = None
+                  ) -> Dict[str, object]:
     """The paged twin of ``init_cache``: a zeroed flat page pool per
-    layer/tensor. A slot's logical position p lives at
-    ``(table[p // page_size], p % page_size)``."""
-    return {f"l{l}.{t}": torch.zeros((num_pages, page_size, cfg.kv_heads,
-                                      cfg.head_dim), dtype=cfg.dtype,
-                                     device=device)
-            for l in range(cfg.n_layers) for t in ("k", "v")}
+    layer/tensor, head-sharded as ``init_cache`` is (one (num_pages,
+    page_size, Hkv/n, d) part per model-axis device). A slot's logical
+    position p lives at ``(table[p // page_size], p % page_size)`` of every
+    part."""
+    return _kv_arrays(cfg, (num_pages, page_size), device, params)
+
+
+def _page_size(kv_pages: Dict[str, object]) -> int:
+    return kv_parts(next(iter(kv_pages.values())))[0].shape[1]
 
 
 @torch.inference_mode()
-def copy_kv_page(kv_pages: Dict[str, torch.Tensor], src: int,
-                 dst: int) -> Dict[str, torch.Tensor]:
-    """Copy-on-write: page ``src`` -> page ``dst`` across every layer and
-    tensor, in place (the returned pool is the same dict)."""
+def copy_kv_page(kv_pages: Dict[str, object], src: int,
+                 dst: int) -> Dict[str, object]:
+    """Copy-on-write: page ``src`` -> page ``dst`` across every layer,
+    tensor and part, in place (the returned pool is the same dict)."""
     for arr in kv_pages.values():
-        arr[dst].copy_(arr[src])
+        for p in kv_parts(arr):
+            p[dst].copy_(p[src])
     return kv_pages
 
 
-def _gather_view(kv_pages: Dict[str, torch.Tensor], tables: torch.Tensor,
-                 view_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
+def _gather_view(kv_pages: Dict[str, object], tables: torch.Tensor,
+                 view_len: Optional[int] = None) -> Dict[str, object]:
     """The contiguous layout of ``tables`` (B, n): (B, view_len, Hkv, d) per
-    layer/tensor, ``view_len`` at most (and by default) n * page. Unallocated
-    table entries hold filler id 0: their content is stale pool data, which
-    every read masks and no scatter-back targets."""
-    page = next(iter(kv_pages.values())).shape[1]
+    layer/tensor (each part's (B, view_len, Hkv/n, d) on its device for a
+    head-sharded pool), ``view_len`` at most (and by default) n * page.
+    Unallocated table entries hold filler id 0: their content is stale pool
+    data, which every read masks and no scatter-back targets."""
+    page = _page_size(kv_pages)
     if view_len is None:
         view_len = tables.shape[1] * page
     pos = torch.arange(view_len, device=tables.device)
-    pids = tables[:, pos // page]                           # (B, view_len)
-    offs = pos % page
-    return {name: arr[pids, offs] for name, arr in kv_pages.items()}
+    at = _each_device(_kv_devices(kv_pages), tables[:, pos // page],
+                      pos % page)                           # (B, view_len)
+    out = {}
+    for name, arr in kv_pages.items():
+        views = [p[at[p.device]] for p in kv_parts(arr)]
+        out[name] = (Sharded(views, arr.dim, arr.mesh)
+                     if isinstance(arr, Sharded) else views[0])
+    return out
 
 
 @torch.inference_mode()
@@ -1364,25 +1567,28 @@ def paged_slot_prefill(params: Transformer, tokens: np.ndarray, length: int,
     toks = _to_device(np.asarray(tokens, np.int64), dev)
     table = _to_device(np.asarray(table_row, np.int64), dev)
     B, Ts = toks.shape
-    page = next(iter(kv_pages.values())).shape[1]
+    page = _page_size(kv_pages)
     pos = prefix_len + torch.arange(Ts, device=dev)
-    pids, offs = table[pos // page], pos % page
     kv_mask = (torch.arange(table.shape[0] * page, device=dev)[None, :]
                <= pos[:, None])                                  # (Ts, Tkv)
+    at = _each_device(_kv_devices(kv_pages), table, table[pos // page],
+                      pos % page, kv_mask)
     cos, sin = _rope_tables(pos.expand(B, Ts), cfg.head_dim, cfg.rope_theta,
                             cfg.dtype)
     rep = cfg.n_heads // cfg.kv_heads
     act = _activation(cfg)
     x = _embed(params, toks, cfg)
     for l, layer in enumerate(params.layers):
-        q, k, v = _qkv(layer, x, cos, sin, cfg)
-        pk, pv = kv_pages[f"l{l}.k"], kv_pages[f"l{l}.v"]
-        pk[pids, offs] = k[0]
-        pv[pids, offs] = v[0]
-        view = _gather_view({"k": pk, "v": pv}, table[None])
-        attn = _attend(q, _expand_kv_heads(view["k"], rep),
-                       _expand_kv_heads(view["v"], rep), kv_mask)
-        x = _layer_out(layer, x, attn, cfg, act)
+        ck, cv = kv_pages[f"l{l}.k"], kv_pages[f"l{l}.v"]
+        outs = []
+        for q, k, v, pk, pv in _cache_groups(layer, x, cos, sin, cfg, ck, cv):
+            tbl, pids, offs, mask = at[pk.device]
+            pk[pids, offs] = k[0]
+            pv[pids, offs] = v[0]
+            view = _gather_view({"k": pk, "v": pv}, tbl[None])
+            outs.append(_attend(q, _expand_kv_heads(view["k"], rep),
+                                _expand_kv_heads(view["v"], rep), mask))
+        x = _layer_out(layer, x, _heads_out(outs, ck), cfg, act)
     last = length - 1 - prefix_len
     x_last = rms_norm(x, params.ln_f, cfg.rms_eps)[0, last:last + 1]
     logits = _logits_head(x_last, params, cfg)
@@ -1409,7 +1615,7 @@ def paged_decode_window(params: Transformer, tokens: np.ndarray,
     frozen or inactive rows' in-window garbage and unallocated table
     entries are never written (JAX drops out-of-range scatter indices;
     torch would raise or fault on them)."""
-    page = next(iter(kv_pages.values())).shape[1]
+    page = _page_size(kv_pages)
     tables = np.asarray(tables, np.int64)
     if not 0 < view_len <= tables.shape[1] * page:
         raise ValueError(f"view_len {view_len} outside (0, "
@@ -1425,10 +1631,12 @@ def paged_decode_window(params: Transformer, tokens: np.ndarray,
     if rows.size:
         pos = np.concatenate([np.arange(a, b) for a, b in zip(lens, new_lens)
                               if b > a])
-        idx = _to_device(np.stack([rows, pos, tables[rows, pos // page],
-                                   pos % page]), dev)
+        at = _each_device(_kv_devices(kv_pages), _to_device(
+            np.stack([rows, pos, tables[rows, pos // page], pos % page]), dev))
         for name, arr in kv_pages.items():
-            arr[idx[2], idx[3]] = view[name][idx[0], idx[1]]
+            for p, w in zip(kv_parts(arr), kv_parts(view[name])):
+                idx = at[p.device][0]
+                p[idx[2], idx[3]] = w[idx[0], idx[1]]
     return result
 
 
@@ -1494,7 +1702,7 @@ def _generate_batch(params: Transformer, prompt: torch.Tensor,
     step). Returns (B, max_new) int64, EOS past each row's end."""
     B, Tp = prompt.shape
     dev = prompt.device
-    cache = init_cache(cfg, B, Tp + max_new, dev)
+    cache = init_cache(cfg, B, Tp + max_new, dev, params)
     valid_from = Tp - prompt_len                               # (B,)
     positions = torch.arange(Tp, device=dev)[None, :] - valid_from[:, None]
     logits, _ = forward(params, prompt, cfg, positions=positions,

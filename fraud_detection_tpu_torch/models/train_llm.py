@@ -18,14 +18,26 @@ the card that serves it:
   * Meshes (``parallel/mesh.py``): ("data",) splits the batch, one replica
     of the weights a data device; ("data", "model") also splits the weights
     in the Megatron layout (``llm.shard_params``); ("data", "seq") runs
-    attention as a ring over "seq" (``llm.ring_attention``, gradients
-    flowing back through the rotation). A replica is the weights ``.to()``
-    its devices, so the gradients of every row add into the one set of
-    weights, a replicated weight's exactly once.
+    attention over "seq" (``llm.ring_attention``, gradients flowing back
+    through the rotation, or ``llm.ulysses_attention``); ("model",) and
+    ("seq",) split only the weights or the sequence. A replica is the
+    weights ``.to()`` its devices, so the gradients of every row add into
+    the one set of weights, a replicated weight's exactly once.
+  * One process per card: a mesh's first axis may span processes (torchrun
+    or ``parallel/mesh.initialize_distributed``). Every process draws the
+    same windows and takes its own data rows of them; the data rows'
+    gradients are summed over the processes in rank order
+    (``mesh.sum_in_rank_order``) before the update, so the replicated
+    weights stay the same bits on every process. A model or sequence axis
+    across processes moves activations with the collectives of
+    ``parallel/mesh.py``, whose backwards carry the gradient back; the
+    clip's global norm sums each split weight's parts over the processes.
   * Resume through ``checkpoint/train_state.py``: params and optimizer state
     in optax's leaf order (``params.<name>``, ``opt.NNNN``) and the step;
     a resumed run continues bit-identically (every backward is a fixed-order
-    sum: see ``llm._EmbedRows`` and ``llm._expand_kv_heads``).
+    sum: see ``llm._EmbedRows`` and ``llm._expand_kv_heads``). Across
+    processes the first one writes the whole state (split weights gathered)
+    and every process resumes from it.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ from __future__ import annotations
 import hashlib
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,9 +54,10 @@ import torch.nn.functional as F
 from fraud_detection_tpu_torch.checkpoint import train_state as ts
 from fraud_detection_tpu_torch.models.llm import (
     DATA_AXIS, MODEL_AXIS, SEQ_AXIS, ByteTokenizer, LanguageModel, Sharded,
-    Transformer, TransformerConfig, forward, init_params_threefry,
-    shard_params)
-from fraud_detection_tpu_torch.parallel.mesh import Mesh
+    Transformer, TransformerConfig, _model_offset, forward,
+    init_params_threefry, shard_params)
+from fraud_detection_tpu_torch.parallel.mesh import (Mesh, collective_order,
+                                                     spans, sum_in_rank_order)
 from fraud_detection_tpu_torch.utils.device import resolve_device
 
 
@@ -182,18 +195,28 @@ class AdamW:
     @torch.no_grad()
     def update(self, params: Dict[str, List[torch.Tensor]],
                grads: Dict[str, List[torch.Tensor]],
-               state: OptState) -> OptState:
+               state: OptState,
+               leaf_sums: Optional[Callable[[List[str], List[torch.Tensor]],
+                                            List[torch.Tensor]]] = None
+               ) -> OptState:
         """One step: ``params`` and the state's moments updated in place;
-        returns the state with its counts advanced."""
+        returns the state with its counts advanced. ``leaf_sums``: maps the
+        leaves' square sums (name order) to the whole leaves' where a leaf's
+        parts lie in several processes."""
         names = sorted(params)
         home = grads[names[0]][0].device
-        norm_sq = None
+        sums = []
         for k in names:
             s = None
             for g in grads[k]:
                 part = (g * g).sum().to(home)
                 s = part if s is None else s + part
-            norm_sq = s if norm_sq is None else norm_sq + s
+            sums.append(s)
+        if leaf_sums is not None:
+            sums = leaf_sums(names, sums)
+        norm_sq = sums[0]
+        for s in sums[1:]:
+            norm_sq = norm_sq + s
         g_norm = torch.sqrt(norm_sq)
         clip = bool(g_norm >= self.grad_clip)
         count = state.count + 1
@@ -230,13 +253,14 @@ def make_optimizer(tcfg: LLMTrainConfig) -> AdamW:
 
 def _loss_fn(params: Transformer, windows: torch.Tensor,
              cfg: TransformerConfig, remat: bool,
-             seq_mesh: Optional[Mesh] = None) -> torch.Tensor:
+             seq_mesh: Optional[Mesh] = None,
+             sp_impl: str = "ring") -> torch.Tensor:
     """Mean next-token cross-entropy over (B, T+1) windows, in float32.
-    ``use_flash=False`` as in the reference; ``seq_mesh``: attention rides
-    the ring over its "seq" axis; ``remat``: each layer recomputed in
-    backward."""
+    ``use_flash=False`` as in the reference; ``seq_mesh``: attention split
+    over its "seq" axis (``sp_impl``: the ring or Ulysses); ``remat``: each
+    layer recomputed in backward."""
     logits, _ = forward(params, windows[:, :-1], cfg, use_flash=False,
-                        seq_mesh=seq_mesh, remat=remat)
+                        seq_mesh=seq_mesh, sp_impl=sp_impl, remat=remat)
     return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                            windows[:, 1:].reshape(-1))
 
@@ -288,31 +312,71 @@ def _parts(leaf) -> List[torch.Tensor]:
     return leaf.parts if isinstance(leaf, Sharded) else [leaf]
 
 
-def _train_step(master: Dict[str, object], state: OptState,
-                windows: np.ndarray, cfg: TransformerConfig,
-                tcfg: LLMTrainConfig, opt: AdamW, rows: List[_Row]):
-    """Loss, gradient and optimizer update for one (B, T+1) batch, split
-    over the data rows (equal shares: the mean of the rows' means, added on
-    the first device in row order); returns (state, loss) with the weights
-    updated in place."""
-    per = windows.shape[0] // len(rows)
+def _leaf_sums(master: Dict[str, object], mesh: Mesh):
+    """``AdamW.update``'s ``leaf_sums`` where the model axis spans
+    processes: a split leaf's square sum added over them in rank order, a
+    replicated leaf's (the same on every process) kept."""
+    split = {k for k, v in master.items() if isinstance(v, Sharded)}
+
+    def whole(names: List[str], sums: List[torch.Tensor]):
+        sum_in_rank_order([s for k, s in zip(names, sums) if k in split],
+                          mesh)
+        return sums
+
+    return whole
+
+
+def _step_grads(master: Dict[str, object], windows: np.ndarray,
+                cfg: TransformerConfig, tcfg: LLMTrainConfig,
+                rows: List[_Row], mesh: Optional[Mesh] = None,
+                sp_impl: str = "ring"):
+    """Loss and gradient of one (B, T+1) batch, split over the data rows
+    (equal shares: the mean of the rows' means, added on the first device
+    in row order); where the data axis spans processes, this process's rows
+    of the batch, the gradients and the loss then summed over the processes
+    in rank order, in place. Returns ({name: each part's gradient}, loss):
+    the gradients are the weights' ``.grad``, left set."""
+    across = mesh is not None and spans(mesh, DATA_AXIS)
+    n_rows = len(rows) * (mesh.process_count if across else 1)
+    first = mesh.process_index * len(rows) if across else 0
+    per = windows.shape[0] // n_rows
     home = rows[0].devices[0]
     total = None
-    for r, row in enumerate(rows):
-        win = torch.from_numpy(windows[r * per:(r + 1) * per].astype(np.int64))
-        part = _loss_fn(_replica(master, cfg, row.devices),
-                        win.to(row.devices[0]), cfg, tcfg.remat,
-                        row.seq_mesh).to(home)
-        total = part if total is None else total + part
-    loss = total / len(rows) if len(rows) > 1 else total
+    # every row's collectives in one chain, so their backwards run in one
+    # order on every process (parallel/mesh.collective_order)
+    with collective_order():
+        for r, row in enumerate(rows):
+            lo = (first + r) * per
+            win = torch.from_numpy(windows[lo:lo + per].astype(np.int64))
+            part = _loss_fn(_replica(master, cfg, row.devices),
+                            win.to(row.devices[0]), cfg, tcfg.remat,
+                            row.seq_mesh, sp_impl).to(home)
+            total = part if total is None else total + part
+        loss = total / n_rows if n_rows > 1 else total
     loss.backward()
+    grads = {k: [p.grad for p in _parts(v)] for k, v in master.items()}
+    loss = loss.detach().clone()
+    if across:
+        sum_in_rank_order([g for gs in grads.values() for g in gs] + [loss],
+                          mesh)
+    return grads, loss
+
+
+def _train_step(master: Dict[str, object], state: OptState,
+                windows: np.ndarray, cfg: TransformerConfig,
+                tcfg: LLMTrainConfig, opt: AdamW, rows: List[_Row],
+                mesh: Optional[Mesh] = None, sp_impl: str = "ring"):
+    """``_step_grads``, then the optimizer update. Returns (state, loss)
+    with the weights updated in place."""
+    grads, loss = _step_grads(master, windows, cfg, tcfg, rows, mesh, sp_impl)
     params = {k: _parts(v) for k, v in master.items()}
-    grads = {k: [p.grad for p in ps] for k, ps in params.items()}
-    state = opt.update(params, grads, state)
+    spread = mesh is not None and spans(mesh, MODEL_AXIS)
+    state = opt.update(params, grads, state,
+                       _leaf_sums(master, mesh) if spread else None)
     for ps in params.values():
         for p in ps:
             p.grad = None
-    return state, loss.detach()
+    return state, loss
 
 
 # ---------------------------------------------------------------------------
@@ -344,10 +408,13 @@ def _whole(leaf_parts: List[torch.Tensor], like) -> torch.Tensor:
 
 
 def _split(a: np.ndarray, like) -> List[torch.Tensor]:
+    """A whole snapshot array as ``like``'s parts: this process's slices of
+    the model axis, each on its part's device."""
     if not isinstance(like, Sharded):
         return [_device(a, like)]
-    pieces = np.split(a, len(like.parts), axis=like.dim)
-    return [_device(x, p) for x, p in zip(pieces, like.parts)]
+    first = _model_offset(like.mesh)
+    pieces = np.split(a, like.mesh.shape[MODEL_AXIS], axis=like.dim)
+    return [_device(x, p) for x, p in zip(pieces[first:], like.parts)]
 
 
 def _flatten_state(master: Dict[str, object], state: OptState
@@ -434,20 +501,21 @@ def fit_language_model(
     checkpoint_every: int = 50,
     log_every: int = 0,
     device="cuda",
+    sp_impl: str = "ring",
 ) -> Tuple[LanguageModel, List[float]]:
     """Fine-tune the byte-level decoder on a text corpus, on ``device`` or
-    over ``mesh`` (axes ``("data",)``, ``("data", "model")`` or ``("data",
-    "seq")``, within one process): batches split over "data", weights
-    tensor-parallel over "model", attention sequence-parallel over "seq".
-    Returns the trained ``LanguageModel`` (sharded as trained) and the
-    per-step losses of THIS invocation."""
+    over ``mesh`` (axes ``("data",)``, ``("data", "model")``, ``("data",
+    "seq")``, ``("model",)`` or ``("seq",)``; its first axis may span
+    processes, one per card): batches split over "data", weights
+    tensor-parallel over "model", attention sequence-parallel over "seq"
+    (``sp_impl`` "ring" or "ulysses"). Every process of a mesh across
+    processes calls it with the same arguments. Returns the trained
+    ``LanguageModel`` (sharded as trained) and the per-step losses of THIS
+    invocation."""
     cfg = cfg or TransformerConfig()
     tcfg = tcfg or LLMTrainConfig()
     if checkpoint_dir is not None and checkpoint_every < 1:
         raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
-    if mesh is not None and mesh.process_count > 1:
-        raise ValueError("fit_language_model trains within one process; "
-                         "its mesh may not span processes")
     stream = pack_corpus(texts, cfg)
     opt = make_optimizer(tcfg)
     if mesh is not None and DATA_AXIS in mesh.axis_names \
@@ -485,14 +553,15 @@ def fit_language_model(
     for step in range(start_step, tcfg.steps):
         state, loss = _train_step(master, state,
                                   batch_for_step(stream, step, tcfg), cfg,
-                                  tcfg, opt, rows)
+                                  tcfg, opt, rows, mesh, sp_impl)
         losses.append(float(loss))
         if log_every and (step + 1) % log_every == 0:
             print(f"step {step + 1}/{tcfg.steps} loss {losses[-1]:.4f}")
         if checkpoint_dir is not None and (
                 (step + 1) % checkpoint_every == 0 or step + 1 == tcfg.steps):
-            ts.save_train_state(checkpoint_dir, "language_model", step + 1,
-                                fingerprint, _flatten_state(master, state))
+            ts.save_train_state_once(
+                mesh, checkpoint_dir, "language_model", step + 1,
+                fingerprint, _flatten_state(master, state))
 
     leaves = {k: (Sharded([p.detach() for p in v.parts], v.dim, v.mesh)
                   if isinstance(v, Sharded) else v.detach())

@@ -26,7 +26,16 @@ partitioner does for a sharded array is done by hand:
   on the mesh's first device in a fixed device order, then ``all_reduce`` s
   the sum across processes when a group exists. Linear and tree training
   reduce through it; serving needs no reduction (rows score alone) and
-  reads its shards' results back in row order.
+  reads its shards' results back in row order;
+* the explanation LLM's programs, run by every process of a mesh at once
+  (one process per card), move tensors across processes with collectives
+  that carry their gradients: :func:`sum_across` (the row-parallel sum),
+  :func:`grad_sum_across` (its mirror, for a replicated input to each
+  process's share of the work), :func:`gather_across`,
+  :func:`all_to_all_across`, :func:`ring_shift`, and
+  :func:`sum_in_rank_order` for the data rows' gradients. Within
+  :func:`collective_order` (which ``llm.forward`` and the LLM trainer's
+  step open) their backwards run in one order on every process.
 
 A grid may name one device several times (``make_mesh(devices=
 [torch.device("cpu")] * 8)``, ``["cuda:0"] * 4``): the shards then run one
@@ -38,8 +47,10 @@ grid: they take every local device, as the reference does.
 
 from __future__ import annotations
 
+import contextvars
 import os
 import socket
+from contextlib import contextmanager
 from dataclasses import dataclass
 from datetime import timedelta
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -383,6 +394,272 @@ def make_hybrid_mesh(feature_parallel: int = 1, *,
     dist = torch.distributed
     return Mesh(grid, process_count=dist.get_world_size(),
                 process_index=dist.get_rank(), group=dist.group.WORLD)
+
+
+# ---------------------------------------------------------------------------
+# Collectives with gradients over ``mesh.group``: an axis across processes
+#
+# In one process a tensor moves between devices by ``.to()``, which autograd
+# differentiates. Across processes the model's programs run on every
+# process at once, each holding the same replicated activations and
+# computing the same loss, and these functions carry the gradient over the
+# process boundary. Each is the identity where the mesh holds one process.
+# ---------------------------------------------------------------------------
+
+def spans(mesh: Mesh, axis: str) -> bool:
+    """Whether ``axis`` is the mesh's axis across processes (its first)."""
+    return mesh.process_count > 1 and mesh.axis_names[0] == axis
+
+
+# The order of the backwards. Autograd runs a backward node on a thread of
+# the device its gradient lies on, one thread a device, so where a process
+# holds several devices two collectives' backwards become ready in an order
+# set by timing, which may differ between processes: a backward collective
+# that two processes post in different orders pairs one tensor's gradient
+# with another's, or hangs where their sizes differ. So each collective
+# below takes an order token (or None) and returns a fresh one beside its
+# result: within ``collective_order()`` every collective feeds the next
+# one's token, and autograd can run their backwards only in the reverse of
+# the order they ran in, the same order on every process.
+
+_CHAIN: contextvars.ContextVar = contextvars.ContextVar("collective_chain",
+                                                        default=None)
+
+
+@contextmanager
+def collective_order():
+    """Chain the collectives with gradients that run inside into one order
+    (the chain's token lives in a context variable: one chain a thread).
+    Where a chain is already open, its collectives join it: a step that
+    runs several forwards before one backward opens it around them all.
+    Costs a scalar copy a collective, and nothing where autograd does not
+    record or the mesh holds one process."""
+    if _CHAIN.get() is not None:
+        yield
+        return
+    reset = _CHAIN.set([None])
+    try:
+        yield
+    finally:
+        _CHAIN.reset(reset)
+
+
+def _token(token):
+    return None if token is None else token.clone()
+
+
+class _SumAcross(torch.autograd.Function):
+    """All-reduce; backward the identity: every process holds the sum and
+    computes the same loss from it, so each already has the sum's whole
+    gradient, which is each addend's."""
+
+    @staticmethod
+    def forward(ctx, t, token, group):
+        out = t.contiguous().clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out, _token(token)
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        return g, g_token, None
+
+
+class _GradSumAcross(torch.autograd.Function):
+    """The identity; backward all-reduces: a replicated tensor that each
+    process feeds to its own share of the work gets a partial gradient on
+    each, and the whole gradient is their sum."""
+
+    @staticmethod
+    def forward(ctx, t, token, group):
+        ctx.group = group
+        return t.view_as(t), _token(token)
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        g = g.contiguous().clone()
+        torch.distributed.all_reduce(g, group=ctx.group)
+        return g, g_token, None
+
+
+class _GatherAcross(torch.autograd.Function):
+    """Every process's block concatenated along ``dim`` in rank order;
+    backward takes this process's slice of the gradient (each process holds
+    the whole gradient of the replicated result)."""
+
+    @staticmethod
+    def forward(ctx, t, token, dim, mesh):
+        ctx.dim, ctx.rank, ctx.size = dim, mesh.process_index, t.shape[dim]
+        t = t.contiguous()
+        got = [torch.empty_like(t) for _ in range(mesh.process_count)]
+        torch.distributed.all_gather(got, t, group=mesh.group)
+        return torch.cat(got, dim=dim), _token(token)
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        return (g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), g_token,
+                None, None)
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    torch.distributed.all_to_all_single(out, t, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over dim 0 (one entry a process): entry p goes
+    to process p, which puts it at this process's index. Applied twice it
+    returns every entry home, so its backward is itself."""
+
+    @staticmethod
+    def forward(ctx, t, token, group):
+        ctx.group = group
+        return _all_to_all(t, group), _token(token)
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        return _all_to_all(g, ctx.group), g_token, None
+
+
+def _shift(t: torch.Tensor, out: torch.Tensor, mesh: Mesh, step: int):
+    """Send ``t`` to rank + step and receive ``out`` from rank - step, as
+    one batch: NCCL runs a lone send only once its peer's matching receive
+    is posted, which would wait behind the peer's own send."""
+    dist = torch.distributed
+    rank, count = mesh.process_index, mesh.process_count
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t.contiguous(), (rank + step) % count,
+                       mesh.group),
+            dist.P2POp(dist.irecv, out, (rank - step) % count, mesh.group)]):
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    """One step of a ring across processes: this process's block goes to
+    the next rank and the previous rank's arrives on ``device``; backward
+    is the reverse rotation. Both travel through the mesh's first device,
+    the one NCCL binds the process to."""
+
+    @staticmethod
+    def forward(ctx, t, token, device, mesh):
+        ctx.mesh, ctx.device = mesh, t.device
+        t = t.to(mesh.home)
+        return (_shift(t, t.new_empty(t.shape), mesh, 1).to(device),
+                _token(token))
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        g = g.to(ctx.mesh.home)
+        return (_shift(g, g.new_empty(g.shape), ctx.mesh, -1).to(ctx.device),
+                g_token, None, None)
+
+
+def _ordered(fn, mesh: Mesh, t: torch.Tensor, *args) -> torch.Tensor:
+    """``fn.apply`` on ``t``, in the open chain (``collective_order``)
+    where autograd records."""
+    chain = _CHAIN.get() if torch.is_grad_enabled() else None
+    if chain is None:
+        return fn.apply(t, None, *args)[0]
+    if chain[0] is None:
+        chain[0] = torch.zeros((), device=mesh.home, requires_grad=True)
+    out, chain[0] = fn.apply(t, chain[0], *args)
+    return out
+
+
+def sum_across(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``t`` summed over the mesh's processes (``_SumAcross``)."""
+    if mesh.process_count == 1:
+        return t
+    return _ordered(_SumAcross, mesh, t, mesh.group)
+
+
+def grad_sum_across(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``t`` as it is, its gradient summed over the processes
+    (``_GradSumAcross``)."""
+    if mesh.process_count == 1:
+        return t
+    return _ordered(_GradSumAcross, mesh, t, mesh.group)
+
+
+def gather_across(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """Every process's ``t`` concatenated along ``dim`` in rank order
+    (``_GatherAcross``)."""
+    if mesh.process_count == 1:
+        return t
+    return _ordered(_GatherAcross, mesh, t, dim, mesh)
+
+
+def all_to_all_across(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Entry p of ``t``'s dim 0 (of size ``process_count``) sent to process
+    p, entry p of the result received from it (``_AllToAll``)."""
+    if mesh.process_count == 1:
+        return t
+    return _ordered(_AllToAll, mesh, t, mesh.group)
+
+
+def ring_shift(t: torch.Tensor, device, mesh: Mesh) -> torch.Tensor:
+    """``t`` passed to the next process around the ring, the previous
+    one's received on ``device`` (``_RingShift``)."""
+    if mesh.process_count == 1:
+        return t.to(device)
+    return _ordered(_RingShift, mesh, t, device, mesh)
+
+
+# sum_in_rank_order's bucket: the elements summed by one exchange, so its
+# transients (the bucket, what arrives and the sum) stay three buckets'
+# bytes whatever the model's size and the processes' count
+SUM_BUCKET = 1 << 26
+
+
+def _sum_bucket(flat: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``flat`` (n,) summed over the processes in rank order at an
+    all-reduce's traffic: an all-to-all hands process p every process's
+    p-th chunk, p adds them ((c_0 + c_1) + c_2) + ..., and an all-gather
+    returns every chunk's sum to every process."""
+    count, n = mesh.process_count, flat.numel()
+    chunk = -(-n // count)
+    padded = torch.zeros(chunk * count, dtype=flat.dtype, device=flat.device)
+    padded[:n] = flat
+    got = torch.empty_like(padded)
+    torch.distributed.all_to_all_single(got, padded, group=mesh.group)
+    got = got.view(count, chunk)
+    total = got[0]
+    for c in got[1:]:
+        total = total + c
+    sums = [torch.empty_like(total) for _ in range(count)]
+    torch.distributed.all_gather(sums, total, group=mesh.group)
+    return torch.cat(sums)[:n]
+
+
+def sum_in_rank_order(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
+    """Each tensor replaced, in place, by its sum over the mesh's processes
+    as ((t_0 + t_1) + t_2) + ..., ``t_r`` rank r's: the same bits on every
+    process, whatever order an all-reduce would add in. The tensors of a
+    dtype go flattened together on the mesh's first device, in buckets of
+    at most SUM_BUCKET elements (a tensor larger than that is a bucket of
+    its own), so the sums take a few buckets' bytes beside the tensors."""
+    if mesh.process_count == 1:
+        return
+    groups: dict = {}
+    for t in tensors:
+        groups.setdefault(t.dtype, []).append(t)
+    for group in groups.values():
+        buckets, size = [[]], 0
+        for t in group:
+            if buckets[-1] and size + t.numel() > SUM_BUCKET:
+                buckets.append([])
+                size = 0
+            buckets[-1].append(t)
+            size += t.numel()
+        for bucket in buckets:
+            total = _sum_bucket(torch.cat([t.reshape(-1).to(mesh.home)
+                                           for t in bucket]), mesh)
+            offset = 0
+            for t in bucket:
+                t.copy_(total[offset:offset + t.numel()].view_as(t))
+                offset += t.numel()
 
 
 def global_batch_from_local(x_local, mesh: Mesh) -> ShardedRows:

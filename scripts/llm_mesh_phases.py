@@ -13,24 +13,37 @@ cards what ``chip_smoke.py`` runs over a virtual mesh of cuda:0:
 ``tp_serving`` (12b: the model split over a model axis of the cards, the
 prefill's and the int8 generation's launch counts, logits and greedy
 tokens against one card), ``sp_forward`` (12c: ring and Ulysses over a
-sequence axis of the cards) and ``mesh_fits`` (14c: (data 2, model 2) and
-(data 2, seq 2) fits over the first four cards against one card). First,
-before this process starts CUDA, two processes, one card each, run the
-tensor-parallel and the ring forward across the process boundary over
-NCCL (the row-parallel sums an ``all_reduce``, the ring's rotation a
-send/recv); they are held against a one-process forward once both exit.
-Every line names the card and its power limit; the results go to
+sequence axis of the cards), ``sharded_caches`` (12d: the Llama-3-8B
+architecture over a 4-way model axis of the cards, each card holding its
+2 K/V heads' part of every cache, the decode step with the cache on
+cuda:0 against per part, the KV bytes of each card) and ``mesh_fits``
+(14c: (data 2, model 2) and (data 2, seq 2) fits over the first four cards
+against one card). First, before this process starts CUDA, two processes,
+one card each, run the tensor-parallel and the ring forward across the
+process boundary over NCCL (the row-parallel sums an ``all_reduce``, the
+ring's rotation a send/recv); they are held against a one-process forward
+once both exit. Phase 14d's two-process fits follow them, before this
+process starts CUDA too (``chip_smoke.two_process_fit_ranks``): two NCCL
+processes of one card each and, with four cards, of two cards each; last
+(``chip_smoke.two_process_fits``) they are held against this process's
+fits on meshes of the same cards, each one's step time beside the
+other's. Every line names the card
+and its power limit; the results go to
 ``chiprun_out/llm_mesh_phases.json``.
+
+A multi-process fit of one's own: start one process per card (torchrun, or
+``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK`` and
+``LOCAL_RANK`` set by hand), call
+``parallel.mesh.initialize_distributed()``, build a ``Mesh`` of the
+process's cards with ``process_count``, ``process_index`` and
+``group=torch.distributed.group.WORLD`` (its first axis spans the
+processes) and call ``fit_language_model(..., mesh=)`` in every process.
 """
 
 from __future__ import annotations
 
 import json
-import os
-import socket
-import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 
@@ -71,46 +84,12 @@ torch.distributed.destroy_process_group()
 
 
 def run_two_process(timeout: float = 150.0) -> list:
-    """Start the two NCCL processes, wait for both under one deadline
-    (their output goes to files, so neither blocks on a full pipe while the
-    other waits in a collective), kill whatever is left, and return each
-    rank's result; raises with both ranks' error tails otherwise."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
-            for _ in range(2)]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _CHILD], cwd=HERE, text=True,
-        stdout=logs[r][0], stderr=logs[r][1],
-        env=dict(os.environ, PYTHONPATH=str(HERE), MASTER_ADDR="127.0.0.1",
-                 MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(r),
-                 LOCAL_RANK=str(r))) for r in range(2)]
-    deadline = time.monotonic() + timeout
-    try:
-        while time.monotonic() < deadline and any(p.poll() is None
-                                                  for p in procs):
-            time.sleep(0.5)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    texts = []
-    for out, err in logs:
-        out.seek(0)
-        err.seek(0)
-        texts.append((out.read(), err.read()))
-        out.close()
-        err.close()
-    if any(p.returncode != 0 for p in procs):
-        raise AssertionError("two-process LLM forward: exits "
-                             f"{[p.returncode for p in procs]}\n" + "\n".join(
-                                 f"rank {r}: {e[-3000:]}"
-                                 for r, (_, e) in enumerate(texts)))
-    return [json.loads([ln for ln in o.splitlines()
+    """The two NCCL processes' forwards (``_CHILD``): each rank's result."""
+    import chip_smoke as cs
+
+    return [json.loads([ln for ln in out.splitlines()
                         if ln.startswith("RESULT")][0].split(" ", 2)[2])
-            for o, _ in texts]
+            for out in cs.run_two_ranks(_CHILD, {}, timeout)]
 
 
 def two_process(got: list, card: str) -> dict:
@@ -166,9 +145,29 @@ def main() -> int:
         return 2
     card = cs.card_line()
     print(f"{card} x {cards}", flush=True)
+    # Every NCCL pair runs before this process starts CUDA, phase 14d's
+    # fits first. A pair that fails is recorded and the phases over the
+    # cards still run; the script then exits 1.
+    failed = {}
+    fit_ranks = {}
+    for per in (1, 2):
+        if cards < 2 * per:
+            continue
+        t0 = time.perf_counter()
+        try:
+            fit_ranks[per] = cs.two_process_fit_ranks(per)
+        except AssertionError as e:
+            failed[f"two_process_fits {per}"] = str(e)[-4000:]
+        print(f"[multiprocess] the two NCCL processes' fits, {per} card(s) "
+              f"a process: {'failed' if per not in fit_ranks else 'done'} "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    ranks = run_two_process()
-    print(f"[multiprocess] the two NCCL processes' forwards done in "
+    try:
+        ranks = run_two_process()
+    except AssertionError as e:
+        ranks, failed["two_process"] = None, str(e)[-4000:]
+    print(f"[multiprocess] the two NCCL processes' forwards "
+          f"{'failed' if ranks is None else 'done'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,17 +188,27 @@ def main() -> int:
     del lm, lm8
     torch.cuda.empty_cache()
     if len(devices) == 4:
+        out["sharded_caches"] = cs.sharded_caches(dev, 46, card,
+                                                  devices=devices)
+        torch.cuda.empty_cache()
         texts = [d.text for d in generate_corpus(n=64, seed=5)]
         out["mesh_fits"] = cs.mesh_fits(texts, dev, devices, card)
-    out["two_process"] = two_process(ranks, card)
+    if ranks is not None:
+        out["two_process"] = two_process(ranks, card)
+    torch.cuda.empty_cache()
+    out["two_process_fits"] = {f"{per} card(s) a process":
+                               cs.two_process_fits(per, card, ranks=r)
+                               for per, r in fit_ranks.items()}
     out["wall_s"] = time.perf_counter() - t0
-    print(f"[llm-mesh] phases 12b, 12c, 14c and the two-process forwards "
-          f"over {cards} cards: {out['wall_s']:.1f} s ({card})")
+    out["failed"] = failed
+    print(f"[llm-mesh] phases 12b, 12c, 12d, 14c, 14d and the two-process "
+          f"forwards over {cards} cards: {out['wall_s']:.1f} s ({card})"
+          + "".join(f"\n[llm-mesh] FAILED {k}: {v}" for k, v in failed.items()))
     dest = HERE / "chiprun_out"
     dest.mkdir(exist_ok=True)
     (dest / "llm_mesh_phases.json").write_text(json.dumps(out, default=str,
                                                           indent=1))
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -303,7 +303,8 @@ PROMPTS = ["Agent: hello", "Customer: I was told I won a big prize yesterday",
 
 @pytest.mark.parametrize("name", ["base", "mqa"])
 def test_tp_generation_equals_single_device(models, name):
-    """Greedy and sampled batched decode (the KV cache on the first device,
+    """Greedy and sampled batched decode (head-sharded KV caches where the
+    K/V heads divide the axis, MQA's one cache on the first device with
     each layer's q/k/v gathered there) and the init_random(mesh=) path."""
     _, plm = models[name]
     tp = llm.LanguageModel(plm.cfg, llm.shard_params(plm.params, plm.cfg,

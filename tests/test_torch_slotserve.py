@@ -472,14 +472,19 @@ def test_chaos_every_flagged_row_explained_or_accounted(lm, pipeline):
 # health schema
 # ---------------------------------------------------------------------------
 
+# the JAX service's keys plus the port's per-device split of kv_bytes
+PORT_BLOCK_KEYS = set(SLOTSERVE_BLOCK_SCHEMA) | {"kv_bytes_per_device"}
+
+
 def test_snapshot_schema_contract(lm):
     svc = make_service(lm, slots=2, max_new_tokens=4)
     try:
         svc.generate_batch(["one row"], temperature=0.0, max_tokens=4)
         snap = svc.snapshot()
-        assert set(snap) == set(SLOTSERVE_BLOCK_SCHEMA)
+        assert set(snap) == PORT_BLOCK_KEYS
         for key, types in SLOTSERVE_BLOCK_SCHEMA.items():
             assert isinstance(snap[key], types), (key, type(snap[key]))
+        assert sum(snap["kv_bytes_per_device"].values()) == snap["kv_bytes"]
         for sub in ("latency_ms", "admit_to_first_token_ms"):
             assert set(snap[sub]) == {"p50", "p99"}
         assert snap["expl_per_s"] is not None
@@ -505,7 +510,7 @@ def test_engine_health_explain_block(lm, pipeline):
         engine.run(max_messages=8, idle_timeout=1.0)
         engine.close_annotations(timeout=30.0)
         h = engine.health()
-        assert set(h["explain"]) == set(SLOTSERVE_BLOCK_SCHEMA)
+        assert set(h["explain"]) == PORT_BLOCK_KEYS
         assert h["breaker"]["state"] == "closed"
         assert h["annotations"]["submitted"] == h["annotations"]["annotated"]
         assert h["explain"]["completed"] == h["annotations"]["annotated"] > 0
