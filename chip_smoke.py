@@ -244,6 +244,20 @@ Phases (any failure raises and the script exits non-zero):
    and ``start_monitor`` over its 500 demo messages: every tapped label
    equals ``pipeline.predict`` on its text, no ``featurize_packed``
    launch, the monitor thread stopped;
+7l. flightcheck and the sanitizer builds, on the host, one subprocess a
+   step, all started together, one line each with its seconds:
+   ``python -m fraud_detection_tpu_torch.analysis --json`` on the port's
+   tree (exit 0, no finding; the suppressed and file counts printed);
+   ``analysis model --json``, default and ``--autoscale`` (exit 0, states
+   and transitions equal to the counts tests/test_torch_model_checker.py
+   pins); ``--autoscale --mutate release_before_drain`` (exit 1, its trace
+   naming ``revoke_barrier``); ``--liveness`` (exit 0, the pinned SCC
+   count); the ASan+UBSan and TSan builds of the native featurizer (host
+   g++, ``build_variant``), each driving ``native/san_driver.py`` with its
+   runtime preloaded (exit 0, "all checks passed", no sanitizer report). A
+   variant whose runtime the host's gcc lacks is said so, naming that gcc;
+   one whose runtime is present but that fails to build or run fails the
+   run;
 8. timings (CUDA events, median of >= 10 after warm-up) of each kernel, its
    plain version and its library call where one exists (both featurize
    entries in turns with their profiler device time, beside the first scan
@@ -426,6 +440,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import random
 import shutil
 import statistics
@@ -5332,6 +5347,170 @@ W8_LLAMA_SHAPES = {"wq/4": (4096, 1024, "kn"), "wk,wv/4": (4096, 256, "kn"),
                    "head": (4096, 128_256, "nk")}
 
 
+#: phase 7l: the counts the port's model checker reproduces, as
+#: tests/test_torch_model_checker.py pins them (states, transitions)
+MODEL_COUNTS = {"default": (58_074, 190_517), "autoscale": (49_212, 174_482)}
+LIVENESS_SCCS = 57_504
+SAN_ENV = {"asan": {"ASAN_OPTIONS": "detect_leaks=0:abort_on_error=1",
+                    "UBSAN_OPTIONS": "halt_on_error=1:print_stacktrace=1"},
+           "tsan": {"TSAN_OPTIONS": "halt_on_error=1"}}
+SAN_REPORTS = ("ERROR: AddressSanitizer", "runtime error:",
+               "WARNING: ThreadSanitizer", "ERROR: LeakSanitizer")
+
+
+def host_step(argv, env=None, timeout: float = 300.0) -> dict:
+    """One host subprocess: exit code, output and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    return {"rc": proc.returncode, "out": proc.stdout, "err": proc.stderr,
+            "s": time.perf_counter() - t0}
+
+
+def sanitizer_step(variant: str) -> dict:
+    """Build one sanitizer variant of the native featurizer with the host's
+    g++ and drive san_driver.py under it, the runtime preloaded."""
+    from fraud_detection_tpu_torch.featurize import native
+
+    t0 = time.perf_counter()
+    runtime = native.sanitizer_runtime(variant)
+    if runtime is None:
+        return {"runtime": None, "s": time.perf_counter() - t0}
+    lib = native.build_variant(variant)
+    build_s = time.perf_counter() - t0
+    if lib is None:
+        return {"runtime": runtime, "lib": None, "s": build_s,
+                "err": native.build_error or "build failed"}
+    env = dict(os.environ, LD_PRELOAD=runtime,
+               FRAUD_TPU_NATIVE_VARIANT=variant, **SAN_ENV[variant])
+    run = host_step([sys.executable, str(
+        ROOT / "fraud_detection_tpu_torch" / "native" / "san_driver.py"),
+        "--variant", variant], env)
+    return {**run, "runtime": runtime, "lib": str(lib), "build_s": build_s,
+            "s": time.perf_counter() - t0}
+
+
+def flightcheck_phase(card: str, work: Path) -> dict:
+    """Phase 7l: the port's flightcheck on its own tree, the protocol model
+    checker (safety, a seeded mutation, liveness) and the sanitizer drives
+    of the native featurizer, on the card machine's host."""
+    import concurrent.futures as cf
+
+    from fraud_detection_tpu_torch.featurize import native
+
+    work.mkdir(parents=True, exist_ok=True)
+    trace = work / "release_before_drain.txt"
+    cli = [sys.executable, "-m", "fraud_detection_tpu_torch.analysis"]
+    gcc = shutil.which("gcc") or "gcc"
+    steps = {
+        "flightcheck": (host_step, [*cli, "--json", "--no-cache"]),
+        "model_default": (host_step, [*cli, "model", "--json"]),
+        "model_autoscale": (host_step, [*cli, "model", "--json",
+                                        "--autoscale"]),
+        "mutation": (host_step, [*cli, "model", "--json", "--autoscale",
+                                 "--mutate", "release_before_drain",
+                                 "--trace-file", str(trace)]),
+        "liveness": (host_step, [*cli, "model", "--json", "--liveness"]),
+        "asan": (sanitizer_step, "asan"),
+        "tsan": (sanitizer_step, "tsan"),
+    }
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(len(steps)) as pool:
+        futures = {name: pool.submit(fn, *args)
+                   for name, (fn, *args) in steps.items()}
+        runs = {name: f.result() for name, f in futures.items()}
+    wall = time.perf_counter() - t0
+    failures, out = [], {"wall_s": wall, "gcc": gcc}
+
+    def payload(name):
+        run = runs[name]
+        try:
+            return json.loads(run["out"])
+        except ValueError:
+            failures.append(f"{name}: rc {run['rc']}, no JSON: "
+                            f"{run['err'][-1500:]}")
+            return {}
+
+    fc = payload("flightcheck")
+    ok = runs["flightcheck"]["rc"] == 0 and fc.get("findings") == []
+    print(f"[flightcheck] {'ok' if ok else 'FAIL'}: analysis --json on the "
+          f"port's tree: rc {runs['flightcheck']['rc']}, "
+          f"{len(fc.get('findings', []))} finding(s), {fc.get('suppressed')} "
+          f"suppressed by pragma, {fc.get('files')} files, "
+          f"{runs['flightcheck']['s']:.1f} s")
+    if not ok:
+        failures.append(f"flightcheck: {fc.get('findings')}")
+    out["flightcheck"] = {k: fc.get(k) for k in ("findings", "suppressed",
+                                                 "files")}
+    for config in MODEL_COUNTS:
+        name = f"model_{config}"
+        m = payload(name)
+        got = (m.get("states"), m.get("transitions"))
+        ok = (runs[name]["rc"] == 0 and m.get("ok") is True
+              and got == MODEL_COUNTS[config])
+        print(f"[flightcheck] {'ok' if ok else 'FAIL'}: model --json "
+              f"{config}: rc {runs[name]['rc']}, {got[0]} states, {got[1]} "
+              f"transitions, depth {m.get('depth')} (pinned "
+              f"{MODEL_COUNTS[config]}), {runs[name]['s']:.1f} s")
+        if not ok:
+            failures.append(f"{name}: {got} rc {runs[name]['rc']}")
+        out[name] = {k: m.get(k) for k in ("states", "transitions", "depth",
+                                           "elapsed_s")}
+    m = payload("mutation")
+    text = trace.read_text() if trace.is_file() else ""
+    ok = (runs["mutation"]["rc"] == 1
+          and m.get("invariant_violated") == "revoke_barrier"
+          and "counterexample: invariant `revoke_barrier`" in text)
+    print(f"[flightcheck] {'ok' if ok else 'FAIL'}: model --autoscale "
+          f"--mutate release_before_drain: rc {runs['mutation']['rc']}, "
+          f"violates {m.get('invariant_violated')} in "
+          f"{len(m.get('trace', []))} steps, {runs['mutation']['s']:.1f} s")
+    if not ok:
+        failures.append(f"mutation: rc {runs['mutation']['rc']}, "
+                        f"{m.get('invariant_violated')}")
+    out["mutation"] = {"invariant": m.get("invariant_violated"),
+                       "steps": len(m.get("trace", []))}
+    m = payload("liveness")
+    ok = (runs["liveness"]["rc"] == 0 and m.get("ok") is True
+          and m.get("sccs") == LIVENESS_SCCS)
+    print(f"[flightcheck] {'ok' if ok else 'FAIL'}: model --liveness: rc "
+          f"{runs['liveness']['rc']}, {m.get('states')} states, "
+          f"{m.get('sccs')} SCCs (pinned {LIVENESS_SCCS}), "
+          f"{runs['liveness']['s']:.1f} s")
+    if not ok:
+        failures.append(f"liveness: rc {runs['liveness']['rc']}, "
+                        f"{m.get('sccs')} SCCs")
+    out["liveness"] = {k: m.get(k) for k in ("states", "sccs", "elapsed_s")}
+    for variant in ("asan", "tsan"):
+        run = runs[variant]
+        if run["runtime"] is None:
+            print(f"[flightcheck] {variant}: not run — {gcc} has no "
+                  f"{native.SAN_RUNTIMES[variant]} "
+                  f"({gcc} -print-file-name), {run['s']:.1f} s")
+            out[variant] = {"run": False, "gcc": gcc}
+            continue
+        if run.get("lib") is None:
+            print(f"[flightcheck] FAIL: {variant} build: {run['err'][-1500:]}")
+            failures.append(f"{variant}: build failed")
+            continue
+        report = [r for r in SAN_REPORTS if r in run["out"] + run["err"]]
+        ok = (run["rc"] == 0 and "all checks passed" in run["out"]
+              and not report)
+        print(f"[flightcheck] {'ok' if ok else 'FAIL'}: {variant} san_driver "
+              f"(runtime {run['runtime']}): rc {run['rc']}, build "
+              f"{run['build_s']:.1f} s, total {run['s']:.1f} s"
+              + (f", reports {report}" if report else ""))
+        if not ok:
+            failures.append(f"{variant}: rc {run['rc']} {report} "
+                            f"{(run['out'] + run['err'])[-1500:]}")
+        out[variant] = {"run": True, "rc": run["rc"], "s": run["s"],
+                        "build_s": run["build_s"]}
+    print(f"[flightcheck] phase 7l wall {wall:.1f} s (host; {card})")
+    if failures:
+        raise AssertionError("phase 7l: " + " | ".join(failures))
+    return out
+
+
 def tp_mesh(axis: str, dev, devices=None):
     """A 1-D mesh named ``axis`` over ``devices``, by default the virtual
     one: TP_SHARDS entries of ``dev``."""
@@ -6825,6 +7004,8 @@ def main(argv=None) -> int:
     # (featurize_packed counts reset and read around each serve CLI run and
     # each fixture predict, inside spark_phase)
     spark_out = spark_phase(dev, ckpt_dir, card, args.seed)
+    # -- 7l. flightcheck, the model checker, the sanitizer drives (host) ----
+    flightcheck_out = flightcheck_phase(card, ckpt_dir / "flightcheck")
 
     # -- 8. times -------------------------------------------------------------
     def packed_call():
@@ -7411,6 +7592,7 @@ def main(argv=None) -> int:
         "kafka": kafka_out, "mesh_serving": mesh_out,
         "mesh_training": mesh_train, "multiprocess": multiprocess,
         "phase_7g_7j_wall_s": phase16_wall, "spark": spark_out,
+        "flightcheck": flightcheck_out,
         "tree_kernels_ms_per_cli_fit": per_fit,
         "llm": llm_out, "llm_train": train_llm}))
     print(json.dumps({"ok": True, "device": {

@@ -472,21 +472,24 @@ class SlotServeService:
         retired, self._retired = self._retired, []
         for slot in retired:
             req = self._slot_req[slot]
-            req.text = self._decoder.decode_text(req.out)
-            dt = max(0.0, self._clock() - req.submitted_at)
-            with self._cv:
-                self._completed += 1
-                self._tokens_out += len(req.out)
-            self._lat.add(dt)
-            tr = self._rowtrace
-            if tr is not None and req.cid is not None:
-                wait_ms = round(1e3 * max(0.0, (req.first_token_at or dt)
-                                          - req.submitted_at), 2)
-                tr.record_span(req.cid, "explain", dt,
-                               detail=f"slot={slot} tokens={len(req.out)} "
-                                      f"admit_ms={wait_ms}")
-            req.done.set()
+            self._complete(slot, req)
             self._release(slot)
+
+    def _complete(self, slot: int, req: _SlotRequest) -> None:
+        req.text = self._decoder.decode_text(req.out)
+        dt = max(0.0, self._clock() - req.submitted_at)
+        with self._cv:
+            self._completed += 1
+            self._tokens_out += len(req.out)
+        self._lat.add(dt)
+        tr = self._rowtrace
+        if tr is not None and req.cid is not None:
+            wait_ms = round(1e3 * max(0.0, (req.first_token_at or dt)
+                                      - req.submitted_at), 2)
+            tr.record_span(req.cid, "explain", dt,
+                           detail=f"slot={slot} tokens={len(req.out)} "
+                                  f"admit_ms={wait_ms}")
+        req.done.set()
 
     def _release(self, slot: int) -> None:
         # Pages first, slot second: a slot on the free list ALWAYS has an

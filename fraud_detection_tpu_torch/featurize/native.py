@@ -11,7 +11,17 @@ Nothing builds at import time.
 
 ``load_library()`` returns None when the library cannot be built or loaded
 (no g++): the featurizer then runs its pure-Python encode, which is the
-reference's own semantics. The compiler's stderr stays on
+reference's own semantics.
+
+Sanitizer variants: ``build_variant("asan")`` (ASan+UBSan) and
+``build_variant("tsan")`` build instrumented copies beside the -O3 build,
+as ``libfastfeat_asan.so`` / ``libfastfeat_tsan.so`` in the same
+``build/native/<source hash>/`` directory, never replacing it.
+``FRAUD_TPU_NATIVE_VARIANT=asan|tsan`` makes ``load_library()`` load one;
+the process must have preloaded the matching runtime
+(``LD_PRELOAD=$(gcc -print-file-name=libasan.so)``, see
+``sanitizer_runtime``) or the instrumented library fails at dlopen.
+``native/san_driver.py`` is the workload to run under it. The compiler's stderr stays on
 ``build_error`` and the command on ``build_command``, so a caller that needs
 the native path (``chip_smoke.py``) can fail and say why.
 """
@@ -33,7 +43,19 @@ from fraud_detection_tpu_torch.utils.racecheck import PairedCallChecker
 
 SRC = Path(__file__).resolve().parents[1] / "native" / "fast_featurize.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+_BASE_FLAGS = ("-std=c++17", "-shared", "-fPIC", "-pthread")
+GXX_FLAGS = ("-O3", *_BASE_FLAGS)
+
+# Sanitizer build variants: the multi-thread ftok_shard_* ABI runs N pool
+# threads over one shared handle, which only a real race/memory detector
+# can vouch for. -O1 keeps stacks honest; recovery is off so the first
+# finding fails the run.
+SAN_VARIANTS = {
+    "asan": ("-O1", "-g", "-fno-omit-frame-pointer",
+             "-fsanitize=address,undefined", "-fno-sanitize-recover=all"),
+    "tsan": ("-O1", "-g", "-fno-omit-frame-pointer", "-fsanitize=thread"),
+}
+SAN_RUNTIMES = {"asan": "libasan.so", "tsan": "libtsan.so"}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -94,19 +116,19 @@ def library_path() -> Path:
     return BUILD_DIR / digest.hexdigest()[:16] / "libfastfeat.so"
 
 
-def build() -> Optional[Path]:
-    """Compile the library unless its current build exists; returns its
-    path, or None with ``build_error`` set when g++ fails or is absent."""
+def _compile(out: Path, flags: Sequence[str]) -> Optional[Path]:
+    """Compile the source with ``flags`` into ``out`` unless it exists;
+    returns ``out``, or None with ``build_error`` set when g++ fails or is
+    absent."""
     global build_error, build_command
-    out = library_path()
-    build_command = ["g++", *GXX_FLAGS, str(SRC), "-o", str(out)]
+    build_command = ["g++", *flags, str(SRC), "-o", str(out)]
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=out.parent)
     os.close(fd)
     try:
-        proc = subprocess.run(["g++", *GXX_FLAGS, str(SRC), "-o", tmp],
+        proc = subprocess.run(["g++", *flags, str(SRC), "-o", tmp],
                               capture_output=True, text=True, timeout=240)
     except (OSError, subprocess.SubprocessError) as e:
         os.unlink(tmp)
@@ -120,6 +142,45 @@ def build() -> Optional[Path]:
     return out
 
 
+def build() -> Optional[Path]:
+    """Compile the -O3 library unless its current build exists; returns its
+    path, or None with ``build_error`` set when g++ fails or is absent."""
+    return _compile(library_path(), GXX_FLAGS)
+
+
+def variant_lib_path(variant: str) -> Path:
+    """Where a sanitizer variant builds to: beside the -O3 build."""
+    return library_path().parent / f"libfastfeat_{variant}.so"
+
+
+def build_variant(variant: Optional[str]) -> Optional[Path]:
+    """Build (or reuse) a sanitizer-instrumented library variant; None when
+    the toolchain can't. ``variant`` in {"asan", "tsan"}; None/"plain"
+    falls through to the production -O3 build."""
+    if not variant or variant == "plain":
+        return build()
+    if variant not in SAN_VARIANTS:
+        raise ValueError(f"unknown sanitizer variant {variant!r} "
+                         f"(known: {sorted(SAN_VARIANTS)})")
+    return _compile(variant_lib_path(variant),
+                    (*SAN_VARIANTS[variant], *_BASE_FLAGS))
+
+
+def sanitizer_runtime(variant: str) -> Optional[str]:
+    """Absolute path of the sanitizer runtime to LD_PRELOAD for ``variant``
+    (gcc's bundled libasan/libtsan), or None when the toolchain lacks it."""
+    name = SAN_RUNTIMES.get(variant)
+    if name is None:
+        return None
+    try:
+        out = subprocess.run(["gcc", f"-print-file-name={name}"],
+                             capture_output=True, text=True,
+                             timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out if os.path.isabs(out) and os.path.isfile(out) else None
+
+
 def load_library() -> Optional[ctypes.CDLL]:
     """The process-wide native library, built and loaded at first call;
     None if unavailable (``build_error`` says why)."""
@@ -129,7 +190,10 @@ def load_library() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _lib_failed:
             return _lib
-        path = build()
+        # FRAUD_TPU_NATIVE_VARIANT=asan|tsan loads the sanitizer-
+        # instrumented build instead; the process must have preloaded the
+        # matching runtime before it started (native/san_driver.py).
+        path = build_variant(os.environ.get("FRAUD_TPU_NATIVE_VARIANT"))
         if path is None:
             _lib_failed = True
             return None

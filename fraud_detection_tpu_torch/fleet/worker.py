@@ -118,7 +118,7 @@ class FleetWorker:
         """Request shutdown (lock-free latch, same contract as the
         engine's): the current incarnation drains + commits and the worker
         leaves the fleet gracefully."""
-        self._stopped = True    # documented lock-free latch
+        self._stopped = True    # flightcheck: ignore[FC102] — documented lock-free latch
         engine = self._engine
         if engine is not None:
             engine.stop()

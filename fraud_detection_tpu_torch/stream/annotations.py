@@ -148,6 +148,7 @@ class AsyncAnnotationLane:
                 try:
                     self._emit_drops(drops)
                 except Exception:  # noqa: BLE001 — lane must survive anything
+                    # flightcheck: ignore[FC102] — worker-thread-only counter, read-racy by design (see __init__)
                     self.backend_errors += 1
                     log.exception("emitting %d drop records failed "
                                   "(counted in dropped, not drop_records)",
@@ -157,6 +158,7 @@ class AsyncAnnotationLane:
             try:
                 self._annotate(batch)
             except Exception:  # noqa: BLE001 — lane must survive anything
+                # flightcheck: ignore[FC102] — worker-thread-only counter, read-racy by design (see __init__)
                 self.backend_errors += 1
                 log.exception("annotation batch failed (%d rows dropped); "
                               "classification unaffected", len(batch))
@@ -167,6 +169,7 @@ class AsyncAnnotationLane:
         for value, key, _cid in drops:
             self._producer.produce(self.topic, value, key=key)
         undelivered = int(self._producer.flush() or 0)
+        # flightcheck: ignore[FC102] — worker-thread-only tally, read-racy by design
         self.drop_records += len(drops) - min(len(drops), undelivered)
         if undelivered:
             log.warning("producer left %d drop records undelivered "
@@ -230,10 +233,12 @@ class AsyncAnnotationLane:
         self.produced += len(out)
         undelivered = self._producer.flush()
         if undelivered:
+            # flightcheck: ignore[FC102] — worker-thread-only counter, read-racy by design
             self.backend_errors += 1
             log.warning("producer left %d annotation records undelivered "
                         "(counted as not annotated)", undelivered)
         # max() keeps the running tally monotonic while the queue is deep.
+        # flightcheck: ignore[FC102] — worker-thread-only tally, read-racy by design
         self.annotated = max(self.annotated, self.produced - int(undelivered))
         if tr is not None:
             for cid in out_cids:

@@ -347,8 +347,8 @@ class StreamingClassifier:
     def stop(self) -> None:
         """Request shutdown — and latch it: a stopped engine STAYS stopped.
         Lock-free by design (two monotonic flag writes)."""
-        self._stopped = True
-        self._running = False
+        self._stopped = True    # flightcheck: ignore[FC102] — documented lock-free latch
+        self._running = False   # flightcheck: ignore[FC102] — documented lock-free latch
 
     def _decode(self, msg: Message) -> Optional[str]:
         try:

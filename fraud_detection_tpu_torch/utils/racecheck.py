@@ -18,6 +18,25 @@ from typing import List, Optional
 _log_lock = threading.Lock()
 _violations: List["RaceViolation"] = []
 
+#: Every racecheck region the port instruments, by name: the runtime
+#: detector's coverage list. flightcheck (analysis/threads.py, rule FC103)
+#: cross-checks it against the ``ExclusiveRegion("...")`` /
+#: ``PairedCallChecker(name=...)`` constructions in the source and against
+#: ``analysis/entrypoints.py`` ``THREAD_ENTRY_POINTS``, so instrumenting a
+#: contract, or deleting one, without updating all three fails lint. Keep
+#: it a LITERAL set: the analyzer reads it from the AST.
+INSTRUMENTED_REGIONS = frozenset({
+    "StreamingClassifier.drive",     # engine single-driver loop
+    "AdaptiveScheduler.drive",       # scheduler collect/admit/observe
+    "InProcessConsumer",             # broker consumer poll/commit
+    "InProcessAssignedConsumer",     # manual-assignment consumer (fleet)
+    "NativeFeaturizer",              # native begin/fill pairing (checker)
+    "ShadowScorer.worker",           # shadow-scoring worker (one thread)
+    "LifecycleController.watch",     # hot-swap watch thread tick/rollback
+    "FleetWorker.run",               # one thread drives a worker's engines
+    "LearnLoop.lane",                # closed-loop learn-lane worker
+})
+
 
 @dataclass
 class RaceViolation:

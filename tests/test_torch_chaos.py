@@ -621,3 +621,38 @@ def test_health_reports_flush_failure_streak(pipe):
     h = engine.health()
     assert h["consecutive_flush_failures"] == 1
     assert h["processed"] == 0
+
+
+# Exact key set of AsyncAnnotationLane.stats() — the health() "annotations"
+# block. A module-level dict literal (not inline in the assert) so the
+# flightcheck health-schema lint (analysis/health.py, FC301) can cross-check
+# the producer against it statically.
+ANNOTATION_STATS_SCHEMA = {
+    "submitted": (int,),
+    "annotated": (int,),
+    "dropped": (int,),
+    "drop_records": (int,),
+    "backend_errors": (int,),
+    "queue_depth": (int,),
+}
+
+
+def test_health_annotation_lane_counters(pipe):
+    from tests.test_chaos import ANNOTATION_STATS_SCHEMA as JSCHEMA
+
+    assert set(ANNOTATION_STATS_SCHEMA) == set(JSCHEMA)
+    broker = InProcessBroker(num_partitions=1)
+    _feed(broker, 20)
+    engine = StreamingClassifier(
+        pipe, broker.consumer(["in"], "hal"), broker.producer(), "out",
+        batch_size=8, max_wait=0.01,
+        explain_batch_fn=lambda t, l, c: ["a"] * len(t),
+        explain_async=True, annotations_producer=broker.producer())
+    engine.run(max_messages=20, idle_timeout=0.2)
+    engine.close_annotations(timeout=10.0)
+    h = engine.health()
+    assert h["annotations"] is not None
+    assert set(h["annotations"]) == set(ANNOTATION_STATS_SCHEMA)
+    for key, types in ANNOTATION_STATS_SCHEMA.items():
+        assert isinstance(h["annotations"][key], types), key
+    assert h["annotations"]["queue_depth"] == 0

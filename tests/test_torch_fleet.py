@@ -21,6 +21,7 @@ join is bounded. ``tests/test_fleet.py``'s mesh cases are mirrored in
 """
 
 import dataclasses
+import gc
 import json
 import random
 import threading
@@ -47,6 +48,21 @@ from tests.torch_parity import port_featurizer, port_model, warmed
 pytestmark = pytest.mark.fleet
 
 N_MSGS = 900
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """Drains run with lease_ttl 1.0 s. A gen-2 collection over the heap a
+    long-lived test worker has piled up stops every thread of the process
+    at once (0.7-1.8 s measured in the suite's 6-worker run); landing in a
+    drain, it lets the coordinator expire live workers' leases, and their
+    batches replay at least once, which breaks exact accounting.
+    ``gc.freeze()`` moves that heap out of the collector's reach for this
+    module, so a collection during a drain scans only what the drain
+    allocates."""
+    gc.freeze()
+    yield
+    gc.unfreeze()
 
 
 @pytest.fixture(scope="module")

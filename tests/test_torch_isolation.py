@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of
 ``fraud_detection_tpu_torch`` (and ``chip_smoke``) loads neither jax, nor
-optax, nor pyarrow, nor any module of the JAX package; reading and writing
+optax, nor pyarrow, nor any module of the JAX package; flightcheck and the
+sanitizer driver do not even load torch; reading and writing
 Spark artifacts loads no pyarrow; and without a CUDA device its entry points
 refuse to run unless the caller asks for the CPU."""
 
@@ -66,12 +67,53 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "scenarios.slo", "scenarios.labels", "scenarios.record",
                  "scenarios.replay", "scenarios.gameday", "analysis",
                  "analysis.core", "analysis.entrypoints",
-                 "analysis.conformance", "stream.kafka", "parallel",
+                 "analysis.conformance", "analysis.callgraph",
+                 "analysis.checker", "analysis.concurrency",
+                 "analysis.health", "analysis.model", "analysis.protocol",
+                 "analysis.synclint", "analysis.threads", "analysis.traces",
+                 "analysis.sarif", "analysis.fixer", "analysis.cache",
+                 "analysis.__main__", "stream.kafka", "parallel",
                  "parallel.mesh", "parallel.serving", "checkpoint.parquet",
                  "checkpoint.spark_artifact", "checkpoint.spark_writer",
                  "eval.report", "app.ui", "app.ui_helpers", "app.chat"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
+
+
+_ANALYSIS_AND_SAN_DRIVER = """
+import contextlib, io, json, runpy, sys
+from fraud_detection_tpu_torch.analysis import run_analysis
+from fraud_detection_tpu_torch.analysis.__main__ import main
+findings, suppressed, n_files = run_analysis()
+with contextlib.redirect_stdout(io.StringIO()):
+    rc_model = main(["model", "--json", "--keys", "1"])
+sys.argv = ["san_driver.py", "--threads", "2", "--rounds", "1",
+            "--rows", "64"]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        runpy.run_path(SAN_DRIVER, run_name="__main__")
+    except SystemExit as e:
+        rc_san = e.code
+print(json.dumps({
+    "findings": len(findings), "rc_model": rc_model, "rc_san": rc_san,
+    "passed": "all checks passed" in out.getvalue(),
+    "bad": sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "torch",
+                                         "fraud_detection_tpu"))}))
+"""
+
+
+def test_analysis_and_san_driver_load_no_jax_and_no_torch():
+    """flightcheck (the analyzers, the model checker) and the sanitizer
+    driver run without jax, the JAX package or even torch."""
+    driver = ROOT / "fraud_detection_tpu_torch" / "native" / "san_driver.py"
+    code = _ANALYSIS_AND_SAN_DRIVER.replace("SAN_DRIVER", repr(str(driver)))
+    proc = _run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"findings": 0, "rc_model": 0, "rc_san": 0,
+                   "passed": True, "bad": []}
 
 
 _SPARK_ROUND_TRIP = """

@@ -399,6 +399,62 @@ def _jax_learn_health(tmp_path):
         loop.close(10.0)
 
 
+# The learn block's and its window's exact key sets and types: module-level
+# dict literals so flightcheck's health-schema lint (analysis/health.py,
+# FC301) checks LearnLoop.snapshot() and WindowStore.snapshot() statically.
+LEARN_WINDOW_SCHEMA = {
+    "rows": (int,),
+    "labeled": (int,),
+    "capacity": (int,),
+    "inserted": (int,),
+    "evicted": (int,),
+    "evicted_labeled": (int,),
+    "labels_seen": (int,),
+    "joined": (int,),
+    "expired": (int,),
+    "missed": (int,),
+    "pending_labels": (int,),
+    "malformed_labels": (int,),
+    "accounting_exact": (bool,),
+}
+
+LEARN_BLOCK_SCHEMA = {
+    "window": (dict,),
+    "queue_depth": (int,),
+    "submitted": (int,),
+    "dropped": (int,),
+    "sampled_out": (int,),
+    "encode_errors": (int,),
+    "labels_polled": (int,),
+    "triggered": (int,),
+    "published": (int,),
+    "failed": (int,),
+    "in_flight": (bool,),
+    "promoted": (int,),
+    "rejected": (int,),
+    "rolled_back": (int,),
+    "published_versions": (list,),
+    "last_trigger": (type(None), str),
+    "first_trigger_at_s": (type(None), int, float),
+    "promoted_at_s": (type(None), int, float),
+    "last_retrain_wall_s": (type(None), int, float),
+    "retrain_wall_s_total": (int, float),
+    "recent_error_rate": (type(None), int, float),
+    "primary_window_error_rate": (type(None), int, float),
+    "candidate_window_error_rate": (type(None), int, float),
+    "error_by_version": (dict,),
+}
+
+
+def _assert_schema(obj, schema, where):
+    assert set(obj) == set(schema), (
+        f"{where}: keys changed — update the schema test AND the pollers "
+        f"(extra: {set(obj) - set(schema)}, "
+        f"missing: {set(schema) - set(obj)})")
+    for key, types in schema.items():
+        assert isinstance(obj[key], types), (where, key, type(obj[key]))
+
+
 def test_engine_learn_block_has_the_jax_keys(xgb_pipe, tmp_path):
     from fraud_detection_tpu_torch.registry import (HotSwapPipeline,
                                                     ModelRegistry)
@@ -424,6 +480,8 @@ def test_engine_learn_block_has_the_jax_keys(xgb_pipe, tmp_path):
     loop.close(10.0)
     assert set(got["learn"]) == set(want["learn"])
     assert set(got["learn"]["window"]) == set(want["learn"]["window"])
+    _assert_schema(got["learn"], LEARN_BLOCK_SCHEMA, "learn")
+    _assert_schema(got["learn"]["window"], LEARN_WINDOW_SCHEMA, "learn.window")
     assert set(got["model"]) == set(want["model"])
     assert got["model"]["shadow"] is None and want["model"]["shadow"] is None
     assert got["learn"]["window"]["rows"] == want["learn"]["window"]["rows"] == 16

@@ -520,6 +520,121 @@ def test_watcher_thread_stops_on_a_device_fault(tmp_path):
 # health() blocks: the JAX engine's keys
 # ---------------------------------------------------------------------------
 
+# Exact key sets of the engine's health() and its blocks, as module-level
+# dict literals so flightcheck's health-schema lint (analysis/health.py,
+# FC301) checks the producers against them statically. They are the JAX
+# contract tests' schemas; DEVICE_BLOCK_SCHEMA adds the port's "device".
+ENGINE_HEALTH_SCHEMA = {
+    "running": (bool,),
+    "stopped": (bool,),
+    "uptime_sec": (int, float),
+    "last_batch_age_sec": (type(None), int, float),
+    "in_flight_depth": (int,),
+    "consecutive_flush_failures": (int,),
+    "processed": (int,),
+    "malformed": (int,),
+    "dead_lettered": (int,),
+    "shed": (int,),
+    "rebalanced_commits": (int,),
+    "commits_skipped": (int,),
+    "row_latency_ms": (dict,),
+    "device": (dict,),
+    "sched": (type(None), dict),
+    "dlq": (type(None), dict),
+    "annotations": (type(None), dict),
+    "breaker": (type(None), dict),
+    "explain": (type(None), dict),
+    "model": (type(None), dict),
+    "learn": (type(None), dict),
+    "trace": (type(None), dict),
+    "alerts": (type(None), dict),
+}
+
+DEVICE_BLOCK_SCHEMA = {
+    # The port's own key: the torch device the pipeline scores on.
+    "device": (str,),
+    "async_dispatch": (bool,),
+    "dispatch_depth": (int,),
+    "max_inflight": (int,),
+    "lane_batches": (type(None), int),       # None: lane never ran
+    "driver_waits": (type(None), int),
+    "uploads": (type(None), int),            # None: pipeline w/o DeviceStats
+    "upload_bytes": (type(None), int),
+    "uploads_per_batch": (type(None), int, float),
+    "donation_hits": (type(None), int),
+    "pinned_bytes": (type(None), int),
+    "model_pins": (type(None), int),
+    "int8": (type(None), bool),
+    "mesh_devices": (type(None), int),       # 0/None: single-device path
+    "per_chip_rungs": (type(None), list),
+    "featurize_path": (type(None), str),     # host | the device featurize route
+    "bytes_in_per_row": (type(None), int, float),
+    "truncated_rows": (type(None), int),
+}
+
+MODEL_BLOCK_SCHEMA = {
+    "active_version": (type(None), int),
+    "staged_version": (type(None), int),
+    "swaps": (int,),
+    "last_swap_age_sec": (type(None), int, float),
+    "shadow": (type(None), dict),
+}
+
+SHADOW_BLOCK_SCHEMA = {
+    "candidate_version": (type(None), int),
+    "batches": (int,),
+    "rows": (int,),
+    "disagreed": (int,),
+    "window": (dict,),
+    "agreement_rate": (type(None), int, float),
+    "mean_abs_dp": (type(None), int, float),
+    "flag_rate_primary": (type(None), int, float),
+    "flag_rate_candidate": (type(None), int, float),
+    "flag_rate_delta": (type(None), int, float),
+    "psi": (type(None), int, float),
+    "dropped": (int,),
+    "errors": (int,),
+    "sampled_out": (int,),
+    "queue_depth": (int,),
+    "sample": (int, float),
+    "window_sec": (int, float),
+    "score_hist_primary": (list,),
+    "score_hist_candidate": (list,),
+}
+
+
+def _assert_schema(obj, schema, where):
+    assert set(obj) == set(schema), (
+        f"{where}: health() keys changed — update the schema test AND the "
+        f"pollers (extra: {set(obj) - set(schema)}, "
+        f"missing: {set(schema) - set(obj)})")
+    for key, types in schema.items():
+        assert isinstance(obj[key], types), (where, key, type(obj[key]))
+
+
+def test_health_json_contract_plain_pipeline():
+    """The port's schemas are the reference's (plus the port's "device"),
+    and a plain pipeline's health() meets them key for key and type for
+    type."""
+    from tests import test_lifecycle as jtests
+
+    assert set(ENGINE_HEALTH_SCHEMA) == set(jtests.ENGINE_HEALTH_SCHEMA)
+    assert set(DEVICE_BLOCK_SCHEMA) == set(jtests.DEVICE_BLOCK_SCHEMA) | {
+        "device"}
+    assert set(MODEL_BLOCK_SCHEMA) == set(jtests.MODEL_BLOCK_SCHEMA)
+    assert set(SHADOW_BLOCK_SCHEMA) == set(jtests.SHADOW_BLOCK_SCHEMA)
+    broker = InProcessBroker()
+    feed(broker, range(16))
+    engine = make_engine(broker, cpu_pipe(-8.0), batch_size=16)
+    engine.run(max_messages=16, idle_timeout=2.0)
+    h = engine.health()
+    _assert_schema(h, ENGINE_HEALTH_SCHEMA, "engine")
+    _assert_schema(h["device"], DEVICE_BLOCK_SCHEMA, "device")
+    assert h["device"]["device"] == "cpu"
+    assert h["model"] is None
+    json.dumps(h)
+
+
 def _jax_model_block():
     from fraud_detection_tpu.models.pipeline import ServingPipeline as JPipe
     from fraud_detection_tpu.registry import HotSwapPipeline as JHot
@@ -561,6 +676,8 @@ def test_health_model_block_has_the_jax_keys():
         shadow.close(10.0)
     assert set(got["model"]) == set(want["model"])
     assert set(got["model"]["shadow"]) == set(want["model"]["shadow"])
+    _assert_schema(got["model"], MODEL_BLOCK_SCHEMA, "model")
+    _assert_schema(got["model"]["shadow"], SHADOW_BLOCK_SCHEMA, "shadow")
     assert set(got["model"]["shadow"]["window"]) == set(
         want["model"]["shadow"]["window"])
     assert got["model"]["active_version"] == 1

@@ -7,15 +7,16 @@ process), each beside the JAX package's answer, and a REAL 2-process
 ``torch.distributed`` rendezvous over localhost with the ``gloo`` backend,
 in subprocesses of 4 CPU shards each: ``initialize_distributed`` ->
 ``make_hybrid_mesh`` -> ``global_batch_from_local`` -> the data-axis sum,
-and a decision tree fit across the two processes. Each subprocess runs
-under its own timeout, so a wedged rendezvous fails in seconds.
+and a decision tree fit across the two processes. The subprocesses run
+under one deadline, so a wedged rendezvous fails instead of hanging.
 """
 
 import hashlib
 import os
-import socket
 import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -109,36 +110,67 @@ def test_global_batch_from_local_single_process(ndim):
     assert float(data_sum([s.sum() for s in g.shards], mesh)) == float(x.sum())
 
 
+#: Appended to every child: once its source has run (destroy_process_group
+#: included), the child leaves by ``os._exit``. This torch's interpreter
+#: teardown after a gloo job sometimes aborts ("terminate called without an
+#: active exception", SIGABRT) after both ranks printed their results: 8 of
+#: 120 two-process runs of this file, 6 at a time on one host, against 0 of
+#: 120 with this line. An exception in the child's own code still exits
+#: non-zero: it never reaches this line.
+_CHILD_EXIT = ("\nimport os as _os, sys as _sys\n_sys.stdout.flush()\n"
+               "_sys.stderr.flush()\n_os._exit(0)\n")
+
+
 def _run_two_process(child_src: str, timeout: float = 90):
-    """Run ``child_src`` as TWO torch.distributed processes (gloo, one
-    rendezvous port on localhost) and return each one's RESULT line; every
-    process has its own timeout and is killed at the end."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    """Run ``child_src`` as TWO torch.distributed processes (gloo) and return
+    each one's RESULT line.
+
+    This process hosts the rendezvous store on a port it holds bound for the
+    whole run, and the children reach it as clients, as under torchrun's
+    agent (``TORCHELASTIC_USE_AGENT_STORE``). A port picked free and closed
+    before rank 0 bound it could be taken in between by another job on the
+    machine: under a loaded parallel test run two two-process jobs then met
+    in one store, and a rank crashed or waited out its timeout. The
+    children write to files, so neither blocks on a full pipe while the
+    other waits in a collective; both run under one deadline and are killed
+    at the end."""
+    store = torch.distributed.TCPStore("127.0.0.1", 0, is_master=True,
+                                       wait_for_workers=False)
+    files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+             for _ in range(2)]
     procs = []
-    for rank in range(2):
-        env = dict(os.environ, PYTHONPATH=ROOT, MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
-                   OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", child_src], env=env, cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    outs = []
     try:
-        for p in procs:
-            out, err = p.communicate(timeout=timeout)
-            outs.append((p.returncode, out, err))
+        for rank, (out, err) in enumerate(files):
+            env = dict(os.environ, PYTHONPATH=ROOT, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(store.port), WORLD_SIZE="2",
+                       RANK=str(rank), OMP_NUM_THREADS="1",
+                       TORCHELASTIC_USE_AGENT_STORE="True")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", child_src + _CHILD_EXIT], env=env,
+                cwd=ROOT, stdout=out, stderr=err, text=True))
+        deadline = time.monotonic() + timeout
+        while (time.monotonic() < deadline
+               and any(p.poll() is None for p in procs)):
+            time.sleep(0.05)
     finally:
         for p in procs:
-            p.kill()
+            if p.poll() is None:
+                p.kill()
             p.wait()
-    lines = []
-    for rc, out, err in outs:
-        assert rc == 0, err[-2000:]
-        lines.append([ln for ln in out.splitlines()
-                      if ln.startswith("RESULT")][0])
-    return lines
+        del store
+    texts = []
+    for out, err in files:
+        out.seek(0)
+        err.seek(0)
+        texts.append((out.read(), err.read()))
+        out.close()
+        err.close()
+    rcs = [p.returncode for p in procs]
+    assert rcs == [0, 0], f"ranks exited {rcs}" + "".join(
+        f"\nrank {r} stdout: {o[-500:]}\nrank {r} stderr: {e[-2000:]}"
+        for r, (o, e) in enumerate(texts))
+    return [[ln for ln in o.splitlines() if ln.startswith("RESULT")][0]
+            for o, _ in texts]
 
 
 _CHILD = r'''

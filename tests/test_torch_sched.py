@@ -246,3 +246,98 @@ def test_dispatch_lane_is_fifo_and_reraises_in_place():
     assert not lane._thread.is_alive()
     with pytest.raises(RuntimeError):
         lane.submit(7)
+
+
+# ---------------------------------------------------------------------------
+# health contract (the sched block)
+# ---------------------------------------------------------------------------
+
+# Module-level dict literals so flightcheck's health-schema lint
+# (analysis/health.py, FC301) checks the producers against them statically:
+# the JAX contract tests' schemas, key for key.
+SCHED_BLOCK_SCHEMA = {
+    "batch_deadline_ms": (type(None), int, float),
+    "buckets": (list,),
+    "ladder_cost_ms": (type(None), dict),   # measured at prewarm; None before
+    "slo": (dict,),
+    "admission": (dict,),
+    "governor": (dict,),
+}
+
+SLO_BLOCK_SCHEMA = {
+    "count": (int,),
+    "p50_ms": (type(None), int, float),
+    "p95_ms": (type(None), int, float),
+    "p99_ms": (type(None), int, float),
+    "mean_ms": (type(None), int, float),
+    "max_ms": (type(None), int, float),
+    "target_p99_ms": (type(None), int, float),
+    "window_sec": (int, float),
+}
+
+ADMISSION_BLOCK_SCHEMA = {
+    "policy": (str,),
+    "max_queue": (type(None), int),
+    "rate_limit": (type(None), int, float),
+    "tokens_available": (type(None), int, float),
+    "shed_fraction": (int, float),
+    "shed": (dict,),
+    "backlog": (type(None), int),
+}
+
+GOVERNOR_BLOCK_SCHEMA = {
+    "max_batch_sec": (type(None), int, float),
+    "ewma_batch_ms": (type(None), int, float),
+    "ewma_row_us": (type(None), int, float),
+    "budget_caps": (int,),
+    "paused_sec": (int, float),
+}
+
+
+def _assert_schema(obj, schema, where):
+    assert set(obj) == set(schema), (
+        f"{where}: keys changed — update the schema test AND the pollers "
+        f"(extra: {set(obj) - set(schema)}, missing: {set(schema) - set(obj)})")
+    for key, types in schema.items():
+        assert isinstance(obj[key], types), (where, key, type(obj[key]))
+
+
+def test_health_sched_block_contract():
+    """The sched block of the port engine's health() has the reference's
+    exact key set and types, its SLO, admission and governor blocks too."""
+    import json
+
+    from fraud_detection_tpu_torch.models.pipeline import ServingPipeline
+    from fraud_detection_tpu_torch.stream import (InProcessBroker,
+                                                  StreamingClassifier)
+    from tests import test_sched as jtests
+    from tests.test_torch_registry import const_model, make_featurizer
+
+    for name in ("SCHED_BLOCK_SCHEMA", "SLO_BLOCK_SCHEMA",
+                 "ADMISSION_BLOCK_SCHEMA", "GOVERNOR_BLOCK_SCHEMA"):
+        assert set(globals()[name]) == set(getattr(jtests, name)), name
+    pipe = ServingPipeline(make_featurizer(), const_model(-8.0),
+                           batch_size=32, device="cpu")
+    broker = InProcessBroker()
+    feeder = broker.producer()
+    for i in range(40):
+        feeder.produce("in", json.dumps({"text": f"row {i}"}).encode(),
+                       key=str(i).encode())
+    sched = T.AdaptiveScheduler(
+        T.SchedulerConfig(batch_deadline_ms=20.0, shed_policy="reject",
+                          max_queue=1000, target_p99_ms=500.0, max_rate=1e6),
+        batch_size=32)
+    engine = StreamingClassifier(pipe, broker.consumer(["in"], "g"),
+                                 broker.producer(), "out", batch_size=32,
+                                 max_wait=0.01, scheduler=sched,
+                                 dlq_topic="out-dlq")
+    engine.run(max_messages=40, idle_timeout=1.0)
+    h = engine.health()
+    _assert_schema(h["sched"], SCHED_BLOCK_SCHEMA, "sched")
+    _assert_schema(h["sched"]["slo"], SLO_BLOCK_SCHEMA, "sched.slo")
+    _assert_schema(h["sched"]["admission"], ADMISSION_BLOCK_SCHEMA,
+                   "sched.admission")
+    _assert_schema(h["sched"]["governor"], GOVERNOR_BLOCK_SCHEMA,
+                   "sched.governor")
+    assert h["sched"]["slo"]["count"] == 40
+    json.dumps(h)

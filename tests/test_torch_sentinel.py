@@ -407,10 +407,37 @@ def _alerts_snapshot(mod):
     return s, s.snapshot()
 
 
+# The alerts block's exact key set and types: a module-level dict literal so
+# flightcheck's health-schema lint (analysis/health.py, FC301) checks
+# Sentinel.snapshot() against it statically.
+ALERTS_BLOCK_SCHEMA = {
+    "worker": (str,),
+    "rules": (int,),
+    "evaluations": (int,),
+    "eval_errors": (int,),
+    "last_eval_at": (type(None), int, float),
+    "ring_depth": (int,),
+    "firing": (list,),
+    "critical_firing": (list,),
+    "pending": (list,),
+    "fired": (int,),
+    "resolved": (int,),
+    "still_firing": (int,),
+    "incidents": (list,),
+    "recorder": (type(None), dict),
+}
+
+
 def test_alerts_block_schema_and_accounting_equal_jax():
+    from tests.test_sentinel import ALERTS_BLOCK_SCHEMA as JSCHEMA
+
+    assert set(ALERTS_BLOCK_SCHEMA) == set(JSCHEMA)
     s, snap = _alerts_snapshot(tsentinel)
     _, jsnap = _alerts_snapshot(jsentinel)
     assert snap == jsnap
+    assert set(snap) == set(ALERTS_BLOCK_SCHEMA)
+    for key, types in ALERTS_BLOCK_SCHEMA.items():
+        assert isinstance(snap[key], types), (key, type(snap[key]))
     json.dumps(snap)
     assert snap["fired"] == snap["resolved"] + snap["still_firing"]
     assert snap["critical_firing"] == [] and snap["firing"] == ["b"]

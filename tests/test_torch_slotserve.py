@@ -17,7 +17,8 @@ The model is the JAX test's (d 64, 2 layers, 4 heads, d_ff 128, max_seq
   loudly and leaves ``fault`` set; the slot hook turns failures into
   accounted markers behind the breaker;
 * **schema** — ``snapshot()`` has the JAX service's keys
-  (``tests/test_slotserve.py``'s ``SLOTSERVE_BLOCK_SCHEMA``);
+  (``tests/test_slotserve.py``'s ``SLOTSERVE_BLOCK_SCHEMA``) plus the port's
+  ``kv_bytes_per_device``;
 * **tracing** — explained rows' "explain" spans carry their slot, drop
   records carry trace ids that join back to the rows' chains, and under
   seeded broker chaos every flagged row is explained or accounted;
@@ -53,7 +54,7 @@ from fraud_detection_tpu_torch.explain.slotserve import (DROPPED_MARKER,
                                                          make_slot_explain_hook)
 from fraud_detection_tpu_torch.stream import (InProcessBroker,
                                               StreamingClassifier)
-from tests.test_slotserve import SLOTSERVE_BLOCK_SCHEMA
+from tests.test_slotserve import SLOTSERVE_BLOCK_SCHEMA as JSLOT_SCHEMA
 from tests.torch_parity import port_llm
 
 
@@ -472,8 +473,40 @@ def test_chaos_every_flagged_row_explained_or_accounted(lm, pipeline):
 # health schema
 # ---------------------------------------------------------------------------
 
-# the JAX service's keys plus the port's per-device split of kv_bytes
-PORT_BLOCK_KEYS = set(SLOTSERVE_BLOCK_SCHEMA) | {"kv_bytes_per_device"}
+# The JAX service's schema plus the port's per-device split of kv_bytes; a
+# module-level dict literal so flightcheck's health-schema lint
+# (analysis/health.py, FC301) checks snapshot() against it statically.
+SLOTSERVE_BLOCK_SCHEMA = {
+    "slots": (int,),
+    "busy": (int,),
+    "free": (int,),
+    "queue_depth": (int,),
+    "admitted": (int,),
+    "completed": (int,),
+    "dropped": (int,),
+    "errors": (int,),
+    "truncated": (int,),
+    "expl_per_s": (type(None), int, float),
+    "latency_ms": (dict,),
+    "admit_to_first_token_ms": (dict,),
+    "occupancy": (type(None), int, float),
+    "iterations": (int,),
+    "prefills": (int,),
+    "decode_steps": (int,),
+    "tokens_out": (int,),
+    "kv_bytes": (int,),
+    # The port's own key: kv_bytes split by the device each cache lies on.
+    "kv_bytes_per_device": (dict,),
+    # Paged-pool block: zeros in contiguous mode so the schema is
+    # mode-independent — FC301 pins these against snapshot()'s literal.
+    "kv_pages": (int,),
+    "page_bytes": (int,),
+    "pages_free": (int,),
+    "prefix_pages": (int,),
+    "prefix_hits": (int,),
+    "cow_copies": (int,),
+    "kv_bytes_saved_vs_contiguous": (int,),
+}
 
 
 def test_snapshot_schema_contract(lm):
@@ -481,7 +514,9 @@ def test_snapshot_schema_contract(lm):
     try:
         svc.generate_batch(["one row"], temperature=0.0, max_tokens=4)
         snap = svc.snapshot()
-        assert set(snap) == PORT_BLOCK_KEYS
+        assert set(SLOTSERVE_BLOCK_SCHEMA) == set(JSLOT_SCHEMA) | {
+            "kv_bytes_per_device"}
+        assert set(snap) == set(SLOTSERVE_BLOCK_SCHEMA)
         for key, types in SLOTSERVE_BLOCK_SCHEMA.items():
             assert isinstance(snap[key], types), (key, type(snap[key]))
         assert sum(snap["kv_bytes_per_device"].values()) == snap["kv_bytes"]
@@ -510,7 +545,7 @@ def test_engine_health_explain_block(lm, pipeline):
         engine.run(max_messages=8, idle_timeout=1.0)
         engine.close_annotations(timeout=30.0)
         h = engine.health()
-        assert set(h["explain"]) == PORT_BLOCK_KEYS
+        assert set(h["explain"]) == set(SLOTSERVE_BLOCK_SCHEMA)
         assert h["breaker"]["state"] == "closed"
         assert h["annotations"]["submitted"] == h["annotations"]["annotated"]
         assert h["explain"]["completed"] == h["annotations"]["annotated"] > 0
