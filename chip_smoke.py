@@ -22,7 +22,10 @@ Phases (any failure raises and the script exits non-zero):
    synthetic-corpus rows at W=2048, the adversarial strings and a seeded
    fuzz (padding rows included), rows past 256 unique buckets, the fuzz at
    W=8 and rows at W=16,384, in both hash modes, ``binary`` on and off,
-   with the English stop table and one holding "", and at 32 slots; the
+   with the English stop table and one holding "", and at 32 slots (the
+   plain version's scan, a launch per small op on the card, runs on a host
+   copy of the same bytes; at W=16,384 in a process of its own started
+   before the build, which hands back the bytes' SHA-256 with it); the
    stream entry ``featurize_scan`` exactly (corpus, adversarial, fuzz,
    both hash modes); the tree histogram (int path equal,
    f32 path within 1e-5 of the largest cell, two launches bit-equal, T=1
@@ -258,7 +261,8 @@ Phases (any failure raises and the script exits non-zero):
    variant whose runtime the host's gcc lacks is said so, naming that gcc;
    one whose runtime is present but that fails to build or run fails the
    run;
-8. timings (CUDA events, median of >= 10 after warm-up) of each kernel, its
+8. timings (CUDA events, median of >= 10 after warm-up; of 3 to 10 for
+   the plain versions, which take up to seconds a call) of each kernel, its
    plain version and its library call where one exists (both featurize
    entries in turns with their profiler device time, beside the first scan
    kernel's recorded 1.1390 ms; the histogram at
@@ -402,6 +406,21 @@ Phases (any failure raises and the script exits non-zero):
    (losses within 3e-4, step times side by side); with one card the line
    says it did not run (``scripts/llm_mesh_phases.py`` runs it on 2 and 4
    cards);
+14e. the seven example twins (``examples/torch_*.py``: the serve and
+   streaming quickstarts, the train quickstart, the HF checkpoint demo at
+   bf16 and ``--int8``, the hot swap, the drift loop and the game day) run
+   in this process on ``cuda`` at their JAX examples' sizes, one line each
+   with its wall and launch counts: every exit code 0; no featurize_packed
+   or flash launch; the train twin's histogram and best_splits launches
+   each equal levels x rounds; the drift day's tree kernels once a split
+   level each; ``w8_matmul`` only under ``--int8``, a multiple of an int8
+   forward's launches; and each twin's values equal those of its run on
+   the host under ``--device cpu``, made after the card's runs in this
+   process: labels, counts and metrics equal, p within the stated bound
+   (the streaming demo's every row), the HF
+   replies equal or parting only at a bf16 tie of the host model's
+   logits; the hot swap delivers every message once on both, its
+   timing-dependent promotion printed;
 15. a ``{"kernels": [...]}`` line (eight entries: featurize_packed, the
    stream entry, histogram, best_splits, both flash routes, both
    ``w8_matmul`` routes), then the last line
@@ -424,8 +443,8 @@ flash kernel and, at int8, for ``w8_matmul``'s SIMT route; one int8 decode
 step and phase 12's int8 generation, for ``w8_matmul``; each of phase
 12b's TP prefills and its int8 TP generation, for flash and
 ``w8_matmul``; each of phase 12c's SP forwards, for flash; each of phase
-12d's TP cache programs, for flash and ``w8_matmul``) and read just
-after it. The flash counts are reset before phase 5e and must read 0 after it
+12d's TP cache programs, for flash and ``w8_matmul``; every kernel's
+count around each example twin of phase 14e) and read just after it. The flash counts are reset before phase 5e and must read 0 after it
 (the game days launch no flash kernel, as in the reference), and again
 before phase 13b and must read 0 after phase 13f: the slot lane runs no
 kernel of the table (its prefill is ``causal_attention(use_flash=False)``
@@ -436,6 +455,7 @@ JAX or of ``fraud_detection_tpu``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -483,6 +503,9 @@ SLOT_LANE_ROWS = 16
 KERNELS = ("featurize_scan", "histogram", "best_splits", "flash_attention",
            "flash_attention_sm90", "int8_matmul")
 ROOT = Path(__file__).resolve().parent
+# the helper processes this run starts and their result files: each is
+# waited for where its result is read, and any left at exit is stopped
+_children: list = []
 # The training CLI's shipped configuration and the JAX bench's training shape.
 DEPTH, NBINS, CLI_N, CLI_SEED = 5, 32, 1600, 42
 CLI_AUC_TOL = 0.01   # lr AUC against the recorded run (near-separable fit)
@@ -650,14 +673,17 @@ def staged_classes(texts, width, dev, batch=None):
 
 
 def scan_max_err(classes, legacy: bool) -> int:
-    """Run the scan kernel and its plain version on the same CUDA tensor;
-    raise unless all five outputs are equal. Returns the max |diff| (0)."""
+    """Run the scan kernel on a CUDA tensor and its plain version on a host
+    copy of it (a launch per small op on the card; the same integer
+    arithmetic on either device); raise unless all five outputs are equal.
+    Returns the max |diff| (0)."""
     import torch
 
     from fraud_detection_tpu_torch.ops import featurize_kernel as fk
 
     got = fk.tokenize_hash(classes, legacy=legacy)
-    want = fk.tokenize_hash_reference(classes, legacy=legacy)
+    want = [t.to(classes.device) for t in
+            fk.tokenize_hash_reference(classes.cpu(), legacy=legacy)]
     torch.cuda.synchronize()
     err = 0
     for name, g, w in zip(("h", "w0", "w1", "tok_len", "emp"), got, want):
@@ -688,7 +714,11 @@ def packed_max_err(label: str, staged, stop, spec, scans: dict) -> int:
     CUDA tensors; raise unless the two launches are bit-equal and equal the
     plain version (packed output and unique counts). The plain version's
     scan is kept per (input, hash mode) in ``scans``: assemble_packed is
-    the only step a spec changes. Returns the max |diff| (0)."""
+    the only step a spec changes. The scan, a loop of ~80 small integer ops
+    a byte column, runs on a host copy of the same bytes (on the card each
+    op is a launch: ~20 s a scan at W=16,384) and is copied back; its
+    integer arithmetic is the same on either device. Returns the max |diff|
+    (0)."""
     import torch
 
     from fraud_detection_tpu_torch.ops import featurize_kernel as fk
@@ -697,8 +727,10 @@ def packed_max_err(label: str, staged, stop, spec, scans: dict) -> int:
     again = fk.featurize_bytes(staged, stop, spec=spec)
     key = (label.split()[0], spec.legacy)
     if key not in scans:
-        scans[key] = fk.tokenize_hash_reference(
-            fk.byte_classes(*fk.split_staged(staged)), legacy=spec.legacy)
+        host = fk.tokenize_hash_reference(
+            fk.byte_classes(*fk.split_staged(staged.cpu())),
+            legacy=spec.legacy)
+        scans[key] = tuple(t.to(staged.device) for t in host)
     want = fk.assemble_packed(*scans[key], stop, spec=spec)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -737,14 +769,6 @@ def packed_inputs(corpus_texts, fuzz, dev, seed: int):
              for _ in range(900)]
     overflow = [" ".join(rng.choice(words[: rng.choice((450, 900))])
                          for _ in range(600))[:WIDTH] for _ in range(6)]
-    long_rows, i = [], 0
-    for target in (16_384, 16_000, 20_000, 9_000):
-        row = ""
-        while len(row) < target:
-            row += corpus_texts[i % len(corpus_texts)] + " "
-            i += 1
-        long_rows.append(row[:target])
-    long_rows += ["", "Q" * 16_000 + " end"]
 
     def stage(texts, width, batch=None):
         return torch.from_numpy(pack_staged(texts, width, batch)[0]).to(dev)
@@ -754,7 +778,104 @@ def packed_inputs(corpus_texts, fuzz, dev, seed: int):
             ("fuzz", stage(fuzz, 256, 130)),
             ("overflow", stage(overflow, WIDTH, 8)),
             ("w8", stage(fuzz, 8, 130)),
-            ("w16384", stage(long_rows, 16_384, 8))]
+            ("w16384", long_staged(corpus_texts).to(dev))]
+
+
+def long_staged(corpus_texts):
+    """The W=16,384 staged rows on the host: long dialogues (one past the
+    width, truncated), "", a 16,000-letter token, padding to 8 rows."""
+    import torch
+
+    from fraud_detection_tpu_torch.featurize.device import pack_staged
+
+    rows, i = [], 0
+    for target in (16_384, 16_000, 20_000, 9_000):
+        row = ""
+        while len(row) < target:
+            row += corpus_texts[i % len(corpus_texts)] + " "
+            i += 1
+        rows.append(row[:target])
+    rows += ["", "Q" * 16_000 + " end"]
+    return torch.from_numpy(pack_staged(rows, 16_384, 8)[0])
+
+
+def background_host_process() -> None:
+    """Keep a helper process out of the way of the main one, whose phases
+    are host-bound: the lowest priority, one core, one torch thread."""
+    import torch
+
+    os.nice(19)
+    os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
+    torch.set_num_threads(1)
+
+
+def host_scans_child(result_path: str, seed: int) -> int:
+    """The plain scan of phase 3's W=16,384 rows in both hash modes, on the
+    host, in a process of its own that runs beside the kernels' build
+    (``start_host_scans``): ~80 small integer ops a byte column, each a
+    launch on the card. Saves the scans and the staged bytes' SHA-256."""
+    import hashlib
+
+    import torch
+
+    from fraud_detection_tpu_torch.data import generate_corpus
+    from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+
+    background_host_process()
+    texts = [d.text for d in generate_corpus(n=BATCH, seed=seed + 11)]
+    staged = long_staged(texts)
+    classes = fk.byte_classes(*fk.split_staged(staged))
+    torch.save({"sha256": hashlib.sha256(staged.numpy().tobytes()).hexdigest(),
+                "scans": {legacy: fk.tokenize_hash_reference(classes,
+                                                             legacy=legacy)
+                          for legacy in (False, True)}}, result_path)
+    return 0
+
+
+def start_host_scans(seed: int):
+    """Start ``host_scans_child``; returns (process, result path)."""
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_scans_", suffix=".pt")
+    os.close(fd)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         "chip_smoke.host_scans_child(sys.argv[1], int(sys.argv[2])))",
+         path, str(seed)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES=""))
+    _children.append((proc, path))
+    return proc, path
+
+
+def stop_children() -> None:
+    """Stop every helper process still running and remove the result files
+    left behind (registered with ``atexit`` in ``main``)."""
+    for proc, path in _children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(path)
+
+
+def host_scans(started, staged) -> dict:
+    """Wait for ``start_host_scans``'s child; its scans, on ``staged``'s
+    device, keyed as ``packed_max_err`` keys them, once the child is shown
+    to have scanned these very bytes."""
+    import hashlib
+
+    import torch
+
+    proc, path = started
+    try:
+        if proc.wait(timeout=600) != 0:
+            raise AssertionError(f"the host scan exited {proc.returncode}")
+        out = torch.load(path)
+    finally:
+        os.unlink(path)
+    if out["sha256"] != hashlib.sha256(
+            staged.cpu().numpy().tobytes()).hexdigest():
+        raise AssertionError("the host scan read other W=16,384 bytes")
+    return {("w16384", legacy): tuple(t.to(staged.device) for t in scan)
+            for legacy, scan in out["scans"].items()}
 
 
 def make_models(feat, seed: int, dev):
@@ -6351,6 +6472,290 @@ def two_process_fits_phase(card: str) -> dict:
     return {"run": True, "cards": n, "fits": two_process_fits(1, card)}
 
 
+# ---------------------------------------------------------------------------
+# phase 14e: the example twins (examples/torch_*.py)
+# ---------------------------------------------------------------------------
+
+# (key, module, arguments): each twin at its JAX example's own sizes
+EXAMPLE_RUNS = (("serve", "torch_serve_quickstart", []),
+                ("streaming", "torch_streaming_demo", []),
+                ("train", "torch_train_quickstart", []),
+                ("convert", "torch_convert_hf_checkpoint", []),
+                ("convert_int8", "torch_convert_hf_checkpoint", ["--int8"]),
+                ("hot_swap", "torch_hot_swap_demo", []),
+                ("drift_loop", "torch_drift_loop_demo", []),
+                ("game_day", "torch_game_day_demo", []))
+# demo-LR probabilities of two separately trained fits (the port's
+# tests/test_torch_serve_cli.py bound, for the quickstart's two dialogues,
+# whose p saturate); xgb p card against CPU (phase 6's)
+SYNTHETIC_P_TOL, TWIN_XGB_P_TOL = 1e-3, 1e-4
+# the streaming demo's 500 dialogues, p(scam) card against host: the demo
+# LR, trained on each device, stops short of convergence at 50 L-BFGS
+# iterations, where the two devices' reduction orders part the iterates;
+# an H100 80GB HBM3 (700 W) against its 8-core host parted by 0.0161 at most
+STREAM_P_TOL = 0.05
+
+
+def twin_values(key: str, out: dict) -> dict:
+    """The values of a twin's run (``run``'s dict) that a run on another
+    device must give too, as JSON."""
+    def keyed(d):
+        return {k.decode(): v for k, v in d.items()}
+
+    if key == "serve":
+        return {"scored": out["scored"]}
+    if key == "streaming":
+        return {"processed": out["processed"], "malformed": out["malformed"],
+                "labels": keyed(out["labels"]),
+                "confidences": keyed(out["confidences"]),
+                "annotated": [k.decode() for k in out["annotated"]]}
+    if key == "train":
+        return {"preds": out["preds"].tolist(),
+                "scores": out["scores"].tolist(), "metrics": out["metrics"],
+                "reloaded_equal": bool(out["reloaded_equal"])}
+    if key.startswith("convert"):
+        return {"reply": out["reply"]}
+    if key == "hot_swap":
+        return {k: out[k] for k in ("active_version", "swaps", "delivered",
+                                    "unique_keys", "fed", "audit_events")}
+    ev = out["result"].evidence
+    return {"counts": {k: ev.get(k) for k in ("planned", "out_rows",
+                                              "dlq_rows", "deaths", "swaps")},
+            "verdicts": {v.name: v.ok for v in out["result"].report.verdicts}}
+
+
+def run_twin(module: str, argv) -> tuple:
+    """One twin's ``run(argv)`` with its output captured: (its dict, its
+    output, wall s)."""
+    import importlib
+    import io
+
+    twin = importlib.import_module(f"examples.{module}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = twin.run(argv)
+    return out, buf.getvalue(), time.perf_counter() - t0
+
+
+def convert_tie(int8: bool, card_reply: str, cpu_reply: str) -> dict:
+    """Where the card's and the host's greedy replies of the HF checkpoint
+    twin part: the host model's last logits there (the port's forward on the
+    CPU over the prompt and the common prefix) for the two tokens. The
+    synthetic checkpoint's bf16 logits tie often; a parting is a tie when
+    the two sit within one bf16 step of the top logit."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.checkpoint.hf_convert import (
+        load_hf_checkpoint)
+    from fraud_detection_tpu_torch.explain.backends import frame_prompt
+    from fraud_detection_tpu_torch.explain.onpod import flatten_chat
+    from fraud_detection_tpu_torch.models import llm as L
+
+    if card_reply == cpu_reply:
+        return {"equal": True}
+    i = next((j for j, (a, b) in enumerate(zip(card_reply, cpu_reply))
+              if a != b), min(len(card_reply), len(cpu_reply)))
+    tc = importlib.import_module("examples.torch_convert_hf_checkpoint")
+    with tempfile.TemporaryDirectory() as d:
+        tc.make_synthetic_checkpoint(d)
+        lm = load_hf_checkpoint(d, max_seq=128, tokenizer="byte", int8=int8,
+                                device="cpu")
+    prompt = lm.tokenizer.encode(flatten_chat(frame_prompt(
+        "Classify this call: 'you won a prize, read me your SSN'.")))
+    seq = np.concatenate([prompt, np.frombuffer(
+        cpu_reply[:i].encode("latin-1"), np.uint8).astype(np.int32)])
+    with torch.no_grad():
+        logits, _ = L.forward(lm.params, torch.from_numpy(seq[None].astype(
+            np.int64)), lm.cfg)
+    last = logits[0, -1].double().numpy()
+    toks = [ord(r[i]) if i < len(r) else lm.cfg.EOS
+            for r in (card_reply, cpu_reply)]
+    top = float(last.max())
+    step = 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 0.0
+    gap = top - min(last[toks[0]], last[toks[1]])
+    if gap > step:
+        raise AssertionError(
+            f"HF checkpoint twin (int8={int8}): the card's and the host's "
+            f"replies part at character {i} ({toks}), {gap:.3g} below the "
+            f"top logit, more than one bf16 step ({step:.3g})")
+    return {"equal": False, "parts_at": i, "tokens": toks, "gap": gap,
+            "bf16_step": step}
+
+
+def examples_phase(card: str) -> dict:
+    """Phase 14e: the seven example twins on the card at their JAX examples'
+    sizes, in this process, launch counts reset before each and read after;
+    against the host's runs of the same twins, made after them in this
+    process (no host-timed phase runs beside them). Gates:
+    every exit code 0, card and host; featurize_packed and flash 0 a twin;
+    the train twin's histogram and best_splits launches each levels x
+    rounds; w8_matmul only under ``--int8``, a multiple of an int8 forward's
+    launches; the drift day's tree kernels once a split level each; the
+    values each twin gives (labels, metrics, counts) equal the host's:
+    equal, or within the stated bound, or (the HF checkpoint's replies) a
+    bf16 tie where they part; the hot swap delivers every message once on
+    each device, and its decision (timing-dependent: the shadow scorer's
+    sample) is printed, not compared."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.models.train_trees import TreeTrainConfig
+    from fraud_detection_tpu_torch.ops import attention as A
+    from fraud_detection_tpu_torch.ops import featurize_kernel as fk
+    from fraud_detection_tpu_torch.ops import histogram as H
+    from fraud_detection_tpu_torch.ops import int8_matmul as W
+
+    t_phase = time.perf_counter()
+    card_runs = {}
+    for key, module, argv in EXAMPLE_RUNS:
+        fk.featurize_bytes.launches = fk.tokenize_hash.launches = 0
+        H.node_feature_bin_histogram_multi.launches = 0
+        H.best_splits.launches = 0
+        A.flash_attention.launches = 0
+        W.w8_matmul.launches = W.w8_matmul.simt_launches = 0
+        out, text, wall = run_twin(module, argv)
+        launches = {"featurize_packed": fk.featurize_bytes.launches,
+                    "histogram": H.node_feature_bin_histogram_multi.launches,
+                    "best_splits": H.best_splits.launches,
+                    "flash_attention": A.flash_attention.launches,
+                    "w8_matmul": W.w8_matmul.launches,
+                    "w8_matmul_simt": W.w8_matmul.simt_launches}
+        tail = " | ".join(line.strip() for line in text.strip().splitlines()[-2:])
+        print(f"[examples] {key} ({module}.py {' '.join(argv)}) on the card: "
+              f"exit {out['exit_code']}, wall {wall:.2f} s ({card}); launches "
+              f"{launches}; last lines: {tail[:240]}")
+        if out["exit_code"] != 0:
+            raise AssertionError(f"example twin {key} exited "
+                                 f"{out['exit_code']} on the card:\n{text}")
+        if launches["featurize_packed"] or launches["flash_attention"]:
+            raise AssertionError(f"example twin {key} launched featurize_packed "
+                                 f"or flash: {launches}")
+        if key == "train":
+            want = TreeTrainConfig().max_depth * out["model"].num_trees
+            if launches["histogram"] != want or launches["best_splits"] != want:
+                raise AssertionError(
+                    f"train twin: histogram {launches['histogram']}, "
+                    f"best_splits {launches['best_splits']} launches, want "
+                    f"levels x rounds = {want} each")
+        elif key == "drift_loop":
+            if not launches["histogram"] or (launches["histogram"]
+                                             != launches["best_splits"]):
+                raise AssertionError(f"drift twin's tree kernels: {launches}")
+        elif launches["histogram"] or launches["best_splits"]:
+            raise AssertionError(f"{key} launched the tree kernels: {launches}")
+        if key == "convert_int8":
+            per_forward = 7 * 2 + 1     # the synthetic checkpoint's 2 layers
+            if (not launches["w8_matmul"] or launches["w8_matmul_simt"]
+                    or launches["w8_matmul"] % per_forward):
+                raise AssertionError(f"--int8 twin: w8_matmul {launches}, want "
+                                     f"a positive multiple of {per_forward}")
+        elif launches["w8_matmul"] or launches["w8_matmul_simt"]:
+            raise AssertionError(f"{key} launched w8_matmul: {launches}")
+        card_runs[key] = {"exit_code": out["exit_code"], "wall_s": wall,
+                          "launches": launches,
+                          "values": twin_values(key, out)}
+    card_wall = time.perf_counter() - t_phase
+
+    t_host = time.perf_counter()
+    host = {}
+    for key, module, argv in EXAMPLE_RUNS:
+        got, _, wall = run_twin(module, argv + ["--device", "cpu"])
+        host[key] = {"exit_code": got["exit_code"], "wall_s": wall,
+                     "values": twin_values(key, got)}
+    host_wall = time.perf_counter() - t_host
+    compared = {}
+    for key, run in card_runs.items():
+        got, want = run["values"], host[key]["values"]
+        if host[key]["exit_code"] != 0:
+            raise AssertionError(f"example twin {key} exited "
+                                 f"{host[key]['exit_code']} on the host")
+        if key == "serve":
+            for name, (label, p) in got["scored"].items():
+                hl, hp = want["scored"][name]
+                if label != hl or abs(p - hp) > SYNTHETIC_P_TOL:
+                    raise AssertionError(f"serve twin {name}: card {label}, "
+                                         f"{p}; host {hl}, {hp}")
+            note = "labels equal, p within 1e-3"
+        elif key == "streaming":
+            if (got["processed"], got["malformed"]) != (want["processed"],
+                                                        want["malformed"]):
+                raise AssertionError(f"streaming twin counts: {got} vs host")
+            # p(scam) from each frame's label and confidence (malformed
+            # frames carry neither); a label may part only where the host's
+            # p lies within STREAM_P_TOL of the threshold
+            def p_scam(v, k):
+                label, conf = v["labels"][k], v["confidences"][k]
+                return None if label is None else (conf if label else 1 - conf)
+
+            dps, near = [], []
+            for k, label in got["labels"].items():
+                pc, ph = p_scam(got, k), p_scam(want, k)
+                if (pc is None) != (ph is None):
+                    raise AssertionError(f"streaming twin {k}: card {pc}, "
+                                         f"host {ph}")
+                if pc is None:
+                    continue
+                dps.append(abs(pc - ph))
+                if label != want["labels"][k]:
+                    near.append((k, pc, ph))
+            dp = max(dps)
+            if dp > STREAM_P_TOL or any(abs(ph - 0.5) > STREAM_P_TOL
+                                        for _, _, ph in near):
+                raise AssertionError(f"streaming twin: max |dp| {dp:.6f} "
+                                     f"(limit {STREAM_P_TOL}); labels apart "
+                                     f"{near[:5]}")
+            run["max_abs_dp"] = dp
+            note = (f"counts equal, {len(dps)} p(scam) within "
+                    f"{STREAM_P_TOL}: max |dp| {dp:.6f}, labels equal but "
+                    f"for {len(near)} row(s) near the threshold")
+        elif key == "train":
+            dp = float(np.abs(np.asarray(got["scores"])
+                              - np.asarray(want["scores"])).max())
+            if (got["preds"] != want["preds"] or dp > TWIN_XGB_P_TOL
+                    or got["metrics"] != want["metrics"]
+                    or not got["reloaded_equal"]):
+                raise AssertionError(f"train twin: metrics {got['metrics']} vs "
+                                     f"host {want['metrics']}, max |dp| {dp}")
+            note = f"predictions and metrics equal, max |dp| {dp:.3g}"
+        elif key.startswith("convert"):
+            tie = convert_tie(key.endswith("int8"), got["reply"],
+                              want["reply"])
+            run["tie"] = tie
+            note = ("replies equal" if tie["equal"] else
+                    f"replies part at character {tie['parts_at']} at a bf16 "
+                    f"tie (gap {tie['gap']:.3g}, step {tie['bf16_step']:.3g})")
+        elif key == "hot_swap":
+            for side, v in (("card", got), ("host", want)):
+                promoted = v["audit_events"][3:] == ["promote"]
+                if (not v["delivered"] == v["unique_keys"] == v["fed"]
+                        or v["audit_events"][:3] != ["publish", "publish",
+                                                     "stage"]
+                        or (v["active_version"], v["swaps"])
+                        != ((2, 1) if promoted else (1, 0))):
+                    raise AssertionError(f"hot swap twin on the {side}: {v}")
+            note = (f"every message once on both; decision card "
+                    f"{got['audit_events'][3:]}, host {want['audit_events'][3:]}")
+        else:
+            if got["counts"] != want["counts"]:
+                raise AssertionError(f"{key} twin counts {got['counts']} vs "
+                                     f"host {want['counts']}")
+            note = f"counts {got['counts']} equal, every gate passed"
+        compared[key] = note
+        print(f"[examples] {key}: card against host: {note}; host wall "
+              f"{host[key]['wall_s']:.2f} s")
+    wall = time.perf_counter() - t_phase
+    print(f"[examples] phase 14e wall {wall:.1f} s: the seven twins on the "
+          f"card {card_wall:.1f} s, on the host {host_wall:.1f} s ({card})")
+    return {"card": card_runs, "host": {k: {"exit_code": v["exit_code"],
+                                            "wall_s": v["wall_s"]}
+                                        for k, v in host.items()},
+            "compared": compared, "card_wall_s": card_wall,
+            "host_wall_s": host_wall, "wall_s": wall}
+
+
 def llm_train_phase(card: str) -> dict:
     """Phases 14b-14c in a process of their own (``llm_train_child``), with
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before it starts CUDA and
@@ -6710,6 +7115,10 @@ def main(argv=None) -> int:
     print(f"[card] nvidia-smi: {card} | torch: {kind} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    # the plain scan of phase 3's W=16,384 rows runs on the host meanwhile
+    atexit.register(stop_children)
+    scan_job = start_host_scans(args.seed)
+
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     _build.build_all(KERNELS)
@@ -6747,9 +7156,10 @@ def main(argv=None) -> int:
     stop_empty = torch.from_numpy(fk.build_stop_table(
         list(feat.stop_filter.words) + [""])[0]).to(dev)
     spec = dfeat.spec
-    scans = {}
+    staged_inputs = packed_inputs(corpus_texts, fuzz, dev, args.seed + 9)
+    scans = host_scans(scan_job, dict(staged_inputs)["w16384"])
     packed_err = 0
-    for name, staged in packed_inputs(corpus_texts, fuzz, dev, args.seed + 9):
+    for name, staged in staged_inputs:
         variants = [(stop, spec), (stop, packed_spec(spec, legacy=True)),
                     (stop, packed_spec(spec, binary=True))]
         if name in ("corpus", "fuzz", "w16384"):
@@ -7027,9 +7437,10 @@ def main(argv=None) -> int:
     fb_ms = statistics.median([fb_ms, cuda_ms(packed_call, 50, 5)])
     fb_dev = kernel_device_ms(packed_call, ("packed_kernel",), 20)
     k_dev = kernel_device_ms(stream_call, ("stream_kernel",), 20)
-    p_ms = cuda_ms(lambda: fk.tokenize_hash_reference(cls_main), 5, 1)
+    # the plain versions, ~1.7 s a call on the card: 3 timed calls each
+    p_ms = cuda_ms(lambda: fk.tokenize_hash_reference(cls_main), 3, 1)
     fb_plain_ms = cuda_ms(lambda: fk.featurize_bytes_reference(
-        staged_main, stop, spec=spec), 5, 1)
+        staged_main, stop, spec=spec), 3, 1)
     rows, cols = cls_main.shape
     nbytes = rows * cols * 4 + 4 * rows * cols * 4 + rows * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -7366,6 +7777,9 @@ def main(argv=None) -> int:
     train_llm = llm_train_phase(card)
     # -- 14d. two-process fits (with two cards or more) ----------------------
     train_llm["two_process"] = two_process_fits_phase(card)
+    # -- 14e. the example twins on the card, against their host runs --------
+    # (every launch count reset before each twin and read after it)
+    examples_out = examples_phase(card)
 
     # -- 15. result lines ----------------------------------------------------
     def learn_refresh(kernel):
@@ -7594,7 +8008,7 @@ def main(argv=None) -> int:
         "phase_7g_7j_wall_s": phase16_wall, "spark": spark_out,
         "flightcheck": flightcheck_out,
         "tree_kernels_ms_per_cli_fit": per_fit,
-        "llm": llm_out, "llm_train": train_llm}))
+        "llm": llm_out, "llm_train": train_llm, "examples": examples_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

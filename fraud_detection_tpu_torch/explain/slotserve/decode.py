@@ -166,11 +166,11 @@ class _DecoderBase:
     def decode_text(self, tokens) -> str:
         return self.lm.tokenizer.decode(np.asarray(tokens, np.int32))
 
-    def warm(self, steps: int) -> None:
-        """Run the decode window and the smallest prefill bucket once off
-        the serving path (one throwaway row through slot 0), then return
-        the slot (no residue)."""
-        toks, _ = self.encode_prompt("warm")
+    def warm(self, steps: int, prompt: Optional[str] = None) -> None:
+        """Run the decode window and the prefill bucket of ``prompt`` (the
+        smallest bucket by default) once off the serving path (one
+        throwaway row through slot 0), then return the slot (no residue)."""
+        toks, _ = self.encode_prompt(prompt or "warm")
         self.prefill(0, toks, 0.0, 0)
         self.grow_for_window(0, len(toks), steps)
         lens = np.zeros(self.slots, np.int32)

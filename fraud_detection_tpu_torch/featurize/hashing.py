@@ -11,7 +11,7 @@ mix round (``hashUnsafeBytes``); both are here.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -126,3 +126,8 @@ class HashingTF:
         val = np.fromiter(counts.values(), np.float32, len(counts))
         order = np.argsort(idx)
         return idx[order], val[order]
+
+    def transform_batch(self, docs: Iterable[Sequence[str]]
+                        ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """``transform_arrays`` of each token list in ``docs``."""
+        return [self.transform_arrays(d) for d in docs]

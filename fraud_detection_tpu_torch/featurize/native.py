@@ -244,6 +244,23 @@ class NativeFeaturizer:
     def hash_bucket(self, term: str) -> int:
         return self._lib.ftok_hash_bucket(self._handle, term.encode("utf-8"))
 
+    # The port builds its own copy of the source, and ``load_library`` binds
+    # every entry point of ``ARGTYPES`` or fails, so a handle always has the
+    # raw-JSON, shard and raw-JSON shard entries: the reference's probes of
+    # an older library's ABI read True here, for their callers.
+    def supports_json(self) -> bool:
+        """The raw-JSON encode (``encode_json``) is bound."""
+        return True
+
+    def supports_shards(self) -> bool:
+        """The stateless shard entries (``shard_begin``, never the handle's
+        begin/fill row state) are bound."""
+        return True
+
+    def supports_json_shards(self) -> bool:
+        """The stateless raw-JSON shard entry is bound."""
+        return True
+
     def _begin(self, lib_begin, *args) -> int:
         self._pair_check.begin()
         return lib_begin(self._handle, *args)
@@ -357,6 +374,11 @@ class NativeFeaturizer:
             finally:
                 self._pair_check.finish()
         return ids, counts, status, span_start, span_len, arr
+
+
+def frames_available() -> bool:
+    """True when the native library loads (its frame assembly is bound)."""
+    return load_library() is not None
 
 
 def build_frames(msgs_arr, span_start: np.ndarray, span_len: np.ndarray,

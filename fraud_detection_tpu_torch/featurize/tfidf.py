@@ -44,6 +44,10 @@ class EncodedBatch(NamedTuple):
     ids: np.ndarray
     counts: np.ndarray
 
+    @property
+    def batch_size(self) -> int:
+        return self.ids.shape[0]
+
 
 def tfidf_dense(ids: torch.Tensor, counts: torch.Tensor,
                 idf: torch.Tensor) -> torch.Tensor:
@@ -55,6 +59,11 @@ def tfidf_dense(ids: torch.Tensor, counts: torch.Tensor,
                         device=idf.device)
     dense.scatter_add_(1, ids.to(torch.int64), counts.to(idf.dtype))
     return dense * idf[None, :]
+
+
+def idf_from_doc_freq(doc_freq: np.ndarray, num_docs: int) -> np.ndarray:
+    """Spark's IDF formula in float64: ln((numDocs + 1) / (docFreq + 1))."""
+    return np.log((num_docs + 1.0) / (doc_freq.astype(np.float64) + 1.0))
 
 
 def _pad_len(n: int, minimum: int = 16) -> int:
@@ -268,7 +277,7 @@ class HashingTfIdfFeaturizer:
         for t in texts:
             idx, _ = self.sparse_row(t)
             doc_freq[idx] += 1
-        idf = np.log((len(texts) + 1.0) / (doc_freq + 1.0))
+        idf = idf_from_doc_freq(doc_freq, len(texts))
         if min_doc_freq > 0:
             idf = np.where(doc_freq >= min_doc_freq, idf, 0.0)
         self.idf = idf.astype(np.float32)

@@ -8,6 +8,13 @@ work per term is a single gather-multiply-accumulate.
 
 Spark semantics: probability = sigmoid(margin), prediction = 1 iff
 p > threshold.
+
+Reference names with no twin here, by design: the jitted entries over an
+``EncodedBatch`` (``margin_encoded``, ``prob_encoded``,
+``prob_encoded_arrays``, ``predict_encoded``) are ``prob_rows`` over the
+batch's unpacked rows; ``prob_packed_q8`` is ``prob_rows_q8`` over
+``unpack_rows(packed)``; ``predict_encoded_mesh`` is the pipeline's
+``mesh=`` path (``parallel/serving.py``). ``ServingPipeline`` calls them.
 """
 
 from __future__ import annotations

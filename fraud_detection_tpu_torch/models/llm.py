@@ -57,6 +57,9 @@ input to each process's share of the work), ``gather_across``,
 ``all_to_all_across`` (Ulysses' two re-splits) and ``ring_shift``; a
 forward chains them (``collective_order``) so that their backwards run in
 one order on every process.
+
+The reference's ``Params`` alias (a dict of ``jax.Array``) has no twin:
+parameters here are the ``Transformer`` module's tensors.
 """
 
 from __future__ import annotations

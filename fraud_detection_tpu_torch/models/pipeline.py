@@ -27,6 +27,10 @@ order, the padding rows dropped at resolve — the reference's
 ``_device_rows``/``_device_packed``/``_dispatch_bytes`` placed by
 ``shard_rows``. Scoring has no cross-row reduction, so the shards' labels
 and probabilities equal the single-device pipeline's.
+
+The reference's ``donation_effective`` has no twin, by design: PyTorch has
+no buffer donation, so ``DeviceStats.donation_hits`` stays 0 as it does on
+the reference's CPU.
 """
 
 from __future__ import annotations
@@ -324,6 +328,15 @@ class ServingPipeline:
             self._replicas = [by_dev[d] for d in mesh.data_devices]
         self._pinned = False
         self._pin_lock = threading.Lock()
+
+    @property
+    def fused_model(self) -> LogisticRegression:
+        """The serving model with the IDF folded into its weights (it scores
+        raw counts); a tree pipeline has none."""
+        if self._fused_model is None:
+            raise TypeError("fused sparse scoring only applies to "
+                            "LogisticRegression")
+        return self._fused_model
 
     @classmethod
     def from_checkpoint(cls, path: str, device="cuda",

@@ -23,6 +23,14 @@ other: a kernel that fails to build or launch raises.
     per-row unique-bucket counts via sort + segment-sum, the host truncation
     rule past ``n_slots`` (top counts, ties to the lower bucket id), and the
     packed int16 layout ``models/pipeline._pack_encoded`` produces.
+
+Reference names with no twin here, by design: ``auto_interpret`` and
+``interpreter_can_run`` choose Pallas's interpret mode and probe it; here a
+CPU tensor selects the plain version, and ``kernel_self_test(device)`` is
+the capability check. ``featurize_bytes_jit`` is ``jax.jit`` of
+``featurize_bytes``, which here is the entry itself (nothing is traced).
+``ROW_TILE`` is the Pallas grid's row block; the CUDA kernel's block is a
+row, part of its design.
 """
 
 from __future__ import annotations

@@ -37,6 +37,11 @@ raises.
   staged coalesced into shared memory and each feature's bins walked in
   order by one lane; the slabs' bests reduce under a total order (larger
   gain, then smaller position), so ``feature_tile`` cannot change the answer.
+
+Reference names with no twin here, by design: ``auto_interpret`` (a CPU
+tensor selects the plain version; ``kernel_self_test(device)`` is the
+capability check), and ``ROW_TILE`` / ``FEATURE_TILE``, the Pallas grid's
+blocks, whose counterpart is ``histogram_plan``.
 """
 
 from __future__ import annotations

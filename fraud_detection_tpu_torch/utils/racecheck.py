@@ -63,6 +63,12 @@ def violations() -> List[RaceViolation]:
         return list(_violations)
 
 
+def clear_violations() -> None:
+    """Empty the process-wide log (a test resets it before a drive)."""
+    with _log_lock:
+        _violations.clear()
+
+
 def _record(v: RaceViolation) -> None:
     with _log_lock:
         _violations.append(v)

@@ -9,7 +9,11 @@ draw for draw. A supervised chaos run (``run_supervised`` over
 ``tests/test_chaos.py``) at seeds 42 and 1234 makes the same broker calls in
 the same order as the JAX engine, so the delivered ``(key, value)`` streams
 are byte-equal, the DLQ key sets equal, and the restart and injection
-counts equal. The rest mirrors ``tests/test_chaos.py`` on the port: the
+counts equal. Both engines end each incarnation after ``idle_timeout`` of
+empty polls, timed on ``time.perf_counter()``, and every poll is a fault
+opportunity; here both time that window on a clock that advances a fixed
+step a read (``_SteppedTime``), so it spans the same polls in both however
+loaded the host is. The rest mirrors ``tests/test_chaos.py`` on the port: the
 delivery invariants (every key delivered, no commit past a lost output),
 reproducibility, poison and corruption routing, trace ids on DLQ records,
 full-jitter backoff (the same waits as the JAX supervisor under a seeded
@@ -24,9 +28,11 @@ are ``explain/circuit.py``'s (ported with the explanation lane, tested in
 ``tests/test_torch_fleet.py``.
 """
 
+import contextlib
 import json
 import random
 import threading
+import time
 
 import pytest
 
@@ -108,10 +114,47 @@ def _run_chaos(pipeline, plan, n=150, *, port=True, dlq_topic=None,
                           dlq_attempts=dlq_attempts, rowtrace=rowtrace,
                           **engine_kw)
 
-    stats = emod.run_supervised(make_engine, max_restarts=max_restarts,
-                                backoff=0.0, idle_timeout=0.2,
-                                sleep=lambda s: None)
+    with _stepped_clock(emod):
+        stats = emod.run_supervised(make_engine, max_restarts=max_restarts,
+                                    backoff=0.0, idle_timeout=0.2,
+                                    sleep=lambda s: None)
     return broker, stats, producers
+
+
+class _SteppedTime:
+    """The ``time`` module for one engine module, whose ``perf_counter``
+    advances ``STEP`` seconds a read on the thread that drives the run and
+    reads the host's clock on any other thread. Each empty poll of the idle
+    window reads the clock once, so ``idle_timeout`` spans a fixed number of
+    polls (fault opportunities) whatever the host's load. The step is a
+    power of two, so the differences the engines compare are exact."""
+
+    STEP = 2.0 ** -7
+
+    def __init__(self):
+        self._owner = threading.get_ident()
+        self._now = 0.0
+
+    def perf_counter(self):
+        if threading.get_ident() != self._owner:
+            return time.perf_counter()
+        self._now += self.STEP
+        return self._now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@contextlib.contextmanager
+def _stepped_clock(emod):
+    """Run ``emod``'s engines on a ``_SteppedTime`` clock (both packages'
+    engines time the idle window on ``time.perf_counter()``)."""
+    real = emod.time
+    emod.time = _SteppedTime()
+    try:
+        yield
+    finally:
+        emod.time = real
 
 
 def _assert_delivery_invariants(broker, n, group="chaos",

@@ -8,8 +8,8 @@ engine with ``explain_batch_fn`` emits frames byte-identical to the JAX
 engine's on the same stream and canned hook, and, with the on-device
 backend over the same tiny decoder, the same greedy explanations.
 ``OnPodBackend.from_hf_checkpoint(int8=True)`` serves a checkpoint written
-in the test with the JAX backend's int8 weights, and refuses ``mesh=``
-naming its ROADMAP item.
+in the test with the JAX backend's int8 weights, on one device and split
+over a ``mesh=`` model axis.
 """
 
 import json

@@ -11,6 +11,7 @@ journal of a JAX run and of a port run each pass the other package's
 conformance audit with the verdict their own run recorded.
 """
 
+import gc
 import json
 from dataclasses import replace
 
@@ -24,6 +25,21 @@ from fraud_detection_tpu_torch.fleet import coordinator as Tcoord
 from fraud_detection_tpu_torch.scenarios import gameday as Tgd
 
 from torch_parity import gameday_pipelines, gameday_twins
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """These fleets run on real threads with 1 s leases. A gen-2 collection
+    over the heap a long-lived test worker has piled up stops every thread
+    of the process for 0.7-1.8 s; landing in a drain, it lets the
+    coordinator expire a live worker's lease, and a sentinel sample taken
+    before the worker rejoins reads the membership drop while work remains
+    as ``worker_absence``, which fails the clean arm's zero-incident gate.
+    ``gc.freeze()`` moves that heap out of the collector's reach for this
+    module (as ``tests/test_torch_fleet.py`` does)."""
+    gc.freeze()
+    yield
+    gc.unfreeze()
 
 
 @pytest.fixture(scope="module")

@@ -1,10 +1,12 @@
 """The PyTorch port stands alone: importing every module of
-``fraud_detection_tpu_torch`` (and ``chip_smoke``) loads neither jax, nor
-optax, nor pyarrow, nor any module of the JAX package; flightcheck and the
-sanitizer driver do not even load torch; reading and writing
-Spark artifacts loads no pyarrow; and without a CUDA device its entry points
+``fraud_detection_tpu_torch`` (and ``chip_smoke``, and every example twin
+``examples/torch_*.py``) loads neither jax, nor optax, nor pyarrow, nor any
+module of the JAX package; flightcheck and the sanitizer driver do not even
+load torch; reading and writing Spark artifacts loads no pyarrow; and
+without a CUDA device its entry points, the example twins' among them,
 refuse to run unless the caller asks for the CPU."""
 
+import importlib
 import json
 import os
 import pathlib
@@ -31,6 +33,23 @@ bad = sorted(m for m in sys.modules
              or m == "pyarrow" or m.startswith("pyarrow.")
              or m == "fraud_detection_tpu" or m.startswith("fraud_detection_tpu."))
 print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+EXAMPLE_TWINS = ("torch_serve_quickstart", "torch_streaming_demo",
+                 "torch_train_quickstart", "torch_convert_hf_checkpoint",
+                 "torch_hot_swap_demo", "torch_drift_loop_demo",
+                 "torch_game_day_demo")
+
+_IMPORT_EXAMPLES = """
+import importlib, json, pathlib, sys
+names = sorted(p.stem for p in pathlib.Path("examples").glob("torch_*.py"))
+for n in names:
+    importlib.import_module("examples." + n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax",
+                                    "fraud_detection_tpu"))
+print(json.dumps({"examples": names, "bad": bad}))
 """
 
 
@@ -78,6 +97,24 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "eval.report", "app.ui", "app.ui_helpers", "app.chat"):
         assert f"fraud_detection_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
+
+
+def test_example_twins_import_no_jax_and_no_jax_package():
+    proc = _run(["-c", _IMPORT_EXAMPLES], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"examples": sorted(EXAMPLE_TWINS), "bad": []}
+
+
+@pytest.mark.parametrize("name", EXAMPLE_TWINS)
+def test_example_twin_refuses_without_cuda(name, capsys):
+    """A twin run with its JAX example's arguments (none) asks for the
+    card, and refuses; ``--device cpu`` is the way to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    twin = importlib.import_module(f"examples.{name}")
+    with pytest.raises(RuntimeError, match="cuda"):
+        twin.main([])
 
 
 _ANALYSIS_AND_SAN_DRIVER = """

@@ -4,9 +4,9 @@ A checkpoint written by the JAX trainer (``synthetic_demo_pipeline``'s LR,
 ``save_checkpoint``) is served by both CLIs over ``--demo 150``: each exits
 0, classifies every message, and prints the same stats keys. The port's
 CLI also runs with ``--featurize-device`` and with ``--async-dispatch
---int8`` under the adaptive scheduler, refuses bad flag combinations with
-the reference's messages, and refuses every reference flag it does not
-offer yet by naming its ROADMAP item. ``--model synthetic`` trains the
+--int8`` under the adaptive scheduler and refuses bad flag combinations
+with the reference's messages; its parser offers every reference flag and
+adds only ``--device``. ``--model synthetic`` trains the
 demo LR at startup (scoring like the JAX package's demo pipeline) and
 serves it under each flag variant. The explanation lane's flags
 (``--explain-slots``, ``--explain-queue``, ``--explain-paged``,
@@ -182,7 +182,8 @@ def test_slot_lane_serves_end_to_end_on_cpu(ckpt, capsys, extra):
 
 def test_synthetic_model_names_the_missing_trainer(capsys):
     # The LR trainer is ported: --model synthetic trains one at startup and
-    # serves; what is still missing refuses naming its queue item.
+    # serves, a Spark artifact serves, and a missing artifact or checkpoint
+    # directory refuses with the reference's errors.
     assert tserve.main(["--device", "cpu", "--model", "synthetic",
                         "--demo", "5"]) == 0
     assert capsys.readouterr().out.strip().splitlines()[-1] == \

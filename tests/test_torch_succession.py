@@ -14,8 +14,9 @@ consecutive failovers, the zombie incumbent that demotes without
 publishing, and a real fleet whose coordinator crashes mid-drain with every
 key classified exactly once. The reference's game-day cases are mirrored
 in ``tests/test_torch_gameday_fleet.py`` (coordinator_kill, its clean arm,
-and the conformance audit of both journals); its model-checker and bench
-cases have no counterpart in the port yet (ROADMAP Queue 1 items 8 and 2).
+and the conformance audit of both journals), its model-checker cases in
+``tests/test_torch_model_checker.py``; its bench cases wait for the port's
+benchmark (ROADMAP Queue 1 item 2).
 """
 
 import json

@@ -9,8 +9,9 @@ package on the CPU.
 * A JAX ``save_checkpoint`` loads in the port and the reverse.
 * Dense ``predict`` equals the JAX package's for DT, RF and GBT models.
 * The parser knows every flag of the reference's (``--models`` defaults to
-  ``dt,rf,xgb,lr``); ``--mesh``, ``--plots`` and ``--save model=spark:dir``
-  refuse, naming their ROADMAP item.
+  ``dt,rf,xgb,lr``); ``--mesh`` runs and reports its mesh, ``--plots``
+  draws the reference's figures, and ``--save model=spark:dir`` writes a
+  Spark artifact the JAX package's reader loads (an empty dir refuses).
 """
 
 import io
